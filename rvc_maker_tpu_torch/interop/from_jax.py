@@ -1,0 +1,339 @@
+"""Carry parameter trees of the JAX package over to the port.
+
+The trees come in as nested dicts/lists of numpy arrays in the JAX
+package's layouts (for example `jax.tree_util.tree_map(np.asarray,
+params)`); nothing here imports JAX.  Layout rules (the JAX package's
+interop/torch_import.py:15-19):
+  * conv   (K, Cin, Cout) -> (Cout, Cin, K)
+  * convT  (K, Cin, Cout) -> (Cin, Cout, K)
+  * linear (Cin, Cout)    -> (Cout, Cin)
+  * resblock convs -> packed (D, K, Cin, Cout) / (D, C) for the kernel
+  * RMVPE conv (Kh, Kw, Cin, Cout) -> (Cout, Cin, Kh, Kw); its decoder
+    convT is stored pre-flipped in JAX and is un-flipped here.
+
+The `random_*_tree` functions draw numpy trees in the same JAX layouts
+from a seed, at any width (the v2-48k preset for a full-width run), so
+a random full-size model needs neither JAX nor a checkpoint.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models import hubert as hubert_mod
+from ..models.rmvpe import N_CLASS, make_bigru
+from ..models.synthesizer import _stage_paddings
+from .pth import pack_resblock
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _lin(p) -> dict:
+    out = {"w": _t(np.asarray(p["w"]).T)}
+    if p.get("b") is not None:
+        out["b"] = _t(p["b"])
+    return out
+
+
+def _conv(p) -> dict:
+    out = {"w": _t(np.transpose(np.asarray(p["w"]), (2, 1, 0)))}
+    if p.get("b") is not None:
+        out["b"] = _t(p["b"])
+    return out
+
+
+def _convt(p) -> dict:
+    return {"w": _t(np.transpose(np.asarray(p["w"]), (1, 2, 0))), "b": _t(p["b"])}
+
+
+def _ln(p) -> dict:
+    return {"gamma": _t(p["gamma"]), "beta": _t(p["beta"])}
+
+
+def _wavenet(p) -> dict:
+    out = {"in_layers": [_conv(c) for c in p["in_layers"]],
+           "res_skip": [_lin(c) for c in p["res_skip"]]}
+    if "cond" in p:
+        out["cond"] = _lin(p["cond"])
+    return out
+
+
+def synthesizer_from_jax(tree, cfg: ModelConfig) -> dict:
+    """JAX synthesizer params -> the port's inference tree."""
+    if not cfg.use_f0 or cfg.vocoder != "Default":
+        raise NotImplementedError(
+            "only the NSF-HiFiGAN decoder of f0 models is ported")
+    enc = tree["enc_p"]
+    layers = []
+    for lp in enc["encoder"]["layers"]:
+        a = lp["attn"]
+        layers.append({
+            "attn": {"q": _lin(a["q"]), "k": _lin(a["k"]), "v": _lin(a["v"]),
+                     "o": _lin(a["o"]), "emb_rel_k": _t(a["emb_rel_k"]),
+                     "emb_rel_v": _t(a["emb_rel_v"])},
+            "norm1": _ln(lp["norm1"]),
+            "ffn": {"conv1": _conv(lp["ffn"]["conv1"]),
+                    "conv2": _conv(lp["ffn"]["conv2"])},
+            "norm2": _ln(lp["norm2"]),
+        })
+    enc_p = {"emb_phone": _lin(enc["emb_phone"]), "encoder": {"layers": layers},
+             "proj": _lin(enc["proj"]), "emb_pitch": {"w": _t(enc["emb_pitch"]["w"])}}
+    flow = {"layers": [{"pre": _lin(lp["pre"]), "enc": _wavenet(lp["enc"]),
+                        "post": _lin(lp["post"])}
+                       for lp in tree["flow"]["layers"]]}
+    d = tree["dec"]
+    dec = {
+        "conv_pre": _conv(d["conv_pre"]),
+        "ups": [_convt(u) for u in d["ups"]],
+        "noise_convs": [_conv(c) for c in d["noise_convs"]],
+        "source": {"l_linear": _lin(d["source"]["l_linear"])},
+        "resblocks": [pack_resblock([_conv(c) for c in rb["convs1"]],
+                                    [_conv(c) for c in rb["convs2"]])
+                      for rb in d["resblocks"]],
+        "conv_post": _conv(d["conv_post"]),
+    }
+    if "cond" in d:
+        dec["cond"] = _lin(d["cond"])
+    return {"enc_p": enc_p, "flow": flow, "dec": dec,
+            "emb_g": {"w": _t(tree["emb_g"]["w"])}}
+
+
+def hubert_from_jax(tree) -> dict:
+    """JAX HuBERT params (layer leaves stacked on a leading axis) -> the
+    port's tree with one dict per layer."""
+    out = {
+        "frontend": {"convs": [{"w": _t(np.transpose(np.asarray(c["w"]), (2, 1, 0)))}
+                               for c in tree["frontend"]["convs"]],
+                     "gn": _ln(tree["frontend"]["gn"])},
+        "ln_feats": _ln(tree["ln_feats"]),
+        "post_proj": _lin(tree["post_proj"]),
+        "pos_conv": _conv(tree["pos_conv"]),
+        "ln_pre": _ln(tree["ln_pre"]),
+    }
+    st = tree["layers"]
+    n = np.asarray(st["fc1"]["w"]).shape[0]
+
+    def pick(d, i):
+        return {k: (pick(v, i) if isinstance(v, dict) else np.asarray(v)[i])
+                for k, v in d.items()}
+
+    out["layers"] = []
+    for i in range(n):
+        lp = pick(st, i)
+        out["layers"].append({
+            "attn": {k: _lin(lp["attn"][k]) for k in ("q", "k", "v", "o")},
+            "ln1": _ln(lp["ln1"]), "fc1": _lin(lp["fc1"]),
+            "fc2": _lin(lp["fc2"]), "ln2": _ln(lp["ln2"]),
+        })
+    if "final_proj" in tree:
+        out["final_proj"] = _lin(tree["final_proj"])
+    return out
+
+
+def _conv2d(p) -> dict:
+    out = {"w": _t(np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))}
+    if p.get("b") is not None:
+        out["b"] = _t(p["b"])
+    return out
+
+
+def _bn(p) -> dict:
+    return {"scale": _t(p["scale"]), "shift": _t(p["shift"])}
+
+
+def _rmvpe_block(p) -> dict:
+    out = {"conv1": _conv2d(p["conv1"]), "bn1": _bn(p["bn1"]),
+           "conv2": _conv2d(p["conv2"]), "bn2": _bn(p["bn2"])}
+    if "shortcut" in p:
+        out["shortcut"] = _conv2d(p["shortcut"])
+    return out
+
+
+def rmvpe_from_jax(tree) -> dict:
+    """JAX RMVPE params (BN folded, HWIO convs, pre-flipped convT) -> the
+    port's tree (NCHW weights, torch ConvTranspose2d layout, nn.GRU)."""
+    def level(lp):
+        return {"blocks": [_rmvpe_block(b) for b in lp["blocks"]]}
+
+    dec = []
+    for lp in tree["decoder"]:
+        w = np.flip(np.asarray(lp["convt"]["w"]), axis=(0, 1))   # un-flip
+        dec.append({"convt": {"w": _t(np.transpose(w, (2, 3, 0, 1)))},
+                    "bn": _bn(lp["bn"]), **level(lp)})
+    return {
+        "in_bn": _bn(tree["in_bn"]),
+        "encoder": [level(lp) for lp in tree["encoder"]],
+        "intermediate": [level(lp) for lp in tree["intermediate"]],
+        "decoder": dec,
+        "cnn": _conv2d(tree["cnn"]),
+        "gru": make_bigru({k: np.asarray(v, np.float32) for k, v in tree["gru"].items()}),
+        "fc": {"w": _t(np.asarray(tree["fc"]["w"]).T), "b": _t(tree["fc"]["b"])},
+    }
+
+
+# ---------------------------------------------------------------------------
+# random trees in the JAX layouts (numpy, from a seed)
+# ---------------------------------------------------------------------------
+
+def random_synthesizer_tree(cfg: ModelConfig, seed: int = 0) -> dict:
+    """Synthesizer params drawn like the JAX package's init_params
+    (torch default bounds; normal(0, 0.01) for the decoder's ups and
+    resblock convs), in its layouts."""
+    rs = np.random.RandomState(seed)
+
+    def uni(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        return rs.uniform(-bound, bound, shape).astype(np.float32)
+
+    def conv(k, cin, cout):
+        return {"w": uni((k, cin, cout), cin * k), "b": uni((cout,), cin * k)}
+
+    def lin(cin, cout):
+        return {"w": uni((cin, cout), cin), "b": uni((cout,), cin)}
+
+    def normal(shape, std):
+        return (rs.standard_normal(shape) * std).astype(np.float32)
+
+    def ln(c):
+        return {"gamma": np.ones((c,), np.float32), "beta": np.zeros((c,), np.float32)}
+
+    h, inter = cfg.hidden_channels, cfg.inter_channels
+    k_ch = h // cfg.n_heads
+    w = 2 * cfg.rel_attn_window_size + 1
+    layers = [{
+        "attn": {"q": lin(h, h), "k": lin(h, h), "v": lin(h, h), "o": lin(h, h),
+                 "emb_rel_k": normal((1, w, k_ch), k_ch ** -0.5),
+                 "emb_rel_v": normal((1, w, k_ch), k_ch ** -0.5)},
+        "norm1": ln(h),
+        "ffn": {"conv1": conv(cfg.kernel_size, h, cfg.filter_channels),
+                "conv2": conv(cfg.kernel_size, cfg.filter_channels, h)},
+        "norm2": ln(h),
+    } for _ in range(cfg.n_layers)]
+    enc_p = {"emb_phone": lin(cfg.text_enc_hidden_dim, h),
+             "encoder": {"layers": layers}, "proj": lin(h, 2 * inter),
+             "emb_pitch": {"w": normal((256, h), 1.0)}}
+
+    def wavenet(n_layers):
+        return {"in_layers": [conv(5, h, 2 * h) for _ in range(n_layers)],
+                "res_skip": [lin(h, h if i == n_layers - 1 else 2 * h)
+                             for i in range(n_layers)],
+                "cond": lin(cfg.gin_channels, 2 * h * n_layers)}
+
+    flow = {"layers": [{"pre": lin(inter // 2, h), "enc": wavenet(3),
+                        "post": {"w": normal((h, inter // 2), 0.01),
+                                 "b": np.zeros((inter // 2,), np.float32)}}
+                       for _ in range(4)]}
+    uic = cfg.upsample_initial_channel
+    ups, noise_convs, resblocks = [], [], []
+    for i, st in enumerate(_stage_paddings(cfg)):
+        cin, cout = uic // (2 ** i), uic // (2 ** (i + 1))
+        ups.append({"w": normal((st["k"], cin, cout), 0.01),
+                    "b": np.zeros((cout,), np.float32)})
+        noise_convs.append(conv(st["noise_kernel"], 1, cout))
+        for ks, ds in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            resblocks.append({
+                "convs1": [{"w": normal((ks, cout, cout), 0.01),
+                            "b": np.zeros((cout,), np.float32)} for _ in ds],
+                "convs2": [{"w": normal((ks, cout, cout), 0.01),
+                            "b": np.zeros((cout,), np.float32)} for _ in ds]})
+    dec = {"conv_pre": conv(7, inter, uic), "cond": lin(cfg.gin_channels, uic),
+           "ups": ups, "noise_convs": noise_convs, "resblocks": resblocks,
+           "conv_post": {"w": normal((7, uic // 2 ** len(ups), 1), 0.01)},
+           "source": {"l_linear": lin(1, 1)}}
+    return {"enc_p": enc_p, "flow": flow, "dec": dec,
+            "emb_g": {"w": normal((cfg.spk_embed_dim, cfg.gin_channels), 1.0)}}
+
+
+def random_hubert_tree(seed: int = 0, n_layers: int = hubert_mod.N_LAYERS) -> dict:
+    """HuBERT params drawn like the JAX package's init_params (layer
+    leaves stacked on a leading axis), in its layouts."""
+    rs = np.random.RandomState(seed)
+    e, f = hubert_mod.EMBED_DIM, hubert_mod.FFN_DIM
+
+    def lin(cin, cout, n=None):
+        shape = (cin, cout) if n is None else (n, cin, cout)
+        bound = 1.0 / math.sqrt(cin)
+        return {"w": rs.uniform(-bound, bound, shape).astype(np.float32),
+                "b": np.zeros(shape[:-2] + (cout,), np.float32)}
+
+    def ln(c, n=None):
+        shape = (c,) if n is None else (n, c)
+        return {"gamma": np.ones(shape, np.float32), "beta": np.zeros(shape, np.float32)}
+
+    convs, cin = [], 1
+    for dim, k, _ in hubert_mod.CONV_LAYERS:
+        convs.append({"w": (rs.standard_normal((k, cin, dim))
+                            / math.sqrt(k * cin)).astype(np.float32)})
+        cin = dim
+    g = hubert_mod.POS_CONV_GROUPS
+    pos_w = (rs.standard_normal((hubert_mod.POS_CONV_K, e // g, e))
+             * math.sqrt(4.0 / (hubert_mod.POS_CONV_K * e))).astype(np.float32)
+    return {
+        "frontend": {"convs": convs, "gn": ln(512)},
+        "ln_feats": ln(512), "post_proj": lin(512, e),
+        "pos_conv": {"w": pos_w, "b": np.zeros((e,), np.float32)},
+        "ln_pre": ln(e),
+        "layers": {"attn": {k: lin(e, e, n_layers) for k in ("q", "k", "v", "o")},
+                   "ln1": ln(e, n_layers), "fc1": lin(e, f, n_layers),
+                   "fc2": lin(f, e, n_layers), "ln2": ln(e, n_layers)},
+        "final_proj": lin(e, 256),
+    }
+
+
+def random_rmvpe_tree(seed: int = 1234, widths=(16, 32, 64, 128, 256),
+                      inter_width: int = 512) -> dict:
+    """RMVPE params with the real architecture, drawn as the JAX bench
+    draws them (bench.py `_random_rmvpe`), in the JAX layouts (HWIO
+    convs, pre-flipped convT).  Narrower `widths` keep the structure
+    for small tests."""
+    rs = np.random.RandomState(seed)
+
+    def conv(cin, cout, k=3):
+        return {"w": (rs.standard_normal((k, k, cin, cout))
+                      / np.sqrt(k * k * cin)).astype(np.float32)}
+
+    def bn(c):
+        return {"scale": np.ones((c,), np.float32), "shift": np.zeros((c,), np.float32)}
+
+    def block(cin, cout):
+        p = {"conv1": conv(cin, cout), "bn1": bn(cout),
+             "conv2": conv(cout, cout), "bn2": bn(cout)}
+        if cin != cout:
+            p["shortcut"] = {"w": conv(cin, cout, 1)["w"],
+                             "b": np.zeros((cout,), np.float32)}
+        return p
+
+    def level(cin, cout):
+        return {"blocks": [block(cin, cout)] + [block(cout, cout) for _ in range(3)]}
+
+    chans = [1, *widths]
+    p = {"in_bn": bn(1),
+         "encoder": [level(chans[i], chans[i + 1]) for i in range(len(widths))],
+         "intermediate": [level(widths[-1], inter_width)]
+         + [level(inter_width, inter_width) for _ in range(3)],
+         "decoder": []}
+    dec_chans = [inter_width, *reversed(widths)]
+    for cin, cout in zip(dec_chans[:-1], dec_chans[1:]):
+        p["decoder"].append({"convt": conv(cin, cout), "bn": bn(cout),
+                             "blocks": [block(cout * 2, cout)]
+                             + [block(cout, cout) for _ in range(3)]})
+    p["cnn"] = {"w": conv(widths[0], 3)["w"], "b": np.zeros((3,), np.float32)}
+    hdim = 256
+
+    def mat(*shape):
+        return (rs.standard_normal(shape) * 0.05).astype(np.float32)
+
+    p["gru"] = {"w_ih": mat(3 * hdim, 384), "w_hh": mat(3 * hdim, hdim),
+                "b_ih": np.zeros((3 * hdim,), np.float32),
+                "b_hh": np.zeros((3 * hdim,), np.float32),
+                "w_ih_r": mat(3 * hdim, 384), "w_hh_r": mat(3 * hdim, hdim),
+                "b_ih_r": np.zeros((3 * hdim,), np.float32),
+                "b_hh_r": np.zeros((3 * hdim,), np.float32)}
+    p["fc"] = {"w": mat(2 * hdim, N_CLASS), "b": np.zeros((N_CLASS,), np.float32)}
+    return p

@@ -1,0 +1,290 @@
+"""Voice conversion pipeline in PyTorch (the port's main path).
+
+Counterpart of `rvc_maker_tpu/pipelines/convert.py`:
+
+    audio16k (B, L) --> RMVPE f0 --> HuBERT feats --> retrieval blend
+        --> x2 frame repeat --> protect mix --> synthesizer.infer --> wav
+
+The host keeps file I/O, the 48 Hz Butterworth high-pass, the split of
+long audio at low-energy points, the reflect pads and the RMS mix.  The
+device step runs eagerly on `device`; chunks of one bucket length form
+a batch, microbatched by `max_device_batch`.
+
+Noise: the step takes the prior noise `z_noise` (B, p_len, inter) and
+the sine-source noise `sine_noise` (B, p_len * upp, 1) as tensors;
+`convert_batch` draws them from its `torch.Generator` when the caller
+gives none, so a caller can hold the random draws (and a test can feed
+the exact draws of the JAX package).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from scipy import signal as sp_signal
+from torch.profiler import record_function
+
+from ..config import ModelConfig
+from ..device import resolve_device, tree_to
+from ..f0.common import autotune_f0, coarse_f0, shift_f0
+from ..models import hubert as hubert_mod
+from ..models import rmvpe as rmvpe_mod
+from ..models import synthesizer as syn
+from ..ops.nn import interp_nearest_x2
+from ..retrieval.index import retrieval_blend
+from ..utils.audio import resample
+
+SAMPLE_RATE = 16000
+WINDOW = 160
+# 48 Hz 5th-order Butterworth high-pass (reference convert.py:30)
+_BH, _AH = sp_signal.butter(N=5, Wn=48, btype="high", fs=SAMPLE_RATE)
+
+NoiseFn = Callable[[int, int], tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvertSettings:
+    """User-facing conversion knobs (reference convert.py CLI flags)."""
+
+    pitch: int = 0                     # transpose, semitones
+    index_rate: float = 0.0
+    protect: float = 0.33
+    f0_method: str = "rmvpe"           # rmvpe | rmvpe-legacy
+    f0_autotune: bool = False
+    f0_autotune_strength: float = 1.0
+    volume_envelope: float = 1.0       # RMS mix rate
+    resample_sr: int = 0
+    # chunk budget, seconds (reference x_pad/x_query/x_center/x_max)
+    x_pad: int = 1
+    x_query: int = 6
+    x_center: int = 38
+    x_max: int = 41
+
+
+def _bucket_length(n: int, bucket: int = SAMPLE_RATE) -> int:
+    """Round up to a whole bucket (default: 1 s of 16 kHz samples)."""
+    return int(np.ceil(max(n, bucket) / bucket)) * bucket
+
+
+class ConvertPipeline:
+    """Model params on one device plus the conversion step."""
+
+    def __init__(self, synth_params: Any, model_cfg: ModelConfig,
+                 hubert_params: Any, version: str = "v2",
+                 rmvpe_params: Any = None,
+                 index_vectors: Optional[np.ndarray] = None,
+                 max_device_batch: int = 8, device: str | torch.device = "cuda"):
+        """Params are the port's trees (`interop.pth`, `interop.from_jax`,
+        `models.rmvpe.params_from_state_dict`); they are moved to
+        `device` in fp32.  device="cuda" raises when no card is present."""
+        if rmvpe_params is None:
+            raise ValueError("rmvpe_params are required: RMVPE is the f0 "
+                             "method of the ported path")
+        self.device = resolve_device(device)
+        self.cfg = model_cfg
+        self.version = version
+        self.max_device_batch = max_device_batch
+        f32 = torch.float32
+        self.synth_params = tree_to(synth_params, self.device, f32)
+        self.hubert_params = tree_to(hubert_params, self.device, f32)
+        self.rmvpe_params = tree_to(rmvpe_params, self.device, f32)
+        self.index_vectors = (None if index_vectors is None else
+                              torch.as_tensor(np.asarray(index_vectors, np.float32),
+                                              device=self.device))
+
+    # -- the device step ------------------------------------------------
+
+    def _f0(self, audio, settings: ConvertSettings):
+        kw = ({"f0_min": 50.0, "f0_max": 1100.0}
+              if settings.f0_method == "rmvpe-legacy" else {})
+        if settings.f0_method not in ("rmvpe", "rmvpe-legacy"):
+            raise ValueError(f"f0 method {settings.f0_method!r} is not ported")
+        f0 = shift_f0(rmvpe_mod.infer(self.rmvpe_params, audio, **kw),
+                      settings.pitch)
+        if settings.f0_autotune and settings.f0_autotune_strength > 0:
+            f0 = autotune_f0(f0, settings.f0_autotune_strength)
+        return f0
+
+    def _features(self, audio, lengths, settings: ConvertSettings):
+        feats, _ = hubert_mod.extract_features(
+            self.hubert_params, audio, lengths,
+            output_layer=12 if self.version == "v2" else 9)
+        if self.version == "v1":
+            feats = hubert_mod.final_proj(self.hubert_params, feats)
+        feats0 = feats
+        if self.index_vectors is not None and settings.index_rate > 0:
+            feats = retrieval_blend(feats, self.index_vectors, settings.index_rate)
+        return interp_nearest_x2(feats), interp_nearest_x2(feats0)
+
+    def _synth(self, feats, feats0, f0, lengths, sid, protect, z_noise,
+               sine_noise):
+        p_len = feats.shape[1]
+        pitchf = f0[:, :p_len]
+        pitch = coarse_f0(pitchf)
+        if protect < 0.5:
+            # restore the original features on unvoiced frames
+            pitchff = torch.where(pitchf > 0, 1.0, protect)[:, :, None]
+            feats = feats * pitchff + feats0 * (1.0 - pitchff)
+        frame_lengths = torch.clamp(
+            torch.div(lengths, WINDOW, rounding_mode="floor"), max=p_len)
+        wav, _, _ = syn.infer(self.synth_params, self.cfg, feats,
+                              frame_lengths, pitch, pitchf, sid, z_noise,
+                              sine_noise)
+        return wav[:, :, 0], pitchf
+
+    def noise_shapes(self, b: int, p_len: int):
+        return (b, p_len, self.cfg.inter_channels), (b, p_len * self.cfg.upp, 1)
+
+    @staticmethod
+    def frames(n_samples: int) -> int:
+        """p_len of a bucket of n_samples: min(L // 160, feature frames),
+        the features being HuBERT's 50 Hz frames repeated twice."""
+        feat = hubert_mod.frame_lengths(torch.tensor(n_samples)).item()
+        return min(n_samples // WINDOW, 2 * int(feat))
+
+    @torch.inference_mode()
+    def convert_batch(self, audio_batch, lengths, sid: int,
+                      settings: ConvertSettings, *, z_noise=None,
+                      sine_noise=None, generator: torch.Generator | None = None):
+        """audio_batch: (B, L) float32 at 16 kHz, padded to one bucket;
+        lengths: (B,) valid samples.  Returns (wav (B, p_len * upp),
+        pitchf (B, p_len)) on the pipeline's device, p_len =
+        min(L // 160, feature frames).
+
+        z_noise / sine_noise cover the whole batch; when absent they are
+        drawn per microbatch from `generator` (default: seeded 0)."""
+        audio = torch.as_tensor(np.asarray(audio_batch, np.float32)
+                                if not isinstance(audio_batch, torch.Tensor)
+                                else audio_batch, device=self.device,
+                                dtype=torch.float32)
+        lengths = torch.as_tensor(np.asarray(lengths) if not isinstance(
+            lengths, torch.Tensor) else lengths, device=self.device,
+            dtype=torch.int64)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        b_total = audio.shape[0]
+        mdb = self.max_device_batch
+        wavs, pitchfs = [], []
+        for lo in range(0, b_total, mdb):
+            hi = min(lo + mdb, b_total)
+            a, ln = audio[lo:hi], lengths[lo:hi]
+            # named ranges: a torch.profiler trace sums each stage's
+            # device time under them (chip_smoke.py reads them)
+            with record_function("convert.rmvpe"):
+                f0 = self._f0(a, settings)
+            with record_function("convert.hubert_retrieval"):
+                feats, feats0 = self._features(a, ln, settings)
+            p_len = min(a.shape[1] // WINDOW, feats.shape[1])
+            zs, ss = self.noise_shapes(hi - lo, p_len)
+            zn = (torch.randn(zs, generator=generator, device=self.device)
+                  if z_noise is None else
+                  torch.as_tensor(z_noise, device=self.device)[lo:hi])
+            sn = (torch.randn(ss, generator=generator, device=self.device)
+                  if sine_noise is None else
+                  torch.as_tensor(sine_noise, device=self.device)[lo:hi])
+            sid_t = torch.full((hi - lo,), sid, dtype=torch.int64,
+                               device=self.device)
+            with record_function("convert.synthesizer"):
+                wav, pitchf = self._synth(feats[:, :p_len], feats0[:, :p_len],
+                                          f0[:, :p_len], ln, sid_t,
+                                          settings.protect, zn, sn)
+            wavs.append(wav)
+            pitchfs.append(pitchf)
+        return torch.cat(wavs, 0), torch.cat(pitchfs, 0)
+
+    # -- one utterance (reference VC.pipeline) ---------------------------
+
+    def convert_utterance(self, audio16k: np.ndarray, sid: int,
+                          settings: ConvertSettings, *,
+                          noise_fn: NoiseFn | None = None) -> np.ndarray:
+        """One utterance with the reference's chunking and padding
+        (convert.py:388-458).  Returns the waveform at the model's rate.
+
+        noise_fn(b, p_len) -> (z_noise, sine_noise), when given, supplies
+        each chunk's noise; otherwise every chunk draws from a generator
+        seeded 0, as the JAX pipeline draws every chunk from PRNGKey(0)."""
+        s = settings
+        tgt_sr = self.cfg.sr
+        t_pad = SAMPLE_RATE * s.x_pad
+        t_pad_tgt = tgt_sr * s.x_pad
+        t_pad2 = t_pad * 2
+        t_query = SAMPLE_RATE * s.x_query
+        t_center = SAMPLE_RATE * s.x_center
+        t_max = SAMPLE_RATE * s.x_max
+
+        audio = sp_signal.filtfilt(_BH, _AH, audio16k).astype(np.float32)
+        opt_ts = []
+        audio_pad = np.pad(audio, (WINDOW // 2, WINDOW // 2), mode="reflect")
+        if audio_pad.shape[0] > t_max:
+            audio_sum = np.zeros_like(audio)
+            for i in range(WINDOW):
+                audio_sum += audio_pad[i : i - WINDOW]
+            for t in range(t_center, audio.shape[0], t_center):
+                w = np.abs(audio_sum[t - t_query : t + t_query])
+                opt_ts.append(t - t_query + int(np.where(w == w.min())[0][0]))
+
+        audio_pad = np.pad(audio, (t_pad, t_pad), mode="reflect")
+        bounds = []
+        sstart = 0
+        tcur = None
+        for t in opt_ts:
+            tcur = t // WINDOW * WINDOW
+            bounds.append((sstart, tcur + t_pad2 + WINDOW))
+            sstart = tcur
+        bounds.append((sstart if tcur is not None else 0, audio_pad.shape[0]))
+
+        pieces = []
+        for lo, hi in bounds:
+            chunk = audio_pad[lo:hi]
+            L = _bucket_length(len(chunk))
+            padded = np.zeros((1, L), np.float32)
+            padded[0, : len(chunk)] = chunk
+            z_noise = sine_noise = None
+            if noise_fn is not None:
+                z_noise, sine_noise = noise_fn(1, self.frames(L))
+            wav, _ = self.convert_batch(padded, np.asarray([len(chunk)]), sid,
+                                        s, z_noise=z_noise, sine_noise=sine_noise)
+            wav = wav[0].cpu().numpy()
+            n_out = min((len(chunk) // WINDOW) * self.cfg.upp, wav.shape[0])
+            pieces.append(wav[:n_out][t_pad_tgt:-t_pad_tgt]
+                          if n_out > 2 * t_pad_tgt else wav[:n_out])
+        out = np.concatenate(pieces) if len(pieces) > 1 else pieces[0]
+
+        if s.volume_envelope != 1.0:
+            out = change_rms(audio, SAMPLE_RATE, out, tgt_sr, s.volume_envelope)
+        peak = np.abs(out).max() / 0.99
+        if peak > 1:
+            out = out / peak
+        if s.resample_sr not in (0, tgt_sr) and s.resample_sr >= SAMPLE_RATE:
+            out = resample(out, tgt_sr, s.resample_sr)
+        return out.astype(np.float32)
+
+
+def _frame_rms(x: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    """Center-padded frame RMS (librosa.feature.rms numerics)."""
+    pad = frame_length // 2
+    xp = np.pad(x.astype(np.float64), (pad, pad))
+    n = 1 + (len(xp) - frame_length) // hop_length
+    idx = np.arange(n)[:, None] * hop_length + np.arange(frame_length)[None, :]
+    return np.sqrt(np.mean(np.square(xp[idx]), axis=1))
+
+
+def _upsample_linear(v: np.ndarray, t: int) -> np.ndarray:
+    """Linear resample to t samples, half-pixel coordinates, as the
+    reference's F.interpolate(mode="linear", align_corners=False)."""
+    x = torch.from_numpy(np.ascontiguousarray(v, np.float32))[None, None]
+    return torch.nn.functional.interpolate(x, size=t, mode="linear").numpy()[0, 0]
+
+
+def change_rms(source: np.ndarray, source_sr: int, target: np.ndarray,
+               target_sr: int, rate: float) -> np.ndarray:
+    """RMS volume-envelope mix (reference convert.py:150-152)."""
+    rms1 = _frame_rms(source, source_sr // 2 * 2, source_sr // 2)
+    rms2 = _frame_rms(target, target_sr // 2 * 2, target_sr // 2)
+    t = len(target)
+    x1 = _upsample_linear(rms1, t)
+    x2 = np.maximum(_upsample_linear(rms2, t), 1e-6)
+    return (target * (np.power(x1, 1 - rate) * np.power(x2, rate - 1))).astype(np.float32)

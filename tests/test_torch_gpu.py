@@ -1,0 +1,107 @@
+"""Tests of the port that need a CUDA card; here, without one, they skip.
+
+This file imports no JAX, so that it runs on a machine with the card
+and PyTorch alone:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+(`--noconftest`: tests/conftest.py sets up JAX for the JAX package's
+tests.)  TF32 is off, so that fp32 convolutions and matmuls on the card
+are full fp32, as on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+from rvc_maker_tpu_torch.config import ModelConfig
+from rvc_maker_tpu_torch.interop import from_jax
+from rvc_maker_tpu_torch.ops import resblock as trb
+from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+from torch_port_util import n, packed_resblock, resblock_params, resblock_x, t
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,T", [(256, 1000), (128, 3000), (64, 5000),
+                                 (32, 7000), (16, 9000)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_kernel_matches_plain_on_card(cuda, C, T, k):
+    dils = (1, 3, 5)
+    p = resblock_params(C + k, k, C, 3)
+    args = [a.to(cuda) for a in packed_resblock(p)]
+    x = t(resblock_x(T, C)).transpose(1, 2).contiguous().to(cuda)
+    ref = trb._resblock(x, *args, kernel_size=k, dilations=dils)
+    before = trb.resblock_launches
+    got = trb.fused_resblock(x, *args, kernel_size=k, dilations=dils)
+    torch.cuda.synchronize()
+    assert trb.resblock_launches == before + len(dils)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.gpu
+def test_kernel_bf16_correlates_on_card(cuda):
+    k, dils, C, T = 3, (1, 3, 5), 64, 600
+    p = resblock_params(7, k, C, 3)
+    x = t(resblock_x(T, C, b=1)).transpose(1, 2).contiguous().to(cuda)
+    args = [a.to(cuda) for a in packed_resblock(p)]
+    ref = trb._resblock(x, *args, kernel_size=k, dilations=dils)
+    got = trb.fused_resblock(x.bfloat16(), *[a.bfloat16() for a in args],
+                             kernel_size=k, dilations=dils).float()
+    corr = np.corrcoef(n(got).ravel(), n(ref).ravel())[0, 1]
+    assert corr > 0.99, corr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,dil", [(96, 1), (64, trb.MAX_DILATION + 1)])
+def test_kernel_rejects_unsupported_width(cuda, C, dil):
+    k = 3
+    x = torch.zeros(1, C, 100, device=cuda)
+    w = torch.zeros(1, k, C, C, device=cuda)
+    b = torch.zeros(1, C, device=cuda)
+    with pytest.raises(ValueError, match="kernel takes"):
+        trb.fused_resblock(x, w, b, w, b, kernel_size=k, dilations=(dil,))
+
+
+@pytest.mark.gpu
+def test_pipeline_card_matches_cpu(cuda):
+    """A small model (decode stages C = 128/64/32/16, all kernel widths)
+    through convert_batch on the card and on the CPU, same noise."""
+    cfg = ModelConfig(
+        spec_channels=129, segment_size=8, inter_channels=32, hidden_channels=32,
+        filter_channels=64, n_heads=2, n_layers=1, kernel_size=3,
+        upsample_rates=(4, 4, 2, 2), upsample_initial_channel=256,
+        upsample_kernel_sizes=(8, 8, 4, 4), spk_embed_dim=4, gin_channels=16,
+        sr=6400, text_enc_hidden_dim=768)
+    synth = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg, 0), cfg)
+    hubert = from_jax.hubert_from_jax(from_jax.random_hubert_tree(1, n_layers=2))
+    index = np.random.RandomState(2).randn(200, 768).astype(np.float32)
+    rs = np.random.RandomState(3)
+    audio = (0.3 * np.sin(2 * np.pi * 200 * np.arange(32000) / 16000)
+             + 0.01 * rs.randn(32000)).astype(np.float32)[None]
+    lengths = np.array([32000])
+    rmvpe = from_jax.rmvpe_from_jax(from_jax.random_rmvpe_tree(
+        4, widths=(4, 8, 16, 32, 64), inter_width=128))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = ConvertPipeline(synth, cfg, hubert, rmvpe_params=rmvpe,
+                               index_vectors=index, device=dev)
+        zs, ss = pipe.noise_shapes(1, pipe.frames(audio.shape[1]))
+        gen = torch.Generator().manual_seed(5)
+        z, s = torch.randn(zs, generator=gen), torch.randn(ss, generator=gen)
+        before = trb.resblock_launches
+        wav, _ = pipe.convert_batch(audio, lengths, 0, ConvertSettings(index_rate=0.5),
+                                    z_noise=z, sine_noise=s)
+        launched = trb.resblock_launches - before
+        assert launched == (0 if dev == "cpu" else 4 * 3 * 3), launched
+        outs[dev] = n(wav)
+    err = np.abs(outs["cuda"] - outs["cpu"]).max()
+    assert np.isfinite(outs["cuda"]).all() and err <= 1e-3, err

@@ -1,0 +1,161 @@
+"""Shared helpers for the PyTorch port's tests (tests/test_torch_*.py).
+
+Data passes between JAX and PyTorch as numpy arrays.  Torch's CPU
+threads are capped so that the xdist workers do not oversubscribe.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(prev)
+
+
+def t(a, dtype=torch.float32):
+    """numpy (or JAX array) -> CPU tensor."""
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def n(x):
+    """tensor or JAX array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def resblock_params(seed, k, C, D):
+    """One resblock's convs in the JAX layout ((k, Cin, Cout) weights)."""
+    rs = np.random.RandomState(seed)
+    scale = 0.5 / (k * C) ** 0.5
+
+    def conv():
+        return {"w": (rs.randn(k, C, C) * scale).astype(np.float32),
+                "b": (rs.randn(C) * 0.1).astype(np.float32)}
+
+    return {"convs1": [conv() for _ in range(D)], "convs2": [conv() for _ in range(D)]}
+
+
+def packed_resblock(p):
+    """resblock_params -> the port kernel's (w1, b1, w2, b2) CPU tensors."""
+    from rvc_maker_tpu_torch.interop.from_jax import _conv
+    from rvc_maker_tpu_torch.interop.pth import pack_resblock
+
+    rb = pack_resblock([_conv(c) for c in p["convs1"]], [_conv(c) for c in p["convs2"]])
+    return rb["w1"], rb["b1"], rb["w2"], rb["b2"]
+
+
+def resblock_x(T, C, b=2):
+    """(b, T, C) activations, the JAX package's layout."""
+    return (np.random.RandomState(T).randn(b, T, C) * 0.3).astype(np.float32)
+
+
+def tree_np(tree):
+    """A JAX param tree -> the same tree of numpy arrays."""
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_noise(b, p_len, inter, upp, seed=0):
+    """The z / sine noise the JAX ConvertPipeline draws for one call
+    (pipelines/convert.py `_synth_raw`: split(PRNGKey(seed)), normals)."""
+    import jax
+
+    k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
+    z = np.array(jax.random.normal(k1, (b, p_len, inter)))
+    s = np.array(jax.random.normal(k2, (b, p_len * upp, 1)))
+    return z, s
+
+
+def rmvpe_state_dict(tree, rs):
+    """A reference-layout E2E state dict with the keys the JAX importer
+    reads, built from a JAX-layout tree plus random BN statistics."""
+    sd = {}
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = rs.uniform(0.5, 1.5, c)
+        sd[f"{prefix}.bias"] = rs.randn(c) * 0.1
+        sd[f"{prefix}.running_mean"] = rs.randn(c) * 0.1
+        sd[f"{prefix}.running_var"] = rs.uniform(0.5, 2.0, c)
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = np.transpose(p["w"], (3, 2, 0, 1))
+        if "b" in p:
+            sd[f"{prefix}.bias"] = p["b"]
+
+    def block(prefix, p):
+        conv(f"{prefix}.conv.0", p["conv1"])
+        bn(f"{prefix}.conv.1", p["conv1"]["w"].shape[-1])
+        conv(f"{prefix}.conv.3", p["conv2"])
+        bn(f"{prefix}.conv.4", p["conv2"]["w"].shape[-1])
+        if "shortcut" in p:
+            conv(f"{prefix}.shortcut", p["shortcut"])
+
+    bn("unet.encoder.bn", 1)
+    for part in ("encoder", "intermediate"):
+        for i, lp in enumerate(tree[part]):
+            for j, bp in enumerate(lp["blocks"]):
+                block(f"unet.{part}.layers.{i}.conv.{j}", bp)
+    for i, lp in enumerate(tree["decoder"]):
+        w = np.flip(lp["convt"]["w"], axis=(0, 1))
+        sd[f"unet.decoder.layers.{i}.conv1.0.weight"] = np.transpose(w, (2, 3, 0, 1))
+        bn(f"unet.decoder.layers.{i}.conv1.1", w.shape[-1])
+        for j, bp in enumerate(lp["blocks"]):
+            block(f"unet.decoder.layers.{i}.conv2.{j}", bp)
+    conv("cnn", tree["cnn"])
+    names = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+             "b_hh": "bias_hh_l0"}
+    for k, v in names.items():
+        sd[f"fc.0.gru.{v}"] = tree["gru"][k]
+        sd[f"fc.0.gru.{v}_reverse"] = tree["gru"][k + "_r"]
+    sd["fc.1.weight"] = tree["fc"]["w"].T
+    sd["fc.1.bias"] = tree["fc"]["b"]
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def hubert_state_dict(tree):
+    """A fairseq-layout HuBERT state dict from a JAX-layout tree (layer
+    leaves stacked), the positional conv split into weight_g/weight_v."""
+    sd = {}
+
+    def lin(prefix, p, i=None):
+        w, b = np.asarray(p["w"]), np.asarray(p["b"])
+        if i is not None:
+            w, b = w[i], b[i]
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = w.T, b
+
+    def ln(prefix, p, i=None):
+        g, b = np.asarray(p["gamma"]), np.asarray(p["beta"])
+        if i is not None:
+            g, b = g[i], b[i]
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = g, b
+
+    for i, c in enumerate(tree["frontend"]["convs"]):
+        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = np.transpose(c["w"], (2, 1, 0))
+    ln("feature_extractor.conv_layers.0.2", tree["frontend"]["gn"])
+    ln("layer_norm", tree["ln_feats"])
+    lin("post_extract_proj", tree["post_proj"])
+    w = np.transpose(np.asarray(tree["pos_conv"]["w"]), (2, 1, 0))
+    sd["encoder.pos_conv.0.weight_g"] = np.sqrt(np.square(w).sum(axis=(0, 1), keepdims=True))
+    sd["encoder.pos_conv.0.weight_v"] = w
+    sd["encoder.pos_conv.0.bias"] = tree["pos_conv"]["b"]
+    ln("encoder.layer_norm", tree["ln_pre"])
+    st = tree["layers"]
+    for i in range(np.asarray(st["fc1"]["w"]).shape[0]):
+        p = f"encoder.layers.{i}"
+        for k, m in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            lin(f"{p}.self_attn.{m}", st["attn"][k], i)
+        ln(f"{p}.self_attn_layer_norm", st["ln1"], i)
+        lin(f"{p}.fc1", st["fc1"], i)
+        lin(f"{p}.fc2", st["fc2"], i)
+        ln(f"{p}.final_layer_norm", st["ln2"], i)
+    lin("final_proj", tree["final_proj"])
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
