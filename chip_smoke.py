@@ -26,6 +26,24 @@ Phases, each printed as it runs; any failure exits non-zero:
   5. parity   the same model and noise on a 2 s input on the CPU (plain
               versions) and on the card: waveform max abs err <= 1e-3 and
               the RMVPE argmax equal on every frame.
+  6. train-kernel  the resblock as an autograd Function at the training
+              path's four stage shapes (B = 8, a 36-frame segment): the
+              forward and the gradients of x, w1, b1, w2, b2 against
+              torch.autograd through the plain chain on the card (each
+              <= 1e-4 * max(1, |ref|max)); forward and backward timed.
+  7. train    the training flow at the full v2 / 48 kHz width: 32 voiced
+              3.5 s WAVs made from a seed -> preprocess -> extract (RMVPE
+              and 12-layer HuBERT on the card) -> train one epoch at B = 8
+              (4 steps, random weights from a seed) -> the exported .pth
+              into ConvertPipeline on the card, one utterance converted.
+              Launch counts are zeroed before train() and read after: 36
+              per step.  Then one more step three ways: wall time, device
+              ms per training range (CUDA events at the range edges) and
+              under torch.profiler (device time, busy share).
+  8. train-parity  one train step of a narrow model (decode C = 128..16,
+              k = 3/7/11) from the same state and explicit noise on the
+              CPU and on the card: each loss term <= 1e-4 relative, each
+              gradient leaf <= 1e-3 * its max |g|.
 
 fp32 throughout, with TF32 off for cuDNN and matmuls (the parity path).
 The line before the last holds the kernels' JSON summary; the last line
@@ -354,6 +372,336 @@ def card_vs_cpu(cfg, model):
     return dict(wave_max_abs_err=err, rmvpe_argmax_equal=argmax_equal)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the resblock's autograd Function at the training shapes
+# ---------------------------------------------------------------------------
+
+def check_resblock_train(stage_shapes, kernels, dilations, card: str):
+    from rvc_maker_tpu_torch.ops import resblock as rb
+
+    gen = torch.Generator().manual_seed(1)
+    names = ("x", "w1", "b1", "w2", "b2")
+    rows, worst_fwd, worst_grad = [], 0.0, 0.0
+    saved = rb.resblock_launches
+    for (b, c, t) in stage_shapes:
+        stage = dict(B=b, C=c, T=t, fwd_ms=0.0, plain_fwd_ms=0.0, fwd_bwd_ms=0.0,
+                     plain_fwd_bwd_ms=0.0,
+                     library_fwd_ms=0.0, flops=0, bytes=0)
+        for k in kernels:
+            D = len(dilations)
+            scale = 0.5 / (k * c) ** 0.5
+            args = [(torch.randn(b, c, t, generator=gen) * 0.3).cuda(),
+                    (torch.randn(D, k, c, c, generator=gen) * scale).cuda(),
+                    (torch.randn(D, c, generator=gen) * 0.1).cuda(),
+                    (torch.randn(D, k, c, c, generator=gen) * scale).cuda(),
+                    (torch.randn(D, c, generator=gen) * 0.1).cuda()]
+            cot = torch.randn(b, c, t, generator=gen).cuda()
+            kw = dict(kernel_size=k, dilations=dilations)
+            ref = rb._resblock(*args, **kw)
+            got = rb.fused_resblock(*args, **kw)
+            fwd_err = (got - ref).abs().max().item()
+            fwd_tol = 1e-4 * max(1.0, ref.abs().max().item())
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            out = rb.fused_resblock(*leaves, **kw)
+            if out.grad_fn is None:
+                raise AssertionError("fused_resblock on the card returned no grad_fn")
+            g_kernel = torch.autograd.grad(out, leaves, cot)
+            g_plain = torch.autograd.grad(rb._resblock(*leaves, **kw), leaves, cot)
+            grad_err = {}
+            for name, gk, gp in zip(names, g_kernel, g_plain):
+                err = (gk - gp).abs().max().item()
+                tol = 1e-4 * max(1.0, gp.abs().max().item())
+                grad_err[name] = (err, tol)
+                worst_grad = max(worst_grad, err)
+            worst_fwd = max(worst_fwd, fwd_err)
+            iters = 5
+            fwd_ms = cuda_ms(lambda: rb.fused_resblock(*args, **kw), iters)
+            plain_ms = cuda_ms(lambda: rb._resblock(*args, **kw), iters)
+            fb_ms = cuda_ms(lambda: torch.autograd.grad(
+                rb.fused_resblock(*leaves, **kw), leaves, cot), iters)
+            plain_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+                rb._resblock(*leaves, **kw), leaves, cot), iters)
+            wt1 = args[1].permute(0, 3, 2, 1).contiguous()
+            wt2 = args[3].permute(0, 3, 2, 1).contiguous()
+            lib_ms = cuda_ms(lambda: library_resblock(args[0], wt1, args[2], wt2, args[4],
+                                                      k, dilations), iters)
+            flops = rb.resblock_flops(b, t, c, k, D)
+            nbytes = 4 * (2 * b * c * t + sum(a.numel() for a in args[1:]))
+            log(f"  train resblock B={b} C={c} T={t} k={k}: forward err {fwd_err:.3e} "
+                f"(tol {fwd_tol:.1e}); grad err " + ", ".join(
+                    f"{nm} {e:.3e} (tol {tl:.1e})" for nm, (e, tl) in grad_err.items())
+                + f" | kernel fwd {fwd_ms:.3f} ms, plain fwd {plain_ms:.3f} ms, fwd+bwd "
+                f"{fb_ms:.3f} ms (bwd "
+                f"{fb_ms - fwd_ms:.3f}); plain fwd+bwd {plain_fb_ms:.3f} ms; library fwd "
+                f"{lib_ms:.3f} ms")
+            if not fwd_err <= fwd_tol:
+                raise AssertionError(f"train resblock C={c} k={k}: forward err {fwd_err}")
+            for nm, (e, tl) in grad_err.items():
+                if not e <= tl:
+                    raise AssertionError(f"train resblock C={c} k={k}: grad {nm} err {e} > {tl}")
+            for key, v in (("fwd_ms", fwd_ms), ("plain_fwd_ms", plain_ms), ("fwd_bwd_ms", fb_ms),
+                           ("plain_fwd_bwd_ms", plain_fb_ms), ("library_fwd_ms", lib_ms),
+                           ("flops", flops), ("bytes", nbytes)):
+                stage[key] += v
+            del args, leaves, out, ref, got, g_kernel, g_plain, cot, wt1, wt2
+        stage["bwd_ms"] = stage["fwd_bwd_ms"] - stage["fwd_ms"]
+        stage["fwd_bound_ms"] = 1e3 * max(stage["flops"] / H100_FP32_FLOPS,
+                                          stage["bytes"] / H100_BYTES_PER_S)
+        rows.append(stage)
+        log(f"  stage C={c}: kernel fwd {stage['fwd_ms']:.3f} ms (bound "
+            f"{stage['fwd_bound_ms']:.3f}, plain {stage['plain_fwd_ms']:.3f}), bwd {stage['bwd_ms']:.3f} ms, plain fwd+bwd "
+            f"{stage['plain_fwd_bwd_ms']:.3f} ms, library fwd {stage['library_fwd_ms']:.3f} ms")
+    rb.resblock_launches = saved      # comparison launches do not count
+    torch.cuda.empty_cache()
+    tot = {key: sum(r[key] for r in rows) for key in
+           ("fwd_ms", "plain_fwd_ms", "bwd_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+            "library_fwd_ms",
+            "flops", "bytes", "fwd_bound_ms")}
+    log(f"  one generator forward's 12 resblocks at B = 8: kernel {tot['fwd_ms']:.3f} ms "
+        f"(bound {tot['fwd_bound_ms']:.3f}, plain {tot['plain_fwd_ms']:.3f}, library "
+        f"{tot['library_fwd_ms']:.3f}), their backward {tot['bwd_ms']:.3f} ms, plain "
+        f"fwd+bwd {tot['plain_fwd_bwd_ms']:.3f} ms; max err fwd {worst_fwd:.3e}, grad "
+        f"{worst_grad:.3e}; on {card}")
+    return dict(rows=rows, totals=tot, max_fwd_err=worst_fwd, max_grad_err=worst_grad)
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: training
+# ---------------------------------------------------------------------------
+
+def write_dataset(root: str, n_files: int, seconds: float, sr: int, seed: int):
+    from rvc_maker_tpu_torch.utils.audio import save_wav
+
+    os.makedirs(os.path.join(root, "0"), exist_ok=True)
+    rs = np.random.RandomState(seed)
+    tt = np.arange(int(sr * seconds)) / sr
+    for i in range(n_files):
+        f0 = 110.0 + 150.0 * rs.rand()
+        phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.05 * np.sin(2 * np.pi * 4 * tt))) / sr
+        x = sum(0.3 / h * np.sin(h * phase) for h in (1, 2, 3, 4))
+        save_wav(os.path.join(root, "0", f"s{i:03d}.wav"),
+                 (x + 0.01 * rs.randn(len(tt))).astype(np.float32), sr)
+
+
+def train_flow(model, card: str):
+    import dataclasses
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.interop.pth import load_synthesizer_pth
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines import data as data_mod
+    from rvc_maker_tpu_torch.pipelines import extract as ex
+    from rvc_maker_tpu_torch.pipelines import train as tr
+    from rvc_maker_tpu_torch.pipelines import train_loop
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+    from rvc_maker_tpu_torch.pipelines.preprocess import preprocess_dataset
+
+    cfg = preset("v2", 48000)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_interval=1))
+    per_step = sum(len(d) for d in cfg.model.resblock_dilation_sizes) * len(
+        cfg.model.upsample_rates)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "voice")
+        write_dataset(os.path.join(tmp, "dataset"), 32, 3.5, 48000, seed=5)
+        t0 = time.perf_counter()
+        n_seg = preprocess_dataset(os.path.join(tmp, "dataset"), exp, 48000, per=3.7,
+                                   num_workers=4)
+        res["preprocess_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nf = ex.extract_f0(exp, model["rmvpe_params"], device="cuda")
+        ne = ex.extract_embeddings(exp, model["hubert_params"], version="v2", device="cuda")
+        ex.write_mute_fixture(exp, cfg, model["hubert_params"], "v2", device="cuda")
+        ex.generate_filelist(exp, cfg, "v2", seed=0)
+        torch.cuda.synchronize()
+        res["extract_s"] = time.perf_counter() - t0
+        if not n_seg == nf == ne == 32:
+            raise AssertionError(f"segments {n_seg}, f0 {nf}, features {ne}: expected 32")
+        log(f"  preprocess {n_seg} segments in {res['preprocess_s']:.2f} s; extract "
+            f"(RMVPE + HuBERT on the card) in {res['extract_s']:.2f} s")
+
+        stamps, metrics = [], []
+
+        def log_writer(step, m):
+            stamps.append(time.perf_counter())
+            metrics.append(m)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rb.resblock_launches = 0
+        t0 = time.perf_counter()
+        state = train_loop.train(exp, cfg, total_epochs=1, batch_size=8,
+                                 save_every_epoch=1, device="cuda", log_writer=log_writer)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = rb.resblock_launches
+        peak = torch.cuda.max_memory_allocated()
+        steps = state.step
+        if steps < 3 or launches != per_step * steps:
+            raise AssertionError(f"{steps} steps, {launches} resblock launches: expected "
+                                 f">= 3 steps and {per_step} launches per step")
+        for m in metrics:
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"non-finite training metrics {m}")
+        gaps = np.diff(stamps)
+        warm_s = float(np.mean(gaps))
+        res.update(steps=steps, resblock_launches=launches, launches_per_step=launches // steps,
+                   train_s=t_train, first_step_s=stamps[0] - t0, warm_step_s=warm_s,
+                   steps_per_s=1.0 / warm_s, max_memory_allocated=peak,
+                   losses=[{k: v for k, v in m.items() if k.startswith(("loss", "grad"))}
+                           for m in metrics])
+        log(f"  train(): {steps} steps at B = 8 in {t_train:.3f} s; first step "
+            f"{res['first_step_s']:.3f} s, warm step {warm_s:.4f} s ({1.0 / warm_s:.3f} "
+            f"steps/s, the loop's own step-to-step time); peak device memory "
+            f"{peak / 2**30:.2f} GiB; resblock launches {launches} ({launches // steps} per step)")
+        for i, m in enumerate(metrics):
+            log(f"    step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()
+                                                if k != "lr"))
+
+        pths = sorted(f for f in os.listdir(exp) if f.endswith(".pth"))
+        if pths != [f"voice_1e_{steps}s.pth"]:
+            raise AssertionError(f"exported weights {pths}")
+        params, mcfg, meta = load_synthesizer_pth(os.path.join(exp, pths[0]))
+        pipe = ConvertPipeline(params, mcfg, model["hubert_params"], version="v2",
+                               rmvpe_params=model["rmvpe_params"], device="cuda")
+        rb.resblock_launches = 0
+        out = pipe.convert_utterance(voice(5.0, 180.0, 9), 0, ConvertSettings())
+        if not np.isfinite(out).all() or abs(len(out) - 5.0 * mcfg.sr) > 2 * mcfg.upp:
+            raise AssertionError(f"converted utterance: {len(out)} samples, finite "
+                                 f"{np.isfinite(out).all()}")
+        if rb.resblock_launches != per_step:
+            raise AssertionError(f"conversion launched {rb.resblock_launches}")
+        res.update(exported=pths[0], convert_samples=len(out),
+                   convert_absmax=float(np.abs(out).max()))
+        log(f"  exported {pths[0]} (step {meta['step']}); converted 5 s on the card: "
+            f"{len(out)} samples at {mcfg.sr} Hz, |out|max {res['convert_absmax']:.3f}")
+        del pipe
+
+        # one more step, three ways, on the trained state
+        dataset = data_mod.TrainingDataset(os.path.join(exp, "filelist.txt"), cfg)
+        batch = next(data_mod.batches_for_epoch(dataset, batch_size=8, epoch=2)).to("cuda")
+        step_fn = tr.make_train_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        timer = tr.RangeTimer()
+        step_fn(state, batch, timer=timer)
+        ranges, ranges_host = timer.ms()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+        device_ms = sum(by_kernel.values())
+        resblock_ms = sum(v for k, v in by_kernel.items() if "resblock_step_kernel" in k)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        res["profile"] = dict(step_wall_ms=wall_ms, ranges_ms=ranges,
+                              ranges_host_ms=ranges_host,
+                              ranges_sum_ms=sum(ranges.values()), device_ms=device_ms,
+                              busy_share=device_ms / wall_ms if device_ms else None,
+                              resblock_kernel_ms=resblock_ms, top_kernels_ms=dict(top),
+                              batch_frames=int(batch.spec.shape[1]))
+        log(f"  one step (T = {batch.spec.shape[1]} frames): {wall_ms:.3f} ms wall; device ms "
+            "per range (CUDA events) / host ms: " + ", ".join(
+                f"{k} {v:.3f} / {ranges_host[k]:.3f}" for k, v in ranges.items()))
+        if device_ms:
+            log(f"  profiler: device {device_ms:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+                f"{device_ms / wall_ms:.3f}); resblock kernel {resblock_ms:.3f} ms; on {card}")
+            for name, ms in top:
+                log(f"    {ms:9.3f} ms  {name[:110]}")
+        else:
+            log("  profiler: device time not measured (the profiler saw no kernels)")
+        del state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _narrow_train_config():
+    from rvc_maker_tpu_torch.config import DataConfig, ModelConfig, RVCConfig, TrainConfig
+
+    return RVCConfig(
+        version="v2", train=TrainConfig(segment_size=8 * 64),
+        data=DataConfig(sample_rate=6400, filter_length=256, hop_length=64, win_length=256,
+                        n_mel_channels=32),
+        model=ModelConfig(spec_channels=129, segment_size=8, inter_channels=32,
+                          hidden_channels=32, filter_channels=64, n_heads=2, n_layers=1,
+                          kernel_size=3, upsample_rates=(4, 4, 2, 2),
+                          upsample_initial_channel=256, upsample_kernel_sizes=(8, 8, 4, 4),
+                          spk_embed_dim=4, gin_channels=16, sr=6400, text_enc_hidden_dim=96))
+
+
+def train_parity():
+    from rvc_maker_tpu_torch.interop import from_jax
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines import train as tr
+
+    cfg = _narrow_train_config()
+    b, t, seg, upp = 4, 24, cfg.model.segment_size, cfg.model.upp
+    rs = np.random.RandomState(0)
+    lengths = np.array([t, t, seg + 2, t - 5], np.int32)
+    batch = tr.Batch(phone=rs.randn(b, t, 96).astype(np.float32), phone_lengths=lengths,
+                     pitch=rs.randint(1, 256, (b, t)),
+                     pitchf=(rs.rand(b, t) * 200 + 80).astype(np.float32),
+                     spec=np.abs(rs.randn(b, t, 129)).astype(np.float32), spec_lengths=lengths,
+                     wave=(rs.randn(b, t * 64, 1) * 0.1).astype(np.float32), sid=rs.randint(0, 4, b))
+    noise = dict(post_noise=rs.randn(b, t, 32).astype(np.float32),
+                 ids_slice=np.array([0, 16, 1, 9], np.int32),
+                 sine_noise=rs.randn(b, seg * upp, 1).astype(np.float32))
+    params_g = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg.model, 4),
+                                             cfg.model, train=True)
+    params_d = from_jax.discriminator_from_jax(from_jax.random_discriminator_tree("v2", 16, 5))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = tr.init_state(cfg, params_g, params_d, device=dev, disc_width_div=16)
+        before = rb.resblock_launches
+        m = tr.make_train_step(cfg, 16)(
+            state, batch.to(dev), keep_grads=True,
+            noise={k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
+        launched = rb.resblock_launches - before
+        if launched != (0 if dev == "cpu" else 36):
+            raise AssertionError(f"{dev}: {launched} resblock launches")
+        out[dev] = m
+    rb.resblock_launches -= 36          # comparison launches do not count
+    worst_loss = 0.0
+    for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
+        a, r = float(out["cuda"][k]), float(out["cpu"][k])
+        rel = abs(a - r) / max(abs(r), 1e-30)
+        worst_loss = max(worst_loss, rel)
+        if not rel <= 1e-4:
+            raise AssertionError(f"card vs CPU {k}: {a} vs {r} (rel {rel:.2e})")
+    worst_grad, n_zero = 0.0, 0
+    for name in ("grads_g", "grads_d"):
+        got, ref = out["cuda"][name], out["cpu"][name]
+        floor = 1e-6 * max(g.abs().max().item() for g in ref)
+        for i, (a, r) in enumerate(zip(got, ref)):
+            a = a.cpu()
+            r_max = r.abs().max().item()
+            if r_max < floor:         # an exact-zero gradient: rounding noise on both
+                n_zero += 1
+                if not a.abs().max().item() < floor:
+                    raise AssertionError(f"{name}[{i}]: card {a.abs().max().item()} "
+                                         f"where the CPU is at rounding level")
+                continue
+            rel = (a - r).abs().max().item() / r_max
+            worst_grad = max(worst_grad, rel)
+            if not rel <= 1e-3:
+                raise AssertionError(f"{name}[{i}] {tuple(r.shape)}: rel err {rel:.2e}")
+    log(f"  card vs CPU, one narrow train step: loss terms max rel err {worst_loss:.3e} "
+        f"(tol 1e-4); gradient leaves max err / max|g| {worst_grad:.3e} (tol 1e-3) over "
+        f"{len(out['cpu']['grads_g'])} G and {len(out['cpu']['grads_d'])} D leaves "
+        f"({n_zero} at rounding level on both)")
+    return dict(loss_max_rel_err=worst_loss, grad_max_rel_err=worst_grad,
+                zero_grad_leaves=n_zero)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -402,6 +750,21 @@ def main() -> int:
 
     log("[5 parity] card against CPU")
     RESULTS["parity"] = card_vs_cpu(model_cfg, model)
+
+    train_shapes, t, c = [], cfg.segment_size, cfg.upsample_initial_channel
+    for u in cfg.upsample_rates:
+        t, c = t * u, c // 2
+        train_shapes.append((8, c, t))
+    log(f"[6 train-kernel] resblock forward and gradients at the training shapes {train_shapes}")
+    RESULTS["train_kernel"] = check_resblock_train(
+        train_shapes, cfg.resblock_kernel_sizes, tuple(cfg.resblock_dilation_sizes[0]), smi)
+
+    log("[7 train] preprocess -> extract -> train -> export -> convert at v2-48k")
+    RESULTS["train"] = train_flow(model, smi)
+    del model
+
+    log("[8 train-parity] one narrow train step, card against CPU")
+    RESULTS["train_parity"] = train_parity()
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -415,7 +778,9 @@ def main() -> int:
         launches=RESULTS["main_path"]["resblock_launches"],
         max_abs_err=totals["max_abs_err"], ms=totals["ms"], plain_ms=totals["plain_ms"],
         bound_ms=totals["bound_ms"], bound_by=totals["bound_by"],
-        library_ms=totals["library_ms"])]
+        library_ms=totals["library_ms"],
+        launches_train=RESULTS["train"]["resblock_launches"],
+        grad_max_abs_err=RESULTS["train_kernel"]["max_grad_err"])]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

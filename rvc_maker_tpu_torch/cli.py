@@ -1,19 +1,74 @@
-"""Command line of the PyTorch port: the `convert` subcommand.
+"""Command line of the PyTorch port: training a voice and converting.
 
+    python -m rvc_maker_tpu_torch.cli preprocess --dataset data/ \\
+        --exp-dir exp/ [--sample-rate 48000 --per 3.7]
+    python -m rvc_maker_tpu_torch.cli extract --exp-dir exp/ \\
+        --rmvpe-path rmvpe.pt --embedder-path hubert_base.pt [--version v2]
+    python -m rvc_maker_tpu_torch.cli train --exp-dir exp/ --epochs 200 \\
+        [--batch-size 8 --pretrain-g f0G48k.pth --pretrain-d f0D48k.pth]
     python -m rvc_maker_tpu_torch.cli convert --input in.wav \\
         --output out.wav --model model.pth --rmvpe-path rmvpe.pt \\
         --hubert-path hubert_base.pt [--index feats.npz --index-rate 0.5]
-        [--pitch 0 --protect 0.33 --sid 0 --device cuda]
+        [--pitch 0 --protect 0.33 --sid 0]
 
-Every weight file is given explicitly; nothing is downloaded.  The run
-is on the card unless `--device cpu` is passed.
+Every weight file is given explicitly; nothing is downloaded.  extract,
+train and convert run on the card unless `--device cpu` is passed.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import sys
+
+
+def cmd_preprocess(args) -> int:
+    from .pipelines.preprocess import preprocess_dataset
+
+    n = preprocess_dataset(args.dataset, args.exp_dir, args.sample_rate, per=args.per,
+                           num_workers=args.cpu_cores, cut=args.cut,
+                           effects=args.process_effects)
+    print(f"preprocess: {n} segments in {args.exp_dir}")
+    return 0
+
+
+def cmd_extract(args) -> int:
+    from .config import preset
+    from .models.hubert import load_hubert_pt
+    from .models.rmvpe import load_rmvpe_pt
+    from .pipelines import extract as ex
+
+    for flag, path in (("--rmvpe-path", args.rmvpe_path),
+                       ("--embedder-path", args.embedder_path)):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{flag}: no such file {path!r}")
+    cfg = preset(args.version, args.sample_rate)
+    hubert = load_hubert_pt(args.embedder_path)
+    ex.extract_f0(args.exp_dir, load_rmvpe_pt(args.rmvpe_path), method=args.f0_method,
+                  device=args.device)
+    ex.extract_embeddings(args.exp_dir, hubert, version=args.version, device=args.device)
+    ex.write_mute_fixture(args.exp_dir, cfg, hubert, args.version, device=args.device)
+    path = ex.generate_filelist(args.exp_dir, cfg, args.version)
+    print(f"extract: wrote {path}")
+    return 0
+
+
+def cmd_train(args) -> int:
+    from .config import preset
+    from .pipelines.train_loop import train
+
+    cfg = preset(args.version, args.sample_rate)
+    train(args.exp_dir, cfg, total_epochs=args.epochs, batch_size=args.batch_size,
+          save_every_epoch=args.save_every_epoch, save_only_latest=not args.save_all,
+          pretrain_g=args.pretrain_g, pretrain_d=args.pretrain_d,
+          author=args.model_author, model_name=args.model_name,
+          overtraining_detector=not args.no_overtraining_detector,
+          overtraining_threshold=args.overtraining_threshold,
+          save_every_weights=not args.no_save_every_weights,
+          cache_data=args.cache_data, cleanup=args.cleanup, device=args.device)
+    print(f"train: done, weights in {args.exp_dir}")
+    return 0
 
 
 def cmd_convert(args) -> int:
@@ -53,6 +108,52 @@ def cmd_convert(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="rvc_maker_tpu_torch.cli")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("preprocess", help="slice and normalize a dataset")
+    p.add_argument("--dataset", required=True,
+                   help="wavs; top level is speaker 0, numeric subdirs are speaker ids")
+    p.add_argument("--exp-dir", required=True)
+    p.add_argument("--sample-rate", type=int, default=48000)
+    p.add_argument("--per", type=float, default=3.7, help="segment seconds")
+    p.add_argument("--cpu-cores", type=int, default=2)
+    p.add_argument("--no-cut", dest="cut", action="store_false")
+    p.add_argument("--no-process-effects", dest="process_effects", action="store_false")
+    p.set_defaults(func=cmd_preprocess)
+
+    e = sub.add_parser("extract", help="RMVPE f0 + HuBERT features, filelist")
+    e.add_argument("--exp-dir", required=True)
+    e.add_argument("--version", default="v2", choices=["v1", "v2"])
+    e.add_argument("--sample-rate", type=int, default=48000)
+    e.add_argument("--f0-method", default="rmvpe", choices=["rmvpe", "rmvpe-legacy"])
+    e.add_argument("--rmvpe-path", required=True, help="reference rmvpe.pt")
+    e.add_argument("--embedder-path", required=True,
+                   help="fairseq HuBERT/ContentVec .pt")
+    e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    e.set_defaults(func=cmd_extract)
+
+    t = sub.add_parser("train", help="train a voice from an extracted exp dir")
+    t.add_argument("--exp-dir", required=True)
+    t.add_argument("--version", default="v2", choices=["v1", "v2"])
+    t.add_argument("--sample-rate", type=int, default=48000)
+    t.add_argument("--epochs", type=int, default=200)
+    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--save-every-epoch", type=int, default=5)
+    t.add_argument("--save-all", action="store_true",
+                   help="keep a checkpoint per save epoch, not only the latest")
+    t.add_argument("--pretrain-g", default="", help="reference pretrained G .pth")
+    t.add_argument("--pretrain-d", default="", help="reference pretrained D .pth")
+    t.add_argument("--model-name", default="")
+    t.add_argument("--model-author", default="")
+    t.add_argument("--no-overtraining-detector", action="store_true")
+    t.add_argument("--overtraining-threshold", type=int, default=50)
+    t.add_argument("--no-save-every-weights", action="store_true",
+                   help="export inference weights only at the end")
+    t.add_argument("--cache-data", action="store_true",
+                   help="keep decoded training items in RAM")
+    t.add_argument("--cleanup", action="store_true",
+                   help="delete old checkpoints and weights first")
+    t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    t.set_defaults(func=cmd_train)
     c = sub.add_parser("convert", help="convert one utterance")
     c.add_argument("--input", required=True)
     c.add_argument("--output", required=True)
@@ -72,6 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     return args.func(args)
 
 

@@ -1,14 +1,37 @@
-"""Model configuration: the synthesizer hyperparameters and the presets.
+"""Configuration: training, data and synthesizer hyperparameters, presets.
 
-A copy of the parts of `rvc_maker_tpu/config.py` that inference needs
-(the port imports nothing of the JAX package).  The preset matrices
-reproduce the reference v1/v2 × 32/40/48 kHz configs exactly.
+A copy of `rvc_maker_tpu/config.py` (the port imports nothing of the JAX
+package).  The preset matrices reproduce the reference v1/v2 × 32/40/48
+kHz configs exactly.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Sequence
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    log_interval: int = 200
+    seed: int = 1234
+    learning_rate: float = 1e-4
+    betas: tuple[float, float] = (0.8, 0.99)
+    eps: float = 1e-9
+    lr_decay: float = 0.999875
+    segment_size: int = 12800       # waveform samples per training slice
+    c_mel: float = 45.0
+    c_kl: float = 1.0
+    # the JAX package's bf16 and rematerialized training modes; the port
+    # trains in fp32 without rematerialization for now
+    bf16: bool = False
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.bf16 or self.remat:
+            raise NotImplementedError("bf16 and remat training are not ported")
 
 
 @dataclass(frozen=True)
@@ -60,8 +83,12 @@ class ModelConfig:
 @dataclass(frozen=True)
 class RVCConfig:
     version: str = "v2"
+    train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
 
 
 _DATA = {
@@ -105,7 +132,8 @@ def preset(version: str = "v2", sample_rate: int = 40000, *,
         vocoder=vocoder,
         use_f0=pitch_guidance,
     )
-    return RVCConfig(version=version, data=data, model=model)
+    return RVCConfig(version=version, train=TrainConfig(segment_size=seg),
+                     data=data, model=model)
 
 
 def model_config_from_ckpt_list(cfg_list: Sequence[Any], *, use_f0: bool,
@@ -138,3 +166,15 @@ def model_config_from_ckpt_list(cfg_list: Sequence[Any], *, use_f0: bool,
         text_enc_hidden_dim=768 if version == "v2" else 256,
         vocoder=vocoder,
     )
+
+
+def model_config_to_ckpt_list(m: ModelConfig) -> list:
+    """Inverse of model_config_from_ckpt_list (for writing interchange .pth)."""
+    return [
+        m.spec_channels, m.segment_size, m.inter_channels, m.hidden_channels,
+        m.filter_channels, m.n_heads, m.n_layers, m.kernel_size, m.p_dropout,
+        "1", list(m.resblock_kernel_sizes),
+        [list(d) for d in m.resblock_dilation_sizes], list(m.upsample_rates),
+        m.upsample_initial_channel, list(m.upsample_kernel_sizes),
+        m.spk_embed_dim, m.gin_channels, m.sr,
+    ]

@@ -8,6 +8,8 @@ interop/torch_import.py:15-19):
   * convT  (K, Cin, Cout) -> (Cin, Cout, K)
   * linear (Cin, Cout)    -> (Cout, Cin)
   * resblock convs -> packed (D, K, Cin, Cout) / (D, C) for the kernel
+  * discriminator weight-norm pairs: v (K, Cin, Cout) -> (Cout, Cin, K),
+    v (Kh, 1, Cin, Cout) -> (Cout, Cin, Kh, 1); g likewise
   * RMVPE conv (Kh, Kw, Cin, Cout) -> (Cout, Cin, Kh, Kw); its decoder
     convT is stored pre-flipped in JAX and is un-flipped here.
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..models import discriminator as disc_mod
 from ..models import hubert as hubert_mod
 from ..models.rmvpe import N_CLASS, make_bigru
 from ..models.synthesizer import _stage_paddings
@@ -64,8 +67,10 @@ def _wavenet(p) -> dict:
     return out
 
 
-def synthesizer_from_jax(tree, cfg: ModelConfig) -> dict:
-    """JAX synthesizer params -> the port's inference tree."""
+def synthesizer_from_jax(tree, cfg: ModelConfig, *, train: bool = False) -> dict:
+    """JAX synthesizer params -> the port's tree: the inference tree, or
+    with train=True the training tree, which adds the posterior encoder
+    `enc_q`.  Also maps a JAX gradient tree onto the port's layouts."""
     if not cfg.use_f0 or cfg.vocoder != "Default":
         raise NotImplementedError(
             "only the NSF-HiFiGAN decoder of f0 models is ported")
@@ -100,8 +105,29 @@ def synthesizer_from_jax(tree, cfg: ModelConfig) -> dict:
     }
     if "cond" in d:
         dec["cond"] = _lin(d["cond"])
-    return {"enc_p": enc_p, "flow": flow, "dec": dec,
-            "emb_g": {"w": _t(tree["emb_g"]["w"])}}
+    out = {"enc_p": enc_p, "flow": flow, "dec": dec,
+           "emb_g": {"w": _t(tree["emb_g"]["w"])}}
+    if train:
+        q = tree["enc_q"]
+        out["enc_q"] = {"pre": _lin(q["pre"]), "enc": _wavenet(q["enc"]),
+                        "proj": _lin(q["proj"])}
+    return out
+
+
+def _wn(p, axes) -> dict:
+    return {"g": _t(np.transpose(np.asarray(p["g"]), axes)),
+            "v": _t(np.transpose(np.asarray(p["v"]), axes)), "b": _t(p["b"])}
+
+
+def discriminator_from_jax(tree) -> dict:
+    """JAX discriminator params (live weight norm, channels-last) -> the
+    port's tree in torch layouts.  Also maps a JAX gradient tree."""
+    s = tree["s"]
+    p1d, p2d = (2, 1, 0), (3, 2, 0, 1)
+    return {"s": {"convs": [_wn(c, p1d) for c in s["convs"]],
+                  "post": _wn(s["post"], p1d)},
+            "p": [{"convs": [_wn(c, p2d) for c in dp["convs"]],
+                   "post": _wn(dp["post"], p2d)} for dp in tree["p"]]}
 
 
 def hubert_from_jax(tree) -> dict:
@@ -246,8 +272,34 @@ def random_synthesizer_tree(cfg: ModelConfig, seed: int = 0) -> dict:
            "ups": ups, "noise_convs": noise_convs, "resblocks": resblocks,
            "conv_post": {"w": normal((7, uic // 2 ** len(ups), 1), 0.01)},
            "source": {"l_linear": lin(1, 1)}}
-    return {"enc_p": enc_p, "flow": flow, "dec": dec,
-            "emb_g": {"w": normal((cfg.spk_embed_dim, cfg.gin_channels), 1.0)}}
+    emb_g = {"w": normal((cfg.spk_embed_dim, cfg.gin_channels), 1.0)}
+    enc_q = {"pre": lin(cfg.spec_channels, h), "enc": wavenet(16),
+             "proj": lin(h, 2 * inter)}
+    return {"enc_p": enc_p, "enc_q": enc_q, "flow": flow, "dec": dec,
+            "emb_g": emb_g}
+
+
+def random_discriminator_tree(version: str = "v2", width_div: int = 1,
+                              seed: int = 0) -> dict:
+    """Discriminator params drawn like the JAX package's init_params
+    (torch's default conv bounds, g = ||v||), in its layouts."""
+    rs = np.random.RandomState(seed)
+
+    def wn(shape_v):
+        bound = 1.0 / math.sqrt(math.prod(shape_v[:-1]))
+        v = rs.uniform(-bound, bound, shape_v).astype(np.float32)
+        g = np.sqrt(np.sum(np.square(v), axis=tuple(range(len(shape_v) - 1)),
+                           keepdims=True))
+        return {"g": g, "v": v,
+                "b": rs.uniform(-bound, bound, (shape_v[-1],)).astype(np.float32)}
+
+    specs = disc_mod.s_convs(width_div)
+    pch = disc_mod.p_channels(width_div)
+    return {"s": {"convs": [wn((k, cin // g, cout)) for cin, cout, k, _, g, _ in specs],
+                  "post": wn((3, specs[-1][1], 1))},
+            "p": [{"convs": [wn((5, 1, cin, cout)) for cin, cout in pch],
+                   "post": wn((3, 1, pch[-1][1], 1))}
+                  for _ in disc_mod.periods_for(version)]}
 
 
 def random_hubert_tree(seed: int = 0, n_layers: int = hubert_mod.N_LAYERS) -> dict:

@@ -1,26 +1,35 @@
-"""Load the reference interchange `.pth` voice model into the port.
+"""The reference interchange `.pth` files: voice models and pretrained G/D.
 
-Counterpart of `rvc_maker_tpu/interop/torch_import.py` for the
-inference tree: {"weight": state_dict, "config": [18 hparams], "f0",
-"version", "vocoder", ...} (reference train.py:724-744).  Weight-norm is
-folded at load (w = g * v / ||v||, norm over every dim but 0) from
-either spelling:
+Counterpart of `rvc_maker_tpu/interop/torch_import.py` and
+`torch_export.py`.  The inference file is {"weight": state_dict,
+"config": [18 hparams], "f0", "version", "vocoder", ...} (reference
+train.py:724-744).  Weight-norm is folded at load (w = g * v / ||v||,
+norm over every dim but 0) from either spelling:
   * `{p}.parametrizations.weight.original0/original1`
   * `{p}.weight_g` / `{p}.weight_v`
 Weights stay in torch layout; 1x1 convs become linear (Cout, Cin)
 weights and the resblock convs are packed as `ops/resblock.py` takes
-them.  Only the NSF-HiFiGAN decoder of f0 models is ported.
+them.  Training checkpoints (pretrained G / D, {"model": state_dict})
+load with `load_pretrained_g` (folded, with the posterior encoder) and
+`load_pretrained_d` (live (g, v, b) pairs).  `export_synthesizer_pth`
+writes the inference file back.  Only the NSF-HiFiGAN decoder of f0
+models is ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import hashlib
+from collections import OrderedDict
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from ..config import ModelConfig, model_config_from_ckpt_list
+from ..config import (ModelConfig, RVCConfig, model_config_from_ckpt_list,
+                      model_config_to_ckpt_list)
+from ..models.discriminator import periods_for
 
 Params = Any
 
@@ -146,8 +155,13 @@ def synthesizer_params_from_state_dict(sd: Mapping[str, Any],
     }
     if "dec.cond.weight" in sd:
         dec["cond"] = _conv1x1(sd, "dec.cond")
-    return {"enc_p": enc_p, "flow": {"layers": flow_layers}, "dec": dec,
-            "emb_g": {"w": _f32(sd["emb_g.weight"])}}
+    params = {"enc_p": enc_p, "flow": {"layers": flow_layers}, "dec": dec,
+              "emb_g": {"w": _f32(sd["emb_g.weight"])}}
+    if "enc_q.pre.weight" in sd:        # training checkpoints only
+        params["enc_q"] = {"pre": _conv1x1(sd, "enc_q.pre"),
+                           "enc": _wavenet(sd, "enc_q.enc", n_layers=16),
+                           "proj": _conv1x1(sd, "enc_q.proj")}
+    return params
 
 
 def load_synthesizer_pth(path: str):
@@ -167,3 +181,152 @@ def load_synthesizer_pth(path: str):
     params = synthesizer_params_from_state_dict(sd, cfg)
     meta = {k: v for k, v in cpt.items() if k != "weight"}
     return params, cfg, meta
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints: pretrained G / D (reference train.py:778-794)
+# ---------------------------------------------------------------------------
+
+def _state_dict_of(path: str):
+    cpt = torch.load(path, map_location="cpu", weights_only=False)
+    return cpt["model"] if "model" in cpt else cpt["weight"]
+
+
+def load_pretrained_g(path: str, cfg: ModelConfig) -> Params:
+    """A training checkpoint or pretrained G (with enc_q) -> the port's
+    training tree, weight norm folded."""
+    return synthesizer_params_from_state_dict(_state_dict_of(path), cfg)
+
+
+def _wn_pair(sd, prefix) -> dict:
+    """Live (g, v, b) of a weight-normed conv, in torch layout."""
+    if f"{prefix}.weight_g" in sd:
+        g, v = sd[f"{prefix}.weight_g"], sd[f"{prefix}.weight_v"]
+    else:
+        g = sd[f"{prefix}.parametrizations.weight.original0"]
+        v = sd[f"{prefix}.parametrizations.weight.original1"]
+    return {"g": _f32(g), "v": _f32(v), "b": _f32(sd[f"{prefix}.bias"])}
+
+
+def discriminator_params_from_state_dict(sd, version: str = "v2") -> Params:
+    """A reference MultiPeriodDiscriminator state dict -> the port's tree."""
+    return {"s": {"convs": [_wn_pair(sd, f"discriminators.0.convs.{j}")
+                            for j in range(6)],
+                  "post": _wn_pair(sd, "discriminators.0.conv_post")},
+            "p": [{"convs": [_wn_pair(sd, f"discriminators.{i}.convs.{j}")
+                             for j in range(5)],
+                   "post": _wn_pair(sd, f"discriminators.{i}.conv_post")}
+                  for i in range(1, len(periods_for(version)) + 1)]}
+
+
+def load_pretrained_d(path: str, version: str = "v2") -> Params:
+    return discriminator_params_from_state_dict(_state_dict_of(path), version)
+
+
+# ---------------------------------------------------------------------------
+# export (counterpart of rvc_maker_tpu/interop/torch_export.py)
+# ---------------------------------------------------------------------------
+
+def _cpu(v) -> torch.Tensor:
+    return v.detach().float().cpu()
+
+
+def _emit(sd, prefix, w, b=None, weight_normed: bool = False):
+    """Write one module's tensors.  A weight-normed module gets g = the
+    per-output-channel norm of w and v = w, which give back w exactly."""
+    w = _cpu(w)
+    if weight_normed:
+        sd[f"{prefix}.parametrizations.weight.original0"] = torch.sqrt(
+            torch.sum(torch.square(w), dim=tuple(range(1, w.dim())), keepdim=True))
+        sd[f"{prefix}.parametrizations.weight.original1"] = w
+    else:
+        sd[f"{prefix}.weight"] = w
+    if b is not None:
+        sd[f"{prefix}.bias"] = _cpu(b)
+
+
+def _emit_ln(sd, prefix, p):
+    sd[f"{prefix}.gamma"] = _cpu(p["gamma"])
+    sd[f"{prefix}.beta"] = _cpu(p["beta"])
+
+
+def _emit_1x1(sd, prefix, p, weight_normed: bool = False):
+    _emit(sd, prefix, p["w"][:, :, None], p.get("b"), weight_normed)
+
+
+def _emit_wavenet(sd, prefix, p):
+    for i, lp in enumerate(p["in_layers"]):
+        _emit(sd, f"{prefix}.in_layers.{i}", lp["w"], lp["b"], True)
+    for i, lp in enumerate(p["res_skip"]):
+        _emit_1x1(sd, f"{prefix}.res_skip_layers.{i}", lp, True)
+    if "cond" in p:
+        _emit_1x1(sd, f"{prefix}.cond_layer", p["cond"], True)
+
+
+def synthesizer_state_dict(params: Params) -> "OrderedDict[str, torch.Tensor]":
+    """The port's tree -> a reference Synthesizer state dict (fp32, CPU),
+    without the posterior encoder."""
+    sd: OrderedDict = OrderedDict()
+    enc_p = params["enc_p"]
+    _emit(sd, "enc_p.emb_phone", enc_p["emb_phone"]["w"], enc_p["emb_phone"]["b"])
+    sd["enc_p.emb_pitch.weight"] = _cpu(enc_p["emb_pitch"]["w"])
+    for i, lp in enumerate(enc_p["encoder"]["layers"]):
+        ap = f"enc_p.encoder.attn_layers.{i}"
+        for k in ("q", "k", "v", "o"):
+            _emit_1x1(sd, f"{ap}.conv_{k}", lp["attn"][k])
+        for k in ("emb_rel_k", "emb_rel_v"):
+            sd[f"{ap}.{k}"] = _cpu(lp["attn"][k])
+        _emit_ln(sd, f"enc_p.encoder.norm_layers_1.{i}", lp["norm1"])
+        for j in (1, 2):
+            conv = lp["ffn"][f"conv{j}"]
+            _emit(sd, f"enc_p.encoder.ffn_layers.{i}.conv_{j}", conv["w"], conv["b"])
+        _emit_ln(sd, f"enc_p.encoder.norm_layers_2.{i}", lp["norm2"])
+    _emit_1x1(sd, "enc_p.proj", enc_p["proj"])
+    for i, lp in enumerate(params["flow"]["layers"]):
+        fp = f"flow.flows.{2 * i}"
+        _emit_1x1(sd, f"{fp}.pre", lp["pre"])
+        _emit_wavenet(sd, f"{fp}.enc", lp["enc"])
+        _emit_1x1(sd, f"{fp}.post", lp["post"])
+    dec = params["dec"]
+    _emit(sd, "dec.conv_pre", dec["conv_pre"]["w"], dec["conv_pre"]["b"])
+    for i, lp in enumerate(dec["ups"]):
+        _emit(sd, f"dec.ups.{i}", lp["w"], lp["b"], True)
+    for i, lp in enumerate(dec["noise_convs"]):
+        _emit(sd, f"dec.noise_convs.{i}", lp["w"], lp["b"])
+    for j, rb in enumerate(dec["resblocks"]):
+        for c in (1, 2):
+            w, b = rb[f"w{c}"], rb[f"b{c}"]
+            for k in range(w.shape[0]):
+                _emit(sd, f"dec.resblocks.{j}.convs{c}.{k}", w[k].permute(2, 1, 0),
+                      b[k], True)
+    _emit(sd, "dec.m_source.l_linear", dec["source"]["l_linear"]["w"],
+          dec["source"]["l_linear"]["b"])
+    _emit(sd, "dec.conv_post", dec["conv_post"]["w"])
+    if "cond" in dec:
+        _emit_1x1(sd, "dec.cond", dec["cond"])
+    sd["emb_g.weight"] = _cpu(params["emb_g"]["w"])
+    return sd
+
+
+def export_synthesizer_pth(params: Params, cfg: RVCConfig, path: str, *,
+                           epoch: int = 0, step: int = 0, author: str = "") -> None:
+    """Write the interchange .pth: fp16 tensors, enc_q stripped, the
+    config list and metadata (reference train.py:724-744)."""
+    sd = synthesizer_state_dict(params)
+    hasher = hashlib.sha256()
+    for k in sorted(sd):
+        hasher.update(k.encode())
+        hasher.update(sd[k].contiguous().numpy().tobytes())
+    torch.save({
+        "weight": OrderedDict((k, v.contiguous().half()) for k, v in sd.items()),
+        "config": model_config_to_ckpt_list(cfg.model),
+        "sr": cfg.model.sr,
+        "f0": int(cfg.model.use_f0),
+        "version": cfg.version,
+        "vocoder": cfg.model.vocoder,
+        "epoch": epoch,
+        "step": step,
+        "author": author,
+        "creation_date": datetime.datetime.now().isoformat(),
+        "model_hash": hasher.hexdigest(),
+    }, path)

@@ -1,12 +1,14 @@
-"""VITS-RVC synthesizer, inference path, in PyTorch.
+"""VITS-RVC synthesizer in PyTorch: inference and the training forward.
 
 Counterpart of `rvc_maker_tpu/models/synthesizer.py` (reference
 synthesizers.py:396-489, residuals.py, modules.py): text encoder with
-windowed relative-position attention, the reverse flow, and the
-NSF-HiFiGAN decoder with its sine source.  Functions over explicit
-parameter dicts of torch tensors (layouts in `ops/nn.py`; weight-norm
-folded at load).  Noise comes in as tensors (`z_noise`, `sine_noise`),
-so a caller holds the random draws.
+windowed relative-position attention, the posterior encoder, the flow
+in both directions, and the NSF-HiFiGAN decoder with its sine source.
+Functions over explicit parameter dicts of torch tensors (layouts in
+`ops/nn.py`; weight-norm folded at load, and the generator trains on
+the folded weights, as the JAX package's does).  Noise comes in as
+tensors (`z_noise`, `sine_noise`, `post_noise`), or is drawn from an
+explicit torch.Generator, so a caller can hold the random draws.
 
 Layouts: the public functions take and return (B, T, C), as the JAX
 package does.  The decoder runs in (B, C, T) inside `generator_nsf`:
@@ -24,7 +26,7 @@ import torch
 from ..config import ModelConfig
 from ..ops.nn import (LRELU_SLOPE, conv1d, conv_transpose1d, embedding,
                       fused_gate, layer_norm, leaky_relu, linear,
-                      sequence_mask)
+                      rand_slice_segments, sequence_mask, slice_segments)
 from ..ops.resblock import fused_resblock
 
 Params = Any
@@ -165,26 +167,41 @@ def wavenet(p: Params, x, x_mask, g, *, kernel_size: int, dilation_rate: int,
     return output * x_mask
 
 
-def _coupling_reverse(p: Params, x, x_mask, g):
-    """Mean-only affine coupling layer, reverse direction."""
+def _coupling(p: Params, x, x_mask, g, *, reverse: bool):
+    """Mean-only affine coupling layer (ResidualCouplingLayer)."""
     half = x.shape[-1] // 2
     x0, x1 = x[..., :half], x[..., half:]
     h = linear(x0, p["pre"]["w"], p["pre"]["b"]) * x_mask
     h = wavenet(p["enc"], h, x_mask, g, kernel_size=5, dilation_rate=1,
                 n_layers=3)
     m = linear(h, p["post"]["w"], p["post"]["b"]) * x_mask
-    return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
+    x1 = (x1 - m) * x_mask if reverse else m + x1 * x_mask
+    return torch.cat([x0, x1], dim=-1)
 
 
 def flow(p: Params, x, x_mask, g, *, reverse: bool = True):
-    """4 couplings interleaved with channel flips; inference runs it in
-    reverse only."""
+    """4 couplings interleaved with channel flips (ResidualCouplingBlock):
+    inference runs it in reverse, training forward."""
     if not reverse:
-        raise NotImplementedError("the forward flow belongs to training")
+        for lp in p["layers"]:
+            x = torch.flip(_coupling(lp, x, x_mask, g, reverse=False), dims=[-1])
+        return x
     for lp in reversed(p["layers"]):
-        x = torch.flip(x, dims=[-1])
-        x = _coupling_reverse(lp, x, x_mask, g)
+        x = _coupling(lp, torch.flip(x, dims=[-1]), x_mask, g, reverse=True)
     return x
+
+
+def posterior_encoder(p: Params, y, y_lengths, g, noise):
+    """Reference synthesizers.py:373-394.  y: (B, T, spec_channels);
+    noise: (B, T, inter) standard normal.  Returns (z, m, logs, y_mask)."""
+    y_mask = sequence_mask(y_lengths, y.shape[1]).to(y.dtype)[:, :, None]
+    h = linear(y, p["pre"]["w"], p["pre"]["b"]) * y_mask
+    h = wavenet(p["enc"], h, y_mask, g, kernel_size=5, dilation_rate=1,
+                n_layers=16)
+    stats = linear(h, p["proj"]["w"], p["proj"]["b"]) * y_mask
+    m, logs = torch.chunk(stats, 2, dim=-1)
+    z = (m + noise * torch.exp(logs)) * y_mask
+    return z, m, logs, y_mask
 
 
 # ---------------------------------------------------------------------------
@@ -287,3 +304,40 @@ def infer(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
     z = flow(params["flow"], z_p, x_mask, g, reverse=True)
     o = generator_nsf(params["dec"], cfg, z * x_mask, nsff0, g, sine_noise)
     return o, x_mask, (z, z_p, m_p, logs_p)
+
+
+def train_forward(params: Params, cfg: ModelConfig, phone, phone_lengths,
+                  pitch, pitchf, y, y_lengths, ds, *, post_noise=None,
+                  ids_slice=None, sine_noise=None,
+                  generator: torch.Generator | None = None):
+    """Training path (reference synthesizers.py:434-443), NSF-HiFiGAN
+    decoder of f0 models.
+
+    y: (B, T_spec, spec_channels) linear spectrogram; pitchf: (B, T_spec)
+    Hz.  post_noise (B, T_spec, inter), ids_slice (B,) and sine_noise
+    (B, segment_size * upp, 1) are used when given, else drawn from
+    `generator` in that order.  Returns (y_hat (B, segment_size * upp,
+    1), ids_slice, x_mask, y_mask, (z, z_flowed, m_p, logs_p, m_q,
+    logs_q))."""
+    if not cfg.use_f0 or cfg.vocoder != "Default":
+        raise NotImplementedError(
+            "only the NSF-HiFiGAN decoder of f0 models is ported")
+    g = embedding(params["emb_g"]["w"], ds)[:, None, :]
+    m_p, logs_p, x_mask = text_encoder(params["enc_p"], cfg, phone, pitch,
+                                       phone_lengths)
+    b, t = y.shape[:2]
+    seg = cfg.segment_size
+    if post_noise is None:
+        post_noise = torch.randn((b, t, cfg.inter_channels), generator=generator,
+                                 device=y.device, dtype=y.dtype)
+    z, m_q, logs_q, y_mask = posterior_encoder(params["enc_q"], y, y_lengths, g,
+                                               post_noise)
+    z_slice, ids_slice = rand_slice_segments(z, y_lengths, seg, ids_str=ids_slice,
+                                             generator=generator)
+    pitchf_slice = slice_segments(pitchf, ids_slice, seg)
+    if sine_noise is None:
+        sine_noise = torch.randn((b, seg * cfg.upp, 1), generator=generator,
+                                 device=y.device, dtype=y.dtype)
+    y_hat = generator_nsf(params["dec"], cfg, z_slice, pitchf_slice, g, sine_noise)
+    z_flowed = flow(params["flow"], z, y_mask, g, reverse=False)
+    return y_hat, ids_slice, x_mask, y_mask, (z, z_flowed, m_p, logs_p, m_q, logs_q)

@@ -78,3 +78,43 @@ def interp_nearest_x2(x):
     """Repeat each time step twice: (B, T, C) -> (B, 2T, C), torch
     F.interpolate(scale_factor=2, mode='nearest') on the time axis."""
     return torch.repeat_interleave(x, 2, dim=1)
+
+
+def weight_norm_w(g, v):
+    """Materialize a weight-normalized kernel: w = g * v / ||v||, the norm
+    over every axis but the output channels (axis 0 of torch's conv
+    layouts; torch weight_norm(dim=0)).  The discriminators keep (g, v)
+    live during training."""
+    norm = torch.sqrt(torch.sum(torch.square(v), dim=tuple(range(1, v.dim())),
+                                keepdim=True))
+    return g * v / norm
+
+
+def slice_segments(x, ids_str, segment_size: int):
+    """Per-sample time slices x[b, s_b : s_b + segment_size].
+
+    x: (B, T, ...); ids_str: (B,) start indices.  A start is taken as
+    jax.lax.dynamic_slice_in_dim takes it: a negative one counts from
+    the end (+T), then it is clamped to [0, T - segment_size], so padded
+    batches whose lengths are near or below segment_size never read past
+    the end.  Reference commons.py:14-25."""
+    t = x.shape[1]
+    start = ids_str.to(torch.int64)
+    start = torch.clamp(torch.where(start < 0, start + t, start), 0, t - segment_size)
+    idx = start[:, None] + torch.arange(segment_size, device=x.device)[None, :]
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx]
+
+
+def rand_slice_segments(x, x_lengths, segment_size: int, *, ids_str=None,
+                        generator: torch.Generator | None = None):
+    """Random per-sample slices for training (reference commons.py:27-33).
+
+    The start ids are `ids_str` when given, else
+    int(u * (length - segment_size + 1)) with u ~ U[0, 1) drawn from
+    `generator`.  Returns (slices, ids_str)."""
+    if ids_str is None:
+        u = torch.rand(x.shape[0], generator=generator, device=x.device)
+        ids_str = (u * (x_lengths - segment_size + 1)).to(torch.int32)
+    ids_str = torch.as_tensor(ids_str, device=x.device)
+    return slice_segments(x, ids_str, segment_size), ids_str

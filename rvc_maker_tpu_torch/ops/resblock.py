@@ -15,6 +15,16 @@ Layout: x is (B, C, T), torch's conv layout, used for the whole decode.
 Weights are packed once at load as (D, k, C_in, C_out) (the JAX
 package's (k, C_in, C_out) per conv, stacked over the D dilations) and
 biases as (D, C), so each kernel step reads one contiguous slab.
+
+Gradients: `fused_resblock` is a torch.autograd.Function.  Its forward
+(the kernel on the card, the plain steps on the CPU) keeps the D step
+inputs x_0..x_{D-1}, which are the kernel's own per-step outputs, so
+saving them costs nothing extra.  Its backward recomputes each step's
+branch conv2(lrelu(conv1(lrelu(x_i)))) in PyTorch ops, in reverse, and
+differentiates it with torch.autograd.grad: the same code on both
+devices, so the CPU tests cover it.  The TPU kernel has no backward
+kernel (the JAX package trains through the plain `_resblock`), so the
+backward is not a kernel here either.
 """
 
 from __future__ import annotations
@@ -36,16 +46,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 resblock_launches = 0
 
 
+def _branch(x, w1, b1, w2, b2, k: int, d: int):
+    """One dilation step's residual branch; w (k, C_in, C_out); b (C,)."""
+    y = F.leaky_relu(x, LRELU_SLOPE)
+    y = F.conv1d(y, w1.permute(2, 1, 0), b1, dilation=d, padding=(k * d - d) // 2)
+    y = F.leaky_relu(y, LRELU_SLOPE)
+    return F.conv1d(y, w2.permute(2, 1, 0), b2, padding=(k - 1) // 2)
+
+
 def _resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
     """Plain eager version: x (B, C, T); w (D, k, C_in, C_out); b (D, C)."""
-    k = kernel_size
     for i, d in enumerate(dilations):
-        y = F.leaky_relu(x, LRELU_SLOPE)
-        y = F.conv1d(y, w1[i].permute(2, 1, 0), b1[i], dilation=d,
-                     padding=(k * d - d) // 2)
-        y = F.leaky_relu(y, LRELU_SLOPE)
-        y = F.conv1d(y, w2[i].permute(2, 1, 0), b2[i], padding=(k - 1) // 2)
-        x = x + y
+        x = x + _branch(x, w1[i], b1[i], w2[i], b2[i], kernel_size, d)
     return x
 
 
@@ -94,13 +106,17 @@ def smem_bytes(channels: int, kernel_size: int, dilation: int,
                                                   _DTYPE_CODE[dtype]))
 
 
-def fused_resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
-    """One resblock.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (once per dilation) or raises."""
+def _forward_steps(x, w1, b1, w2, b2, kernel_size: int, dilations):
+    """[x_0, ..., x_D]: the input and each dilation step's output.  A CPU
+    tensor takes the plain steps; a CUDA tensor launches the kernel once
+    per step or raises."""
     global resblock_launches
+    xs = [x]
     if x.device.type == "cpu":
-        return _resblock(x, w1, b1, w2, b2, kernel_size=kernel_size,
-                         dilations=dilations)
+        for i, d in enumerate(dilations):
+            xs.append(xs[-1] + _branch(xs[-1], w1[i], b1[i], w2[i], b2[i],
+                                       kernel_size, d))
+        return xs
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check(x, w1, b1, w2, b2, kernel_size, dilations)
@@ -111,15 +127,47 @@ def fused_resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
         for i, d in enumerate(dilations):
             out = torch.empty_like(x)
             rc = lib.rvc_resblock_step(
-                x.data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
+                xs[-1].data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
                 w2[i].data_ptr(), b2[i].data_ptr(), b, c, t, kernel_size,
                 int(d), _DTYPE_CODE[x.dtype], stream)
             if rc != 0:
                 raise RuntimeError(f"resblock kernel launch failed: "
                                    f"{build.error_string(lib, rc)} (code {rc})")
             resblock_launches += 1
-            x = out
-    return x
+            xs.append(out)
+    return xs
+
+
+class _FusedResblock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, kernel_size, dilations):
+        xs = _forward_steps(x, w1, b1, w2, b2, kernel_size, dilations)
+        ctx.kernel_size, ctx.dilations = kernel_size, dilations
+        ctx.save_for_backward(w1, b1, w2, b2, *xs[:-1])
+        return xs[-1]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        w1, b1, w2, b2, *xs = ctx.saved_tensors
+        grads = [torch.zeros_like(v) for v in (w1, b1, w2, b2)]
+        with torch.enable_grad():
+            for i in reversed(range(len(ctx.dilations))):
+                ins = [v.detach().requires_grad_(True)
+                       for v in (xs[i], w1[i], b1[i], w2[i], b2[i])]
+                y = _branch(*ins, ctx.kernel_size, ctx.dilations[i])
+                g_x, *g_w = torch.autograd.grad(y, ins, grad)
+                for acc, g in zip(grads, g_w):
+                    acc[i] = g
+                grad = grad + g_x
+        return (grad, *grads, None, None)
+
+
+def fused_resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
+    """One resblock, differentiable in x and the packed weights.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (once per dilation) or raises."""
+    return _FusedResblock.apply(x, w1, b1, w2, b2, kernel_size, tuple(dilations))
 
 
 def resblock_flops(batch: int, length: int, channels: int, kernel_size: int,

@@ -1,5 +1,6 @@
-"""STFT and the RMVPE mel front end (counterpart of
-`rvc_maker_tpu/ops/stft.py`; reference RMVPE.py:146-181).
+"""STFT, the RMVPE mel front end and the training spectrograms
+(counterpart of `rvc_maker_tpu/ops/stft.py`; reference RMVPE.py:146-181,
+train.py:700-716).
 
 The mel filterbank reproduces librosa.filters.mel numerics (triangular
 filters, slaney area norm) from the published formulas.  The STFT runs
@@ -66,8 +67,9 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
 
 
 def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
-                   window, center: bool = False):
-    """|STFT| as torch.stft(onesided, return_complex).abs().
+                   window, center: bool = False, eps: float = 0.0):
+    """|STFT| as torch.stft(onesided, return_complex).abs(), computed as
+    sqrt(re^2 + im^2 + eps).
 
     y: (B, L); window: (win_length,) numpy, zero-padded to n_fft
     centered.  center=True reflect-pads n_fft//2 on both sides.
@@ -82,7 +84,39 @@ def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
         win = np.pad(win, (lpad, n_fft - win_length - lpad))
     frames = y.unfold(-1, n_fft, hop_length) * torch.as_tensor(win, device=y.device)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
-    return torch.sqrt(spec.real.square() + spec.imag.square())
+    return torch.sqrt(spec.real.square() + spec.imag.square() + eps)
+
+
+def spectrogram(y, *, n_fft: int, hop_length: int, win_length: int):
+    """Training linear spectrogram (reference train.py:700-706).
+
+    y: (B, L).  Reflect-pads (n_fft - hop) / 2 on both sides, center=False,
+    eps 1e-6.  Returns (B, L // hop, n_fft//2 + 1) when hop divides L."""
+    p = int((n_fft - hop_length) / 2)
+    y = F.pad(y.to(torch.float32)[:, None], (p, p), mode="reflect")[:, 0]
+    return stft_magnitude(y, n_fft=n_fft, hop_length=hop_length,
+                          win_length=win_length, window=hann_window(win_length),
+                          center=False, eps=1e-6)
+
+
+def spec_to_mel(spec, *, n_fft: int, n_mels: int, sample_rate: int,
+                fmin: float, fmax: float | None):
+    """(B, T, n_fft//2 + 1) -> (B, T, n_mels) log-mel (slaney filters;
+    reference train.py:708-713)."""
+    basis = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax,
+                                           htk=False), device=spec.device)
+    mel = torch.matmul(spec, basis.T)
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def mel_spectrogram(y, *, n_fft: int, num_mels: int, sample_rate: int,
+                    hop_length: int, win_length: int, fmin: float,
+                    fmax: float | None):
+    """Log-mel of a waveform (reference mel_spectrogram_torch, train.py:715)."""
+    spec = spectrogram(y, n_fft=n_fft, hop_length=hop_length,
+                       win_length=win_length)
+    return spec_to_mel(spec, n_fft=n_fft, n_mels=num_mels,
+                       sample_rate=sample_rate, fmin=fmin, fmax=fmax)
 
 
 def rmvpe_mel(audio_16k, *, n_mels: int = 128, n_fft: int = 1024,

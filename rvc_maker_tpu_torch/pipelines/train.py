@@ -1,0 +1,251 @@
+"""GAN training step in PyTorch.
+
+Counterpart of `rvc_maker_tpu/pipelines/train.py` (reference
+train.py:746-986): per batch a D step, then a G step against the
+updated D; AdamW(0.8, 0.99, eps 1e-9, weight decay 0.01), the learning
+rate decayed 0.999875 per epoch; G loss = LSGAN adversarial + 2x
+feature matching + 45x mel L1 + 1x KL.
+
+The step keeps the JAX package's shared-forward structure: ONE generator
+forward; the D step on y_hat.detach(); the G loss against the updated D;
+ONE backward through the generator.  The state is updated in place
+(parameters, AdamW moments, step), the PyTorch idiom, where the JAX step
+returns a new state.  Noise (the posterior noise, the slice ids, the
+sine-source noise) comes in explicitly or is drawn from the state's
+torch.Generator, whose state a checkpoint keeps for an exact resume.
+
+Each part of the step runs under a torch.profiler range: train.g_forward,
+train.d_step, train.g_loss, train.g_backward, train.optim.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..config import RVCConfig
+from ..interop import from_jax
+from ..models import discriminator as disc
+from ..models import synthesizer as syn
+from ..ops.nn import slice_segments
+from ..ops.stft import mel_spectrogram, spec_to_mel
+
+def tree_leaves(tree) -> list:
+    """Tensors of a nested dict/list tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+@dataclasses.dataclass(frozen=True)
+class Batch:
+    """One padded training batch (reference bucketed collate, train.py:
+    541-606): numpy arrays from `data.batches_for_epoch`, or tensors."""
+    phone: Any          # (B, T, emb_dim), features repeated x2 in time
+    phone_lengths: Any  # (B,)
+    pitch: Any          # (B, T) int coarse f0
+    pitchf: Any         # (B, T) Hz
+    spec: Any           # (B, T, spec_channels)
+    spec_lengths: Any   # (B,)
+    wave: Any           # (B, T * hop, 1)
+    sid: Any            # (B,)
+
+    def to(self, device) -> "Batch":
+        def conv(a, dtype):
+            return torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                                   else a, device=device, dtype=dtype)
+        f, i = torch.float32, torch.int64
+        return Batch(phone=conv(self.phone, f), phone_lengths=conv(self.phone_lengths, i),
+                     pitch=conv(self.pitch, i), pitchf=conv(self.pitchf, f),
+                     spec=conv(self.spec, f), spec_lengths=conv(self.spec_lengths, i),
+                     wave=conv(self.wave, f), sid=conv(self.sid, i))
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params_g: Any
+    params_d: Any
+    opt_g: torch.optim.AdamW
+    opt_d: torch.optim.AdamW
+    lr: float                     # current learning rate (decayed per epoch)
+    generator: torch.Generator    # draws the step's noise when none is given
+
+
+def make_optimizer(params, cfg: RVCConfig) -> torch.optim.AdamW:
+    """torch.optim.AdamW with weight decay 0.01: the decoupled decay of
+    optax.adamw, which the JAX package uses."""
+    t = cfg.train
+    return torch.optim.AdamW(tree_leaves(params), lr=t.learning_rate, betas=t.betas,
+                             eps=t.eps, weight_decay=0.01)
+
+
+def _trainable(tree, device: torch.device):
+    """A copy of a param tree on `device` in fp32, every tensor a fresh
+    leaf that requires grad (the caller's tree is left as it was)."""
+    if isinstance(tree, dict):
+        return {k: _trainable(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_trainable(v, device) for v in tree)
+    return tree.detach().to(device=device, dtype=torch.float32,
+                            copy=True).requires_grad_(True)
+
+
+def init_state(cfg: RVCConfig, params_g=None, params_d=None, *,
+               device: torch.device | str = "cpu", disc_width_div: int = 1,
+               seed: Optional[int] = None) -> TrainState:
+    """A fresh training state on `device`.  params_g / params_d are the
+    port's trees (generator with `enc_q`); absent ones are drawn from
+    `seed` (default cfg.train.seed) like the JAX package's init."""
+    seed = cfg.train.seed if seed is None else seed
+    if params_g is None:
+        params_g = from_jax.synthesizer_from_jax(
+            from_jax.random_synthesizer_tree(cfg.model, seed), cfg.model, train=True)
+    if params_d is None:
+        params_d = from_jax.discriminator_from_jax(
+            from_jax.random_discriminator_tree(cfg.version, disc_width_div, seed + 1))
+    device = torch.device(device)
+    trees = [_trainable(tree, device) for tree in (params_g, params_d)]
+    return TrainState(step=0, params_g=trees[0], params_d=trees[1],
+                      opt_g=make_optimizer(trees[0], cfg),
+                      opt_d=make_optimizer(trees[1], cfg),
+                      lr=cfg.train.learning_rate,
+                      generator=torch.Generator(device=device).manual_seed(seed + 777))
+
+
+def decay_lr(state: TrainState, cfg: RVCConfig) -> None:
+    """Per-epoch exponential decay (reference train.py:796)."""
+    state.lr = state.lr * cfg.train.lr_decay
+
+
+def _global_norm(grads):
+    return torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+
+
+def _apply(opt: torch.optim.AdamW, leaves, grads, lr: float) -> None:
+    for leaf, g in zip(leaves, grads):
+        leaf.grad = g
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    for leaf in leaves:
+        leaf.grad = None
+
+
+class RangeTimer:
+    """CUDA events at the edges of each training range, on the current
+    stream: device milliseconds per range, including the backward that
+    autograd runs on its own thread, which a torch.profiler range on the
+    calling thread does not hold.  A range's device span counts the time
+    the device waits for the host inside it; the host clock per range is
+    kept beside it."""
+
+    def __init__(self):
+        self.events: list[tuple[str, Any, Any, float]] = []
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        yield
+        end.record()
+        self.events.append((name, start, end, 1e3 * (time.perf_counter() - t0)))
+
+    def ms(self) -> tuple[dict, dict]:
+        """(device ms, host ms) per range name."""
+        torch.cuda.synchronize()
+        device: dict = {}
+        host: dict = {}
+        for name, start, end, host_ms in self.events:
+            device[name] = device.get(name, 0.0) + start.elapsed_time(end)
+            host[name] = host.get(name, 0.0) + host_ms
+        return device, host
+
+
+def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
+    """Returns train_step(state, batch, *, noise=None, timer=None,
+    keep_grads=False) -> metrics, which updates `state` in place.
+
+    batch: a Batch of tensors on the state's device.  noise: optional
+    dict with post_noise, ids_slice, sine_noise (see
+    synthesizer.train_forward).  timer: a RangeTimer.  keep_grads adds
+    the gradient lists `grads_g` and `grads_d` (in tree_leaves order) to
+    the metrics."""
+    mcfg, dcfg, tcfg = cfg.model, cfg.data, cfg.train
+    seg_frames = tcfg.segment_size // dcfg.hop_length
+    periods = disc.periods_for(cfg.version)
+
+    def train_step(state: TrainState, batch: Batch, *, noise: Optional[dict] = None,
+                   timer: Optional[RangeTimer] = None, keep_grads: bool = False):
+        leaves_g = tree_leaves(state.params_g)
+        leaves_d = tree_leaves(state.params_d)
+        noise = noise or {}
+        with _range("train.g_forward", timer):
+            y_hat, ids_slice, _, y_mask, latents = syn.train_forward(
+                state.params_g, mcfg, batch.phone, batch.phone_lengths, batch.pitch,
+                batch.pitchf, batch.spec, batch.spec_lengths, batch.sid,
+                post_noise=noise.get("post_noise"), ids_slice=noise.get("ids_slice"),
+                sine_noise=noise.get("sine_noise"), generator=state.generator)
+            wave_slice = slice_segments(batch.wave, ids_slice * dcfg.hop_length,
+                                        tcfg.segment_size)
+
+        with _range("train.d_step", timer):
+            y_d_r, y_d_g, _, _ = disc.mpd_apply(state.params_d, wave_slice,
+                                                y_hat.detach(), periods, disc_width_div)
+            loss_d, _, _ = disc.discriminator_loss(y_d_r, y_d_g)
+            grads_d = torch.autograd.grad(loss_d, leaves_d)
+            _apply(state.opt_d, leaves_d, grads_d, state.lr)
+
+        with _range("train.g_loss", timer):
+            _, z_p, m_p, logs_p, m_q, logs_q = latents
+            mel = spec_to_mel(batch.spec, n_fft=dcfg.filter_length,
+                              n_mels=dcfg.n_mel_channels, sample_rate=dcfg.sample_rate,
+                              fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
+            y_mel = slice_segments(mel, ids_slice, seg_frames)
+            y_hat_mel = mel_spectrogram(
+                y_hat[:, :, 0], n_fft=dcfg.filter_length, num_mels=dcfg.n_mel_channels,
+                sample_rate=dcfg.sample_rate, hop_length=dcfg.hop_length,
+                win_length=dcfg.win_length, fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
+            _, y_d_g, fmap_r, fmap_g = disc.mpd_apply(state.params_d, wave_slice, y_hat,
+                                                      periods, disc_width_div)
+            loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * tcfg.c_mel
+            loss_kl = disc.kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * tcfg.c_kl
+            loss_fm = disc.feature_loss(fmap_r, fmap_g)
+            loss_adv, _ = disc.generator_loss(y_d_g)
+            loss_g = loss_adv + loss_fm + loss_mel + loss_kl
+
+        with _range("train.g_backward", timer):
+            grads_g = torch.autograd.grad(loss_g, leaves_g)
+
+        with _range("train.optim", timer):
+            _apply(state.opt_g, leaves_g, grads_g, state.lr)
+            metrics = dict(
+                loss_g=loss_g.detach(), loss_d=loss_d.detach(),
+                loss_mel=loss_mel.detach(), loss_kl=loss_kl.detach(),
+                loss_fm=loss_fm.detach(), loss_adv=loss_adv.detach(),
+                grad_norm_g=_global_norm(grads_g), grad_norm_d=_global_norm(grads_d),
+                lr=state.lr)
+        state.step += 1
+        if keep_grads:
+            metrics.update(grads_g=list(grads_g), grads_d=list(grads_d))
+        return metrics
+
+    return train_step
+
+
+@contextlib.contextmanager
+def _range(name: str, timer: Optional[RangeTimer]):
+    """A torch.profiler range, timed by `timer` when one is given."""
+    with record_function(name), (timer(name) if timer is not None
+                                 else contextlib.nullcontext()):
+        yield

@@ -1,0 +1,229 @@
+"""Epoch loop, checkpoint / exact resume, and inference-weight export.
+
+Counterpart of `rvc_maker_tpu/pipelines/train_loop.py` (reference
+train.py run / train_and_evaluate), on one device: per-epoch learning
+rate decay, a `ckpt_latest.pt` checkpoint (and `ckpt_e{N}.pt` unless
+save_only_latest), the interchange `.pth` exported at save epochs, the
+overtraining detector on EMA-smoothed losses with its JSON, metrics
+logged every `log_interval` steps.  SIGTERM saves and stops.
+
+The checkpoint holds G, D, both AdamW states, the step, the learning
+rate and the state of the generator that draws the step noise, so a
+resumed run continues exactly where the saved one stopped.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import threading
+import time
+from typing import Callable, Optional
+
+import torch
+
+from ..config import RVCConfig
+from ..device import resolve_device
+from ..interop.pth import export_synthesizer_pth, load_pretrained_d, load_pretrained_g
+from . import data as data_mod
+from . import train as train_mod
+
+logger = logging.getLogger(__name__)
+
+LATEST = "ckpt_latest.pt"
+
+
+def save_checkpoint(state: train_mod.TrainState, path: str, *, epoch: int = 0) -> None:
+    torch.save({"epoch": epoch, "step": state.step, "lr": state.lr,
+                "params_g": state.params_g, "params_d": state.params_d,
+                "opt_g": state.opt_g.state_dict(), "opt_d": state.opt_d.state_dict(),
+                "generator": state.generator.get_state()}, path)
+
+
+def load_checkpoint(path: str, state: train_mod.TrainState) -> int:
+    """Restore a checkpoint into `state` (same config and device) in
+    place.  Returns the epoch it was saved at."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    with torch.no_grad():
+        for key in ("params_g", "params_d"):
+            for dst, src in zip(train_mod.tree_leaves(getattr(state, key)),
+                                train_mod.tree_leaves(ckpt[key]), strict=True):
+                dst.copy_(src)
+    state.opt_g.load_state_dict(ckpt["opt_g"])
+    state.opt_d.load_state_dict(ckpt["opt_d"])
+    state.step, state.lr = int(ckpt["step"]), float(ckpt["lr"])
+    state.generator.set_state(ckpt["generator"])
+    return int(ckpt["epoch"])
+
+
+class OvertrainingDetector:
+    """EMA-smoothed generator and discriminator loss watcher with JSON
+    persistence (reference train.py:899-953).  The discriminator has
+    twice the generator's window and a tighter epsilon (0.004 vs 0.01);
+    training stops when either side's count of consecutive flagged
+    epochs reaches its window."""
+
+    def __init__(self, threshold_g: int = 50, smoothing: float = 0.987):
+        self.smoothing = smoothing
+        self.threshold_g = threshold_g
+        self.loss_gen_history: list[float] = []
+        self.smoothed_gen: list[float] = []
+        self.loss_disc_history: list[float] = []
+        self.smoothed_disc: list[float] = []
+        self.consecutive_gen = 0
+        self.consecutive_disc = 0
+
+    @staticmethod
+    def _check(history: list[float], threshold: int, epsilon: float) -> bool:
+        """Any uptick in the window -> overtraining; any real improvement
+        -> fine; a flat window -> overtraining (train.py:899-904)."""
+        if len(history) < threshold + 1:
+            return False
+        for i in range(-threshold, -1):
+            if history[i + 1] > history[i]:
+                return True
+            if abs(history[i + 1] - history[i]) >= epsilon:
+                return False
+        return True
+
+    def _ema(self, history: list[float], new_value: float) -> float:
+        s = (new_value if not history
+             else self.smoothing * history[-1] + (1 - self.smoothing) * new_value)
+        history.append(s)
+        return s
+
+    def update(self, loss_g: float, loss_d: float) -> bool:
+        self.loss_gen_history.append(float(loss_g))
+        self._ema(self.smoothed_gen, float(loss_g))
+        self.loss_disc_history.append(float(loss_d))
+        self._ema(self.smoothed_disc, float(loss_d))
+        self.consecutive_gen = (self.consecutive_gen + 1 if self._check(
+            self.smoothed_gen, self.threshold_g, 0.01) else 0)
+        self.consecutive_disc = (self.consecutive_disc + 1 if self._check(
+            self.smoothed_disc, self.threshold_g * 2, 0.004) else 0)
+        return (self.consecutive_gen == self.threshold_g
+                or self.consecutive_disc == self.threshold_g * 2)
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({"loss_disc_history": self.loss_disc_history,
+                       "smoothed_loss_disc_history": self.smoothed_disc,
+                       "loss_gen_history": self.loss_gen_history,
+                       "smoothed_loss_gen_history": self.smoothed_gen}, f)
+
+    def load_json(self, path: str) -> None:
+        if not os.path.isfile(path):
+            return
+        with open(path) as f:
+            d = json.load(f)
+        self.loss_disc_history = list(d.get("loss_disc_history", []))
+        self.smoothed_disc = list(d.get("smoothed_loss_disc_history", []))
+        self.loss_gen_history = list(d.get("loss_gen_history", []))
+        self.smoothed_gen = list(d.get("smoothed_loss_gen_history", []))
+
+
+def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 8,
+          save_every_epoch: int = 5, save_only_latest: bool = True,
+          pretrain_g: str = "", pretrain_d: str = "", author: str = "",
+          model_name: str = "", overtraining_detector: bool = True,
+          overtraining_threshold: int = 50, save_every_weights: bool = True,
+          cache_data: bool = False, cleanup: bool = False,
+          log_writer: Optional[Callable[[int, dict], None]] = None,
+          device: str | torch.device = "cuda",
+          disc_width_div: int = 1) -> train_mod.TrainState:
+    """Train from the experiment dir (expects filelist.txt).
+
+    pretrain_g / pretrain_d: reference-format pretrained checkpoints,
+    the initialization when no checkpoint exists to resume (reference
+    train.py:778-794); otherwise the weights are drawn from
+    cfg.train.seed.  author / model_name go into the exported weights;
+    save_every_weights=False exports them only at the end.
+    log_writer(step, metrics) is called every cfg.train.log_interval
+    steps.  device="cuda" raises without a card."""
+    dev = resolve_device(device)
+    if cleanup:
+        for f in os.listdir(exp_dir) if os.path.isdir(exp_dir) else []:
+            if f.startswith("ckpt_") or f.endswith("s.pth"):
+                os.remove(os.path.join(exp_dir, f))
+
+    dataset = data_mod.TrainingDataset(os.path.join(exp_dir, "filelist.txt"), cfg,
+                                       cache_in_memory=cache_data)
+    logger.info("dataset: %d rows; device %s", len(dataset), dev)
+
+    latest = os.path.join(exp_dir, LATEST)
+    resume = os.path.isfile(latest)
+    params_g = (load_pretrained_g(pretrain_g, cfg.model)
+                if pretrain_g and not resume else None)
+    params_d = (load_pretrained_d(pretrain_d, cfg.version)
+                if pretrain_d and not resume else None)
+    state = train_mod.init_state(cfg, params_g, params_d, device=dev,
+                                 disc_width_div=disc_width_div)
+    start_epoch = 1
+    if resume:
+        start_epoch = load_checkpoint(latest, state) + 1
+        logger.info("resumed from %s at step %d (epoch %d)", latest, state.step,
+                    start_epoch - 1)
+
+    step_fn = train_mod.make_train_step(cfg, disc_width_div)
+    detector = OvertrainingDetector(threshold_g=overtraining_threshold)
+    training_json = os.path.join(exp_dir, "training_data.json")
+    detector.load_json(training_json)
+
+    stop = {"now": False}
+
+    def _sigterm(signum, frame):
+        logger.warning("SIGTERM: saving a checkpoint and stopping")
+        stop["now"] = True
+
+    # signal.signal raises off the main thread; only the main thread
+    # registers the handler
+    on_main = threading.current_thread() is threading.main_thread()
+    old_handler = signal.signal(signal.SIGTERM, _sigterm) if on_main else None
+    try:
+        for epoch in range(start_epoch, total_epochs + 1):
+            t0 = time.time()
+            n_batches = 0
+            metrics = None
+            for batch in data_mod.batches_for_epoch(dataset, batch_size=batch_size,
+                                                    epoch=epoch, seed=cfg.train.seed):
+                metrics = step_fn(state, batch.to(dev))
+                n_batches += 1
+                if state.step % cfg.train.log_interval == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    logger.info("epoch %d step %d: %s", epoch, state.step,
+                                {k: round(v, 4) for k, v in m.items()})
+                    if log_writer is not None:
+                        log_writer(state.step, m)
+                if stop["now"]:
+                    break
+            train_mod.decay_lr(state, cfg)
+            loss_g = float(metrics["loss_g"]) if n_batches else 0.0
+            loss_d = float(metrics["loss_d"]) if n_batches else 0.0
+            if overtraining_detector and epoch > 1 and detector.update(loss_g, loss_d):
+                logger.warning("overtraining at epoch %d (smoothed loss_g %.3f, "
+                               "loss_d %.3f): saving and stopping", epoch,
+                               detector.smoothed_gen[-1], detector.smoothed_disc[-1])
+                stop["now"] = True
+            if overtraining_detector:
+                detector.save_json(training_json)
+            logger.info("epoch %d done (%d batches, %.1f s) loss_g %.4f loss_d %.4f",
+                        epoch, n_batches, time.time() - t0, loss_g, loss_d)
+            if epoch % save_every_epoch == 0 or stop["now"] or epoch == total_epochs:
+                save_checkpoint(state, latest, epoch=epoch)
+                if not save_only_latest:
+                    save_checkpoint(state, os.path.join(exp_dir, f"ckpt_e{epoch}.pt"),
+                                    epoch=epoch)
+                if save_every_weights or epoch == total_epochs or stop["now"]:
+                    name = model_name or os.path.basename(os.path.normpath(exp_dir))
+                    export_synthesizer_pth(
+                        state.params_g, cfg,
+                        os.path.join(exp_dir, f"{name}_{epoch}e_{state.step}s.pth"),
+                        epoch=epoch, step=state.step, author=author)
+            if stop["now"]:
+                break
+    finally:
+        if on_main:
+            signal.signal(signal.SIGTERM, old_handler)
+    return state

@@ -46,7 +46,14 @@ def load_audio(path: str, target_sr: int = 16000) -> np.ndarray:
     return resample(audio, sr, target_sr)
 
 
-def save_wav(path: str, audio: np.ndarray, sr: int) -> None:
-    """Write 16-bit PCM, clipped to [-1, 1]."""
-    clipped = np.clip(np.asarray(audio), -1.0, 1.0)
-    wavfile.write(path, sr, (clipped * 32767.0).astype(np.int16))
+def save_wav(path: str, audio: np.ndarray, sr: int, subtype: str = "pcm16") -> None:
+    """Write 16-bit PCM clipped to [-1, 1] (subtype "pcm16"), or float32
+    as it is (subtype "float32", the training data's format)."""
+    audio = np.asarray(audio)
+    if subtype == "pcm16":
+        clipped = np.clip(audio, -1.0, 1.0)
+        wavfile.write(path, sr, (clipped * 32767.0).astype(np.int16))
+    elif subtype == "float32":
+        wavfile.write(path, sr, audio.astype(np.float32))
+    else:
+        raise ValueError(f"unknown subtype {subtype!r}")

@@ -17,7 +17,8 @@ from rvc_maker_tpu_torch.config import ModelConfig
 from rvc_maker_tpu_torch.interop import from_jax
 from rvc_maker_tpu_torch.ops import resblock as trb
 from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
-from torch_port_util import n, packed_resblock, resblock_params, resblock_x, t
+from torch_port_util import (assert_grads_close, n, packed_resblock, resblock_params,
+                             resblock_x, t)
 
 
 @pytest.fixture
@@ -105,3 +106,69 @@ def test_pipeline_card_matches_cpu(cuda):
         outs[dev] = n(wav)
     err = np.abs(outs["cuda"] - outs["cpu"]).max()
     assert np.isfinite(outs["cuda"]).all() and err <= 1e-3, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_kernel_autograd_matches_plain_on_card(cuda, k):
+    """fused_resblock on a CUDA tensor that requires grad returns a
+    tensor with a grad_fn; its gradients in x and the packed weights
+    match torch.autograd through the plain chain."""
+    dils, C, T = (1, 3, 5), 64, 3000
+    p = resblock_params(3 * k, k, C, 3)
+    x = t(resblock_x(T, C)).transpose(1, 2).contiguous().to(cuda)
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(k)).to(cuda)
+    leaves = [v.requires_grad_(True) for v in [x] + [a.to(cuda) for a in packed_resblock(p)]]
+    before = trb.resblock_launches
+    out = trb.fused_resblock(*leaves, kernel_size=k, dilations=dils)
+    assert out.grad_fn is not None and trb.resblock_launches == before + len(dils)
+    got = torch.autograd.grad(out, leaves, cot)
+    ref = torch.autograd.grad(trb._resblock(*leaves, kernel_size=k, dilations=dils),
+                              leaves, cot)
+    for a, r in zip(got, ref):
+        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu(cuda):
+    """One train step of a narrow model (decode C = 128..16, k = 3/7/11)
+    from the same state and explicit noise on the card and on the CPU:
+    each loss term <= 1e-4 relative, each gradient leaf <= 1e-3 x its
+    max |g| (an exact-zero gradient is rounding noise on both)."""
+    from rvc_maker_tpu_torch.config import DataConfig, RVCConfig, TrainConfig
+    from rvc_maker_tpu_torch.pipelines import train as tr
+
+    cfg = RVCConfig(
+        version="v2", train=TrainConfig(segment_size=8 * 64),
+        data=DataConfig(sample_rate=6400, filter_length=256, hop_length=64, win_length=256,
+                        n_mel_channels=32),
+        model=ModelConfig(spec_channels=129, segment_size=8, inter_channels=32,
+                          hidden_channels=32, filter_channels=64, n_heads=2, n_layers=1,
+                          kernel_size=3, upsample_rates=(4, 4, 2, 2),
+                          upsample_initial_channel=256, upsample_kernel_sizes=(8, 8, 4, 4),
+                          spk_embed_dim=4, gin_channels=16, sr=6400, text_enc_hidden_dim=96))
+    rs = np.random.RandomState(1)
+    b, tl = 2, 20
+    lengths = np.array([tl, 12], np.int32)
+    batch = tr.Batch(phone=rs.randn(b, tl, 96).astype(np.float32), phone_lengths=lengths,
+                     pitch=rs.randint(1, 256, (b, tl)),
+                     pitchf=(rs.rand(b, tl) * 200 + 80).astype(np.float32),
+                     spec=np.abs(rs.randn(b, tl, 129)).astype(np.float32),
+                     spec_lengths=lengths, wave=(rs.randn(b, tl * 64, 1) * 0.1).astype(np.float32),
+                     sid=np.array([0, 3]))
+    noise = dict(post_noise=rs.randn(b, tl, 32).astype(np.float32),
+                 ids_slice=np.array([5, 2], np.int32),
+                 sine_noise=rs.randn(b, 8 * 64, 1).astype(np.float32))
+    params_g = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg.model, 2),
+                                             cfg.model, train=True)
+    params_d = from_jax.discriminator_from_jax(from_jax.random_discriminator_tree("v2", 16, 3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = tr.init_state(cfg, params_g, params_d, device=dev, disc_width_div=16)
+        out[dev] = tr.make_train_step(cfg, 16)(
+            state, batch.to(dev), keep_grads=True,
+            noise={k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
+    for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
+        np.testing.assert_allclose(float(out["cuda"][k]), float(out["cpu"][k]), rtol=1e-4)
+    for name in ("grads_g", "grads_d"):
+        assert_grads_close(out["cuda"][name], out["cpu"][name], name)

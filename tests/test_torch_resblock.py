@@ -15,7 +15,7 @@ from rvc_maker_tpu.models.synthesizer import _resblock as jax_resblock
 from rvc_maker_tpu.ops.pallas_resblock import fused_resblock as pallas_resblock
 from rvc_maker_tpu.ops.pallas_resblock import pack_resblock_weights
 from rvc_maker_tpu_torch.ops import resblock as trb
-from torch_port_util import (n, packed_resblock, resblock_params, resblock_x, t,
+from torch_port_util import (n, packed_resblock, resblock_params, resblock_x, t, tree_np,
                              torch_threads)  # noqa: F401
 
 SHAPES = [
@@ -81,3 +81,49 @@ def test_pipeline_on_cuda_raises_without_card():
 
 def test_resblock_flops():
     assert trb.resblock_flops(1, 12000, 256, 11, 3) == 2 * 2 * 3 * 12000 * 11 * 256 * 256
+
+
+@pytest.mark.parametrize("k,dils,C,T", [(3, (1, 3, 5), 16, 120), (7, (1, 3, 5), 32, 90),
+                                        (11, (1, 3, 5), 16, 150)])
+def test_autograd_matches_jax_grad(k, dils, C, T):
+    """Gradients of the port's fused_resblock (its autograd backward) in
+    x and every packed weight and bias, against jax.grad of the JAX
+    `_resblock`: <= 1e-4 x max(1, |ref|max)."""
+    p = resblock_params(k + C, k, C, len(dils))
+    x = resblock_x(T, C)
+    cot = np.random.RandomState(k).randn(*x.shape).astype(np.float32)
+
+    def loss(params, xx):
+        out = jax_resblock(params, xx, kernel_size=k, dilations=dils)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree_util.tree_map(jnp.asarray, p),
+                                            jnp.asarray(x))
+    ref = {"x": n(gx)}
+    ref.update(zip(("w1", "b1", "w2", "b2"), (n(a) for a in packed_resblock(tree_np(gp)))))
+
+    xt = t(x).transpose(1, 2).contiguous().requires_grad_(True)
+    ws = [a.requires_grad_(True) for a in packed_resblock(p)]
+    out = trb.fused_resblock(xt, *ws, kernel_size=k, dilations=dils)
+    assert out.grad_fn is not None
+    out.backward(t(cot).transpose(1, 2))
+    got = {"x": n(xt.grad.transpose(1, 2))}
+    got.update(zip(("w1", "b1", "w2", "b2"), (n(w.grad) for w in ws)))
+    for name, r in ref.items():
+        err = np.abs(got[name] - r).max()
+        assert err <= 1e-4 * max(1.0, np.abs(r).max()), (name, err)
+
+
+def test_autograd_matches_plain_chain_grads():
+    """The recomputing backward equals autograd through the plain chain."""
+    k, dils, C, T = 3, (1, 2), 32, 64
+    p = resblock_params(9, k, C, len(dils))
+    x = t(resblock_x(T, C)).transpose(1, 2).contiguous()
+    grads = []
+    for fn in (trb.fused_resblock, trb._resblock):
+        xi = x.clone().requires_grad_(True)
+        ws = [a.requires_grad_(True) for a in packed_resblock(p)]
+        fn(xi, *ws, kernel_size=k, dilations=dils).square().sum().backward()
+        grads.append([n(v.grad) for v in (xi, *ws)])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)

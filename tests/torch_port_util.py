@@ -19,6 +19,31 @@ def torch_threads():
     torch.set_num_threads(prev)
 
 
+def rel_close(got, ref, rel, what=""):
+    """max |got - ref| <= rel * max(1, |ref|max)."""
+    scale = max(1.0, float(np.abs(np.asarray(ref)).max()))
+    err = float(np.abs(np.asarray(got) - np.asarray(ref)).max())
+    assert err <= rel * scale, (what, err, rel * scale)
+
+
+def assert_grads_close(got, ref, what=""):
+    """Each gradient leaf within 1e-3 x the max |g| of its reference.  A
+    leaf whose exact gradient is zero (the attention key bias: softmax
+    does not see a shift shared by all keys) holds rounding noise on both
+    sides, below 1e-6 x the largest gradient of the tree; there both
+    must stay below that floor."""
+    got, ref = [n(g) for g in got], [n(g) for g in ref]
+    assert len(got) == len(ref), what
+    floor = 1e-6 * max(float(np.abs(r).max()) for r in ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape, (what, i)
+        if np.abs(r).max() < floor:
+            assert np.abs(g).max() < floor, (what, i, r.shape)
+            continue
+        err = float(np.abs(g - r).max())
+        assert err <= 1e-3 * np.abs(r).max(), (what, i, r.shape, err)
+
+
 def t(a, dtype=torch.float32):
     """numpy (or JAX array) -> CPU tensor."""
     return torch.as_tensor(np.array(a), dtype=dtype)
