@@ -6,14 +6,19 @@
 Phases, each printed as it runs; any failure exits non-zero:
   1. device   the card's name and power limit; no card -> exit 1.
   2. build    every kernel of the port from rvc_maker_tpu_torch/csrc/
-              (one nvcc per source, started together), with ptxas's
-              registers / shared memory / spills.
+              (one nvcc per source, started together), with each
+              source's build time and ptxas's registers / spills.
   3. kernels  each kernel against its plain PyTorch version at the
-              shapes the main path gives it (fp32 max abs err <=
-              1e-4 * max(1, |ref|max); bf16 correlation > 0.99), then
-              timed with CUDA events: kernel, plain version, and the
-              library yardstick (a cuDNN F.conv1d chain, never used by
-              the port), beside the least time the card could take.
+              shapes the main path gives it: fp32 through the tensor-core
+              kernel (resblock_tc.cu, the route of every fp32 width) and
+              through the FMA kernel (resblock.cu), each max abs err <=
+              1e-4 * max(1, |ref|max); bf16 (resblock.cu) correlation >
+              0.99.  Then timed with CUDA events: the tensor-core kernel,
+              the FMA kernel in fp32 (its earlier version), the plain
+              version, and the library yardstick (a cuDNN F.conv1d chain,
+              never used by the port), beside two bounds: the fp32
+              CUDA-core one and the 3xTF32 one (3 x flops at the dense
+              TF32 rate), the roofline share taken against the latter.
   4. main     the port's ConvertPipeline at the full v2 / 48 kHz width
               (12-layer HuBERT, full RMVPE, 10,000 x 768 index, random
               weights from a seed): convert_batch on 2 x 10 s and
@@ -28,9 +33,13 @@ Phases, each printed as it runs; any failure exits non-zero:
               the RMVPE argmax equal on every frame.
   6. train-kernel  the resblock as an autograd Function at the training
               path's four stage shapes (B = 8, a 36-frame segment): the
-              forward and the gradients of x, w1, b1, w2, b2 against
-              torch.autograd through the plain chain on the card (each
-              <= 1e-4 * max(1, |ref|max)); forward and backward timed.
+              forward against the plain chain, and the gradients of x, w1,
+              b1, w2, b2 against torch.autograd through the plain chain
+              with its leaky-ReLU slopes pinned at the kernel's step
+              inputs (the derivative jumps at 0, and the two forwards
+              differ by rounding; a slope may move only where the
+              pre-activation is within the forward tolerance of 0), each
+              <= 1e-4 * max(1, |ref|max); forward and backward timed.
   7. train    the training flow at the full v2 / 48 kHz width: 32 voiced
               3.5 s WAVs made from a seed -> preprocess -> extract (RMVPE
               and 12-layer HuBERT on the card) -> train one epoch at B = 8
@@ -60,6 +69,7 @@ import numpy as np
 import torch
 
 H100_FP32_FLOPS = 67e12      # CUDA-core fp32 peak, H100 SXM data sheet
+H100_TF32_FLOPS = 494.7e12   # dense TF32 tensor-core peak; 3xTF32 spends 3 per flop
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak
 H100_BYTES_PER_S = 3.35e12   # HBM3
 RESULTS = {}
@@ -74,6 +84,23 @@ def nvidia_smi_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bounds_ms(flops: float, nbytes: float):
+    """(fp32 CUDA-core bound, 3xTF32 tensor-core bound, what bounds the
+    latter) in ms: the larger of the operations at the peak rate and the
+    bytes at the memory rate."""
+    by_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    tc_ms = 1e3 * 3 * flops / H100_TF32_FLOPS
+    return (max(1e3 * flops / H100_FP32_FLOPS, by_ms), max(tc_ms, by_ms),
+            "operations" if tc_ms >= by_ms else "bytes")
+
+
+def reset_counts(rb, counts=(0, 0)):
+    """Set the resblock launch counts (all, tensor-core) and return the old ones."""
+    old = rb.resblock_launches, rb.resblock_tc_launches
+    rb.resblock_launches, rb.resblock_tc_launches = counts
+    return old
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -110,10 +137,10 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
     from rvc_maker_tpu_torch.ops import resblock as rb
 
     gen = torch.Generator().manual_seed(0)
-    rows, worst = [], 0.0
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0,
+    rows, worst, worst_fma = [], 0.0, 0.0
+    totals = dict(ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0,
                   flops=0, bytes=0)
-    saved = rb.resblock_launches
+    saved = reset_counts(rb)
     for (b, c, t) in stage_shapes:
         for k in kernels:
             D = len(dilations)
@@ -128,9 +155,13 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             ref = rb._resblock(*args, **kw)
             got = rb.fused_resblock(*args, **kw)
             torch.cuda.synchronize()
+            if rb.resblock_tc_launches != len(dilations):
+                raise AssertionError(f"fp32 C={c} did not take the tensor-core kernel")
+            got_fma = rb._fma_resblock(*args, **kw)
             err = (got - ref).abs().max().item()
+            fma_err = (got_fma - ref).abs().max().item()
             tol = 1e-4 * max(1.0, ref.abs().max().item())
-            worst = max(worst, err)
+            worst, worst_fma = max(worst, err), max(worst_fma, fma_err)
             argsb = tuple(a.bfloat16() for a in args)
             gotb = rb.fused_resblock(*argsb, **kw).float()
             corr = torch.corrcoef(torch.stack([gotb.flatten(), ref.flatten()]))[0, 1].item()
@@ -138,47 +169,50 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             wt2 = w2.permute(0, 3, 2, 1).contiguous()
             iters = 10
             ms = cuda_ms(lambda: rb.fused_resblock(*args, **kw), iters)
+            fma_ms = cuda_ms(lambda: rb._fma_resblock(*args, **kw), iters)
             plain_ms = cuda_ms(lambda: rb._resblock(*args, **kw), iters)
             lib_ms = cuda_ms(lambda: library_resblock(x, wt1, b1, wt2, b2, k, dilations), iters)
             bf16_ms = cuda_ms(lambda: rb.fused_resblock(*argsb, **kw), iters)
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + w1.numel() + w2.numel() + b1.numel() + b2.numel())
-            bound_ms = 1e3 * max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
+            fp32_bound_ms, bound_ms, _ = bounds_ms(flops, nbytes)
             smem = {d: rb.smem_bytes(c, k, d) for d in dilations}
-            rows.append(dict(B=b, C=c, T=t, k=k, smem_bytes=smem, max_abs_err=err,
-                             tol=tol, bf16_corr=corr, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bf16_ms=bf16_ms, flops=flops,
-                             bytes=nbytes, bound_ms=bound_ms, roofline_share=bound_ms / ms))
-            log(f"  resblock B={b} C={c} T={t} k={k}: shared memory per block "
-                + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem.items()))
-            log(f"  resblock B={b} C={c} T={t} k={k}: err {err:.3e} (tol {tol:.1e}) "
-                f"bf16 corr {corr:.6f} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"library {lib_ms:.3f} ms, bf16 kernel {bf16_ms:.3f} ms | "
-                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, bound {bound_ms:.3f} ms "
-                f"(fp32 ops), roofline share {bound_ms / ms:.3f}")
-            if not err <= tol:
-                raise AssertionError(f"resblock C={c} k={k}: err {err} > {tol}")
+            rows.append(dict(B=b, C=c, T=t, k=k, smem_bytes_tc=smem, max_abs_err=err,
+                             fma_max_abs_err=fma_err, tol=tol, bf16_corr=corr, ms=ms,
+                             fma_ms=fma_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bf16_ms=bf16_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
+                             fp32_bound_ms=fp32_bound_ms, roofline_share=bound_ms / ms))
+            log(f"  resblock B={b} C={c} T={t} k={k}: tensor-core kernel shared memory "
+                "per block " + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem.items()))
+            log(f"  resblock B={b} C={c} T={t} k={k}: err tc {err:.3e} fma {fma_err:.3e} "
+                f"(tol {tol:.1e}) bf16 corr {corr:.6f} | tc kernel {ms:.3f} ms, fma kernel "
+                f"{fma_ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bf16 "
+                f"fma kernel {bf16_ms:.3f} ms | {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                f"bound 3xTF32 {bound_ms:.3f} ms / fp32 {fp32_bound_ms:.3f} ms, roofline "
+                f"share {bound_ms / ms:.3f}")
+            if not (err <= tol and fma_err <= tol):
+                raise AssertionError(f"resblock C={c} k={k}: err {err}, fma {fma_err} > {tol}")
             if not corr > 0.99:
                 raise AssertionError(f"resblock bf16 C={c} k={k}: corr {corr}")
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                           ("bf16_ms", bf16_ms), ("flops", flops), ("bytes", nbytes)):
+            for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("bf16_ms", bf16_ms), ("flops", flops),
+                           ("bytes", nbytes)):
                 totals[key] += v
-            del x, w1, w2, b1, b2, args, argsb, ref, got, gotb, wt1, wt2
-    rb.resblock_launches = saved      # comparison launches do not count
+            del x, w1, w2, b1, b2, args, argsb, ref, got, got_fma, gotb, wt1, wt2
+            reset_counts(rb)
+    reset_counts(rb, saved)           # comparison launches do not count
     torch.cuda.empty_cache()
-    fl_ms = 1e3 * totals["flops"] / H100_FP32_FLOPS
-    by_ms = 1e3 * totals["bytes"] / H100_BYTES_PER_S
-    totals.update(bound_ms=max(fl_ms, by_ms),
-                  bound_by="operations" if fl_ms >= by_ms else "bytes",
+    fp32_bound, bound, bound_by = bounds_ms(totals["flops"], totals["bytes"])
+    totals.update(bound_ms=bound, bound_by=bound_by, fp32_bound_ms=fp32_bound,
                   bf16_bound_ms=1e3 * max(totals["flops"] / H100_BF16_FLOPS,
                                           totals["bytes"] / 2 / H100_BYTES_PER_S),
-                  max_abs_err=worst)
-    log(f"  one decode's 12 resblocks: kernel {totals['ms']:.3f} ms, plain "
-        f"{totals['plain_ms']:.3f} ms, library {totals['library_ms']:.3f} ms, bf16 kernel "
-        f"{totals['bf16_ms']:.3f} ms; {totals['flops'] / 1e12:.3f} TFLOP, "
-        f"{totals['bytes'] / 1e9:.3f} GB -> bound {totals['bound_ms']:.3f} ms "
-        f"({totals['bound_by']}), roofline share {totals['bound_ms'] / totals['ms']:.3f}; "
-        f"on {card}")
+                  max_abs_err=worst, fma_max_abs_err=worst_fma)
+    log(f"  one decode's 12 resblocks: tc kernel {totals['ms']:.3f} ms, fma kernel "
+        f"{totals['fma_ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, library "
+        f"{totals['library_ms']:.3f} ms, bf16 fma kernel {totals['bf16_ms']:.3f} ms; "
+        f"{totals['flops'] / 1e12:.3f} TFLOP, {totals['bytes'] / 1e9:.3f} GB -> bound "
+        f"3xTF32 {bound:.3f} ms ({bound_by}) / fp32 {fp32_bound:.3f} ms, roofline share "
+        f"{bound / totals['ms']:.3f}; on {card}")
     return rows, totals
 
 
@@ -214,11 +248,16 @@ def voice(seconds: float, f0: float, seed: int) -> np.ndarray:
     return (x + 0.01 * np.random.RandomState(seed).randn(len(tt))).astype(np.float32)
 
 
+def is_resblock_kernel(name: str) -> bool:
+    return "resblock_tc_step_kernel" in name or "resblock_step_kernel" in name
+
+
 def profile_call(label, fn, wall_s):
     """torch.profiler over one more fn(): device time in all, by stage
-    (the pipeline's `convert.*` ranges), in the resblock kernel, and by
-    kernel; the busy share is the device time over `wall_s`, the same
-    call's wall time without the profiler."""
+    (the pipeline's `convert.*` ranges, as the profiler ties kernels to
+    them; what it ties to none is "outside the stages"), in the resblock
+    kernels, and by kernel; the busy share is the device time over
+    `wall_s`, the same call's wall time without the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,10 +275,7 @@ def profile_call(label, fn, wall_s):
     if device_ms == 0:
         log("  profile: device time not measured (the profiler saw no kernels)")
         return dict(device_ms=None)
-    resblock_ms = sum(v for k, v in by_kernel.items() if "resblock_step_kernel" in k)
-    # the resblock kernel is launched through ctypes, under no aten op, so
-    # the profiler ties its time to no range: it belongs to the synthesizer
-    stages["convert.synthesizer"] = stages.get("convert.synthesizer", 0.0) + resblock_ms
+    resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     res = dict(device_ms=device_ms, wall_ms=1e3 * wall_s,
                busy_share=device_ms / (1e3 * wall_s), stages_ms=stages,
@@ -275,17 +311,17 @@ def main_path(cfg, model):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    rb.resblock_launches = 0
+    reset_counts(rb)
     t0 = time.perf_counter()
     wav, pitchf = pipe.convert_batch(batch, lengths, 0, settings)
     torch.cuda.synchronize()
     t_batch = time.perf_counter() - t0
-    batch_launches = rb.resblock_launches
+    batch_launches, batch_tc = rb.resblock_launches, rb.resblock_tc_launches
     t0 = time.perf_counter()
     out = pipe.convert_utterance(long, 0, settings)
     torch.cuda.synchronize()
     t_utt = time.perf_counter() - t0
-    launches = rb.resblock_launches
+    launches, tc_launches = rb.resblock_launches, rb.resblock_tc_launches
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()           # again, its chunk shapes now seen once
     pipe.convert_utterance(long, 0, settings)
@@ -297,9 +333,11 @@ def main_path(cfg, model):
         raise AssertionError(f"batch wav shape {tuple(wav.shape)}")
     if not torch.isfinite(wav).all() or not np.isfinite(out).all():
         raise AssertionError("non-finite output")
-    if batch_launches != per_decode:
-        raise AssertionError(f"convert_batch launched {batch_launches}, "
-                             f"expected {per_decode}")
+    if not batch_launches == batch_tc == per_decode:
+        raise AssertionError(f"convert_batch launched {batch_launches} ({batch_tc} on the "
+                             f"tensor cores), expected {per_decode}")
+    if tc_launches != launches:
+        raise AssertionError(f"{launches - tc_launches} fp32 steps missed resblock_tc")
     utt_launches = launches - batch_launches
     if utt_launches < 2 * per_decode or utt_launches % per_decode:
         raise AssertionError(f"convert_utterance launched {utt_launches}: "
@@ -310,7 +348,8 @@ def main_path(cfg, model):
                batch_audio_s_per_s=20.0 / t_batch, utterance_s=t_utt,
                utterance_audio_s_per_s=45.0 / t_utt, utterance_warm_s=t_utt_warm,
                utterance_chunks=utt_launches // per_decode,
-               resblock_launches=launches, launches_per_decode=per_decode,
+               resblock_launches=launches, resblock_tc_launches=tc_launches,
+               launches_per_decode=per_decode,
                resblocks_per_decode=n_resblocks, max_memory_allocated=peak,
                wav_absmax=float(wav.abs().max()), voiced_frames=float((pitchf > 0).float().mean()))
     log(f"  convert_batch 2 x 10 s: {t_batch:.3f} s wall ({20.0 / t_batch:.2f} audio-s/s), "
@@ -319,7 +358,8 @@ def main_path(cfg, model):
     log(f"  convert_utterance 45 s: {t_utt:.3f} s wall ({45.0 / t_utt:.2f} audio-s/s), "
         f"{res['utterance_chunks']} chunks, {len(out)} samples; a second call "
         f"{t_utt_warm:.3f} s")
-    log(f"  resblock launches on the main path: {launches}; peak device memory "
+    log(f"  resblock launches on the main path: {launches}, {tc_launches} of them "
+        f"resblock_tc; peak device memory "
         f"{peak / 2**30:.2f} GiB")
     res["profile_batch"] = profile_call(
         "convert_batch 2 x 10 s", lambda: pipe.convert_batch(batch, lengths, 0, settings),
@@ -349,9 +389,9 @@ def card_vs_cpu(cfg, model):
         zs, ss = pipe.noise_shapes(1, p_len)
         gen = torch.Generator().manual_seed(11)
         z, s = torch.randn(zs, generator=gen), torch.randn(ss, generator=gen)
-        before = rb.resblock_launches
+        before = rb.resblock_tc_launches
         wav, _ = pipe.convert_batch(audio, lengths, 0, settings, z_noise=z, sine_noise=s)
-        if dev == "cuda" and rb.resblock_launches == before:
+        if dev == "cuda" and rb.resblock_tc_launches == before:
             raise AssertionError("the card's decode did not launch the kernel")
         outs[dev] = wav.cpu().numpy()
         with torch.inference_mode():
@@ -381,11 +421,11 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
 
     gen = torch.Generator().manual_seed(1)
     names = ("x", "w1", "b1", "w2", "b2")
-    rows, worst_fwd, worst_grad = [], 0.0, 0.0
-    saved = rb.resblock_launches
+    rows, worst_fwd, worst_grad, worst_flip = [], 0.0, 0.0, 0.0
+    saved = reset_counts(rb)
     for (b, c, t) in stage_shapes:
-        stage = dict(B=b, C=c, T=t, fwd_ms=0.0, plain_fwd_ms=0.0, fwd_bwd_ms=0.0,
-                     plain_fwd_bwd_ms=0.0,
+        stage = dict(B=b, C=c, T=t, fwd_ms=0.0, fma_fwd_ms=0.0, plain_fwd_ms=0.0,
+                     fwd_bwd_ms=0.0, plain_fwd_bwd_ms=0.0,
                      library_fwd_ms=0.0, flops=0, bytes=0)
         for k in kernels:
             D = len(dilations)
@@ -406,7 +446,16 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
             if out.grad_fn is None:
                 raise AssertionError("fused_resblock on the card returned no grad_fn")
             g_kernel = torch.autograd.grad(out, leaves, cot)
-            g_plain = torch.autograd.grad(rb._resblock(*leaves, **kw), leaves, cot)
+            # the reference: the plain chain with its leaky-ReLU slopes pinned
+            # at the kernel's step inputs, since the kernel agrees with it to
+            # rounding and leaky_relu's derivative jumps at 0
+            steps = rb._forward_steps(*args, k, dilations)
+            pinned, flip = rb._resblock_at_slopes(*leaves, **kw, step_inputs=steps[:-1])
+            worst_flip = max(worst_flip, flip)
+            if not flip <= fwd_tol:
+                raise AssertionError(f"train resblock C={c} k={k}: a slope moved at a "
+                                     f"pre-activation of {flip}")
+            g_plain = torch.autograd.grad(pinned, leaves, cot)
             grad_err = {}
             for name, gk, gp in zip(names, g_kernel, g_plain):
                 err = (gk - gp).abs().max().item()
@@ -416,6 +465,7 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
             worst_fwd = max(worst_fwd, fwd_err)
             iters = 5
             fwd_ms = cuda_ms(lambda: rb.fused_resblock(*args, **kw), iters)
+            fma_ms = cuda_ms(lambda: rb._fma_resblock(*args, **kw), iters)
             plain_ms = cuda_ms(lambda: rb._resblock(*args, **kw), iters)
             fb_ms = cuda_ms(lambda: torch.autograd.grad(
                 rb.fused_resblock(*leaves, **kw), leaves, cot), iters)
@@ -428,9 +478,11 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + sum(a.numel() for a in args[1:]))
             log(f"  train resblock B={b} C={c} T={t} k={k}: forward err {fwd_err:.3e} "
-                f"(tol {fwd_tol:.1e}); grad err " + ", ".join(
+                f"(tol {fwd_tol:.1e}); slopes pinned at |pre-activation| <= {flip:.2e}; "
+                "grad err " + ", ".join(
                     f"{nm} {e:.3e} (tol {tl:.1e})" for nm, (e, tl) in grad_err.items())
-                + f" | kernel fwd {fwd_ms:.3f} ms, plain fwd {plain_ms:.3f} ms, fwd+bwd "
+                + f" | tc kernel fwd {fwd_ms:.3f} ms, fma kernel fwd {fma_ms:.3f} ms, "
+                f"plain fwd {plain_ms:.3f} ms, fwd+bwd "
                 f"{fb_ms:.3f} ms (bwd "
                 f"{fb_ms - fwd_ms:.3f}); plain fwd+bwd {plain_fb_ms:.3f} ms; library fwd "
                 f"{lib_ms:.3f} ms")
@@ -439,30 +491,36 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
             for nm, (e, tl) in grad_err.items():
                 if not e <= tl:
                     raise AssertionError(f"train resblock C={c} k={k}: grad {nm} err {e} > {tl}")
-            for key, v in (("fwd_ms", fwd_ms), ("plain_fwd_ms", plain_ms), ("fwd_bwd_ms", fb_ms),
+            for key, v in (("fwd_ms", fwd_ms), ("fma_fwd_ms", fma_ms),
+                           ("plain_fwd_ms", plain_ms), ("fwd_bwd_ms", fb_ms),
                            ("plain_fwd_bwd_ms", plain_fb_ms), ("library_fwd_ms", lib_ms),
                            ("flops", flops), ("bytes", nbytes)):
                 stage[key] += v
-            del args, leaves, out, ref, got, g_kernel, g_plain, cot, wt1, wt2
+            del args, leaves, out, ref, got, g_kernel, g_plain, cot, wt1, wt2, steps, pinned
+            reset_counts(rb)
         stage["bwd_ms"] = stage["fwd_bwd_ms"] - stage["fwd_ms"]
-        stage["fwd_bound_ms"] = 1e3 * max(stage["flops"] / H100_FP32_FLOPS,
-                                          stage["bytes"] / H100_BYTES_PER_S)
+        stage["fwd_fp32_bound_ms"], stage["fwd_bound_ms"], _ = bounds_ms(stage["flops"],
+                                                                          stage["bytes"])
         rows.append(stage)
-        log(f"  stage C={c}: kernel fwd {stage['fwd_ms']:.3f} ms (bound "
-            f"{stage['fwd_bound_ms']:.3f}, plain {stage['plain_fwd_ms']:.3f}), bwd {stage['bwd_ms']:.3f} ms, plain fwd+bwd "
-            f"{stage['plain_fwd_bwd_ms']:.3f} ms, library fwd {stage['library_fwd_ms']:.3f} ms")
-    rb.resblock_launches = saved      # comparison launches do not count
+        log(f"  stage C={c}: tc kernel fwd {stage['fwd_ms']:.3f} ms (bound 3xTF32 "
+            f"{stage['fwd_bound_ms']:.3f} / fp32 {stage['fwd_fp32_bound_ms']:.3f}), fma kernel "
+            f"fwd {stage['fma_fwd_ms']:.3f} ms, plain fwd {stage['plain_fwd_ms']:.3f} ms, bwd "
+            f"{stage['bwd_ms']:.3f} ms, plain fwd+bwd {stage['plain_fwd_bwd_ms']:.3f} ms, "
+            f"library fwd {stage['library_fwd_ms']:.3f} ms")
+    reset_counts(rb, saved)           # comparison launches do not count
     torch.cuda.empty_cache()
     tot = {key: sum(r[key] for r in rows) for key in
-           ("fwd_ms", "plain_fwd_ms", "bwd_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
-            "library_fwd_ms",
-            "flops", "bytes", "fwd_bound_ms")}
-    log(f"  one generator forward's 12 resblocks at B = 8: kernel {tot['fwd_ms']:.3f} ms "
-        f"(bound {tot['fwd_bound_ms']:.3f}, plain {tot['plain_fwd_ms']:.3f}, library "
+           ("fwd_ms", "fma_fwd_ms", "plain_fwd_ms", "bwd_ms", "fwd_bwd_ms",
+            "plain_fwd_bwd_ms", "library_fwd_ms", "flops", "bytes", "fwd_bound_ms",
+            "fwd_fp32_bound_ms")}
+    log(f"  one generator forward's 12 resblocks at B = 8: tc kernel {tot['fwd_ms']:.3f} ms "
+        f"(bound 3xTF32 {tot['fwd_bound_ms']:.3f} / fp32 {tot['fwd_fp32_bound_ms']:.3f}, fma "
+        f"kernel {tot['fma_fwd_ms']:.3f}, plain {tot['plain_fwd_ms']:.3f}, library "
         f"{tot['library_fwd_ms']:.3f}), their backward {tot['bwd_ms']:.3f} ms, plain "
         f"fwd+bwd {tot['plain_fwd_bwd_ms']:.3f} ms; max err fwd {worst_fwd:.3e}, grad "
-        f"{worst_grad:.3e}; on {card}")
-    return dict(rows=rows, totals=tot, max_fwd_err=worst_fwd, max_grad_err=worst_grad)
+        f"{worst_grad:.3e} (slopes pinned at |pre-activation| <= {worst_flip:.2e}); on {card}")
+    return dict(rows=rows, totals=tot, max_fwd_err=worst_fwd, max_grad_err=worst_grad,
+                max_pinned_preactivation=worst_flip)
 
 
 # ---------------------------------------------------------------------------
@@ -532,24 +590,26 @@ def train_flow(model, card: str):
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rb.resblock_launches = 0
+        reset_counts(rb)
         t0 = time.perf_counter()
         state = train_loop.train(exp, cfg, total_epochs=1, batch_size=8,
                                  save_every_epoch=1, device="cuda", log_writer=log_writer)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        launches = rb.resblock_launches
+        launches, tc_launches = rb.resblock_launches, rb.resblock_tc_launches
         peak = torch.cuda.max_memory_allocated()
         steps = state.step
-        if steps < 3 or launches != per_step * steps:
-            raise AssertionError(f"{steps} steps, {launches} resblock launches: expected "
-                                 f">= 3 steps and {per_step} launches per step")
+        if steps < 3 or not launches == tc_launches == per_step * steps:
+            raise AssertionError(f"{steps} steps, {launches} resblock launches ({tc_launches} "
+                                 f"resblock_tc): expected >= 3 steps and {per_step} "
+                                 "tensor-core launches per step")
         for m in metrics:
             if not all(np.isfinite(v) for v in m.values()):
                 raise AssertionError(f"non-finite training metrics {m}")
         gaps = np.diff(stamps)
         warm_s = float(np.mean(gaps))
-        res.update(steps=steps, resblock_launches=launches, launches_per_step=launches // steps,
+        res.update(steps=steps, resblock_launches=launches, resblock_tc_launches=tc_launches,
+                   launches_per_step=launches // steps,
                    train_s=t_train, first_step_s=stamps[0] - t0, warm_step_s=warm_s,
                    steps_per_s=1.0 / warm_s, max_memory_allocated=peak,
                    losses=[{k: v for k, v in m.items() if k.startswith(("loss", "grad"))}
@@ -568,7 +628,7 @@ def train_flow(model, card: str):
         params, mcfg, meta = load_synthesizer_pth(os.path.join(exp, pths[0]))
         pipe = ConvertPipeline(params, mcfg, model["hubert_params"], version="v2",
                                rmvpe_params=model["rmvpe_params"], device="cuda")
-        rb.resblock_launches = 0
+        reset_counts(rb)
         out = pipe.convert_utterance(voice(5.0, 180.0, 9), 0, ConvertSettings())
         if not np.isfinite(out).all() or abs(len(out) - 5.0 * mcfg.sr) > 2 * mcfg.upp:
             raise AssertionError(f"converted utterance: {len(out)} samples, finite "
@@ -601,7 +661,7 @@ def train_flow(model, card: str):
             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
                 by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
         device_ms = sum(by_kernel.values())
-        resblock_ms = sum(v for k, v in by_kernel.items() if "resblock_step_kernel" in k)
+        resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
         res["profile"] = dict(step_wall_ms=wall_ms, ranges_ms=ranges,
                               ranges_host_ms=ranges_host,
@@ -661,15 +721,14 @@ def train_parity():
     out = {}
     for dev in ("cpu", "cuda"):
         state = tr.init_state(cfg, params_g, params_d, device=dev, disc_width_div=16)
-        before = rb.resblock_launches
+        saved = reset_counts(rb)
         m = tr.make_train_step(cfg, 16)(
             state, batch.to(dev), keep_grads=True,
             noise={k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
-        launched = rb.resblock_launches - before
-        if launched != (0 if dev == "cpu" else 36):
-            raise AssertionError(f"{dev}: {launched} resblock launches")
+        launched = reset_counts(rb, saved)  # comparison launches do not count
+        if launched != ((0, 0) if dev == "cpu" else (36, 36)):
+            raise AssertionError(f"{dev}: {launched} resblock launches (all, tc)")
         out[dev] = m
-    rb.resblock_launches -= 36          # comparison launches do not count
     worst_loss = 0.0
     for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
         a, r = float(out["cuda"][k]), float(out["cpu"][k])
@@ -725,7 +784,10 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     RESULTS["build_s"] = time.perf_counter() - t0
-    log(f"[2 build] {list(logs)} in {RESULTS['build_s']:.1f} s")
+    RESULTS["build_s_by_source"] = dict(build.build_seconds)
+    log(f"[2 build] {list(logs)} in {RESULTS['build_s']:.1f} s; each source's nvcc, "
+        "all started together: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in build.build_seconds.items()))
     for src, text in logs.items():
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -772,15 +834,33 @@ def main() -> int:
     with open(os.path.join(here, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)
 
-    kernels = [dict(
-        name="resblock", route="cuda", source="rvc_maker_tpu_torch/csrc/resblock.cu",
-        replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
-        launches=RESULTS["main_path"]["resblock_launches"],
-        max_abs_err=totals["max_abs_err"], ms=totals["ms"], plain_ms=totals["plain_ms"],
-        bound_ms=totals["bound_ms"], bound_by=totals["bound_by"],
-        library_ms=totals["library_ms"],
-        launches_train=RESULTS["train"]["resblock_launches"],
-        grad_max_abs_err=RESULTS["train_kernel"]["max_grad_err"])]
+    main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
+    routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
+              "cuda bf16": "resblock"}
+    common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
+                  plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
+                  fma_ms=totals["fma_ms"], fp32_bound_ms=totals["fp32_bound_ms"],
+                  tf32x3_bound_ms=totals["bound_ms"], launches_per_decode=main["launches_per_decode"],
+                  launches_per_train_step=train["launches_per_step"], routes=routes,
+                  train_fwd_ms=tk["totals"]["fwd_ms"], train_fma_fwd_ms=tk["totals"]["fma_fwd_ms"],
+                  train_fwd_bound_ms=tk["totals"]["fwd_bound_ms"],
+                  grad_max_abs_err=tk["max_grad_err"])
+    kernels = [
+        dict(name="resblock_tc", source="rvc_maker_tpu_torch/csrc/resblock_tc.cu",
+             launches=main["resblock_tc_launches"], launches_train=train["resblock_tc_launches"],
+             max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
+             bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
+             **common),
+        # the wrapper's count: every resblock step of the path; fp32 steps
+        # route to resblock_tc, so launches_fma is what reached this source
+        dict(name="resblock", source="rvc_maker_tpu_torch/csrc/resblock.cu",
+             launches=main["resblock_launches"], launches_train=train["resblock_launches"],
+             launches_fma=main["resblock_launches"] - main["resblock_tc_launches"],
+             max_abs_err=totals["fma_max_abs_err"], ms=totals["fma_ms"],
+             bound_ms=totals["fp32_bound_ms"],
+             bound_by="operations" if totals["flops"] / H100_FP32_FLOPS
+             >= totals["bytes"] / H100_BYTES_PER_S else "bytes",
+             bf16_ms=totals["bf16_ms"], **common)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -45,9 +45,14 @@
 // What bounds it.  Per resblock 2*2*D*B*T*k*C^2 flops against one read
 // and one write of (B, T, C) per step: about 900 flops per byte at
 // v2-48k, so it is compute-bound.  This version uses fp32 FMA on the
-// CUDA cores (67 TFLOP/s peak), in fp32 and in bf16; tensor cores
-// (mma/wgmma) are later work.  The halo recompute of conv1 costs
-// (TT + 2c) / TT, at most 16 %.
+// CUDA cores (67 TFLOP/s peak), in fp32 and in bf16.  The halo
+// recompute of conv1 costs (TT + 2c) / TT, at most 16 %.
+//
+// Which tensors reach it.  fp32 at every width (C = 16..256) runs on the
+// tensor cores in csrc/resblock_tc.cu, the same design with 3xTF32
+// mma.sync in place of the two inner FMA loops (ops/resblock.py
+// `_route`).  This kernel takes bf16, and fp32 only through
+// `_fma_resblock`, which times it beside the tensor-core kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -16,17 +16,21 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = {"resblock": "resblock.cu"}
+SOURCES = {"resblock": "resblock.cu", "resblock_tc": "resblock_tc.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# wall seconds of each source's nvcc in the builds of this process
+build_seconds: dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -58,6 +62,7 @@ def build_all(names=None) -> dict[str, str]:
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         target = library_path(name)
         if target.exists():
@@ -67,14 +72,20 @@ def build_all(names=None) -> dict[str, str]:
         procs[name] = (tmp, target, subprocess.Popen(
             _command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
+
+    def finish(proc):
+        out, _ = proc.communicate()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = {name: pool.submit(finish, proc) for name, (_, _, proc) in procs.items()}
     logs = {name: "" for name in names}
     failed = []
     for name, (tmp, target, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
+        logs[name], build_seconds[name] = done[name].result()
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
         else:
             os.replace(tmp, target)
     if failed:

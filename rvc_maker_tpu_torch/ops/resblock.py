@@ -1,13 +1,20 @@
-"""HiFi-GAN resblock: the hand-written CUDA kernel and its plain version.
+"""HiFi-GAN resblock: the hand-written CUDA kernels and their plain version.
 
 `fused_resblock` runs one resblock,
 
     for d in dilations:  x = x + conv_{k,1}(lrelu(conv_{k,d}(lrelu(x))))
 
-with zero padding at the sequence edges, as the CUDA kernel in
-`csrc/resblock.cu` (one launch per dilation step) for a tensor on the
-card, and as `_resblock`, the plain F.conv1d chain, for a tensor on the
-CPU.  It replaces the Pallas TPU kernel `rvc_maker_tpu/ops/
+with zero padding at the sequence edges, one kernel launch per dilation
+step for a tensor on the card, and `_resblock`, the plain F.conv1d chain,
+for a tensor on the CPU.  `_route` picks the kernel from the device, the
+dtype and the width alone:
+
+    cpu                               -> the plain steps
+    cuda, fp32, C in TC_WIDTHS        -> csrc/resblock_tc.cu (3xTF32 mma.sync)
+    cuda, bf16 (or fp32 outside them) -> csrc/resblock.cu (fp32 FMA)
+
+A failed build or launch raises; no route is taken because another
+failed.  It replaces the Pallas TPU kernel `rvc_maker_tpu/ops/
 pallas_resblock.py` `fused_resblock`; `_resblock` is the counterpart of
 `rvc_maker_tpu/models/synthesizer.py` `_resblock`.
 
@@ -39,11 +46,14 @@ from . import build
 LRELU_SLOPE = 0.1
 SUPPORTED_C = (16, 32, 64, 128, 256)
 SUPPORTED_K = (3, 7, 11)
-MAX_DILATION = 5      # csrc/resblock.cu kMaxDil
+MAX_DILATION = 5      # csrc/resblock.cu and resblock_tc.cu kMaxDil
+TC_WIDTHS = SUPPORTED_C   # fp32 widths that csrc/resblock_tc.cu takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the last reset (one per dilation step)
+# kernel launches since the last reset (one per dilation step): all of
+# them, and those of the tensor-core kernel
 resblock_launches = 0
+resblock_tc_launches = 0
 
 
 def _branch(x, w1, b1, w2, b2, k: int, d: int):
@@ -59,6 +69,37 @@ def _resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
     for i, d in enumerate(dilations):
         x = x + _branch(x, w1[i], b1[i], w2[i], b2[i], kernel_size, d)
     return x
+
+
+def _slope(v):
+    """d leaky_relu / dv as autograd takes it: 1 where v > 0, else the slope."""
+    return torch.where(v > 0, 1.0, LRELU_SLOPE).to(v.dtype)
+
+
+def _resblock_at_slopes(x, w1, b1, w2, b2, *, kernel_size: int, dilations, step_inputs):
+    """A gradient reference for a forward through a kernel.  The plain
+    chain from x, each leaky ReLU replaced by its slope at the kernel's
+    step inputs x_0..x_{D-1} (`step_inputs`), as the backward of
+    `fused_resblock` recomputes them.  leaky_relu's derivative jumps at 0,
+    so two forwards that differ by rounding have gradients that differ by
+    O(1) wherever a pre-activation lies within that rounding of 0; at
+    pinned slopes the two gradients are comparable.  Returns (output, the
+    largest |pre-activation| of this chain where a pinned slope differs
+    from its own), which is of rounding size when the forwards agree."""
+    k, worst = kernel_size, 0.0
+    for i, d in enumerate(dilations):
+        wt1, pad1 = w1[i].permute(2, 1, 0), (k * d - d) // 2
+        with torch.no_grad():
+            s1 = _slope(step_inputs[i])
+            s2 = _slope(F.conv1d(F.leaky_relu(step_inputs[i], LRELU_SLOPE), wt1, b1[i],
+                                 dilation=d, padding=pad1))
+        v1 = F.conv1d(x * s1, wt1, b1[i], dilation=d, padding=pad1)
+        for v, s in ((x, s1), (v1, s2)):
+            flip = _slope(v.detach()) != s
+            if flip.any():
+                worst = max(worst, v.detach()[flip].abs().max().item())
+        x = x + F.conv1d(v1 * s2, w2[i].permute(2, 1, 0), b2[i], padding=(k - 1) // 2)
+    return x, worst
 
 
 def _check(x, w1, b1, w2, b2, kernel_size, dilations):
@@ -88,12 +129,30 @@ def _check(x, w1, b1, w2, b2, kernel_size, dilations):
         raise ValueError("empty input")
 
 
-def _library():
+def _route(device_type: str, dtype: torch.dtype, channels: int) -> str:
+    """"plain", "tc" (csrc/resblock_tc.cu) or "fma" (csrc/resblock.cu)."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"unsupported device {device_type}")
+    return "tc" if dtype == torch.float32 and channels in TC_WIDTHS else "fma"
+
+
+def _library(route: str = "fma"):
+    if route == "tc":
+        lib = build.load("resblock_tc")
+        if lib.rvc_resblock_tc_step.argtypes is None:
+            lib.rvc_resblock_tc_step.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            lib.rvc_resblock_tc_step.restype = ctypes.c_int
+            lib.rvc_resblock_tc_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.rvc_resblock_tc_smem_bytes.restype = ctypes.c_size_t
+        return lib
     lib = build.load("resblock")
-    fn = lib.rvc_resblock_step
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.rvc_resblock_step.argtypes is None:
+        lib.rvc_resblock_step.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.rvc_resblock_step.restype = ctypes.c_int
         lib.rvc_resblock_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.rvc_resblock_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -101,41 +160,61 @@ def _library():
 
 def smem_bytes(channels: int, kernel_size: int, dilation: int,
                dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one kernel launch (0: shape not taken)."""
+    """Dynamic shared memory of one launch of the kernel that `_route` picks
+    for a CUDA tensor of this dtype and width (0: shape not taken)."""
+    if _route("cuda", dtype, channels) == "tc":
+        return int(_library("tc").rvc_resblock_tc_smem_bytes(channels, kernel_size,
+                                                            dilation))
     return int(_library().rvc_resblock_smem_bytes(channels, kernel_size, dilation,
                                                   _DTYPE_CODE[dtype]))
 
 
-def _forward_steps(x, w1, b1, w2, b2, kernel_size: int, dilations):
-    """[x_0, ..., x_D]: the input and each dilation step's output.  A CPU
-    tensor takes the plain steps; a CUDA tensor launches the kernel once
-    per step or raises."""
-    global resblock_launches
-    xs = [x]
-    if x.device.type == "cpu":
-        for i, d in enumerate(dilations):
-            xs.append(xs[-1] + _branch(xs[-1], w1[i], b1[i], w2[i], b2[i],
-                                       kernel_size, d))
-        return xs
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _launch_steps(route: str, x, w1, b1, w2, b2, kernel_size: int, dilations):
+    """[x_0, ..., x_D] through the route's kernel, one launch per step;
+    raises if a launch fails."""
+    global resblock_launches, resblock_tc_launches
     _check(x, w1, b1, w2, b2, kernel_size, dilations)
-    lib = _library()
+    lib = _library(route)
     b, c, t = x.shape
+    xs = [x]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for i, d in enumerate(dilations):
             out = torch.empty_like(x)
-            rc = lib.rvc_resblock_step(
-                xs[-1].data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-                w2[i].data_ptr(), b2[i].data_ptr(), b, c, t, kernel_size,
-                int(d), _DTYPE_CODE[x.dtype], stream)
+            ptrs = (xs[-1].data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
+                    w2[i].data_ptr(), b2[i].data_ptr())
+            if route == "tc":
+                rc = lib.rvc_resblock_tc_step(*ptrs, b, c, t, kernel_size, int(d), stream)
+            else:
+                rc = lib.rvc_resblock_step(*ptrs, b, c, t, kernel_size, int(d),
+                                           _DTYPE_CODE[x.dtype], stream)
             if rc != 0:
-                raise RuntimeError(f"resblock kernel launch failed: "
+                raise RuntimeError(f"resblock {route} kernel launch failed: "
                                    f"{build.error_string(lib, rc)} (code {rc})")
             resblock_launches += 1
+            resblock_tc_launches += route == "tc"
             xs.append(out)
     return xs
+
+
+def _forward_steps(x, w1, b1, w2, b2, kernel_size: int, dilations):
+    """[x_0, ..., x_D]: the input and each dilation step's output.  A CPU
+    tensor takes the plain steps; a CUDA tensor launches `_route`'s
+    kernel once per step or raises."""
+    route = _route(x.device.type, x.dtype, x.shape[1] if x.dim() == 3 else 0)
+    if route != "plain":
+        return _launch_steps(route, x, w1, b1, w2, b2, kernel_size, dilations)
+    xs = [x]
+    for i, d in enumerate(dilations):
+        xs.append(xs[-1] + _branch(xs[-1], w1[i], b1[i], w2[i], b2[i], kernel_size, d))
+    return xs
+
+
+def _fma_resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
+    """The resblock through csrc/resblock.cu whatever the dtype: the
+    tensor-core kernel's earlier version, for timing beside it.  No path
+    calls it."""
+    return _launch_steps("fma", x, w1, b1, w2, b2, kernel_size, tuple(dilations))[-1]
 
 
 class _FusedResblock(torch.autograd.Function):
@@ -165,8 +244,8 @@ class _FusedResblock(torch.autograd.Function):
 
 def fused_resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
     """One resblock, differentiable in x and the packed weights.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (once per dilation) or raises."""
+    tensor takes the plain version; a CUDA tensor launches `_route`'s
+    kernel (once per dilation) or raises."""
     return _FusedResblock.apply(x, w1, b1, w2, b2, kernel_size, tuple(dilations))
 
 

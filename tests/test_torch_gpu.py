@@ -48,6 +48,89 @@ def test_kernel_matches_plain_on_card(cuda, C, T, k):
     assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
 
 
+TC_TT = {256: 64, 128: 128, 64: 256, 32: 512, 16: 1024}   # resblock_tc.cu rows per block
+
+
+def _tc_case(cuda, C, k, T, b=3, seed=0):
+    """The tensor-core route at (C, k, T), dilations (1, 3, 5), against the
+    plain chain: <= 1e-4 x max(1, |ref|max); 3 launches of resblock_tc."""
+    dils = (1, 3, 5)
+    p = resblock_params(seed + C + k, k, C, 3)
+    args = [a.to(cuda) for a in packed_resblock(p)]
+    x = t(resblock_x(T, C, b=b)).transpose(1, 2).contiguous().to(cuda)
+    assert trb._route("cuda", x.dtype, C) == "tc"
+    ref = trb._resblock(x, *args, kernel_size=k, dilations=dils)
+    before, before_tc = trb.resblock_launches, trb.resblock_tc_launches
+    got = trb.fused_resblock(x, *args, kernel_size=k, dilations=dils)
+    torch.cuda.synchronize()
+    assert trb.resblock_tc_launches == before_tc + len(dils)
+    assert trb.resblock_launches == before + len(dils)
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+    return got, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", trb.TC_WIDTHS)
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_tc_kernel_matches_plain_on_card(cuda, C, k):
+    """T is not a multiple of the block's rows: 2 full tiles and a ragged one."""
+    _tc_case(cuda, C, k, 2 * TC_TT[C] + 37)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", trb.TC_WIDTHS)
+@pytest.mark.parametrize("T", [1, 7])
+def test_tc_kernel_short_sequence_on_card(cuda, C, T):
+    """T shorter than one tile and than the k = 11 halo."""
+    _tc_case(cuda, C, 11, T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [256, 16])
+def test_tc_kernel_edge_rows_on_card(cuda, C):
+    """One row past a tile: the last block holds a single row; the rows
+    at both sequence edges and at the tile seam match on their own."""
+    T = TC_TT[C] + 1
+    got, ref = _tc_case(cuda, C, 7, T)
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    for rows in (slice(0, 6), slice(TC_TT[C] - 6, TC_TT[C] + 1)):
+        assert (got[..., rows] - ref[..., rows]).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tc", [(torch.float32, 3), (torch.bfloat16, 0)],
+                         ids=["fp32", "bf16"])
+def test_tc_route_counts_on_card(cuda, dtype, tc):
+    """fp32 launches resblock_tc (both counts move); bf16 launches the
+    FMA kernel (only resblock_launches moves)."""
+    k, dils, C, T = 3, (1, 3, 5), 128, 300
+    p = resblock_params(8, k, C, 3)
+    x = t(resblock_x(T, C, b=1)).transpose(1, 2).contiguous().to(cuda)
+    args = [a.to(cuda) for a in packed_resblock(p)]
+    before, before_tc = trb.resblock_launches, trb.resblock_tc_launches
+    trb.fused_resblock(x.to(dtype), *[a.to(dtype) for a in args], kernel_size=k,
+                       dilations=dils)
+    torch.cuda.synchronize()
+    assert trb.resblock_launches - before == 3
+    assert trb.resblock_tc_launches - before_tc == tc
+
+
+@pytest.mark.gpu
+def test_tc_autograd_matches_plain_on_card(cuda):
+    """Gradients through the tensor-core forward at C = 128 match
+    torch.autograd through the plain chain at the kernel's slopes."""
+    k, dils, C, T = 7, (1, 3, 5), 128, 1000
+    p = resblock_params(21, k, C, 3)
+    x = t(resblock_x(T, C)).transpose(1, 2).contiguous().to(cuda)
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    leaves = [v.requires_grad_(True) for v in [x] + [a.to(cuda) for a in packed_resblock(p)]]
+    before_tc = trb.resblock_tc_launches
+    out = trb.fused_resblock(*leaves, kernel_size=k, dilations=dils)
+    assert out.grad_fn is not None and trb.resblock_tc_launches == before_tc + len(dils)
+    _assert_grads_at_kernel_slopes(out, leaves, cot, k, dils)
+
+
 @pytest.mark.gpu
 def test_kernel_bf16_correlates_on_card(cuda):
     k, dils, C, T = 3, (1, 3, 5), 64, 600
@@ -108,12 +191,29 @@ def test_pipeline_card_matches_cpu(cuda):
     assert np.isfinite(outs["cuda"]).all() and err <= 1e-3, err
 
 
+def _assert_grads_at_kernel_slopes(out, leaves, cot, k, dils):
+    """The gradients of `out` (fused_resblock on the card) against
+    torch.autograd through the plain chain with its leaky-ReLU slopes
+    pinned at the kernel's step inputs (`_resblock_at_slopes`: the kernel
+    agrees with the plain chain to rounding, and leaky_relu's derivative
+    jumps at 0).  A slope may differ only where the pre-activation is of
+    rounding size; each gradient <= 1e-4 x max(1, |ref|max)."""
+    got = torch.autograd.grad(out, leaves, cot)
+    xs = trb._forward_steps(*[v.detach() for v in leaves], k, dils)
+    ref_out, worst = trb._resblock_at_slopes(*leaves, kernel_size=k, dilations=dils,
+                                             step_inputs=xs[:-1])
+    assert worst <= 1e-4 * max(1.0, out.abs().max().item()), worst
+    ref = torch.autograd.grad(ref_out, leaves, cot)
+    for a, r in zip(got, ref):
+        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [3, 7, 11])
 def test_kernel_autograd_matches_plain_on_card(cuda, k):
     """fused_resblock on a CUDA tensor that requires grad returns a
     tensor with a grad_fn; its gradients in x and the packed weights
-    match torch.autograd through the plain chain."""
+    match torch.autograd through the plain chain at the kernel's slopes."""
     dils, C, T = (1, 3, 5), 64, 3000
     p = resblock_params(3 * k, k, C, 3)
     x = t(resblock_x(T, C)).transpose(1, 2).contiguous().to(cuda)
@@ -122,11 +222,7 @@ def test_kernel_autograd_matches_plain_on_card(cuda, k):
     before = trb.resblock_launches
     out = trb.fused_resblock(*leaves, kernel_size=k, dilations=dils)
     assert out.grad_fn is not None and trb.resblock_launches == before + len(dils)
-    got = torch.autograd.grad(out, leaves, cot)
-    ref = torch.autograd.grad(trb._resblock(*leaves, kernel_size=k, dilations=dils),
-                              leaves, cot)
-    for a, r in zip(got, ref):
-        assert (a - r).abs().max().item() <= 1e-4 * max(1.0, r.abs().max().item())
+    _assert_grads_at_kernel_slopes(out, leaves, cot, k, dils)
 
 
 @pytest.mark.gpu

@@ -130,3 +130,35 @@ def test_port_imports_no_jax(root):
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "rvc_maker_tpu"), (f, mod)
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["builds", "fails"])
+def test_build_all_runs_each_source_and_reports(tmp_path, monkeypatch, fail):
+    """build_all starts one compiler per source and records its seconds;
+    a failing compiler raises with that source's output.  A shell script
+    stands in for nvcc (this machine has none): it writes the library
+    named after -o, or prints an error and exits 1."""
+    from rvc_maker_tpu_torch.ops import build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + ('echo "error: $0 refused"; exit 1\n' if fail else
+                                     'while [ "$1" != "-o" ]; do shift; done\n'
+                                     'echo ptxas report; touch "$2"\n'))
+    nvcc.chmod(0o755)
+    (tmp_path / "a.cu").write_text("// a")
+    (tmp_path / "b.cu").write_text("// b")
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "SOURCES", {"a": "a.cu", "b": "b.cu"})
+    monkeypatch.setattr(build, "build_seconds", {})
+    if fail:
+        with pytest.raises(RuntimeError, match="nvcc exited 1\nerror: .* refused"):
+            build.build_all()
+        assert not list((tmp_path / "_build").iterdir())
+        return
+    logs = build.build_all()
+    assert logs == {"a": "ptxas report\n", "b": "ptxas report\n"}
+    assert set(build.build_seconds) == {"a", "b"}
+    assert all(build.library_path(k).exists() for k in ("a", "b"))
+    assert build.build_all() == {"a": "", "b": ""}       # built: nothing to run
