@@ -53,6 +53,19 @@ Phases, each printed as it runs; any failure exits non-zero:
               k = 3/7/11) from the same state and explicit noise on the
               CPU and on the card: each loss term <= 1e-4 relative, each
               gradient leaf <= 1e-3 * its max |g|.
+  9. vocoders the other decoders at the full v2 / 48 kHz width (random
+              weights from a seed; phase 4's HuBERT, RMVPE and index): an
+              f0-less model (the plain decoder), MRF-HiFi-GAN and
+              RefineGAN.  Each: convert_batch on 2 x 10 s after a warm-up,
+              wall time, peak memory and a torch.profiler breakdown;
+              launch counts zeroed before and read after (36 on
+              resblock_tc for f0-less and MRF, 0 for RefineGAN, whose
+              leaky-ReLU slope 0.2 the kernel does not take); card against
+              CPU on 2 s with the same explicit noise: the RMVPE f0 <= 1e-2
+              Hz, the waveform on the CPU's f0 <= 1e-3, and each device on
+              its own f0 <= 1e-3 for f0-less and RefineGAN (printed for
+              MRF, whose 9-harmonic source turns the f0's rounding into
+              ~1e-3 of waveform); the harmonic source alone is printed.
 
 fp32 throughout, with TF32 off for cuDNN and matmuls (the parity path).
 The line before the last holds the kernels' JSON summary; the last line
@@ -386,11 +399,9 @@ def card_vs_cpu(cfg, model):
                                version="v2", rmvpe_params=model["rmvpe_params"],
                                index_vectors=model["index_vectors"], device=dev)
         p_len = pipe.frames(audio.shape[1])
-        zs, ss = pipe.noise_shapes(1, p_len)
-        gen = torch.Generator().manual_seed(11)
-        z, s = torch.randn(zs, generator=gen), torch.randn(ss, generator=gen)
+        z, noise = pipe.draw_noise(1, p_len, torch.Generator().manual_seed(11))
         before = rb.resblock_tc_launches
-        wav, _ = pipe.convert_batch(audio, lengths, 0, settings, z_noise=z, sine_noise=s)
+        wav, _ = pipe.convert_batch(audio, lengths, 0, settings, z_noise=z, noise=noise)
         if dev == "cuda" and rb.resblock_tc_launches == before:
             raise AssertionError("the card's decode did not launch the kernel")
         outs[dev] = wav.cpu().numpy()
@@ -761,6 +772,150 @@ def train_parity():
                 zero_grad_leaves=n_zero)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the f0-less, MRF-HiFi-GAN and RefineGAN decoders
+# ---------------------------------------------------------------------------
+
+VOCODER_KINDS = (("f0less", "Default", False), ("mrf", "MRF HiFi-GAN", True),
+                 ("refinegan", "RefineGAN", True))
+F0_TOL_HZ = 1e-2     # RMVPE f0, card against CPU on the 2 s input
+
+
+def vocoder_model(kind: str, vocoder: str, use_f0: bool, seed: int):
+    """v2-48k synthesizer of one decoder kind from a seed, its decode
+    scaled up as phase 4's is, so that the waveform spans a good part of
+    [-1, 1]."""
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.interop import from_jax
+
+    cfg = preset("v2", 48000, vocoder=vocoder, pitch_guidance=use_f0).model
+    tree = from_jax.random_synthesizer_tree(cfg, seed=seed)
+    dec = tree["dec"]
+    if kind == "refinegan":
+        for blk in dec["upsample_conv_blocks"]:
+            blk["input_conv"]["w"] *= 5.0
+    else:
+        for u in dec["ups"]:
+            u["w"] *= 5.0
+    dec["conv_post"]["w"] *= 5.0
+    return cfg, from_jax.synthesizer_from_jax(tree, cfg)
+
+
+def source_diff(cfg, kind, f0, noise, device):
+    """Max |card - CPU| of the decoder's harmonic source alone on the f0
+    (1, p_len) of the CPU run (MRF and RefineGAN; None otherwise)."""
+    from rvc_maker_tpu_torch.models import vocoders as voc
+
+    if kind == "f0less":
+        return None
+    f0_up = (voc._upsample_nearest(f0, cfg.upp) if kind == "mrf" else
+             voc.interp_linear(f0[:, None], f0.shape[1] * cfg.upp)[:, 0])
+    h = voc.MRF_HARMONICS if kind == "mrf" else 0
+    with torch.inference_mode():
+        out = [voc._harmonic_source(f0_up.to(dev), h, noise["source"].to(dev),
+                                    noise["rand_ini"].to(dev), sample_rate=cfg.sr).cpu()
+               for dev in ("cpu", device)]
+    return float((out[0] - out[1]).abs().max())
+
+
+def vocoders_phase(model, card: str):
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+
+    settings = ConvertSettings(index_rate=0.5)
+    L = 16000 * 10
+    batch = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
+    lengths = np.array([L, L])
+    short = voice(2.0, 200.0, 4)[None]
+    aux = dict(hubert_params=model["hubert_params"], rmvpe_params=model["rmvpe_params"],
+               index_vectors=model["index_vectors"])
+    res = {}
+    for i, (kind, vocoder, use_f0) in enumerate(VOCODER_KINDS):
+        cfg, synth = vocoder_model(kind, vocoder, use_f0, seed=20 + i)
+        per_decode = (0 if kind == "refinegan" else
+                      sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates))
+        pipe = ConvertPipeline(synth, cfg, aux["hubert_params"], version="v2",
+                               rmvpe_params=aux["rmvpe_params"],
+                               index_vectors=aux["index_vectors"], device="cuda")
+        pipe.convert_batch(batch, lengths, 0, settings)       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(rb)
+        t0 = time.perf_counter()
+        wav, _ = pipe.convert_batch(batch, lengths, 0, settings)
+        torch.cuda.synchronize()
+        t_batch = time.perf_counter() - t0
+        launches, tc_launches = rb.resblock_launches, rb.resblock_tc_launches
+        peak = torch.cuda.max_memory_allocated()
+        p_len = pipe.frames(L)
+        if tuple(wav.shape) != (2, p_len * cfg.upp) or not torch.isfinite(wav).all():
+            raise AssertionError(f"{kind}: wav {tuple(wav.shape)}, finite "
+                                 f"{bool(torch.isfinite(wav).all())}")
+        if not launches == tc_launches == per_decode:
+            raise AssertionError(f"{kind}: convert_batch launched {launches} ({tc_launches} "
+                                 f"on resblock_tc), expected {per_decode}")
+        why = ("" if per_decode else ": RefineGAN's resblocks take leaky-ReLU slope 0.2 and "
+               "the kernel computes slope 0.1, so they run the F.conv1d chain")
+        log(f"  {kind} ({vocoder}, f0 {use_f0}): convert_batch 2 x 10 s {t_batch:.3f} s wall "
+            f"({20.0 / t_batch:.2f} audio-s/s), |wav|max {float(wav.abs().max()):.3f}, peak "
+            f"device memory {peak / 2**30:.2f} GiB; resblock launches {launches}, "
+            f"{tc_launches} on resblock_tc{why}")
+        r = dict(batch_s=t_batch, batch_audio_s_per_s=20.0 / t_batch,
+                 resblock_launches=launches, resblock_tc_launches=tc_launches,
+                 launches_per_decode=per_decode, max_memory_allocated=peak,
+                 wav_absmax=float(wav.abs().max()))
+        r["profile_batch"] = profile_call(
+            f"{kind} convert_batch 2 x 10 s",
+            lambda: pipe.convert_batch(batch, lengths, 0, settings), t_batch)
+        del pipe, wav
+        torch.cuda.empty_cache()
+
+        outs, f0s = {}, {}
+        pipes = {dev: ConvertPipeline(synth, cfg, aux["hubert_params"], version="v2",
+                                      rmvpe_params=aux["rmvpe_params"],
+                                      index_vectors=aux["index_vectors"], device=dev)
+                 for dev in ("cpu", "cuda")}
+        z, noise = pipes["cpu"].draw_noise(1, pipes["cpu"].frames(short.shape[1]),
+                                           torch.Generator().manual_seed(11))
+        # each device with its own RMVPE f0, then the card once more on the
+        # CPU's f0: cuDNN's rounding in RMVPE puts the card's f0 ~2e-3 Hz
+        # from the CPU's, and an MRF source sums its 9th harmonic's phase
+        # over every sample, so the MRF waveform is held on one f0 and the
+        # f0 itself on its own bound
+        for dev, pipe in (*pipes.items(), ("cuda, CPU f0", pipes["cuda"])):
+            if dev == "cuda, CPU f0":
+                pipe._f0 = lambda audio, settings, d=pipe.device: f0s["cpu"].to(d)
+            before = rb.resblock_tc_launches
+            w, f0s[dev] = pipe.convert_batch(short, np.array([short.shape[1]]), 0, settings,
+                                             z_noise=z, noise=noise)
+            outs[dev] = w.cpu().numpy()
+            if dev != "cpu" and rb.resblock_tc_launches - before != per_decode:
+                raise AssertionError(f"{kind}: the card's 2 s decode launched "
+                                     f"{rb.resblock_tc_launches - before}")
+        err = float(np.abs(outs["cpu"] - outs["cuda, CPU f0"]).max())
+        own_err = float(np.abs(outs["cpu"] - outs["cuda"]).max())
+        src = source_diff(cfg, kind, f0s["cpu"], noise, "cuda")
+        f0_err = float((f0s["cpu"] - f0s["cuda"].cpu()).abs().max())
+        r.update(wave_max_abs_err=err, own_f0_wave_max_abs_err=own_err,
+                 source_max_abs_err=src, f0_max_abs_err=f0_err)
+        log(f"  {kind} card vs CPU, 2 s, one f0: waveform max abs err {err:.3e} (|wav|max "
+            f"{np.abs(outs['cpu']).max():.3f}); each on its own RMVPE f0 ({f0_err:.3e} Hz "
+            f"apart) {own_err:.3e}" + ("" if src is None else
+                                       f"; the harmonic source alone, on one f0, {src:.3e}"))
+        del pipes
+        torch.cuda.empty_cache()
+        if not err <= 1e-3:
+            raise AssertionError(f"{kind}: card vs CPU waveform err {err}")
+        if not f0_err <= F0_TOL_HZ:
+            raise AssertionError(f"{kind}: card vs CPU RMVPE f0 err {f0_err} Hz")
+        if kind != "mrf" and not own_err <= 1e-3:
+            raise AssertionError(f"{kind}: card vs CPU waveform err {own_err}, "
+                                 "each on its own f0")
+        res[kind] = r
+    log(f"  on {card}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -823,10 +978,13 @@ def main() -> int:
 
     log("[7 train] preprocess -> extract -> train -> export -> convert at v2-48k")
     RESULTS["train"] = train_flow(model, smi)
-    del model
 
     log("[8 train-parity] one narrow train step, card against CPU")
     RESULTS["train_parity"] = train_parity()
+
+    log("[9 vocoders] f0-less, MRF-HiFi-GAN and RefineGAN conversion at v2-48k")
+    RESULTS["vocoders"] = vocoders_phase(model, smi)
+    del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -835,6 +993,7 @@ def main() -> int:
         json.dump(RESULTS, f, indent=1)
 
     main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
+    voc = RESULTS["vocoders"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16": "resblock"}
     common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
@@ -848,6 +1007,9 @@ def main() -> int:
     kernels = [
         dict(name="resblock_tc", source="rvc_maker_tpu_torch/csrc/resblock_tc.cu",
              launches=main["resblock_tc_launches"], launches_train=train["resblock_tc_launches"],
+             launches_f0less=voc["f0less"]["resblock_tc_launches"],
+             launches_mrf=voc["mrf"]["resblock_tc_launches"],
+             launches_refinegan=voc["refinegan"]["resblock_tc_launches"],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common),

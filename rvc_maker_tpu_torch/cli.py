@@ -8,11 +8,14 @@
         [--batch-size 8 --pretrain-g f0G48k.pth --pretrain-d f0D48k.pth]
     python -m rvc_maker_tpu_torch.cli convert --input in.wav \\
         --output out.wav --model model.pth --rmvpe-path rmvpe.pt \\
-        --hubert-path hubert_base.pt [--index feats.npz --index-rate 0.5]
+        --hubert-path hubert_base.pt [--index added.index --index-rate 0.5]
         [--pitch 0 --protect 0.33 --sid 0]
 
-Every weight file is given explicitly; nothing is downloaded.  extract,
-train and convert run on the card unless `--device cpu` is passed.
+Every weight file is given explicitly; nothing is downloaded.  convert
+takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
+f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN); train writes
+NSF-HiFiGAN models of f0.  extract, train and convert run on the card
+unless `--device cpu` is passed.
 """
 
 from __future__ import annotations
@@ -157,11 +160,13 @@ def build_parser() -> argparse.ArgumentParser:
     c = sub.add_parser("convert", help="convert one utterance")
     c.add_argument("--input", required=True)
     c.add_argument("--output", required=True)
-    c.add_argument("--model", required=True, help="interchange .pth voice model")
+    c.add_argument("--model", required=True,
+                   help="interchange .pth voice model, any of the reference's decoders")
     c.add_argument("--rmvpe-path", required=True, help="reference rmvpe.pt")
     c.add_argument("--hubert-path", required=True,
                    help="fairseq HuBERT/ContentVec .pt")
-    c.add_argument("--index", default="", help=".npz index or total_fea.npy")
+    c.add_argument("--index", default="",
+                   help=".npz index, faiss .index (added_*.index) or total_fea.npy")
     c.add_argument("--index-rate", type=float, default=0.5)
     c.add_argument("--pitch", type=int, default=0)
     c.add_argument("--protect", type=float, default=0.33)

@@ -29,7 +29,8 @@ from ..config import ModelConfig
 from ..models import discriminator as disc_mod
 from ..models import hubert as hubert_mod
 from ..models.rmvpe import N_CLASS, make_bigru
-from ..models.synthesizer import _stage_paddings
+from ..models.synthesizer import _stage_paddings, decoder_kind
+from ..models.vocoders import MRF_HARMONICS
 from .pth import pack_resblock
 
 
@@ -71,9 +72,6 @@ def synthesizer_from_jax(tree, cfg: ModelConfig, *, train: bool = False) -> dict
     """JAX synthesizer params -> the port's tree: the inference tree, or
     with train=True the training tree, which adds the posterior encoder
     `enc_q`.  Also maps a JAX gradient tree onto the port's layouts."""
-    if not cfg.use_f0 or cfg.vocoder != "Default":
-        raise NotImplementedError(
-            "only the NSF-HiFiGAN decoder of f0 models is ported")
     enc = tree["enc_p"]
     layers = []
     for lp in enc["encoder"]["layers"]:
@@ -88,30 +86,55 @@ def synthesizer_from_jax(tree, cfg: ModelConfig, *, train: bool = False) -> dict
             "norm2": _ln(lp["norm2"]),
         })
     enc_p = {"emb_phone": _lin(enc["emb_phone"]), "encoder": {"layers": layers},
-             "proj": _lin(enc["proj"]), "emb_pitch": {"w": _t(enc["emb_pitch"]["w"])}}
+             "proj": _lin(enc["proj"])}
+    if "emb_pitch" in enc:
+        enc_p["emb_pitch"] = {"w": _t(enc["emb_pitch"]["w"])}
     flow = {"layers": [{"pre": _lin(lp["pre"]), "enc": _wavenet(lp["enc"]),
                         "post": _lin(lp["post"])}
                        for lp in tree["flow"]["layers"]]}
-    d = tree["dec"]
-    dec = {
-        "conv_pre": _conv(d["conv_pre"]),
-        "ups": [_convt(u) for u in d["ups"]],
-        "noise_convs": [_conv(c) for c in d["noise_convs"]],
-        "source": {"l_linear": _lin(d["source"]["l_linear"])},
-        "resblocks": [pack_resblock([_conv(c) for c in rb["convs1"]],
-                                    [_conv(c) for c in rb["convs2"]])
-                      for rb in d["resblocks"]],
-        "conv_post": _conv(d["conv_post"]),
-    }
-    if "cond" in d:
-        dec["cond"] = _lin(d["cond"])
-    out = {"enc_p": enc_p, "flow": flow, "dec": dec,
+    out = {"enc_p": enc_p, "flow": flow, "dec": _decoder_from_jax(tree["dec"], cfg),
            "emb_g": {"w": _t(tree["emb_g"]["w"])}}
     if train:
         q = tree["enc_q"]
         out["enc_q"] = {"pre": _lin(q["pre"]), "enc": _wavenet(q["enc"]),
                         "proj": _lin(q["proj"])}
     return out
+
+
+def _decoder_from_jax(d, cfg: ModelConfig) -> dict:
+    """The decoder tree `decoder_kind(cfg)` names.  The NSF, plain and
+    MRF resblocks are packed for the kernel (MRF's `mrfs[i][j].layers`
+    stage by stage); RefineGAN keeps torch-layout convs."""
+    kind = decoder_kind(cfg)
+    if kind == "refinegan":
+        dec = {"source": {"merge": _lin(d["source"]["merge"])},
+               "pre_conv": _conv(d["pre_conv"]), "mel_conv": _conv(d["mel_conv"]),
+               "downsample_blocks": [_conv(c) for c in d["downsample_blocks"]],
+               "upsample_conv_blocks": [
+                   {"input_conv": _conv(blk["input_conv"]),
+                    "blocks": [{"adain1": {"weight": _t(b["adain1"]["weight"])},
+                                "res": {k: [_conv(c) for c in b["res"][k]]
+                                        for k in ("convs1", "convs2")},
+                                "adain2": {"weight": _t(b["adain2"]["weight"])}}
+                               for b in blk["blocks"]]}
+                   for blk in d["upsample_conv_blocks"]],
+               "conv_post": _conv(d["conv_post"])}
+    else:
+        if kind == "mrf":
+            rbs = [([lp["conv1"] for lp in blk["layers"]], [lp["conv2"] for lp in blk["layers"]])
+                   for stage in d["mrfs"] for blk in stage]
+        else:
+            rbs = [(rb["convs1"], rb["convs2"]) for rb in d["resblocks"]]
+        dec = {"conv_pre": _conv(d["conv_pre"]), "ups": [_convt(u) for u in d["ups"]]}
+        if kind != "plain":
+            dec["noise_convs"] = [_conv(c) for c in d["noise_convs"]]
+            dec["source"] = {"l_linear": _lin(d["source"]["l_linear"])}
+        dec["resblocks"] = [pack_resblock([_conv(c) for c in c1], [_conv(c) for c in c2])
+                            for c1, c2 in rbs]
+        dec["conv_post"] = _conv(d["conv_post"])
+    if "cond" in d:
+        dec["cond"] = _lin(d["cond"])
+    return dec
 
 
 def _wn(p, axes) -> dict:
@@ -210,7 +233,10 @@ def rmvpe_from_jax(tree) -> dict:
 def random_synthesizer_tree(cfg: ModelConfig, seed: int = 0) -> dict:
     """Synthesizer params drawn like the JAX package's init_params
     (torch default bounds; normal(0, 0.01) for the decoder's ups and
-    resblock convs), in its layouts."""
+    resblock convs), in its layouts, with the decoder `decoder_kind(cfg)`
+    names (the f0-less plain decoder, or MRF-HiFi-GAN and RefineGAN as
+    vocoders.py mrf_init_params / refinegan_init_params draw them).  The
+    NSF draws do not depend on the kind."""
     rs = np.random.RandomState(seed)
 
     def uni(shape, fan_in):
@@ -268,13 +294,47 @@ def random_synthesizer_tree(cfg: ModelConfig, seed: int = 0) -> dict:
                             "b": np.zeros((cout,), np.float32)} for _ in ds],
                 "convs2": [{"w": normal((ks, cout, cout), 0.01),
                             "b": np.zeros((cout,), np.float32)} for _ in ds]})
+    c_last = uic // 2 ** len(ups)
     dec = {"conv_pre": conv(7, inter, uic), "cond": lin(cfg.gin_channels, uic),
            "ups": ups, "noise_convs": noise_convs, "resblocks": resblocks,
-           "conv_post": {"w": normal((7, uic // 2 ** len(ups), 1), 0.01)},
+           "conv_post": {"w": normal((7, c_last, 1), 0.01)},
            "source": {"l_linear": lin(1, 1)}}
     emb_g = {"w": normal((cfg.spk_embed_dim, cfg.gin_channels), 1.0)}
     enc_q = {"pre": lin(cfg.spec_channels, h), "enc": wavenet(16),
              "proj": lin(h, 2 * inter)}
+    kind = decoder_kind(cfg)
+    if not cfg.use_f0:                 # init_params :767, :823
+        del enc_p["emb_pitch"], dec["noise_convs"], dec["source"]
+    elif kind == "mrf":                # vocoders.py mrf_init_params
+        nk = len(cfg.resblock_kernel_sizes)
+        dec["source"] = {"l_linear": lin(MRF_HARMONICS + 1, 1)}
+        dec["conv_post"] = conv(7, c_last, 1)
+        dec["mrfs"] = [[{"layers": [{"conv1": c1, "conv2": c2}
+                                    for c1, c2 in zip(rb["convs1"], rb["convs2"])]}
+                        for rb in resblocks[i * nk:(i + 1) * nk]]
+                       for i in range(len(ups))]
+        del dec["resblocks"]
+    elif kind == "refinegan":          # vocoders.py refinegan_init_params
+        dec = {"source": {"merge": {"w": normal((1, 1), 0.5)}},
+               "pre_conv": conv(7, 1, uic // 2),
+               "mel_conv": {"w": normal((7, inter, uic // 2), 0.01),
+                            "b": np.zeros((uic // 2,), np.float32)},
+               "cond": lin(cfg.gin_channels, uic // 2),
+               "downsample_blocks": [], "upsample_conv_blocks": []}
+        ch = uic
+        for i, st in enumerate(_stage_paddings(cfg)):
+            dec["downsample_blocks"].append(conv(st["noise_kernel"], 1, uic // 2 ** (i + 2)))
+            new = ch // 2
+            ones = np.ones((new,), np.float32)
+            dec["upsample_conv_blocks"].append({
+                "input_conv": {"w": normal((7, ch + ch // 4, new), 0.01),
+                               "b": np.zeros((new,), np.float32)},
+                "blocks": [{"adain1": {"weight": ones.copy()},
+                            "res": {k: [conv(ks, new, new) for _ in range(3)]
+                                    for k in ("convs1", "convs2")},
+                            "adain2": {"weight": ones.copy()}} for ks in (3, 7, 11)]})
+            ch = new
+        dec["conv_post"] = {"w": normal((7, ch, 1), 0.01)}
     return {"enc_p": enc_p, "enc_q": enc_q, "flow": flow, "dec": dec,
             "emb_g": emb_g}
 

@@ -12,8 +12,13 @@ weights and the resblock convs are packed as `ops/resblock.py` takes
 them.  Training checkpoints (pretrained G / D, {"model": state_dict})
 load with `load_pretrained_g` (folded, with the posterior encoder) and
 `load_pretrained_d` (live (g, v, b) pairs).  `export_synthesizer_pth`
-writes the inference file back.  Only the NSF-HiFiGAN decoder of f0
-models is ported.
+writes the inference file back.  Every decoder the reference writes
+loads and exports: NSF-HiFiGAN (`dec.resblocks`), the plain Generator of
+f0-less models (`dec.ups_and_resblocks`, no `enc_p.emb_pitch`),
+MRF-HiFi-GAN (`dec.upsamples`, `dec.mrfs`) and RefineGAN
+(`dec.upsample_conv_blocks`), chosen by `synthesizer.decoder_kind` from
+the file's "f0" and "vocoder".  The resblocks of the first three are
+packed for the kernel; RefineGAN's keep torch layout.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from ..config import (ModelConfig, RVCConfig, model_config_from_ckpt_list,
                       model_config_to_ckpt_list)
 from ..models.discriminator import periods_for
+from ..models.synthesizer import decoder_kind
 
 Params = Any
 
@@ -105,13 +111,73 @@ def pack_resblock(convs1, convs2) -> dict:
     }
 
 
+def _packed(sd, cfg: ModelConfig, name) -> list:
+    """Every resblock of a HiFi-GAN decoder, stage by stage, packed;
+    name(j, c, k) is the key prefix of conv c (1, 2) at dilation k of
+    the j-th resblock."""
+    nk = len(cfg.resblock_kernel_sizes)
+    return [pack_resblock(
+        [_conv(sd, name(j, 1, k)) for k in range(len(cfg.resblock_dilation_sizes[j % nk]))],
+        [_conv(sd, name(j, 2, k)) for k in range(len(cfg.resblock_dilation_sizes[j % nk]))])
+        for j in range(len(cfg.upsample_rates) * nk)]
+
+
+def _decoder_from_state_dict(sd, cfg: ModelConfig) -> Params:
+    """The decoder `decoder_kind(cfg)` names, from the reference's module
+    names (JAX interop/torch_import.py:177-227, vocoders.py:204-267)."""
+    kind = decoder_kind(cfg)
+    n_up = len(cfg.upsample_rates)
+    nk = len(cfg.resblock_kernel_sizes)
+    if kind == "refinegan":
+        return _refinegan_from_state_dict(sd, n_up)
+    if kind == "plain":
+        # ups and resblocks interleave in one ModuleList (reference
+        # synthesizers.py:27-33): stage i at i*(1+nk), its resblock j
+        # at i*(1+nk)+1+j
+        dec = {"conv_pre": _conv(sd, "dec.conv_pre"),
+               "ups": [_conv(sd, f"dec.ups_and_resblocks.{i * (1 + nk)}")
+                       for i in range(n_up)],
+               "resblocks": _packed(sd, cfg, lambda j, c, k: (
+                   f"dec.ups_and_resblocks.{j // nk * (1 + nk) + 1 + j % nk}.convs{c}.{k}"))}
+    else:
+        mrf = kind == "mrf"
+        dec = {"conv_pre": _conv(sd, "dec.conv_pre"),
+               "ups": [_conv(sd, f"dec.{'upsamples' if mrf else 'ups'}.{i}")
+                       for i in range(n_up)],
+               "noise_convs": [_conv(sd, f"dec.noise_convs.{i}") for i in range(n_up)],
+               "source": {"l_linear": _conv(sd, "dec.m_source.l_linear")},
+               "resblocks": _packed(sd, cfg, (
+                   lambda j, c, k: f"dec.mrfs.{j // nk}.{j % nk}.layers.{k}.conv{c}")
+                   if mrf else (lambda j, c, k: f"dec.resblocks.{j}.convs{c}.{k}"))}
+    dec["conv_post"] = _conv(sd, "dec.conv_post")
+    if "dec.cond.weight" in sd:
+        dec["cond"] = _conv1x1(sd, "dec.cond")
+    return dec
+
+
+def _refinegan_from_state_dict(sd, n_up: int) -> Params:
+    dec = {"source": {"merge": {"w": folded_weight(sd, "dec.m_source.merge.0")}},
+           "pre_conv": _conv(sd, "dec.pre_conv"), "mel_conv": _conv(sd, "dec.mel_conv"),
+           "downsample_blocks": [_conv(sd, f"dec.downsample_blocks.{i}")
+                                 for i in range(n_up)],
+           "upsample_conv_blocks": [], "conv_post": _conv(sd, "dec.conv_post")}
+    for i in range(n_up):
+        bp = f"dec.upsample_conv_blocks.{i}"
+        dec["upsample_conv_blocks"].append({
+            "input_conv": _conv(sd, f"{bp}.input_conv"),
+            "blocks": [{"adain1": {"weight": _f32(sd[f"{bp}.blocks.{j}.0.weight"])},
+                        "res": {f"convs{c}": [_conv(sd, f"{bp}.blocks.{j}.1.convs{c}.{k}")
+                                              for k in range(3)] for c in (1, 2)},
+                        "adain2": {"weight": _f32(sd[f"{bp}.blocks.{j}.2.weight"])}}
+                       for j in range(3)]})
+    if "dec.cond.weight" in sd:
+        dec["cond"] = _conv1x1(sd, "dec.cond")
+    return dec
+
+
 def synthesizer_params_from_state_dict(sd: Mapping[str, Any],
                                        cfg: ModelConfig) -> Params:
     """Map a reference Synthesizer state_dict onto the port's tree."""
-    if not cfg.use_f0 or cfg.vocoder != "Default" \
-            or "dec.m_source.l_linear.weight" not in sd:
-        raise NotImplementedError(
-            "only the NSF-HiFiGAN decoder of f0 models is ported")
     enc_layers = []
     for i in range(cfg.n_layers):
         ap = f"enc_p.encoder.attn_layers.{i}"
@@ -129,33 +195,15 @@ def synthesizer_params_from_state_dict(sd: Mapping[str, Any],
         })
     enc_p = {"emb_phone": _conv(sd, "enc_p.emb_phone"),
              "encoder": {"layers": enc_layers},
-             "proj": _conv1x1(sd, "enc_p.proj"),
-             "emb_pitch": {"w": _f32(sd["enc_p.emb_pitch.weight"])}}
+             "proj": _conv1x1(sd, "enc_p.proj")}
+    if "enc_p.emb_pitch.weight" in sd:            # f0 models only
+        enc_p["emb_pitch"] = {"w": _f32(sd["enc_p.emb_pitch.weight"])}
     flow_layers = [{"pre": _conv1x1(sd, f"flow.flows.{2 * i}.pre"),
                     "enc": _wavenet(sd, f"flow.flows.{2 * i}.enc", n_layers=3),
                     "post": _conv1x1(sd, f"flow.flows.{2 * i}.post")}
                    for i in range(4)]
-
-    n_up = len(cfg.upsample_rates)
-    nk = len(cfg.resblock_kernel_sizes)
-    resblocks = []
-    for j in range(n_up * nk):
-        n_d = len(cfg.resblock_dilation_sizes[j % nk])
-        base = f"dec.resblocks.{j}"
-        resblocks.append(pack_resblock(
-            [_conv(sd, f"{base}.convs1.{k}") for k in range(n_d)],
-            [_conv(sd, f"{base}.convs2.{k}") for k in range(n_d)]))
-    dec = {
-        "conv_pre": _conv(sd, "dec.conv_pre"),
-        "ups": [_conv(sd, f"dec.ups.{i}") for i in range(n_up)],
-        "noise_convs": [_conv(sd, f"dec.noise_convs.{i}") for i in range(n_up)],
-        "source": {"l_linear": _conv(sd, "dec.m_source.l_linear")},
-        "resblocks": resblocks,
-        "conv_post": _conv(sd, "dec.conv_post"),
-    }
-    if "dec.cond.weight" in sd:
-        dec["cond"] = _conv1x1(sd, "dec.cond")
-    params = {"enc_p": enc_p, "flow": {"layers": flow_layers}, "dec": dec,
+    params = {"enc_p": enc_p, "flow": {"layers": flow_layers},
+              "dec": _decoder_from_state_dict(sd, cfg),
               "emb_g": {"w": _f32(sd["emb_g.weight"])}}
     if "enc_q.pre.weight" in sd:        # training checkpoints only
         params["enc_q"] = {"pre": _conv1x1(sd, "enc_q.pre"),
@@ -263,13 +311,79 @@ def _emit_wavenet(sd, prefix, p):
         _emit_1x1(sd, f"{prefix}.cond_layer", p["cond"], True)
 
 
-def synthesizer_state_dict(params: Params) -> "OrderedDict[str, torch.Tensor]":
+def _emit_packed(sd, resblocks, name, weight_normed: bool = True):
+    """Unpack each resblock's (D, k, Cin, Cout) convs; name(j, c, k) is
+    the key prefix of conv c (1, 2) at dilation k of resblock j."""
+    for j, rb in enumerate(resblocks):
+        for c in (1, 2):
+            w, b = rb[f"w{c}"], rb[f"b{c}"]
+            for k in range(w.shape[0]):
+                _emit(sd, name(j, c, k), w[k].permute(2, 1, 0), b[k], weight_normed)
+
+
+def _emit_decoder(sd, dec, cfg: ModelConfig):
+    """The port's decoder -> the reference's module names (JAX
+    torch_export.py: the NSF and `ups_and_resblocks` branches :116-147,
+    `_export_mrf_dec` :152, `_export_refinegan_dec` :172)."""
+    kind = decoder_kind(cfg)
+    nk = len(cfg.resblock_kernel_sizes)
+    if kind == "refinegan":
+        sd["dec.m_source.merge.0.weight"] = _cpu(dec["source"]["merge"]["w"])
+        for name in ("pre_conv", "mel_conv"):
+            _emit(sd, f"dec.{name}", dec[name]["w"], dec[name]["b"], True)
+        for i, lp in enumerate(dec["downsample_blocks"]):
+            _emit(sd, f"dec.downsample_blocks.{i}", lp["w"], lp["b"], True)
+        for i, blk in enumerate(dec["upsample_conv_blocks"]):
+            bp = f"dec.upsample_conv_blocks.{i}"
+            _emit(sd, f"{bp}.input_conv", blk["input_conv"]["w"], blk["input_conv"]["b"])
+            for j, b2 in enumerate(blk["blocks"]):
+                sd[f"{bp}.blocks.{j}.0.weight"] = _cpu(b2["adain1"]["weight"])
+                sd[f"{bp}.blocks.{j}.2.weight"] = _cpu(b2["adain2"]["weight"])
+                for c in (1, 2):
+                    for k, conv in enumerate(b2["res"][f"convs{c}"]):
+                        _emit(sd, f"{bp}.blocks.{j}.1.convs{c}.{k}", conv["w"], conv["b"],
+                              True)
+        _emit(sd, "dec.conv_post", dec["conv_post"]["w"], None, True)
+    elif kind == "mrf":
+        _emit(sd, "dec.m_source.l_linear", dec["source"]["l_linear"]["w"],
+              dec["source"]["l_linear"]["b"])
+        _emit(sd, "dec.conv_pre", dec["conv_pre"]["w"], dec["conv_pre"]["b"], True)
+        for i, lp in enumerate(dec["ups"]):
+            _emit(sd, f"dec.upsamples.{i}", lp["w"], lp["b"], True)
+        for i, lp in enumerate(dec["noise_convs"]):
+            _emit(sd, f"dec.noise_convs.{i}", lp["w"], lp["b"])
+        _emit_packed(sd, dec["resblocks"],
+                     lambda j, c, k: f"dec.mrfs.{j // nk}.{j % nk}.layers.{k}.conv{c}")
+        _emit(sd, "dec.conv_post", dec["conv_post"]["w"], dec["conv_post"]["b"], True)
+    else:
+        _emit(sd, "dec.conv_pre", dec["conv_pre"]["w"], dec["conv_pre"]["b"])
+        if kind == "plain":
+            for i, lp in enumerate(dec["ups"]):
+                _emit(sd, f"dec.ups_and_resblocks.{i * (1 + nk)}", lp["w"], lp["b"], True)
+            _emit_packed(sd, dec["resblocks"], lambda j, c, k: (
+                f"dec.ups_and_resblocks.{j // nk * (1 + nk) + 1 + j % nk}.convs{c}.{k}"))
+        else:
+            for i, lp in enumerate(dec["ups"]):
+                _emit(sd, f"dec.ups.{i}", lp["w"], lp["b"], True)
+            for i, lp in enumerate(dec["noise_convs"]):
+                _emit(sd, f"dec.noise_convs.{i}", lp["w"], lp["b"])
+            _emit_packed(sd, dec["resblocks"], lambda j, c, k: f"dec.resblocks.{j}.convs{c}.{k}")
+            _emit(sd, "dec.m_source.l_linear", dec["source"]["l_linear"]["w"],
+                  dec["source"]["l_linear"]["b"])
+        _emit(sd, "dec.conv_post", dec["conv_post"]["w"])
+    if "cond" in dec:
+        _emit_1x1(sd, "dec.cond", dec["cond"])
+
+
+def synthesizer_state_dict(params: Params,
+                           cfg: ModelConfig) -> "OrderedDict[str, torch.Tensor]":
     """The port's tree -> a reference Synthesizer state dict (fp32, CPU),
     without the posterior encoder."""
     sd: OrderedDict = OrderedDict()
     enc_p = params["enc_p"]
     _emit(sd, "enc_p.emb_phone", enc_p["emb_phone"]["w"], enc_p["emb_phone"]["b"])
-    sd["enc_p.emb_pitch.weight"] = _cpu(enc_p["emb_pitch"]["w"])
+    if "emb_pitch" in enc_p:
+        sd["enc_p.emb_pitch.weight"] = _cpu(enc_p["emb_pitch"]["w"])
     for i, lp in enumerate(enc_p["encoder"]["layers"]):
         ap = f"enc_p.encoder.attn_layers.{i}"
         for k in ("q", "k", "v", "o"):
@@ -287,23 +401,7 @@ def synthesizer_state_dict(params: Params) -> "OrderedDict[str, torch.Tensor]":
         _emit_1x1(sd, f"{fp}.pre", lp["pre"])
         _emit_wavenet(sd, f"{fp}.enc", lp["enc"])
         _emit_1x1(sd, f"{fp}.post", lp["post"])
-    dec = params["dec"]
-    _emit(sd, "dec.conv_pre", dec["conv_pre"]["w"], dec["conv_pre"]["b"])
-    for i, lp in enumerate(dec["ups"]):
-        _emit(sd, f"dec.ups.{i}", lp["w"], lp["b"], True)
-    for i, lp in enumerate(dec["noise_convs"]):
-        _emit(sd, f"dec.noise_convs.{i}", lp["w"], lp["b"])
-    for j, rb in enumerate(dec["resblocks"]):
-        for c in (1, 2):
-            w, b = rb[f"w{c}"], rb[f"b{c}"]
-            for k in range(w.shape[0]):
-                _emit(sd, f"dec.resblocks.{j}.convs{c}.{k}", w[k].permute(2, 1, 0),
-                      b[k], True)
-    _emit(sd, "dec.m_source.l_linear", dec["source"]["l_linear"]["w"],
-          dec["source"]["l_linear"]["b"])
-    _emit(sd, "dec.conv_post", dec["conv_post"]["w"])
-    if "cond" in dec:
-        _emit_1x1(sd, "dec.cond", dec["cond"])
+    _emit_decoder(sd, params["dec"], cfg)
     sd["emb_g.weight"] = _cpu(params["emb_g"]["w"])
     return sd
 
@@ -312,7 +410,7 @@ def export_synthesizer_pth(params: Params, cfg: RVCConfig, path: str, *,
                            epoch: int = 0, step: int = 0, author: str = "") -> None:
     """Write the interchange .pth: fp16 tensors, enc_q stripped, the
     config list and metadata (reference train.py:724-744)."""
-    sd = synthesizer_state_dict(params)
+    sd = synthesizer_state_dict(params, cfg.model)
     hasher = hashlib.sha256()
     for k in sorted(sd):
         hasher.update(k.encode())

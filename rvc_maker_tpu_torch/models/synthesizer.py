@@ -3,17 +3,22 @@
 Counterpart of `rvc_maker_tpu/models/synthesizer.py` (reference
 synthesizers.py:396-489, residuals.py, modules.py): text encoder with
 windowed relative-position attention, the posterior encoder, the flow
-in both directions, and the NSF-HiFiGAN decoder with its sine source.
-Functions over explicit parameter dicts of torch tensors (layouts in
-`ops/nn.py`; weight-norm folded at load, and the generator trains on
-the folded weights, as the JAX package's does).  Noise comes in as
-tensors (`z_noise`, `sine_noise`, `post_noise`), or is drawn from an
-explicit torch.Generator, so a caller can hold the random draws.
+in both directions, and the decoders.  Inference runs every decoder the
+JAX package has: the NSF-HiFiGAN decoder with its sine source, the plain
+HiFi-GAN `generator` of f0-less models, and (in `models/vocoders.py`)
+MRF-HiFi-GAN and RefineGAN, dispatched by `infer_any`.  The training
+forward is ported for the NSF decoder of f0 models only.  Functions
+over explicit parameter dicts of torch tensors (layouts in `ops/nn.py`;
+weight-norm folded at load, and the generator trains on the folded
+weights, as the JAX package's does).  Noise comes in as tensors
+(`z_noise`, `sine_noise`, `post_noise`, the `decoder_noise` dict), or
+is drawn from an explicit torch.Generator, so a caller can hold the
+random draws.
 
 Layouts: the public functions take and return (B, T, C), as the JAX
-package does.  The decoder runs in (B, C, T) inside `generator_nsf`:
-that is the layout of cuDNN's convolutions, of F.conv_transpose1d and of
-the resblock kernel, so the decode needs no transposes between stages.
+package does.  The decoders run in (B, C, T) inside: that is the layout
+of cuDNN's convolutions, of F.conv_transpose1d and of the resblock
+kernel, so a decode needs no transposes between stages.
 """
 
 from __future__ import annotations
@@ -236,17 +241,24 @@ def source_module(p: Params, f0, noise, *, upp: int, sample_rate: int):
 
 
 def _stage_paddings(cfg: ModelConfig):
-    """Per-stage (convT padding, output_padding) and noise-conv geometry."""
+    """Per-stage (convT padding, output_padding) of `decoder_kind(cfg)`'s
+    stack and the noise-conv geometry.  The plain Generator pads its
+    transposed convs by (k - u) // 2 with no output_padding (reference
+    synthesizers.py:30); the NSF and MRF decoders by the stride's parity."""
     rates = cfg.upsample_rates
     n = len(rates)
+    plain = decoder_kind(cfg) == "plain"
     stride_f0s = [math.prod(rates[i + 1:]) if i + 1 < n else 1 for i in range(n)]
     out = []
     for i, (u, k) in enumerate(zip(rates, cfg.upsample_kernel_sizes)):
-        convt_pad = ((k - u) // 2) if u % 2 == 0 else (u // 2 + u % 2)
+        if plain or u % 2 == 0:
+            convt_pad = (k - u) // 2
+        else:
+            convt_pad = u // 2 + u % 2
         stride = stride_f0s[i]
         nk = 1 if stride == 1 else stride * 2 - stride % 2
         npad = 0 if stride == 1 else (nk - stride) // 2
-        out.append(dict(u=u, k=k, convt_pad=convt_pad, out_pad=u % 2,
+        out.append(dict(u=u, k=k, convt_pad=convt_pad, out_pad=0 if plain else u % 2,
                         noise_stride=stride, noise_kernel=nk, noise_pad=npad))
     return out
 
@@ -263,14 +275,16 @@ def _resblock_group(p: Params, x, indices, cfg: ModelConfig):
     return xs / len(indices)
 
 
-def generator_nsf(p: Params, cfg: ModelConfig, x, f0, g, sine_noise):
-    """NSF-HiFiGAN decode.  x: (B, T, inter); f0: (B, T) Hz; g: (B, 1,
-    gin) or None; sine_noise: (B, T*upp, 1).  Returns (B, T*upp, 1)."""
-    har = source_module(p["source"], f0, sine_noise, upp=cfg.upp,
-                        sample_rate=cfg.sr).to(x.dtype).transpose(1, 2)
+def _hifigan_stack(p: Params, cfg: ModelConfig, x, g, har=None):
+    """The HiFi-GAN upsampling stack that the NSF, MRF and plain decoders
+    share.  x: (B, T, inter); har: the harmonic source (B, 1, T*upp) or
+    None.  Per stage: leaky-ReLU, the transposed conv, the source's noise
+    conv when there is a source, the average of the stage's resblocks
+    (`fused_resblock`); then leaky-ReLU 0.01 (torch F.leaky_relu's
+    default, reference :161), conv_post and tanh.  Returns (B, T*upp, 1)."""
     x = conv1d(x.transpose(1, 2), p["conv_pre"]["w"], p["conv_pre"]["b"],
                padding=3)                                      # (B, C, T)
-    if g is not None:
+    if g is not None and "cond" in p:
         x = x + linear(g, p["cond"]["w"], p["cond"]["b"]).transpose(1, 2)
     nk = len(cfg.resblock_kernel_sizes)
     for i, st in enumerate(_stage_paddings(cfg)):
@@ -278,32 +292,138 @@ def generator_nsf(p: Params, cfg: ModelConfig, x, f0, g, sine_noise):
         x = conv_transpose1d(x, p["ups"][i]["w"], p["ups"][i]["b"],
                              stride=st["u"], padding=st["convt_pad"],
                              output_padding=st["out_pad"])
-        x = x + conv1d(har, p["noise_convs"][i]["w"], p["noise_convs"][i]["b"],
-                       stride=st["noise_stride"], padding=st["noise_pad"])
+        if har is not None:
+            x = x + conv1d(har, p["noise_convs"][i]["w"], p["noise_convs"][i]["b"],
+                           stride=st["noise_stride"], padding=st["noise_pad"])
         x = _resblock_group(p, x.contiguous(), [i * nk + j for j in range(nk)],
                             cfg)
-    x = leaky_relu(x, 0.01)   # torch F.leaky_relu default slope (ref :161)
-    x = conv1d(x, p["conv_post"]["w"], None, padding=3)
+    x = leaky_relu(x, 0.01)
+    x = conv1d(x, p["conv_post"]["w"], p["conv_post"].get("b"), padding=3)
     return torch.tanh(x).transpose(1, 2)
 
 
-def infer(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
-          nsff0, sid, z_noise, sine_noise):
-    """Inference (reference synthesizers.py:446-465).
+def generator_nsf(p: Params, cfg: ModelConfig, x, f0, g, sine_noise):
+    """NSF-HiFiGAN decode.  x: (B, T, inter); f0: (B, T) Hz; g: (B, 1,
+    gin) or None; sine_noise: (B, T*upp, 1).  Returns (B, T*upp, 1)."""
+    har = source_module(p["source"], f0, sine_noise, upp=cfg.upp,
+                        sample_rate=cfg.sr).to(x.dtype).transpose(1, 2)
+    return _hifigan_stack(p, cfg, x, g, har)
 
-    phone: (B, T, emb_dim); pitch: (B, T) int; nsff0: (B, T) Hz; sid:
-    (B,) int; z_noise: (B, T, inter) N(0,1); sine_noise: (B, T*upp, 1).
-    Returns (waveform (B, T*upp, 1), x_mask, (z, z_p, m_p, logs_p))."""
-    if not cfg.use_f0 or cfg.vocoder != "Default":
-        raise NotImplementedError(
-            "only the NSF-HiFiGAN decoder of f0 models is ported")
+
+def generator(p: Params, cfg: ModelConfig, x, g):
+    """Plain HiFi-GAN decode of f0-less models (reference
+    synthesizers.py:21-67 Generator): no source, no noise convs, no bias
+    on conv_post.  x: (B, T, inter); g: (B, 1, gin) or None.  Returns
+    (B, T*upp, 1)."""
+    return _hifigan_stack(p, cfg, x, g)
+
+
+MRF_NAMES = ("MRF HiFi-GAN", "MRF-HiFi-GAN")
+
+
+def decoder_kind(cfg: ModelConfig) -> str:
+    """The decoder a model runs (reference synthesizers.py:419-424):
+    "plain" for f0-less models whatever their vocoder, else "mrf",
+    "refinegan" or "nsf" by `cfg.vocoder`."""
+    if not cfg.use_f0:
+        return "plain"
+    if cfg.vocoder in MRF_NAMES:
+        return "mrf"
+    return "refinegan" if cfg.vocoder == "RefineGAN" else "nsf"
+
+
+def decoder_noise(cfg: ModelConfig, b: int, p_len: int,
+                  generator: torch.Generator | None, device) -> dict:
+    """Each decoder's noise for b rows of p_len frames, drawn from
+    `generator` in one fixed order (the JAX package draws the same
+    shapes from a PRNG key, `infer_any`):
+      nsf        {"sine": (b, p_len*upp, 1)}
+      plain      {}
+      mrf        {"source": (b, p_len*upp, H), "rand_ini": (b, H) uniform
+                  with column 0 set to 0}, H = MRF_HARMONICS + 1
+      refinegan  {"source": (b, p_len*upp, 1), "rand_ini": zeros (b, 1),
+                  "adain": per stage three (n1, n2) pairs (b, t_stage,
+                  C_stage)}"""
+    from .vocoders import MRF_HARMONICS
+
+    kind = decoder_kind(cfg)
+    n = p_len * cfg.upp
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    if kind == "nsf":
+        return {"sine": randn(b, n, 1)}
+    if kind == "plain":
+        return {}
+    if kind == "mrf":
+        source = randn(b, n, MRF_HARMONICS + 1)
+        rand_ini = torch.rand((b, MRF_HARMONICS + 1), generator=generator, device=device)
+        rand_ini[:, 0] = 0.0
+        return {"source": source, "rand_ini": rand_ini}
+    out = {"source": randn(b, n, 1), "rand_ini": torch.zeros((b, 1), device=device),
+           "adain": []}
+    ch, t = cfg.upsample_initial_channel, p_len
+    for rate in cfg.upsample_rates:
+        ch, t = ch // 2, t * rate
+        out["adain"].append([(randn(b, t, ch), randn(b, t, ch)) for _ in range(3)])
+    return out
+
+
+def _prior(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch, sid,
+           z_noise):
+    """Text encoder and the reverse flow: (g, z, x_mask, z_p, m_p, logs_p)."""
     g = embedding(params["emb_g"]["w"], sid)[:, None, :]
     m_p, logs_p, x_mask = text_encoder(params["enc_p"], cfg, phone, pitch,
                                        phone_lengths)
     z_p = (m_p + torch.exp(logs_p) * z_noise * 0.66666) * x_mask
     z = flow(params["flow"], z_p, x_mask, g, reverse=True)
-    o = generator_nsf(params["dec"], cfg, z * x_mask, nsff0, g, sine_noise)
+    return g, z, x_mask, z_p, m_p, logs_p
+
+
+def infer(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
+          nsff0, sid, z_noise, sine_noise):
+    """Inference with the NSF decoder, or the plain one for an f0-less
+    model (reference synthesizers.py:446-465).
+
+    phone: (B, T, emb_dim); pitch: (B, T) int, None for an f0-less
+    model; nsff0: (B, T) Hz; sid: (B,) int; z_noise: (B, T, inter)
+    N(0,1); sine_noise: (B, T*upp, 1), unused by an f0-less model.
+    Returns (waveform (B, T*upp, 1), x_mask, (z, z_p, m_p, logs_p))."""
+    kind = decoder_kind(cfg)
+    if kind not in ("nsf", "plain"):
+        raise ValueError(f"a {cfg.vocoder} model decodes through infer_any")
+    g, z, x_mask, z_p, m_p, logs_p = _prior(params, cfg, phone, phone_lengths,
+                                            pitch, sid, z_noise)
+    if kind == "plain":
+        o = generator(params["dec"], cfg, z * x_mask, g)
+    else:
+        o = generator_nsf(params["dec"], cfg, z * x_mask, nsff0, g, sine_noise)
     return o, x_mask, (z, z_p, m_p, logs_p)
+
+
+def infer_any(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
+              nsff0, sid, z_noise, noise: dict):
+    """Inference with the decoder dispatch of the JAX package's
+    `infer_any` (`decoder_kind`), on explicit noise: z_noise (B, T,
+    inter) and `noise` as `decoder_noise` lays it out.  Returns the
+    waveform (B, T*upp, 1)."""
+    from . import vocoders
+
+    kind = decoder_kind(cfg)
+    g, z, x_mask, *_ = _prior(params, cfg, phone, phone_lengths, pitch, sid,
+                              z_noise)
+    z = z * x_mask
+    dec = params["dec"]
+    if kind == "plain":
+        return generator(dec, cfg, z, g)
+    if kind == "mrf":
+        return vocoders.mrf_hifigan(dec, cfg, z, nsff0, g, noise["source"],
+                                    noise["rand_ini"])
+    if kind == "refinegan":
+        return vocoders.refinegan(dec, cfg, z, nsff0, g, noise["source"],
+                                  noise["adain"], noise["rand_ini"])
+    return generator_nsf(dec, cfg, z, nsff0, g, noise["sine"])
 
 
 def train_forward(params: Params, cfg: ModelConfig, phone, phone_lengths,

@@ -3,18 +3,24 @@
 Counterpart of `rvc_maker_tpu/pipelines/convert.py`:
 
     audio16k (B, L) --> RMVPE f0 --> HuBERT feats --> retrieval blend
-        --> x2 frame repeat --> protect mix --> synthesizer.infer --> wav
+        --> x2 frame repeat --> protect mix --> synthesizer.infer_any --> wav
 
 The host keeps file I/O, the 48 Hz Butterworth high-pass, the split of
 long audio at low-energy points, the reflect pads and the RMS mix.  The
 device step runs eagerly on `device`; chunks of one bucket length form
 a batch, microbatched by `max_device_batch`.
 
+Every decoder of the JAX package converts: NSF-HiFiGAN, the plain
+decoder of f0-less models, MRF-HiFi-GAN and RefineGAN
+(`synthesizer.decoder_kind`).  An f0-less model gets no coarse pitch;
+as in the JAX package, it still runs RMVPE, whose f0 sets `protect`'s
+unvoiced frames (the reference toolkit skips both for such models).
+
 Noise: the step takes the prior noise `z_noise` (B, p_len, inter) and
-the sine-source noise `sine_noise` (B, p_len * upp, 1) as tensors;
-`convert_batch` draws them from its `torch.Generator` when the caller
-gives none, so a caller can hold the random draws (and a test can feed
-the exact draws of the JAX package).
+the decoder's noise, a dict laid out as `synthesizer.decoder_noise`
+draws it; `convert_batch` draws both from its `torch.Generator` when
+the caller gives none, so a caller can hold the random draws (and a
+test can feed the exact draws of the JAX package).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ WINDOW = 160
 # 48 Hz 5th-order Butterworth high-pass (reference convert.py:30)
 _BH, _AH = sp_signal.butter(N=5, Wn=48, btype="high", fs=SAMPLE_RATE)
 
-NoiseFn = Callable[[int, int], tuple[torch.Tensor, torch.Tensor]]
+NoiseFn = Callable[[int, int], tuple[torch.Tensor, dict]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,24 +125,29 @@ class ConvertPipeline:
             feats = retrieval_blend(feats, self.index_vectors, settings.index_rate)
         return interp_nearest_x2(feats), interp_nearest_x2(feats0)
 
-    def _synth(self, feats, feats0, f0, lengths, sid, protect, z_noise,
-               sine_noise):
+    def _synth(self, feats, feats0, f0, lengths, sid, protect, z_noise, noise):
         p_len = feats.shape[1]
         pitchf = f0[:, :p_len]
-        pitch = coarse_f0(pitchf)
+        pitch = coarse_f0(pitchf) if self.cfg.use_f0 else None
         if protect < 0.5:
             # restore the original features on unvoiced frames
             pitchff = torch.where(pitchf > 0, 1.0, protect)[:, :, None]
             feats = feats * pitchff + feats0 * (1.0 - pitchff)
         frame_lengths = torch.clamp(
             torch.div(lengths, WINDOW, rounding_mode="floor"), max=p_len)
-        wav, _, _ = syn.infer(self.synth_params, self.cfg, feats,
-                              frame_lengths, pitch, pitchf, sid, z_noise,
-                              sine_noise)
+        wav = syn.infer_any(self.synth_params, self.cfg, feats, frame_lengths,
+                            pitch, pitchf, sid, z_noise, noise)
         return wav[:, :, 0], pitchf
 
-    def noise_shapes(self, b: int, p_len: int):
-        return (b, p_len, self.cfg.inter_channels), (b, p_len * self.cfg.upp, 1)
+    def draw_noise(self, b: int, p_len: int, generator: torch.Generator):
+        """(z_noise (b, p_len, inter), the decoder's noise dict), drawn in
+        that order from `generator` on its device."""
+        z = self._draw_z(b, p_len, generator)
+        return z, syn.decoder_noise(self.cfg, b, p_len, generator, generator.device)
+
+    def _draw_z(self, b: int, p_len: int, generator: torch.Generator):
+        return torch.randn((b, p_len, self.cfg.inter_channels), generator=generator,
+                           device=generator.device)
 
     @staticmethod
     def frames(n_samples: int) -> int:
@@ -148,14 +159,17 @@ class ConvertPipeline:
     @torch.inference_mode()
     def convert_batch(self, audio_batch, lengths, sid: int,
                       settings: ConvertSettings, *, z_noise=None,
-                      sine_noise=None, generator: torch.Generator | None = None):
+                      noise: dict | None = None,
+                      generator: torch.Generator | None = None):
         """audio_batch: (B, L) float32 at 16 kHz, padded to one bucket;
         lengths: (B,) valid samples.  Returns (wav (B, p_len * upp),
         pitchf (B, p_len)) on the pipeline's device, p_len =
         min(L // 160, feature frames).
 
-        z_noise / sine_noise cover the whole batch; when absent they are
-        drawn per microbatch from `generator` (default: seeded 0)."""
+        z_noise and the decoder's `noise` (`synthesizer.decoder_noise`'s
+        layout) cover the whole batch; what is absent is drawn per
+        microbatch from `generator` (default: seeded 0), z before the
+        decoder's noise as in `draw_noise`."""
         audio = torch.as_tensor(np.asarray(audio_batch, np.float32)
                                 if not isinstance(audio_batch, torch.Tensor)
                                 else audio_batch, device=self.device,
@@ -178,19 +192,22 @@ class ConvertPipeline:
             with record_function("convert.hubert_retrieval"):
                 feats, feats0 = self._features(a, ln, settings)
             p_len = min(a.shape[1] // WINDOW, feats.shape[1])
-            zs, ss = self.noise_shapes(hi - lo, p_len)
-            zn = (torch.randn(zs, generator=generator, device=self.device)
-                  if z_noise is None else
-                  torch.as_tensor(z_noise, device=self.device)[lo:hi])
-            sn = (torch.randn(ss, generator=generator, device=self.device)
-                  if sine_noise is None else
-                  torch.as_tensor(sine_noise, device=self.device)[lo:hi])
+            # only the noise the caller did not give is drawn, z first
+            if z_noise is None:
+                zn = self._draw_z(hi - lo, p_len, generator).to(self.device)
+            else:
+                zn = torch.as_tensor(z_noise, device=self.device)[lo:hi]
+            if noise is None:
+                dn = tree_to(syn.decoder_noise(self.cfg, hi - lo, p_len, generator,
+                                               generator.device), self.device, torch.float32)
+            else:
+                dn = tree_to(_rows(noise, lo, hi), self.device, torch.float32)
             sid_t = torch.full((hi - lo,), sid, dtype=torch.int64,
                                device=self.device)
             with record_function("convert.synthesizer"):
                 wav, pitchf = self._synth(feats[:, :p_len], feats0[:, :p_len],
                                           f0[:, :p_len], ln, sid_t,
-                                          settings.protect, zn, sn)
+                                          settings.protect, zn, dn)
             wavs.append(wav)
             pitchfs.append(pitchf)
         return torch.cat(wavs, 0), torch.cat(pitchfs, 0)
@@ -203,7 +220,7 @@ class ConvertPipeline:
         """One utterance with the reference's chunking and padding
         (convert.py:388-458).  Returns the waveform at the model's rate.
 
-        noise_fn(b, p_len) -> (z_noise, sine_noise), when given, supplies
+        noise_fn(b, p_len) -> (z_noise, decoder noise), when given, supplies
         each chunk's noise; otherwise every chunk draws from a generator
         seeded 0, as the JAX pipeline draws every chunk from PRNGKey(0)."""
         s = settings
@@ -242,11 +259,11 @@ class ConvertPipeline:
             L = _bucket_length(len(chunk))
             padded = np.zeros((1, L), np.float32)
             padded[0, : len(chunk)] = chunk
-            z_noise = sine_noise = None
+            z_noise = noise = None
             if noise_fn is not None:
-                z_noise, sine_noise = noise_fn(1, self.frames(L))
+                z_noise, noise = noise_fn(1, self.frames(L))
             wav, _ = self.convert_batch(padded, np.asarray([len(chunk)]), sid,
-                                        s, z_noise=z_noise, sine_noise=sine_noise)
+                                        s, z_noise=z_noise, noise=noise)
             wav = wav[0].cpu().numpy()
             n_out = min((len(chunk) // WINDOW) * self.cfg.upp, wav.shape[0])
             pieces.append(wav[:n_out][t_pad_tgt:-t_pad_tgt]
@@ -261,6 +278,15 @@ class ConvertPipeline:
         if s.resample_sr not in (0, tgt_sr) and s.resample_sr >= SAMPLE_RATE:
             out = resample(out, tgt_sr, s.resample_sr)
         return out.astype(np.float32)
+
+
+def _rows(tree, lo: int, hi: int):
+    """Rows lo:hi of every tensor of a nested dict/list/tuple tree."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rows(v, lo, hi) for v in tree)
+    return torch.as_tensor(tree)[lo:hi]
 
 
 def _frame_rms(x: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:

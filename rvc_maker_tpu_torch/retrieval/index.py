@@ -14,6 +14,8 @@ import json
 import numpy as np
 import torch
 
+from .faiss_io import read_index
+
 
 @dataclasses.dataclass
 class FeatureIndex:
@@ -45,10 +47,13 @@ def retrieval_blend(feats, vectors, index_rate, *, k: int = 8):
 
 
 def load_index(path: str) -> FeatureIndex:
-    """Load the JAX package's `.npz` index or a reference
+    """Load the JAX package's `.npz` index, a faiss `.index` file (the
+    format of every RVC user's `added_*.index`, densified as the
+    reference's faiss.read_index + reconstruct_n does) or a reference
     `total_fea.npy` dense matrix."""
-    if path.endswith(".npy"):
-        vec = np.load(path).astype(np.float32)
+    if path.endswith((".npy", ".index")):
+        vec = (np.load(path) if path.endswith(".npy")
+               else read_index(path).reconstruct_n()).astype(np.float32)
         return FeatureIndex(vectors=vec,
                             version="v1" if vec.shape[1] == 256 else "v2")
     data = np.load(path, allow_pickle=False)

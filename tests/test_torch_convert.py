@@ -99,7 +99,7 @@ def test_convert_batch_matches_jax(pipes):
     assert pf_j.shape == (2, p_len)
     z, s = jax_noise(2, p_len, CFG.inter_channels, CFG.upp)
     wav, pf = port.convert_batch(audio, lengths, 1, ConvertSettings(**settings),
-                                 z_noise=torch.as_tensor(z), sine_noise=torch.as_tensor(s))
+                                 z_noise=torch.as_tensor(z), noise={"sine": torch.as_tensor(s)})
     assert wav.shape == (2, p_len * CFG.upp)
     np.testing.assert_allclose(n(pf), n(pf_j), atol=1e-2)
     err = np.abs(n(wav) - n(wav_j)).max()
@@ -120,8 +120,8 @@ def test_convert_utterance_split_matches_jax(pipes):
 
     def noise_fn(b, p_len):
         chunks.append(p_len)
-        return tuple(map(torch.as_tensor, jax_noise(b, p_len, CFG.inter_channels,
-                                                    CFG.upp)))
+        z, s = jax_noise(b, p_len, CFG.inter_channels, CFG.upp)
+        return torch.as_tensor(z), {"sine": torch.as_tensor(s)}
 
     got = port.convert_utterance(audio, 0, ConvertSettings(**knobs), noise_fn=noise_fn)
     assert len(chunks) == 2                               # the split ran
@@ -157,7 +157,7 @@ def test_convert_batch_v1_matches_jax(trees):
     wav_j, pf_j = jax_pipe.convert_batch(audio, lengths, 0, JaxSettings(**settings))
     z, s = jax_noise(1, port.frames(16000), cfg.inter_channels, cfg.upp)
     wav, pf = port.convert_batch(audio, lengths, 0, ConvertSettings(**settings),
-                                 z_noise=torch.as_tensor(z), sine_noise=torch.as_tensor(s))
+                                 z_noise=torch.as_tensor(z), noise={"sine": torch.as_tensor(s)})
     np.testing.assert_allclose(n(pf), n(pf_j), atol=1e-2)
     err = np.abs(n(wav) - n(wav_j)).max()
     assert np.abs(n(wav_j)).max() > 0.1

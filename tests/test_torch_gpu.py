@@ -178,12 +178,11 @@ def test_pipeline_card_matches_cpu(cuda):
     for dev in ("cpu", "cuda"):
         pipe = ConvertPipeline(synth, cfg, hubert, rmvpe_params=rmvpe,
                                index_vectors=index, device=dev)
-        zs, ss = pipe.noise_shapes(1, pipe.frames(audio.shape[1]))
-        gen = torch.Generator().manual_seed(5)
-        z, s = torch.randn(zs, generator=gen), torch.randn(ss, generator=gen)
+        z, noise = pipe.draw_noise(1, pipe.frames(audio.shape[1]),
+                                   torch.Generator().manual_seed(5))
         before = trb.resblock_launches
         wav, _ = pipe.convert_batch(audio, lengths, 0, ConvertSettings(index_rate=0.5),
-                                    z_noise=z, sine_noise=s)
+                                    z_noise=z, noise=noise)
         launched = trb.resblock_launches - before
         assert launched == (0 if dev == "cpu" else 4 * 3 * 3), launched
         outs[dev] = n(wav)
@@ -268,3 +267,62 @@ def test_train_step_card_matches_cpu(cuda):
         np.testing.assert_allclose(float(out["cuda"][k]), float(out["cpu"][k]), rtol=1e-4)
     for name in ("grads_g", "grads_d"):
         assert_grads_close(out["cuda"][name], out["cpu"][name], name)
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,launches", [("plain", 36), ("mrf", 36), ("refinegan", 0)])
+def test_decoder_full_width_card_matches_cpu(cuda, kind, launches):
+    """Each decoder at the full v2 / 48 kHz width (stages C = 256..32) on
+    100 frames (1 s), card against CPU on the same weights and noise:
+    waveform <= 1e-3.  The f0-less and MRF decodes launch resblock_tc 36
+    times; RefineGAN's resblocks take leaky-ReLU 0.2, which the kernel
+    (slope 0.1) does not compute, so it launches none."""
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.device import tree_to
+    from rvc_maker_tpu_torch.models import synthesizer as tsyn
+    from rvc_maker_tpu_torch.models import vocoders as tvoc
+
+    vocoder = {"mrf": "MRF HiFi-GAN", "refinegan": "RefineGAN"}.get(kind, "Default")
+    cfg = preset("v2", 48000, vocoder=vocoder, pitch_guidance=kind != "plain").model
+    assert tsyn.decoder_kind(cfg) == kind
+    dec = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg, 0), cfg)["dec"]
+    rs = np.random.RandomState(1)
+    T = 100
+    x = t((rs.randn(1, T, cfg.inter_channels) * 0.5).astype(np.float32))
+    f0 = t(rs.uniform(100, 300, (1, T)).astype(np.float32))
+    g = t((rs.randn(1, 1, cfg.gin_channels) * 0.3).astype(np.float32))
+    noise = tsyn.decoder_noise(cfg, 1, T, torch.Generator().manual_seed(2), "cpu")
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        p, nz, a = tree_to(dec, dev), tree_to(noise, dev), tree_to([x, f0, g], dev)
+        before = trb.resblock_tc_launches
+        with torch.inference_mode():
+            if kind == "plain":
+                o = tsyn.generator(p, cfg, a[0], a[2])
+            elif kind == "mrf":
+                o = tvoc.mrf_hifigan(p, cfg, *a, nz["source"], nz["rand_ini"])
+            else:
+                o = tvoc.refinegan(p, cfg, *a, nz["source"], nz["adain"], nz["rand_ini"])
+        torch.cuda.synchronize()
+        assert trb.resblock_tc_launches - before == (launches if dev.type == "cuda" else 0)
+        outs[dev.type] = n(o)
+    err = np.abs(outs["cuda"] - outs["cpu"]).max()
+    print(f"{kind}: card vs CPU waveform max abs err {err:.3e}")
+    assert outs["cuda"].shape == (1, T * cfg.upp, 1)
+    assert np.isfinite(outs["cuda"]).all() and err <= 1e-3, err
+
+
+@pytest.mark.gpu
+def test_interp_linear_card_matches_cpu(cuda):
+    """RefineGAN's f0 upsampling at its full size, 2 x 998 frames to
+    479,040 samples: the card's index arithmetic against the CPU's,
+    within 1e-5 x max|x|."""
+    from rvc_maker_tpu_torch.models import vocoders as tvoc
+
+    x = t(np.random.RandomState(0).uniform(80, 300, (2, 1, 998)).astype(np.float32))
+    cpu = tvoc.interp_linear(x, 998 * 480)
+    card = tvoc.interp_linear(x.to(cuda), 998 * 480).cpu()
+    err = (card - cpu).abs().max().item()
+    print(f"interp_linear 479,040 samples: card vs CPU max abs diff {err:.3e}")
+    assert err <= 1e-5 * x.abs().max().item(), err

@@ -210,7 +210,7 @@ def test_export_pth_loads_in_jax(tmp_path):
     np.testing.assert_allclose(got, fp32, atol=5e-3, rtol=0)
     # the same state dict as the JAX exporter writes for these weights
     ref_sd = jexport.synthesizer_state_dict(tree, JCFG.model)
-    got_sd = tpth.synthesizer_state_dict(params)
+    got_sd = tpth.synthesizer_state_dict(params, TCFG.model)
     assert list(got_sd) == list(ref_sd)
     for k in ref_sd:
         np.testing.assert_allclose(n(got_sd[k]), ref_sd[k], rtol=1e-6, atol=1e-7, err_msg=k)

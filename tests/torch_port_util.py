@@ -184,3 +184,63 @@ def hubert_state_dict(tree):
         ln(f"{p}.final_layer_norm", st["ln2"], i)
     lin("final_proj", tree["final_proj"])
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def jax_decoder_noise(cfg, b, t, seed=0):
+    """The z noise and decoder noise that the JAX package's `infer_any`
+    draws from PRNGKey(seed) (models/synthesizer.py:551-593), laid out
+    as the port's `decoder_noise`: numpy arrays."""
+    import jax
+
+    k_z, k_src, k_ini, k_adain = jax.random.split(jax.random.PRNGKey(seed), 4)
+    z = np.array(jax.random.normal(k_z, (b, t, cfg.inter_channels)))
+    n = t * cfg.upp
+    if not cfg.use_f0:
+        return z, {}
+    if cfg.vocoder in ("MRF HiFi-GAN", "MRF-HiFi-GAN"):
+        return z, {"source": np.array(jax.random.normal(k_src, (b, n, 9))),
+                   "rand_ini": np.array(jax.random.uniform(k_ini, (b, 9)).at[:, 0].set(0.0))}
+    if cfg.vocoder == "RefineGAN":
+        keys = iter(jax.random.split(k_adain, 6 * len(cfg.upsample_rates)))
+        adain, ch, tc = [], cfg.upsample_initial_channel, t
+        for rate in cfg.upsample_rates:
+            ch, tc = ch // 2, tc * rate
+            adain.append([tuple(np.array(jax.random.normal(next(keys), (b, tc, ch)))
+                                for _ in range(2)) for _ in range(3)])
+        return z, {"source": np.array(jax.random.normal(k_src, (b, n, 1))),
+                   "rand_ini": np.zeros((b, 1), np.float32), "adain": adain}
+    return z, {"sine": np.array(jax.random.normal(k_src, (b, n, 1)))}
+
+
+def voice(seconds, f0=180.0, seed=0):
+    """A harmonic 16 kHz test tone with vibrato and a little noise."""
+    tt = np.arange(int(16000 * seconds)) / 16000
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.05 * np.sin(2 * np.pi * 3 * tt))) / 16000
+    x = sum(0.3 / h * np.sin(h * phase) for h in (1, 2, 3))
+    return (x + 0.01 * np.random.RandomState(seed).randn(len(tt))).astype(np.float32)
+
+
+def run_cli_convert(tmp_path, sd, jcfg, hubert_tree, rmvpe_tree, index_path, seconds=1.5):
+    """The port's `cli convert` on the CPU, on a .pth holding the state
+    dict `sd` (as the JAX exporter writes it) with jcfg's config list, a
+    reference-layout rmvpe.pt, a fairseq-layout HuBERT checkpoint and
+    `index_path`.  Returns (output waveform, its rate)."""
+    from rvc_maker_tpu.config import model_config_to_ckpt_list
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.utils.audio import read_wav, save_wav
+
+    torch.save({"weight": {k: torch.from_numpy(np.ascontiguousarray(v)).half()
+                           for k, v in sd.items()},
+                "config": model_config_to_ckpt_list(jcfg), "f0": int(jcfg.use_f0),
+                "version": "v2", "vocoder": jcfg.vocoder}, tmp_path / "voice.pth")
+    torch.save(rmvpe_state_dict(rmvpe_tree, np.random.RandomState(0)), tmp_path / "rmvpe.pt")
+    torch.save({"model": hubert_state_dict(hubert_tree)}, tmp_path / "hubert.pt")
+    save_wav(str(tmp_path / "in.wav"), voice(seconds), 16000)
+    rc = cli.main(["convert", "--input", str(tmp_path / "in.wav"),
+                   "--output", str(tmp_path / "out.wav"),
+                   "--model", str(tmp_path / "voice.pth"),
+                   "--rmvpe-path", str(tmp_path / "rmvpe.pt"),
+                   "--hubert-path", str(tmp_path / "hubert.pt"),
+                   "--index", str(index_path), "--index-rate", "0.5", "--device", "cpu"])
+    assert rc == 0
+    return read_wav(str(tmp_path / "out.wav"))
