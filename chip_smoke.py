@@ -66,6 +66,22 @@ Phases, each printed as it runs; any failure exits non-zero:
               its own f0 <= 1e-3 for f0-less and RefineGAN (printed for
               MRF, whose 9-harmonic source turns the f0's rounding into
               ~1e-3 of waveform); the harmonic source alone is printed.
+ 10. f0       phase 4's model with every other F0 method, its networks at
+              full width (random weights from a seed): FCPE current (128
+              mels, 512 wide, 6 conv-only layers), FCPE legacy (512 wide,
+              12 layers of FAVOR+ attention, 8 heads of 64, a 266 x 64
+              projection), CREPE full.  Each method: convert_batch on 2 x
+              10 s after a warm-up, wall time, the F0 stage's device and
+              host ms (its profiler range; CREPE's network in its own),
+              device time and busy share, peak memory, 36 resblock_tc
+              launches per call.  Card against
+              CPU on 2 s, same explicit noise: each device method's f0
+              (voicing equal, <= 1e-2 Hz where both voiced; CREPE's
+              probabilities <= 1e-4 and its Viterbi path equal on >= 99 %
+              of frames) and the waveform of the card's pipeline given the
+              CPU's f0 <= 1e-3; each host method's f0 identical and the
+              waveform <= 1e-3.  The WORLD library's g++ build (phase 2)
+              is timed beside nvcc.
 
 fp32 throughout, with TF32 off for cuDNN and matmuls (the parity path).
 The line before the last holds the kernels' JSON summary; the last line
@@ -916,6 +932,211 @@ def vocoders_phase(model, card: str):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: every other F0 method
+# ---------------------------------------------------------------------------
+
+F0_TIMED = ("yin", "fcpe", "fcpe-legacy", "crepe-full", "mangio-crepe-full", "pyin",
+            "harvest", "dio", "swipe", "pm", "hybrid[rmvpe+fcpe+harvest]")
+F0_DEVICE_CHECKED = ("yin", "fcpe", "fcpe-legacy", "crepe-full")
+F0_HOST_CHECKED = ("pyin", "harvest", "dio", "swipe", "pm")
+
+
+def f0_networks(seed: int = 30):
+    """FCPE in both layouts and CREPE full at the reference widths, from a
+    seed.  CREPE's classifier is scaled up so that its bins peak and the
+    Viterbi path is decided by the weights, not by rounding."""
+    from rvc_maker_tpu_torch.interop import from_jax
+
+    crepe = from_jax.random_crepe_tree(seed + 2, "full")
+    crepe["classifier"]["w"] *= 8.0
+    return dict(
+        fcpe=from_jax.fcpe_from_jax(from_jax.random_fcpe_tree(seed, 512, 6)),
+        fcpe_legacy=from_jax.fcpe_from_jax(from_jax.random_fcpe_tree(seed + 1, 512, 12,
+                                                                     legacy=True)),
+        crepe=from_jax.crepe_from_jax(crepe))
+
+
+def f0_pipeline(cfg, model, nets, device):
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline
+
+    return ConvertPipeline(model["synth_params"], cfg, model["hubert_params"], version="v2",
+                           rmvpe_params=model["rmvpe_params"], fcpe_params=nets["fcpe"],
+                           crepe_params=nets["crepe"], index_vectors=model["index_vectors"],
+                           device=device)
+
+
+def use_fcpe(pipe, nets, method):
+    """The pipeline's FCPE params for `method`: the legacy tree for
+    fcpe-legacy (both live on the device; only the reference is swapped)."""
+    if not hasattr(pipe, "_fcpe_by_layout"):
+        from rvc_maker_tpu_torch.device import tree_to
+
+        pipe._fcpe_by_layout = {False: pipe.fcpe_params,
+                                True: tree_to(nets["fcpe_legacy"], pipe.device, torch.float32)}
+    pipe.fcpe_params = pipe._fcpe_by_layout[method == "fcpe-legacy"]
+
+
+def f0_range_ms(label, fn, wall_s, range_name):
+    """profile_call, plus the device ms and host (CPU) ms of each
+    `convert.*` range, the F0 stage's (`range_name`) among them; CREPE's
+    network has its own range inside the host stage's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel, ranges = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CPU and e.name.startswith("convert."):
+            dev, host = ranges.get(e.name, (0.0, 0.0))
+            ranges[e.name] = (dev + e.device_time_total / 1e3, host + e.cpu_time_total / 1e3)
+    device_ms = sum(by_kernel.values())
+    if not device_ms:
+        log(f"    profile of {label}: device time not measured (the profiler saw no kernels)")
+        return dict(device_ms=None)
+    dev_ms, host_ms = ranges.get(range_name, (0.0, 0.0))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    res = dict(device_ms=device_ms, f0_range=range_name, f0_device_ms=dev_ms,
+               f0_host_ms=host_ms, ranges_device_host_ms=ranges,
+               busy_share=device_ms / (1e3 * wall_s), top_kernels_ms=dict(top))
+    log(f"    profile of {label}: device {device_ms:.3f} ms (busy share "
+        f"{res['busy_share']:.3f}); " + "; ".join(
+            f"{k} device {d:.3f} ms, host {h:.3f} ms" for k, (d, h) in ranges.items()
+            if k == range_name or k == "convert.crepe"))
+    return res
+
+
+def f0_timing(cfg, model, nets, card: str):
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import F0_RANGES, HOST_F0_RANGE, ConvertSettings
+
+    batch = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
+    L = batch.shape[1]
+    lengths = np.array([L, L])
+    per_decode = sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates)
+    pipe = f0_pipeline(cfg, model, nets, "cuda")
+    res = {}
+    for m in F0_TIMED:
+        use_fcpe(pipe, nets, m)
+        settings = ConvertSettings(index_rate=0.5, f0_method=m)
+        pipe.convert_batch(batch, lengths, 0, settings)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(rb)
+        t0 = time.perf_counter()
+        wav, pitchf = pipe.convert_batch(batch, lengths, 0, settings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, tc = rb.resblock_launches, rb.resblock_tc_launches
+        peak = torch.cuda.max_memory_allocated()
+        if not launches == tc == per_decode:
+            raise AssertionError(f"{m}: convert_batch launched {launches} ({tc} on "
+                                 f"resblock_tc), expected {per_decode}")
+        if tuple(wav.shape) != (2, pipe.frames(L) * cfg.upp) or not torch.isfinite(wav).all():
+            raise AssertionError(f"{m}: wav {tuple(wav.shape)}")
+        voiced = float((pitchf > 0).float().mean())
+        log(f"  {m}: convert_batch 2 x 10 s {wall:.3f} s wall ({20.0 / wall:.2f} audio-s/s), "
+            f"peak device memory {peak / 2**30:.2f} GiB, voiced share {voiced:.3f}, "
+            f"resblock_tc launches {tc}")
+        r = dict(batch_s=wall, batch_audio_s_per_s=20.0 / wall, max_memory_allocated=peak,
+                 resblock_launches=launches, resblock_tc_launches=tc, voiced_share=voiced)
+        r["profile"] = f0_range_ms(f"{m} convert_batch", lambda: pipe.convert_batch(
+            batch, lengths, 0, settings), wall, F0_RANGES.get(m, HOST_F0_RANGE))
+        res[m] = r
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"  on {card}")
+    return res
+
+
+def crepe_path_check(method, cpu_pipe, card_pipe, audio):
+    """CREPE on the 2 s input, card against CPU: probabilities <=
+    1e-4 and the Viterbi path equal on >= 99 % of the frames."""
+    from rvc_maker_tpu_torch.models import crepe as crepe_mod
+
+    probs = {}
+    with torch.inference_mode():
+        for name, pipe in (("cpu", cpu_pipe), ("cuda", card_pipe)):
+            probs[name] = crepe_mod.predict_probs(
+                pipe.crepe_params, torch.as_tensor(audio, device=pipe.device), 160).cpu().numpy()
+    err = float(np.abs(probs["cpu"] - probs["cuda"]).max())
+    paths = {k: crepe_mod.decode(v, 50.0, 1100.0) for k, v in probs.items()}
+    same = paths["cpu"] == paths["cuda"]
+    log(f"  {method} probabilities max abs err {err:.3e}; Viterbi path equal on "
+        f"{int(same.sum())} of {same.size} frames")
+    if not err <= 1e-4:
+        raise AssertionError(f"CREPE probabilities card vs CPU {err}")
+    if not same.mean() >= 0.99:
+        raise AssertionError(f"CREPE path equal on {int(same.sum())} of {same.size}")
+    return dict(probs_max_abs_err=err, path_equal_frames=int(same.sum()),
+                frames=int(same.size)), same[0]
+
+
+def f0_card_vs_cpu(cfg, model, nets):
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertSettings
+
+    audio = voice(2.0, 200.0, 4)[None]
+    lengths = np.array([audio.shape[1]])
+    per_decode = sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates)
+    pipes = {dev: f0_pipeline(cfg, model, nets, dev) for dev in ("cpu", "cuda")}
+    z, noise = pipes["cpu"].draw_noise(1, pipes["cpu"].frames(audio.shape[1]),
+                                       torch.Generator().manual_seed(11))
+    res = {}
+    for m in F0_DEVICE_CHECKED + F0_HOST_CHECKED:
+        settings = ConvertSettings(index_rate=0.5, f0_method=m)
+        f0, wav = {}, {}
+        for dev, pipe in pipes.items():
+            use_fcpe(pipe, nets, m)
+            with torch.inference_mode():
+                f0[dev] = pipe._f0(torch.as_tensor(audio, device=pipe.device), settings).cpu()
+        # the CPU's waveform, and the card's on the CPU's f0
+        for dev in ("cpu", "cuda"):
+            pipe = pipes[dev]
+            pipe._f0 = lambda a, s, d=pipe.device: f0["cpu"].to(d)
+            before = rb.resblock_tc_launches
+            w, _ = pipe.convert_batch(audio, lengths, 0, settings, z_noise=z, noise=noise)
+            del pipe._f0
+            wav[dev] = w.cpu().numpy()
+            if dev == "cuda" and rb.resblock_tc_launches - before != per_decode:
+                raise AssertionError(f"{m}: the card's 2 s decode launched "
+                                     f"{rb.resblock_tc_launches - before}")
+        a, b = f0["cpu"].numpy()[0], f0["cuda"].numpy()[0]
+        r = {}
+        mask = np.ones_like(a, bool)
+        if m.startswith("crepe"):
+            r, path_same = crepe_path_check(m, pipes["cpu"], pipes["cuda"], audio)
+            # the mean and median filters span 3 frames of the path
+            mask = path_same & np.roll(path_same, 1) & np.roll(path_same, -1)
+        voicing_equal = bool(((a > 0) == (b > 0))[mask].all())
+        both = mask & (a > 0) & (b > 0)
+        f0_err = float(np.abs(a - b)[both].max()) if both.any() else 0.0
+        err = float(np.abs(wav["cpu"] - wav["cuda"]).max())
+        r.update(f0_max_abs_err_hz=f0_err, voicing_equal=voicing_equal,
+                 f0_identical=bool(np.array_equal(a, b)), f0_frames_held=int(mask.sum()),
+                 voiced_frames=int(both.sum()), wave_max_abs_err=err,
+                 wav_absmax=float(np.abs(wav["cpu"]).max()))
+        log(f"  {m} card vs CPU, 2 s: f0 {f0_err:.3e} Hz on {int(both.sum())} voiced of "
+            f"{int(mask.sum())} frames held, voicing equal {voicing_equal}, identical "
+            f"{r['f0_identical']}; waveform on the CPU's f0 {err:.3e} (|wav|max "
+            f"{r['wav_absmax']:.3f})")
+        if m in F0_HOST_CHECKED and not r["f0_identical"]:
+            raise AssertionError(f"{m}: the host f0 differs between the two runs")
+        if not (voicing_equal and f0_err <= F0_TOL_HZ):
+            raise AssertionError(f"{m}: card vs CPU f0 {f0_err} Hz, voicing equal "
+                                 f"{voicing_equal}")
+        if not err <= 1e-3:
+            raise AssertionError(f"{m}: card vs CPU waveform err {err}")
+        res[m] = r
+    del pipes
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -937,11 +1158,17 @@ def main() -> int:
                              cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    logs = build.build_all()
+    # the WORLD F0 library's g++ alongside the kernels' nvcc
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        world = pool.submit(build.load_host, "worldlike")
+        logs = build.build_all()
+        world.result()
     RESULTS["build_s"] = time.perf_counter() - t0
     RESULTS["build_s_by_source"] = dict(build.build_seconds)
-    log(f"[2 build] {list(logs)} in {RESULTS['build_s']:.1f} s; each source's nvcc, "
-        "all started together: " + ", ".join(
+    log(f"[2 build] {list(logs)} + worldlike in {RESULTS['build_s']:.1f} s; each source's "
+        "nvcc (and the WORLD library's g++), all started together: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in build.build_seconds.items()))
     for src, text in logs.items():
         for line in text.splitlines():
@@ -982,9 +1209,20 @@ def main() -> int:
     log("[8 train-parity] one narrow train step, card against CPU")
     RESULTS["train_parity"] = train_parity()
 
-    log("[9 vocoders] f0-less, MRF-HiFi-GAN and RefineGAN conversion at v2-48k")
+    log("[9 vocoders] f0-less, MRF-HiFi-GAN and RefineGAN conversion at v2-48k "
+        f"({time.perf_counter() - t_start:.1f} s in)")
     RESULTS["vocoders"] = vocoders_phase(model, smi)
-    del model
+
+    log(f"[10 f0] every other F0 method at v2-48k ({time.perf_counter() - t_start:.1f} s in)")
+    nets = f0_networks()
+    log("  FCPE current: 128 mels, 512 wide, 6 conv-only layers; FCPE legacy: 512 wide, "
+        f"{len(nets['fcpe_legacy']['layers'])} layers of FAVOR+ attention (8 heads of "
+        f"{nets['fcpe_legacy']['layers'][0]['attn']['q']['w'].shape[0] // 8}, projection "
+        f"{tuple(nets['fcpe_legacy']['layers'][0]['attn']['projection'].shape)}); CREPE full: "
+        + "/".join(str(c["w"].shape[0]) for c in nets["crepe"]["convs"]) + " channels")
+    RESULTS["f0_methods"] = dict(timing=f0_timing(model_cfg, model, nets, smi))
+    RESULTS["f0_methods"]["card_vs_cpu"] = f0_card_vs_cpu(model_cfg, model, nets)
+    del model, nets
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -1010,6 +1248,8 @@ def main() -> int:
              launches_f0less=voc["f0less"]["resblock_tc_launches"],
              launches_mrf=voc["mrf"]["resblock_tc_launches"],
              launches_refinegan=voc["refinegan"]["resblock_tc_launches"],
+             launches_f0_methods={m: r["resblock_tc_launches"]
+                                  for m, r in RESULTS["f0_methods"]["timing"].items()},
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common),

@@ -9,11 +9,16 @@
     python -m rvc_maker_tpu_torch.cli convert --input in.wav \\
         --output out.wav --model model.pth --rmvpe-path rmvpe.pt \\
         --hubert-path hubert_base.pt [--index added.index --index-rate 0.5]
-        [--pitch 0 --protect 0.33 --sid 0]
+        [--pitch 0 --protect 0.33 --sid 0] [--f0-method fcpe
+        --fcpe-path fcpe.pt | crepe-full --crepe-path crepe_full.pth |
+        harvest | hybrid[rmvpe+fcpe] ...] [--embedder-path hf_hubert_dir/]
+        [--f0-file f0.txt] [--split-audio]
 
 Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
-f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN); train writes
+f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN) and every F0
+method of the JAX package but its ONNX predictors; each F0 network's
+weights are needed only by the methods that run it.  train writes
 NSF-HiFiGAN models of f0.  extract, train and convert run on the card
 unless `--device cpu` is passed.
 """
@@ -74,37 +79,95 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _f0_weights(method: str, flag: str, path: str, loader):
+    """`loader(path)`, for the F0 weights that `method` needs.  An absent
+    flag, a missing file or an ONNX predictor raises."""
+    if path.endswith(".onnx"):
+        raise ValueError(f"{flag} {path!r}: ONNX F0 predictors are not ported")
+    if not path:
+        raise ValueError(f"--f0-method {method} needs {flag}")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{flag}: no such file {path!r}")
+    return loader(path)
+
+
+def _load_embedder(args):
+    """--embedder-path: a transformers HuBERT directory or weights file
+    (.safetensors / .bin), or a fairseq .pt; else --hubert-path (fairseq)."""
+    from .models.hubert import load_hubert_pt, load_transformers_dir
+
+    if args.embedder_path:
+        path = args.embedder_path
+        if path.endswith(".onnx"):
+            raise ValueError(f"--embedder-path {path!r}: ONNX embedders are not ported")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"--embedder-path: no such file or directory {path!r}")
+        return load_hubert_pt(path) if path.endswith(".pt") else load_transformers_dir(path)
+    if not args.hubert_path:
+        raise ValueError("convert needs --hubert-path (fairseq .pt) or --embedder-path")
+    if not os.path.isfile(args.hubert_path):
+        raise FileNotFoundError(f"--hubert-path: no such file {args.hubert_path!r}")
+    return load_hubert_pt(args.hubert_path)
+
+
 def cmd_convert(args) -> int:
     import numpy as np
 
     from .interop.pth import load_synthesizer_pth
-    from .models.hubert import load_hubert_pt
+    from .models.crepe import CAPACITIES, load_crepe_pth
+    from .models.fcpe import load_fcpe_ckpt
     from .models.rmvpe import load_rmvpe_pt
-    from .pipelines.convert import ConvertPipeline, ConvertSettings
+    from .pipelines.convert import (ConvertPipeline, ConvertSettings, convert_split,
+                                    f0_members)
     from .retrieval.index import load_index
     from .utils.audio import load_audio, save_wav
 
-    for flag, path in (("--model", args.model), ("--rmvpe-path", args.rmvpe_path),
-                       ("--hubert-path", args.hubert_path), ("--input", args.input)):
+    for flag, path in (("--model", args.model), ("--input", args.input)):
         if not os.path.isfile(path):
             raise FileNotFoundError(f"{flag}: no such file {path!r}")
+    method = args.f0_method
+    members = f0_members(method)
+    rmvpe = fcpe = crepe = None
+    if any(m.startswith("rmvpe") for m in members):
+        rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt)
+    if any(m.startswith("fcpe") for m in members):
+        fcpe = _f0_weights(method, "--fcpe-path", args.fcpe_path,
+                           lambda p: load_fcpe_ckpt(p)[0])
+    crepe_methods = [m for m in members if "crepe" in m]
+    if crepe_methods:
+        # the capacity is the method's suffix (JAX cli.py:272-274), a
+        # hybrid's CREPE member's here
+        capacity = crepe_methods[0].split("-")[-1]
+        if capacity not in CAPACITIES:
+            capacity = "full"
+        crepe = _f0_weights(method, "--crepe-path", args.crepe_path,
+                            lambda p: load_crepe_pth(p, capacity))
     synth_params, cfg, meta = load_synthesizer_pth(args.model)
     index_vectors = None
     if args.index and args.index_rate > 0:
         index_vectors = load_index(args.index).vectors
-    pipe = ConvertPipeline(synth_params, cfg, load_hubert_pt(args.hubert_path),
-                           version=meta.get("version", "v2"),
-                           rmvpe_params=load_rmvpe_pt(args.rmvpe_path),
+    pipe = ConvertPipeline(synth_params, cfg, _load_embedder(args),
+                           version=meta.get("version", "v2"), rmvpe_params=rmvpe,
+                           fcpe_params=fcpe, crepe_params=crepe,
                            index_vectors=index_vectors, device=args.device)
-    settings = ConvertSettings(pitch=args.pitch, index_rate=args.index_rate,
-                               protect=args.protect)
+    settings = ConvertSettings(
+        pitch=args.pitch, index_rate=args.index_rate, protect=args.protect,
+        f0_method=method, f0_autotune=args.f0_autotune,
+        f0_autotune_strength=args.f0_autotune_strength,
+        volume_envelope=args.volume_envelope, resample_sr=args.resample_sr,
+        hop_length=args.hop_length, filter_radius=args.filter_radius, f0_file=args.f0_file)
     audio = load_audio(args.input, 16000)
     peak = np.abs(audio).max() / 0.95
     if peak > 1:
         audio = audio / peak
-    out = pipe.convert_utterance(audio, args.sid, settings)
-    save_wav(args.output, out, cfg.sr)
-    print(f"wrote {args.output} ({len(out) / cfg.sr:.2f}s @ {cfg.sr} Hz)")
+    if args.split_audio:
+        out = convert_split(pipe, audio, args.sid, settings)
+    else:
+        out = pipe.convert_utterance(audio, args.sid, settings)
+    # convert_utterance resamples to resample_sr only from 16 kHz up
+    out_sr = args.resample_sr if args.resample_sr >= 16000 else cfg.sr
+    save_wav(args.output, out, out_sr)
+    print(f"wrote {args.output} ({len(out) / out_sr:.2f}s @ {out_sr} Hz)")
     return 0
 
 
@@ -162,9 +225,28 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--output", required=True)
     c.add_argument("--model", required=True,
                    help="interchange .pth voice model, any of the reference's decoders")
-    c.add_argument("--rmvpe-path", required=True, help="reference rmvpe.pt")
-    c.add_argument("--hubert-path", required=True,
-                   help="fairseq HuBERT/ContentVec .pt")
+    c.add_argument("--rmvpe-path", default="",
+                   help="reference rmvpe.pt; needed by the rmvpe methods")
+    c.add_argument("--hubert-path", default="", help="fairseq HuBERT/ContentVec .pt")
+    c.add_argument("--embedder-path", default="",
+                   help="transformers HuBERT directory or weights file (in place "
+                        "of --hubert-path)")
+    c.add_argument("--f0-method", default="rmvpe",
+                   help="rmvpe | rmvpe-legacy | yin | pyin | fcpe | fcpe-legacy | dio | "
+                        "harvest | swipe | pm | crepe-{tiny,small,medium,large,full} | "
+                        "mangio-crepe-{...} | hybrid[a+b]")
+    c.add_argument("--fcpe-path", default="", help="reference fcpe.pt / fcpe_legacy.pt")
+    c.add_argument("--crepe-path", default="", help="reference crepe_<capacity>.pth")
+    c.add_argument("--f0-file", default="", help='external "time,f0" contour')
+    c.add_argument("--hop-length", type=int, default=160,
+                   help="frame hop of mangio-crepe and pyin")
+    c.add_argument("--filter-radius", type=int, default=3)
+    c.add_argument("--f0-autotune", action="store_true")
+    c.add_argument("--f0-autotune-strength", type=float, default=1.0)
+    c.add_argument("--volume-envelope", type=float, default=1.0)
+    c.add_argument("--resample-sr", type=int, default=0)
+    c.add_argument("--split-audio", action="store_true",
+                   help="convert the voiced pieces between silences")
     c.add_argument("--index", default="",
                    help=".npz index, faiss .index (added_*.index) or total_fea.npy")
     c.add_argument("--index-rate", type=float, default=0.5)

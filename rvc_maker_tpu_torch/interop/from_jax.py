@@ -449,3 +449,96 @@ def random_rmvpe_tree(seed: int = 1234, widths=(16, 32, 64, 128, 256),
                 "b_hh_r": np.zeros((3 * hdim,), np.float32)}
     p["fc"] = {"w": mat(2 * hdim, N_CLASS), "b": np.zeros((N_CLASS,), np.float32)}
     return p
+
+
+def fcpe_from_jax(tree) -> dict:
+    """JAX FCPE params (channels-last convs, (Cin, Cout) linears) -> the
+    port's tree; a layer's "attn" stays None where the tree has none."""
+    def attn(a):
+        if a is None:
+            return None
+        return {**{k: _lin(a[k]) for k in ("q", "k", "v", "o")},
+                "projection": _t(a["projection"])}
+
+    return {"in_conv1": _conv(tree["in_conv1"]), "in_gn": _ln(tree["in_gn"]),
+            "in_conv2": _conv(tree["in_conv2"]), "norm": _ln(tree["norm"]),
+            "out": _lin(tree["out"]), "cent_table": _t(tree["cent_table"]),
+            "layers": [{"ln": _ln(lp["ln"]), "attn": attn(lp.get("attn")),
+                        "conv": {"ln": _ln(lp["conv"]["ln"]), "pw1": _lin(lp["conv"]["pw1"]),
+                                 "dw": _conv(lp["conv"]["dw"]),
+                                 "pw2": _lin(lp["conv"]["pw2"])}}
+                       for lp in tree["layers"]]}
+
+
+def crepe_from_jax(tree) -> dict:
+    """JAX CREPE params (BatchNorm folded) -> the port's tree."""
+    return {"convs": [_conv(c) for c in tree["convs"]],
+            "bns": [{"scale": _t(b["scale"]), "shift": _t(b["shift"])} for b in tree["bns"]],
+            "classifier": _lin(tree["classifier"])}
+
+
+def random_fcpe_tree(seed: int = 0, hidden: int = 512, n_layers: int = 6,
+                     legacy: bool = False) -> dict:
+    """FCPE params in the JAX layouts from a seed (torch's default bounds),
+    128 mels in and 360 bins out.  legacy=False: the current conv-only
+    layers (CFNaiveMelPE, fcpe.pt's defaults: 512 wide, 6 layers);
+    legacy=True: PCmer layers, each with FAVOR+ attention of 8 heads of 64
+    and a int(64 ln 64) x 64 projection (fcpe_legacy.pt's defaults: 12
+    layers).  The conformer's depthwise conv runs on 2 x hidden channels,
+    its first pointwise conv gives 4 x hidden for the GLU."""
+    from ..models.fcpe import cent_table
+
+    n_mels, out_dims, n_heads, dim_head = 128, 360, 8, 64
+    rs = np.random.RandomState(seed)
+
+    def uni(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        return rs.uniform(-bound, bound, shape).astype(np.float32)
+
+    def lin(cin, cout):
+        return {"w": uni((cin, cout), cin), "b": uni((cout,), cin)}
+
+    def conv(k, cin, cout, groups=1):
+        fan = k * cin // groups
+        return {"w": uni((k, cin // groups, cout), fan), "b": uni((cout,), fan)}
+
+    def ln(c):
+        return {"gamma": rs.uniform(0.8, 1.2, c).astype(np.float32),
+                "beta": rs.uniform(-0.1, 0.1, c).astype(np.float32)}
+
+    inner = n_heads * dim_head
+    n_features = int(dim_head * math.log(dim_head))
+    layers = []
+    for _ in range(n_layers):
+        attn = None
+        if legacy:
+            attn = {"q": lin(hidden, inner), "k": lin(hidden, inner), "v": lin(hidden, inner),
+                    "o": lin(inner, hidden),
+                    "projection": rs.standard_normal((n_features, dim_head)).astype(np.float32)}
+        layers.append({"ln": ln(hidden), "attn": attn,
+                       "conv": {"ln": ln(hidden), "pw1": lin(hidden, 4 * hidden),
+                                "dw": conv(31, 2 * hidden, 2 * hidden, groups=2 * hidden),
+                                "pw2": lin(2 * hidden, hidden)}})
+    return {"in_conv1": conv(3, n_mels, hidden), "in_gn": ln(hidden),
+            "in_conv2": conv(3, hidden, hidden), "layers": layers, "norm": ln(hidden),
+            "out": lin(hidden, out_dims), "cent_table": cent_table(out_dims)}
+
+
+def random_crepe_tree(seed: int = 0, capacity: str = "full") -> dict:
+    """CREPE params of `capacity` in the JAX layouts (BatchNorm folded into
+    scale / shift) from a seed, with torch's default conv bounds."""
+    from ..models.crepe import CAPACITIES, KERNELS, PITCH_BINS
+
+    rs = np.random.RandomState(seed)
+    ins, outs, n_in = CAPACITIES[capacity]
+
+    def uni(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        return rs.uniform(-bound, bound, shape).astype(np.float32)
+
+    return {"convs": [{"w": uni((k, cin, cout), k * cin), "b": uni((cout,), k * cin)}
+                      for k, cin, cout in zip(KERNELS, ins, outs)],
+            "bns": [{"scale": rs.uniform(0.5, 1.5, c).astype(np.float32),
+                     "shift": rs.uniform(-0.2, 0.2, c).astype(np.float32)} for c in outs],
+            "classifier": {"w": uni((n_in, PITCH_BINS), n_in),
+                           "b": uni((PITCH_BINS,), n_in)}}

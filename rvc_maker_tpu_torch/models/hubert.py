@@ -210,3 +210,52 @@ def load_hubert_pt(path: str) -> Params:
     a bare state dict) -> the port's tree."""
     state = torch.load(path, map_location="cpu", weights_only=False)
     return params_from_fairseq_state_dict(state.get("model", state))
+
+
+def params_from_transformers_state_dict(sd) -> Params:
+    """A transformers HubertModel state dict (reference utils.py:155-166,
+    embedders_mode "transformers" / "spin": HubertModel with a final_proj
+    head) -> the port's tree.  The HF graph is fairseq's post-LN encoder
+    under other key names: translate them, then load as fairseq."""
+    import re
+
+    out = {}
+    for k, v in sd.items():
+        if k == "masked_spec_embed":
+            continue
+        nk = k.replace("encoder.pos_conv_embed.conv", "encoder.pos_conv.0")
+        nk = re.sub(r"feature_extractor\.conv_layers\.(\d+)\.conv\.",
+                    r"feature_extractor.conv_layers.\1.0.", nk)
+        nk = nk.replace("feature_extractor.conv_layers.0.layer_norm.",
+                        "feature_extractor.conv_layers.0.2.")
+        nk = nk.replace("feature_projection.layer_norm.", "layer_norm.")
+        nk = nk.replace("feature_projection.projection.", "post_extract_proj.")
+        nk = re.sub(r"encoder\.layers\.(\d+)\.attention\.", r"encoder.layers.\1.self_attn.", nk)
+        nk = re.sub(r"encoder\.layers\.(\d+)\.layer_norm\.",
+                    r"encoder.layers.\1.self_attn_layer_norm.", nk)
+        nk = nk.replace(".feed_forward.intermediate_dense.", ".fc1.")
+        nk = nk.replace(".feed_forward.output_dense.", ".fc2.")
+        out[nk] = v
+    return params_from_fairseq_state_dict(out)
+
+
+def load_transformers_dir(path: str) -> Params:
+    """A transformers HuBERT directory (model.safetensors or
+    pytorch_model.bin inside) or one such weights file -> the port's tree.
+    `safetensors` is imported only for a .safetensors file."""
+    import os
+
+    candidates = ([path] if os.path.isfile(path) else
+                  [os.path.join(path, n) for n in ("model.safetensors", "pytorch_model.bin")])
+    for c in candidates:
+        if not os.path.isfile(c):
+            continue
+        if c.endswith(".safetensors"):
+            from safetensors.torch import load_file
+
+            sd = load_file(c)
+        else:
+            sd = torch.load(c, map_location="cpu", weights_only=False)
+        return params_from_transformers_state_dict(
+            {k.removeprefix("hubert."): v for k, v in sd.items()})
+    raise FileNotFoundError(f"no weights file found under {path}")

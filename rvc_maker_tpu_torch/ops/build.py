@@ -5,11 +5,13 @@ with a plain C interface, compiled for `sm_90a` at first use into
 `rvc_maker_tpu_torch/_build/` (listed in .gitignore).  The library name
 carries a hash of the source and the flags, so an edited source is
 rebuilt and a stale library is never loaded.  Nothing is downloaded.
+The C++ host libraries (`HOST_SOURCES`) build the same way with g++.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -91,6 +93,58 @@ def build_all(names=None) -> dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+# C++ host libraries: name -> source.  The WORLD-style F0 estimators are
+# the repo's own native/src/worldlike.cpp, built alone with the flags of
+# native/Makefile; the library the Makefile builds is never loaded.
+HOST_SOURCES = {"worldlike": PACKAGE_DIR.parent / "native" / "src" / "worldlike.cpp"}
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-march=native", "-Wall", "-shared")
+
+
+@functools.lru_cache(maxsize=1)
+def _native_target() -> bytes:
+    """What -march=native resolves to on this machine (g++'s report), so
+    that a library built for one CPU is not loaded on another."""
+    return subprocess.run([_cxx(), "-march=native", "-Q", "--help=target"],
+                          capture_output=True, check=True).stdout
+
+
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: it builds the port's C++ host libraries")
+    return found
+
+
+def host_library_path(name: str) -> Path:
+    src = HOST_SOURCES[name].read_bytes()
+    h = hashlib.sha256(src + " ".join(CXX_FLAGS).encode() + _native_target()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The C++ host library `name`, compiled with g++ on first use (its
+    seconds in `build_seconds`).  A failed build raises."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            target = host_library_path(name)
+            if not target.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                t0 = time.perf_counter()
+                proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(HOST_SOURCES[name])],
+                                      capture_output=True, text=True)
+                build_seconds[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    raise RuntimeError(f"{name}: g++ exited {proc.returncode}\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, target)
+            lib = _loaded[name] = ctypes.CDLL(str(target))
+        return lib
 
 
 def load(name: str) -> ctypes.CDLL:

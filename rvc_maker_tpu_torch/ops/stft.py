@@ -66,6 +66,12 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
     return weights.astype(np.float32)
 
 
+def frame_signal(y, n_fft: int, hop_length: int):
+    """(B, L) -> (B, n_frames, n_fft), frame t starting at t * hop_length,
+    n_frames = 1 + (L - n_fft) // hop_length (a view, no copy)."""
+    return y.unfold(-1, n_fft, hop_length)
+
+
 def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
                    window, center: bool = False, eps: float = 0.0):
     """|STFT| as torch.stft(onesided, return_complex).abs(), computed as
@@ -82,7 +88,7 @@ def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         win = np.pad(win, (lpad, n_fft - win_length - lpad))
-    frames = y.unfold(-1, n_fft, hop_length) * torch.as_tensor(win, device=y.device)
+    frames = frame_signal(y, n_fft, hop_length) * torch.as_tensor(win, device=y.device)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     return torch.sqrt(spec.real.square() + spec.imag.square() + eps)
 

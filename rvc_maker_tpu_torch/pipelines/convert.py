@@ -2,7 +2,7 @@
 
 Counterpart of `rvc_maker_tpu/pipelines/convert.py`:
 
-    audio16k (B, L) --> RMVPE f0 --> HuBERT feats --> retrieval blend
+    audio16k (B, L) --> f0 --> HuBERT feats --> retrieval blend
         --> x2 frame repeat --> protect mix --> synthesizer.infer_any --> wav
 
 The host keeps file I/O, the 48 Hz Butterworth high-pass, the split of
@@ -13,8 +13,17 @@ a batch, microbatched by `max_device_batch`.
 Every decoder of the JAX package converts: NSF-HiFiGAN, the plain
 decoder of f0-less models, MRF-HiFi-GAN and RefineGAN
 (`synthesizer.decoder_kind`).  An f0-less model gets no coarse pitch;
-as in the JAX package, it still runs RMVPE, whose f0 sets `protect`'s
+as in the JAX package, it still runs F0, whose f0 sets `protect`'s
 unvoiced frames (the reference toolkit skips both for such models).
+
+F0 methods: every one the JAX package runs outside ONNX.  On the device
+(`_device_f0`): rmvpe, rmvpe-legacy, yin, fcpe, fcpe-legacy.  On the host
+(`_host_f0`, JAX convert.py:652-751): dio (+ stonemask), harvest, swipe,
+pm, pyin, crepe-<capacity> and mangio-crepe-<capacity> (CREPE's network
+on the device, its Viterbi on the host), and hybrid[a+b+...], the
+per-frame nanmedian of its members.  `f0_file` overwrites the contour
+with an external one; `convert_split` converts the voiced pieces of a
+silence-split utterance.
 
 Noise: the step takes the prior noise `z_noise` (B, p_len, inter) and
 the decoder's noise, a dict laid out as `synthesizer.decoder_noise`
@@ -35,7 +44,9 @@ from torch.profiler import record_function
 
 from ..config import ModelConfig
 from ..device import resolve_device, tree_to
-from ..f0.common import autotune_f0, coarse_f0, shift_f0
+from ..f0.common import NOTE_FREQS, autotune_f0, coarse_f0, shift_f0
+from ..f0.yin import yin
+from ..models import fcpe as fcpe_mod
 from ..models import hubert as hubert_mod
 from ..models import rmvpe as rmvpe_mod
 from ..models import synthesizer as syn
@@ -50,6 +61,20 @@ _BH, _AH = sp_signal.butter(N=5, Wn=48, btype="high", fs=SAMPLE_RATE)
 
 NoiseFn = Callable[[int, int], tuple[torch.Tensor, dict]]
 
+DEVICE_F0 = ("rmvpe", "rmvpe-legacy", "yin", "fcpe", "fcpe-legacy")
+# the torch.profiler range of each F0 stage; chip_smoke.py reads them
+F0_RANGES = {"rmvpe": "convert.rmvpe", "rmvpe-legacy": "convert.rmvpe",
+             "yin": "convert.yin", "fcpe": "convert.fcpe", "fcpe-legacy": "convert.fcpe"}
+HOST_F0_RANGE = "convert.host_f0"
+CREPE_RANGE = "convert.crepe"
+
+
+def f0_members(method: str) -> list[str]:
+    """The F0 methods `method` runs: itself, or a hybrid's members."""
+    if method.startswith("hybrid["):
+        return [m.strip() for m in method[len("hybrid["):-1].split("+")]
+    return [method]
+
 
 @dataclasses.dataclass(frozen=True)
 class ConvertSettings:
@@ -58,7 +83,7 @@ class ConvertSettings:
     pitch: int = 0                     # transpose, semitones
     index_rate: float = 0.0
     protect: float = 0.33
-    f0_method: str = "rmvpe"           # rmvpe | rmvpe-legacy
+    f0_method: str = "rmvpe"           # module docstring: the methods
     f0_autotune: bool = False
     f0_autotune_strength: float = 1.0
     volume_envelope: float = 1.0       # RMS mix rate
@@ -68,6 +93,10 @@ class ConvertSettings:
     x_query: int = 6
     x_center: int = 38
     x_max: int = 41
+    filter_radius: int = 3             # carried; JAX reads it only for ONNX CREPE
+    hop_length: int = 160              # mangio-crepe / pyin frame hop
+    f0_file: str = ""                  # external "time,f0" contour file
+    deterministic: bool = False        # draw from a fresh seed-0 generator
 
 
 def _bucket_length(n: int, bucket: int = SAMPLE_RATE) -> int:
@@ -80,15 +109,15 @@ class ConvertPipeline:
 
     def __init__(self, synth_params: Any, model_cfg: ModelConfig,
                  hubert_params: Any, version: str = "v2",
-                 rmvpe_params: Any = None,
+                 rmvpe_params: Any = None, fcpe_params: Any = None,
+                 crepe_params: Any = None,
                  index_vectors: Optional[np.ndarray] = None,
                  max_device_batch: int = 8, device: str | torch.device = "cuda"):
         """Params are the port's trees (`interop.pth`, `interop.from_jax`,
-        `models.rmvpe.params_from_state_dict`); they are moved to
-        `device` in fp32.  device="cuda" raises when no card is present."""
-        if rmvpe_params is None:
-            raise ValueError("rmvpe_params are required: RMVPE is the f0 "
-                             "method of the ported path")
+        the models' `params_from_state_dict` / loaders); they are moved to
+        `device` in fp32.  Each F0 network's params are needed only by the
+        methods that run it; a method whose params are missing raises when
+        it is called.  device="cuda" raises when no card is present."""
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.version = version
@@ -97,22 +126,128 @@ class ConvertPipeline:
         self.synth_params = tree_to(synth_params, self.device, f32)
         self.hubert_params = tree_to(hubert_params, self.device, f32)
         self.rmvpe_params = tree_to(rmvpe_params, self.device, f32)
+        self.fcpe_params = tree_to(fcpe_params, self.device, f32)
+        self.crepe_params = tree_to(crepe_params, self.device, f32)
         self.index_vectors = (None if index_vectors is None else
                               torch.as_tensor(np.asarray(index_vectors, np.float32),
                                               device=self.device))
 
     # -- the device step ------------------------------------------------
 
+    def _params(self, name: str, method: str):
+        p = getattr(self, f"{name}_params")
+        if p is None:
+            raise ValueError(f"{name}_params not loaded: f0 method {method!r} needs them")
+        return p
+
     def _f0(self, audio, settings: ConvertSettings):
-        kw = ({"f0_min": 50.0, "f0_max": 1100.0}
-              if settings.f0_method == "rmvpe-legacy" else {})
-        if settings.f0_method not in ("rmvpe", "rmvpe-legacy"):
-            raise ValueError(f"f0 method {settings.f0_method!r} is not ported")
-        f0 = shift_f0(rmvpe_mod.infer(self.rmvpe_params, audio, **kw),
-                      settings.pitch)
-        if settings.f0_autotune and settings.f0_autotune_strength > 0:
-            f0 = autotune_f0(f0, settings.f0_autotune_strength)
-        return f0
+        """(B, L) on the device -> f0 (B, frames) on the device, shifted
+        and autotuned; each stage in its own profiler range."""
+        m = settings.f0_method
+        if m in DEVICE_F0:
+            with record_function(F0_RANGES[m]):
+                f0 = shift_f0(self._device_f0(m, audio), settings.pitch)
+                if settings.f0_autotune and settings.f0_autotune_strength > 0:
+                    f0 = autotune_f0(f0, settings.f0_autotune_strength)
+                return f0
+        with record_function(HOST_F0_RANGE):
+            # the host methods read the exact input the caller gave
+            f0 = self._host_f0(m, audio.cpu().numpy(), settings)
+            return torch.as_tensor(f0, device=self.device)
+
+    def _device_f0(self, method: str, audio):
+        """A device method at pitch 0, no autotune (JAX `_f0_raw`)."""
+        if method in ("rmvpe", "rmvpe-legacy"):
+            kw = {"f0_min": 50.0, "f0_max": 1100.0} if method == "rmvpe-legacy" else {}
+            return rmvpe_mod.infer(self._params("rmvpe", method), audio, **kw)
+        if method in ("fcpe", "fcpe-legacy"):
+            return fcpe_mod.infer(self._params("fcpe", method), audio, threshold=0.03,
+                                  p_len=audio.shape[1] // WINDOW + 1)
+        if method == "yin":
+            return yin(audio, sr=SAMPLE_RATE, fmin=50.0, fmax=1100.0, hop_length=WINDOW)
+        raise ValueError(f"unknown f0 method {method!r}")
+
+    def _crepe_probs(self, method: str, audio: np.ndarray, hop: int) -> np.ndarray:
+        """CREPE's probabilities (1, T, 360) of one row, on the device."""
+        from ..models import crepe as crepe_mod
+
+        params = self._params("crepe", method)
+        with record_function(CREPE_RANGE):
+            x = torch.as_tensor(audio, device=self.device)
+            return crepe_mod.predict_probs(params, x, hop_length=hop).cpu().numpy()
+
+    def _host_f0(self, method: str, audio_batch: np.ndarray,
+                 settings: ConvertSettings) -> np.ndarray:
+        """F0 of the host methods and of hybrid[...] (reference convert.py
+        get_f0 / get_f0_hybrid:283-323), row by row, line for line as JAX
+        `_host_f0`.  Returns (B, L // 160 + 1) float32 Hz, shifted and
+        autotuned on the host."""
+        from ..models import crepe as crepe_mod
+
+        b, L = audio_batch.shape
+        p_len = L // WINDOW + 1
+        out = np.zeros((b, p_len), np.float32)
+        methods = f0_members(method)
+        for i in range(b):
+            row = audio_batch[i]
+            stack = []
+            for m in methods:
+                if m in ("dio", "harvest"):
+                    from ..f0 import world
+
+                    fn = world.harvest if m == "harvest" else world.dio
+                    f0, t = fn(row.astype(np.float64), SAMPLE_RATE, f0_floor=50.0,
+                               f0_ceil=1100.0, frame_period=10.0)
+                    if m == "dio":
+                        f0 = world.stonemask(row.astype(np.float64), SAMPLE_RATE, t, f0)
+                elif m == "swipe":
+                    from ..f0.swipe import swipe
+
+                    f0, _ = swipe(row, SAMPLE_RATE, f0_floor=50.0, f0_ceil=1100.0)
+                elif m == "pm":
+                    from ..f0.praat_ac import praat_ac
+
+                    f0 = praat_ac(row, SAMPLE_RATE, f0_floor=50.0, f0_ceil=1100.0,
+                                  voicing_threshold=0.6)
+                elif m.startswith("mangio-crepe"):
+                    # reference convert.py:215-228: quantile normalization,
+                    # the settings' hop, Viterbi, NaN below 0.001 Hz
+                    x = row.astype(np.float32)
+                    x = x / np.quantile(np.abs(x), 0.999)
+                    probs = self._crepe_probs(m, x[None], settings.hop_length)
+                    f0 = crepe_mod.decode(probs, 50.0, 1100.0)[0]
+                    f0 = np.where(f0 < 0.001, np.nan, f0)
+                elif m.startswith("crepe"):
+                    # reference convert.py:230-237: hop = window, mean(f0, 3),
+                    # median(periodicity, 3), gate at periodicity 0.1
+                    probs = self._crepe_probs(m, audio_batch[i : i + 1], WINDOW)
+                    f0, pd = crepe_mod.decode(probs, 50.0, 1100.0, return_periodicity=True)
+                    f0 = crepe_mod.mean_filter(f0, 3)
+                    pd = crepe_mod.median_filter(pd, 3)
+                    f0[pd < 0.1] = 0.0
+                    f0 = f0[0]
+                elif m == "pyin":
+                    from ..f0.pyin import pyin
+
+                    f0 = pyin(row, SAMPLE_RATE, fmin=50.0, fmax=1100.0,
+                              hop_length=settings.hop_length)[0]
+                    f0 = np.where(f0 < 0.001, np.nan, f0)
+                elif m in DEVICE_F0:
+                    with record_function(F0_RANGES[m]):
+                        x = torch.as_tensor(audio_batch[i : i + 1], device=self.device)
+                        f0 = self._device_f0(m, x)[0].cpu().numpy()
+                else:
+                    raise ValueError(f"unknown f0 method {m!r}")
+                # to p_len frames (reference convert.py:299-300)
+                stack.append(np.interp(np.linspace(0, len(f0) - 1, p_len),
+                                       np.arange(len(f0)), f0))
+            f0 = stack[0] if len(stack) == 1 else np.nanmedian(np.vstack(stack), axis=0)
+            out[i] = np.nan_to_num(f0)               # reference convert.py:281
+        out = out * (2.0 ** (settings.pitch / 12.0))
+        if settings.f0_autotune:
+            nearest = NOTE_FREQS[np.argmin(np.abs(out[..., None] - NOTE_FREQS), axis=-1)]
+            out = out + (nearest - out) * settings.f0_autotune_strength
+        return out
 
     def _features(self, audio, lengths, settings: ConvertSettings):
         feats, _ = hubert_mod.extract_features(
@@ -168,8 +303,10 @@ class ConvertPipeline:
 
         z_noise and the decoder's `noise` (`synthesizer.decoder_noise`'s
         layout) cover the whole batch; what is absent is drawn per
-        microbatch from `generator` (default: seeded 0), z before the
-        decoder's noise as in `draw_noise`."""
+        microbatch from `generator` (default, and always with
+        settings.deterministic: a fresh one seeded 0), z before the
+        decoder's noise as in `draw_noise`.  settings.f0_file overwrites
+        the f0 after the F0 stage (`_apply_f0_file`)."""
         audio = torch.as_tensor(np.asarray(audio_batch, np.float32)
                                 if not isinstance(audio_batch, torch.Tensor)
                                 else audio_batch, device=self.device,
@@ -177,7 +314,7 @@ class ConvertPipeline:
         lengths = torch.as_tensor(np.asarray(lengths) if not isinstance(
             lengths, torch.Tensor) else lengths, device=self.device,
             dtype=torch.int64)
-        if generator is None:
+        if generator is None or settings.deterministic:
             generator = torch.Generator(device=self.device).manual_seed(0)
         b_total = audio.shape[0]
         mdb = self.max_device_batch
@@ -186,9 +323,12 @@ class ConvertPipeline:
             hi = min(lo + mdb, b_total)
             a, ln = audio[lo:hi], lengths[lo:hi]
             # named ranges: a torch.profiler trace sums each stage's
-            # device time under them (chip_smoke.py reads them)
-            with record_function("convert.rmvpe"):
-                f0 = self._f0(a, settings)
+            # device time under them (chip_smoke.py reads them); the F0
+            # stage's range is set by its method, in `_f0`
+            f0 = self._f0(a, settings)
+            if settings.f0_file:
+                f0 = torch.as_tensor(_apply_f0_file(f0.cpu().numpy(), settings),
+                                     device=self.device)
             with record_function("convert.hubert_retrieval"):
                 feats, feats0 = self._features(a, ln, settings)
             p_len = min(a.shape[1] // WINDOW, feats.shape[1])
@@ -278,6 +418,47 @@ class ConvertPipeline:
         if s.resample_sr not in (0, tgt_sr) and s.resample_sr >= SAMPLE_RATE:
             out = resample(out, tgt_sr, s.resample_sr)
         return out.astype(np.float32)
+
+
+SPLIT_DB_THRESH = -60
+SPLIT_MIN_INTERVAL_MS = 500
+
+
+def _apply_f0_file(f0: np.ndarray, settings: ConvertSettings) -> np.ndarray:
+    """Overwrite the contour with an external "time,f0" file (reference
+    convert.py:314-316): its values interpolated to 100 frames/s, written
+    from the end of the x_pad reflect pad on."""
+    with open(settings.f0_file) as f:
+        rows = [[float(v) for v in line.split(",")]
+                for line in f.read().strip().split("\n") if line.strip()]
+    inp = np.asarray(rows, np.float32)
+    tf0 = SAMPLE_RATE // WINDOW                          # 100 frames/s
+    n = int(np.round((inp[:, 0].max() - inp[:, 0].min()) * tf0 + 1))
+    replace = np.interp(np.arange(n), inp[:, 0] * tf0, inp[:, 1])
+    start = settings.x_pad * tf0
+    stop = min(start + len(replace), f0.shape[1])
+    out = np.array(f0)
+    out[:, start:stop] = replace[: stop - start]
+    return out
+
+
+def convert_split(pipe: ConvertPipeline, audio16k: np.ndarray, sid: int,
+                  settings: ConvertSettings, *,
+                  noise_fn: NoiseFn | None = None) -> np.ndarray:
+    """split_audio mode (reference convert.py:497-510): silence-cut the
+    utterance, convert each voiced piece with `convert_utterance`, and
+    put the pieces back at their positions scaled to the model's rate,
+    silence in the gaps."""
+    from .preprocess import cut_with_positions, restore_positions
+
+    chunks = cut_with_positions(audio16k, SAMPLE_RATE, db_thresh=SPLIT_DB_THRESH,
+                                min_interval_ms=SPLIT_MIN_INTERVAL_MS)
+    scale = pipe.cfg.sr / SAMPLE_RATE
+    converted = []
+    for chunk, start, _ in chunks:
+        out = pipe.convert_utterance(chunk, sid, settings, noise_fn=noise_fn)
+        converted.append((int(start * scale), int(start * scale) + len(out), out))
+    return restore_positions(converted, int(len(audio16k) * scale))
 
 
 def _rows(tree, lo: int, hi: int):

@@ -69,9 +69,14 @@ class SilenceSlicer:
         self.max_sil_kept = round(sr * max_sil_kept_ms / 1000 / self.hop_size)
 
     def slice(self, waveform: np.ndarray) -> list[np.ndarray]:
+        return [waveform[b:e] for b, e in self.bounds(waveform)]
+
+    def bounds(self, waveform: np.ndarray) -> list[tuple[int, int]]:
+        """The (start, end) sample positions of the pieces `slice` cuts."""
         samples = waveform if waveform.ndim == 1 else waveform.mean(axis=0)
-        if samples.shape[0] <= self.min_length:
-            return [waveform]
+        n = samples.shape[0]
+        if n <= self.min_length:
+            return [(0, n)]
         rms = frame_rms(samples, self.win_size, self.hop_size)
 
         cuts: list[tuple[int, int]] = []   # (silence_cut_start, silence_cut_end)
@@ -121,11 +126,11 @@ class SilenceSlicer:
             cuts.append((pos, total + 1))
 
         if not cuts:
-            return [waveform]
+            return [(0, n)]
         out = []
 
         def piece(b, e):
-            return waveform[b * self.hop_size : min(len(samples), e * self.hop_size)]
+            return b * self.hop_size, min(n, e * self.hop_size)
 
         if cuts[0][0] > 0:
             out.append(piece(0, cuts[0][0]))
@@ -133,7 +138,7 @@ class SilenceSlicer:
             out.append(piece(a[1], b[0]))
         if cuts[-1][1] < total:
             out.append(piece(cuts[-1][1], total))
-        return [c for c in out if len(c) > 0]
+        return [(b, e) for b, e in out if e > b]
 
 
 def normalize_audio(audio: np.ndarray) -> np.ndarray | None:
@@ -220,3 +225,33 @@ def preprocess_dataset(input_root: str, exp_dir: str, sr: int,
     logger.info("preprocess done in %.1f s [%d files -> %d segments]",
                 time.time() - t0, len(files), total)
     return total
+
+
+def cut_with_positions(audio: np.ndarray, sr: int, *, db_thresh: float = -60,
+                       min_interval_ms: int = 250):
+    """Silence-split keeping sample positions: [(chunk, start, end), ...].
+
+    The split_audio path of conversion (reference utils.py:172-237 `cut`),
+    with SilenceSlicer's rules.  The JAX package finds each chunk's start
+    by scanning the audio for it; the positions here are the slicer's own
+    cut points, which are where that scan lands."""
+    slicer = SilenceSlicer(sr, threshold_db=db_thresh, min_interval_ms=min_interval_ms)
+    return [(audio[b:e], b, e) for b, e in slicer.bounds(audio)]
+
+
+def restore_positions(segments, total_len: int, dtype=np.float32) -> np.ndarray:
+    """Reassemble processed segments at their (scaled) positions with
+    silence in the gaps (reference utils.py:239-250 `restore`).
+
+    segments: [(start, end, processed_audio), ...] in sample positions
+    the caller scaled to the output rate."""
+    out = []
+    last_end = 0
+    for start, end, seg in segments:
+        if start > last_end:
+            out.append(np.zeros(start - last_end, dtype=dtype))
+        out.append(np.asarray(seg, dtype=dtype))
+        last_end = end
+    if last_end < total_len:
+        out.append(np.zeros(total_len - last_end, dtype=dtype))
+    return np.concatenate(out, axis=-1)

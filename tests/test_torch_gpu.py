@@ -326,3 +326,54 @@ def test_interp_linear_card_matches_cpu(cuda):
     err = (card - cpu).abs().max().item()
     print(f"interp_linear 479,040 samples: card vs CPU max abs diff {err:.3e}")
     assert err <= 1e-5 * x.abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["yin", "fcpe", "fcpe-legacy", "crepe-tiny"])
+def test_device_f0_method_card_matches_cpu(cuda, method):
+    """Each device F0 method at a narrow width (FCPE 128 wide, 2 layers;
+    CREPE tiny), card against CPU on 2 s: voicing equal, f0 <= 1e-2 Hz
+    where both are voiced, and the waveform of the card's pipeline given
+    the CPU's f0 <= 1e-3; the card's decode launches resblock_tc."""
+    cfg = ModelConfig(
+        spec_channels=129, segment_size=8, inter_channels=32, hidden_channels=32,
+        filter_channels=64, n_heads=2, n_layers=1, kernel_size=3,
+        upsample_rates=(4, 4, 2, 2), upsample_initial_channel=256,
+        upsample_kernel_sizes=(8, 8, 4, 4), spk_embed_dim=4, gin_channels=16,
+        sr=6400, text_enc_hidden_dim=768)
+    tree = from_jax.random_synthesizer_tree(cfg, 0)
+    for u in tree["dec"]["ups"]:
+        u["w"] *= 20.0
+    crepe = from_jax.random_crepe_tree(4, "tiny")
+    crepe["classifier"]["w"] *= 8.0
+    kw = dict(synth_params=from_jax.synthesizer_from_jax(tree, cfg), model_cfg=cfg,
+              hubert_params=from_jax.hubert_from_jax(from_jax.random_hubert_tree(1, n_layers=2)),
+              fcpe_params=from_jax.fcpe_from_jax(from_jax.random_fcpe_tree(
+                  3, 128, 2, legacy=method == "fcpe-legacy")),
+              crepe_params=from_jax.crepe_from_jax(crepe))
+    tt = np.arange(32000) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * 220 * tt * (1 + 0.02 * np.sin(2 * np.pi * 3 * tt)))
+             + 0.01 * np.random.RandomState(3).randn(32000)).astype(np.float32)[None]
+    lengths = np.array([32000])
+    settings = ConvertSettings(f0_method=method)
+    pipes = {dev: ConvertPipeline(**kw, device=dev) for dev in ("cpu", "cuda")}
+    z, noise = pipes["cpu"].draw_noise(1, pipes["cpu"].frames(32000),
+                                       torch.Generator().manual_seed(5))
+    f0 = {dev: p._f0(torch.as_tensor(audio, device=p.device), settings).cpu().numpy()[0]
+          for dev, p in pipes.items()}
+    wav = {}
+    for dev, p in pipes.items():
+        p._f0 = lambda a, s, d=p.device: torch.as_tensor(f0["cpu"][None], device=d)
+        before = trb.resblock_tc_launches
+        w, _ = p.convert_batch(audio, lengths, 0, settings, z_noise=z, noise=noise)
+        assert trb.resblock_tc_launches - before == (0 if dev == "cpu" else 4 * 3 * 3)
+        wav[dev] = n(w)
+    a, b = f0["cpu"], f0["cuda"]
+    both = (a > 0) & (b > 0)
+    f0_err = float(np.abs(a - b)[both].max())
+    err = float(np.abs(wav["cpu"] - wav["cuda"]).max())
+    print(f"{method}: f0 card vs CPU {f0_err:.3e} Hz on {int(both.sum())} voiced frames, "
+          f"waveform on the CPU's f0 {err:.3e}")
+    np.testing.assert_array_equal(a > 0, b > 0)
+    assert both.any() and f0_err <= 1e-2
+    assert np.isfinite(wav["cuda"]).all() and err <= 1e-3

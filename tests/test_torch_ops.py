@@ -121,8 +121,26 @@ def _imports(path: Path):
             yield node.module
 
 
+def _module_level_imports(path: Path):
+    """Imports that run when the module is imported: its top-level
+    statements, including those under a top-level if / try."""
+    stack = list(ast.parse(path.read_text()).body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try)):
+            stack.extend(node.body + node.orelse + getattr(node, "finalbody", [])
+                         + [s for h in getattr(node, "handlers", []) for s in h.body])
+
+
 @pytest.mark.parametrize("root", ["rvc_maker_tpu_torch", "chip_smoke.py"])
 def test_port_imports_no_jax(root):
+    """No JAX and nothing of the JAX package anywhere; and `cryptography`
+    and `safetensors`, which the card's machine may lack, only inside the
+    functions that need them."""
     path = REPO / root
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files
@@ -130,6 +148,8 @@ def test_port_imports_no_jax(root):
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "rvc_maker_tpu"), (f, mod)
+        for mod in _module_level_imports(f):
+            assert mod.split(".")[0] not in ("cryptography", "safetensors"), (f, mod)
 
 
 @pytest.mark.parametrize("fail", [False, True], ids=["builds", "fails"])

@@ -244,3 +244,93 @@ def run_cli_convert(tmp_path, sd, jcfg, hubert_tree, rmvpe_tree, index_path, sec
                    "--index", str(index_path), "--index-rate", "0.5", "--device", "cpu"])
     assert rc == 0
     return read_wav(str(tmp_path / "out.wav"))
+
+
+def fcpe_state_dict(tree, legacy: bool, weight_norm: bool = True):
+    """A reference FCPE state dict (CFNaiveMelPE keys, or PCmer's with
+    legacy=True) from a JAX-layout tree (interop.from_jax.random_fcpe_tree);
+    the output projection split into weight_g / weight_v."""
+    stem = "stack" if legacy else "input_stack"
+    layers = "decoder._layers" if legacy else "net.encoder_layers"
+    out_name = "dense_out" if legacy else "output_proj"
+    sd = {}
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = np.transpose(p["w"], (2, 1, 0))
+        sd[f"{prefix}.bias"] = p["b"]
+
+    def lin(prefix, p, pointwise=False):
+        w = np.asarray(p["w"]).T
+        sd[f"{prefix}.weight"] = w[:, :, None] if pointwise else w
+        sd[f"{prefix}.bias"] = p["b"]
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["gamma"], p["beta"]
+
+    conv(f"{stem}.0", tree["in_conv1"])
+    ln(f"{stem}.1", tree["in_gn"])
+    conv(f"{stem}.3", tree["in_conv2"])
+    ln("norm", tree["norm"])
+    w = np.asarray(tree["out"]["w"]).T
+    if weight_norm:
+        sd[f"{out_name}.weight_g"] = np.sqrt(np.square(w).sum(axis=1, keepdims=True))
+        sd[f"{out_name}.weight_v"] = w
+        sd[f"{out_name}.bias"] = tree["out"]["b"]
+    else:
+        lin(out_name, tree["out"])
+    sd["cent_table"] = tree["cent_table"]
+    for i, lp in enumerate(tree["layers"]):
+        p = f"{layers}.{i}"
+        ln(f"{p}.norm", lp["ln"])
+        if lp.get("attn") is not None:
+            for k, m in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out")):
+                lin(f"{p}.attn.{m}", lp["attn"][k])
+            sd[f"{p}.attn.fast_attention.projection_matrix"] = lp["attn"]["projection"]
+        c = lp["conv"]
+        ln(f"{p}.conformer.net.0", c["ln"])
+        lin(f"{p}.conformer.net.2", c["pw1"], pointwise=True)
+        conv(f"{p}.conformer.net.4.conv", c["dw"])
+        lin(f"{p}.conformer.net.6", c["pw2"], pointwise=True)
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def crepe_state_dict(tree, rs):
+    """A reference Crepe state dict (4-D conv weights, conv{i}_BN.*) from a
+    JAX-layout tree's convs and classifier, with random BN statistics."""
+    sd = {}
+    for i, c in enumerate(tree["convs"], start=1):
+        sd[f"conv{i}.weight"] = np.transpose(c["w"], (2, 1, 0))[:, :, :, None]
+        sd[f"conv{i}.bias"] = c["b"]
+        n_out = c["w"].shape[-1]
+        sd[f"conv{i}_BN.weight"] = rs.uniform(0.5, 1.5, n_out)
+        sd[f"conv{i}_BN.bias"] = rs.randn(n_out) * 0.1
+        sd[f"conv{i}_BN.running_mean"] = rs.randn(n_out) * 0.1
+        sd[f"conv{i}_BN.running_var"] = rs.uniform(0.5, 2.0, n_out)
+    sd["classifier.weight"] = np.asarray(tree["classifier"]["w"]).T
+    sd["classifier.bias"] = tree["classifier"]["b"]
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def hf_hubert_state_dict(tree):
+    """A transformers HubertModel state dict ("hubert."-prefixed, as a
+    HubertModel with a final_proj head saves it) from a JAX-layout tree."""
+    import re
+
+    out = {"hubert.masked_spec_embed": torch.zeros(768)}
+    for k, v in hubert_state_dict(tree).items():
+        if k.startswith("final_proj."):
+            out[k] = v
+            continue
+        k = re.sub(r"feature_extractor\.conv_layers\.(\d+)\.0\.",
+                   r"feature_extractor.conv_layers.\1.conv.", k)
+        k = k.replace("feature_extractor.conv_layers.0.2.",
+                      "feature_extractor.conv_layers.0.layer_norm.")
+        k = re.sub(r"^layer_norm\.", "feature_projection.layer_norm.", k)
+        k = k.replace("post_extract_proj.", "feature_projection.projection.")
+        k = k.replace("encoder.pos_conv.0.", "encoder.pos_conv_embed.conv.")
+        k = re.sub(r"\.self_attn_layer_norm\.", ".layer_norm.", k)
+        k = k.replace(".self_attn.", ".attention.")
+        k = k.replace(".fc1.", ".feed_forward.intermediate_dense.")
+        k = k.replace(".fc2.", ".feed_forward.output_dense.")
+        out["hubert." + k] = v
+    return out
