@@ -12,13 +12,18 @@ Phases, each printed as it runs; any failure exits non-zero:
               shapes the main path gives it: fp32 through the tensor-core
               kernel (resblock_tc.cu, the route of every fp32 width) and
               through the FMA kernel (resblock.cu), each max abs err <=
-              1e-4 * max(1, |ref|max); bf16 (resblock.cu) correlation >
-              0.99.  Then timed with CUDA events: the tensor-core kernel,
-              the FMA kernel in fp32 (its earlier version), the plain
-              version, and the library yardstick (a cuDNN F.conv1d chain,
-              never used by the port), beside two bounds: the fp32
-              CUDA-core one and the 3xTF32 one (3 x flops at the dense
-              TF32 rate), the roofline share taken against the latter.
+              1e-4 * max(1, |ref|max); bf16 (resblock.cu, the bf16 route)
+              max abs err against the bf16 plain chain <= 4 bf16 ulps
+              of its |ref|max, and correlation > 0.99 against the fp32
+              plain chain.  Then timed with CUDA events: the
+              tensor-core kernel, the FMA kernel in fp32 (its earlier
+              version), the plain version, and the library yardstick (a
+              cuDNN F.conv1d chain, never used by the port), beside two
+              bounds: the fp32 CUDA-core one and the 3xTF32 one (3 x flops
+              at the dense TF32 rate), the roofline share taken against the
+              latter; and in bf16 the FMA kernel, the plain chain and the
+              cuDNN chain beside the bf16 bound (flops at the dense bf16
+              rate).
   4. main     the port's ConvertPipeline at the full v2 / 48 kHz width
               (12-layer HuBERT, full RMVPE, 10,000 x 768 index, random
               weights from a seed): convert_batch on 2 x 10 s and
@@ -82,13 +87,40 @@ Phases, each printed as it runs; any failure exits non-zero:
               CPU's f0 <= 1e-3; each host method's f0 identical and the
               waveform <= 1e-3.  The WORLD library's g++ build (phase 2)
               is timed beside nvcc.
+ 11. serve    the port's HTTP server (`app/server.py`, in a thread on
+              127.0.0.1, device cuda) on phase 4's model written as the
+              files a user serves (voice .pth, rmvpe.pt, fairseq HuBERT .pt,
+              index .npy), in fp32 and in bf16 (set through /api/settings):
+              a cold pipeline's first 5 s request, `warm(buckets="5,4x5")`,
+              the first request after it and the mean of 3 more, each with
+              its launches counted (36 resblock_tc per fp32 decode; 36
+              resblock and 0 resblock_tc per bf16 one), each response
+              equal to the direct convert_utterance within 1 int16 step;
+              4 concurrent requests through the batcher (device batch
+              shapes, latencies, audio-s/s, peak memory), each within 2e-3
+              of its row of the same batch run directly, the last upp
+              samples excluded.  bf16 against fp32 on a yin request:
+              waveform correlation > 0.98 and max abs < 0.1, pitchf within
+              rtol 1e-5 / atol 1e-4; the rmvpe f0 distance printed.  One
+              fp32 request sent after cuDNN's TF32 is set to PyTorch's
+              default (on) and the server's set_device is called again
+              equals the TF32-off response within 1 int16 step
+              (set_device turns TF32 off); a direct call with TF32 on
+              prints its distance.  Each precision's direct call: its
+              wall time without HTTP, in this thread and from a new
+              thread each time (the server runs requests on one device
+              thread because cuDNN's plans are kept per thread), its host
+              functions by own time (cProfile), and one call under
+              torch.profiler.
 
-fp32 throughout, with TF32 off for cuDNN and matmuls (the parity path).
+fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
+says otherwise; phases 3 and 11 also run bf16.
 The line before the last holds the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -162,13 +194,22 @@ def library_resblock(x, wt1, b1, wt2, b2, k, dilations):
     return x
 
 
+BF16_ULPS = 4     # bf16 kernel vs the bf16 plain chain: max abs <= 4 ulps of |ref|max
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at |v|."""
+    return 2.0 ** (math.frexp(v)[1] - 8)
+
+
 def check_resblock(stage_shapes, kernels, dilations, card: str):
     from rvc_maker_tpu_torch.ops import resblock as rb
 
     gen = torch.Generator().manual_seed(0)
     rows, worst, worst_fma = [], 0.0, 0.0
     totals = dict(ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0,
-                  flops=0, bytes=0)
+                  bf16_plain_ms=0.0, bf16_library_ms=0.0, flops=0, bytes=0)
+    worst_bf16 = 0.0
     saved = reset_counts(rb)
     for (b, c, t) in stage_shapes:
         for k in kernels:
@@ -194,40 +235,55 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             argsb = tuple(a.bfloat16() for a in args)
             gotb = rb.fused_resblock(*argsb, **kw).float()
             corr = torch.corrcoef(torch.stack([gotb.flatten(), ref.flatten()]))[0, 1].item()
+            # bf16 against the plain chain on the same bf16 inputs
+            refb = rb._resblock(*argsb, **kw).float()
+            bf16_err = (gotb - refb).abs().max().item()
+            bf16_tol = BF16_ULPS * bf16_ulp(refb.abs().max().item())
             wt1 = w1.permute(0, 3, 2, 1).contiguous()
             wt2 = w2.permute(0, 3, 2, 1).contiguous()
+            wt1b, b1b, wt2b, b2b = (a.bfloat16() for a in (wt1, b1, wt2, b2))
             iters = 10
             ms = cuda_ms(lambda: rb.fused_resblock(*args, **kw), iters)
             fma_ms = cuda_ms(lambda: rb._fma_resblock(*args, **kw), iters)
             plain_ms = cuda_ms(lambda: rb._resblock(*args, **kw), iters)
             lib_ms = cuda_ms(lambda: library_resblock(x, wt1, b1, wt2, b2, k, dilations), iters)
             bf16_ms = cuda_ms(lambda: rb.fused_resblock(*argsb, **kw), iters)
+            bf16_plain_ms = cuda_ms(lambda: rb._resblock(*argsb, **kw), iters)
+            bf16_lib_ms = cuda_ms(lambda: library_resblock(argsb[0], wt1b, b1b, wt2b, b2b, k,
+                                                           dilations), iters)
+            worst_bf16 = max(worst_bf16, bf16_err)
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + w1.numel() + w2.numel() + b1.numel() + b2.numel())
             fp32_bound_ms, bound_ms, _ = bounds_ms(flops, nbytes)
             smem = {d: rb.smem_bytes(c, k, d) for d in dilations}
             rows.append(dict(B=b, C=c, T=t, k=k, smem_bytes_tc=smem, max_abs_err=err,
-                             fma_max_abs_err=fma_err, tol=tol, bf16_corr=corr, ms=ms,
-                             fma_ms=fma_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bf16_ms=bf16_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
+                             fma_max_abs_err=fma_err, tol=tol, bf16_corr=corr,
+                             bf16_max_abs_err=bf16_err, bf16_tol=bf16_tol, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bf16_ms=bf16_ms, bf16_plain_ms=bf16_plain_ms,
+                             bf16_library_ms=bf16_lib_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
                              fp32_bound_ms=fp32_bound_ms, roofline_share=bound_ms / ms))
             log(f"  resblock B={b} C={c} T={t} k={k}: tensor-core kernel shared memory "
                 "per block " + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem.items()))
             log(f"  resblock B={b} C={c} T={t} k={k}: err tc {err:.3e} fma {fma_err:.3e} "
                 f"(tol {tol:.1e}) bf16 corr {corr:.6f} | tc kernel {ms:.3f} ms, fma kernel "
-                f"{fma_ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bf16 "
-                f"fma kernel {bf16_ms:.3f} ms | {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                f"{fma_ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms | bf16: "
+                f"fma kernel {bf16_ms:.3f} ms, plain {bf16_plain_ms:.3f} ms, library "
+                f"{bf16_lib_ms:.3f} ms, err vs plain {bf16_err:.3e} (tol {bf16_tol:.3e}) | {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, "
                 f"bound 3xTF32 {bound_ms:.3f} ms / fp32 {fp32_bound_ms:.3f} ms, roofline "
                 f"share {bound_ms / ms:.3f}")
             if not (err <= tol and fma_err <= tol):
                 raise AssertionError(f"resblock C={c} k={k}: err {err}, fma {fma_err} > {tol}")
-            if not corr > 0.99:
-                raise AssertionError(f"resblock bf16 C={c} k={k}: corr {corr}")
+            if not (corr > 0.99 and bf16_err <= bf16_tol):
+                raise AssertionError(f"resblock bf16 C={c} k={k}: corr {corr}, err vs the "
+                                     f"bf16 plain chain {bf16_err} > {bf16_tol}")
             for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
-                           ("library_ms", lib_ms), ("bf16_ms", bf16_ms), ("flops", flops),
+                           ("library_ms", lib_ms), ("bf16_ms", bf16_ms),
+                           ("bf16_plain_ms", bf16_plain_ms), ("bf16_library_ms", bf16_lib_ms),
+                           ("flops", flops),
                            ("bytes", nbytes)):
                 totals[key] += v
-            del x, w1, w2, b1, b2, args, argsb, ref, got, got_fma, gotb, wt1, wt2
+            del x, w1, w2, b1, b2, args, argsb, ref, refb, got, got_fma, gotb, wt1, wt2
+            del wt1b, b1b, wt2b, b2b
             reset_counts(rb)
     reset_counts(rb, saved)           # comparison launches do not count
     torch.cuda.empty_cache()
@@ -235,10 +291,12 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
     totals.update(bound_ms=bound, bound_by=bound_by, fp32_bound_ms=fp32_bound,
                   bf16_bound_ms=1e3 * max(totals["flops"] / H100_BF16_FLOPS,
                                           totals["bytes"] / 2 / H100_BYTES_PER_S),
-                  max_abs_err=worst, fma_max_abs_err=worst_fma)
+                  max_abs_err=worst, fma_max_abs_err=worst_fma, bf16_max_abs_err=worst_bf16)
     log(f"  one decode's 12 resblocks: tc kernel {totals['ms']:.3f} ms, fma kernel "
         f"{totals['fma_ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, library "
-        f"{totals['library_ms']:.3f} ms, bf16 fma kernel {totals['bf16_ms']:.3f} ms; "
+        f"{totals['library_ms']:.3f} ms; bf16: fma kernel {totals['bf16_ms']:.3f} ms, plain "
+        f"{totals['bf16_plain_ms']:.3f} ms, library {totals['bf16_library_ms']:.3f} ms, bound "
+        f"{totals['bf16_bound_ms']:.3f} ms; "
         f"{totals['flops'] / 1e12:.3f} TFLOP, {totals['bytes'] / 1e9:.3f} GB -> bound "
         f"3xTF32 {bound:.3f} ms ({bound_by}) / fp32 {fp32_bound:.3f} ms, roofline share "
         f"{bound / totals['ms']:.3f}; on {card}")
@@ -306,11 +364,15 @@ def profile_call(label, fn, wall_s):
         return dict(device_ms=None)
     resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # the host side: self CPU time by op and CUDA runtime call
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU}
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
     res = dict(device_ms=device_ms, wall_ms=1e3 * wall_s,
                busy_share=device_ms / (1e3 * wall_s), stages_ms=stages,
                unattributed_ms=device_ms - sum(stages.values()),
                resblock_ms=resblock_ms, resblock_share=resblock_ms / device_ms,
-               top_kernels_ms=dict(top))
+               top_kernels_ms=dict(top), top_host_self_ms=dict(top_host))
     log(f"  profile of {label}: device {device_ms:.3f} ms of "
         f"{1e3 * wall_s:.3f} ms wall (busy share {res['busy_share']:.3f}); resblock "
         f"kernel {resblock_ms:.3f} ms ({res['resblock_share']:.3f} of device time)")
@@ -318,7 +380,40 @@ def profile_call(label, fn, wall_s):
         + f", outside the stages {res['unattributed_ms']:.3f} ms")
     for name, ms in top:
         log(f"    {ms:9.3f} ms  {name[:110]}")
+    log("  host self time: " + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top_host))
     return res
+
+
+def wall_inference(fn, *args) -> float:
+    """Wall seconds of fn(*args) under inference mode (grad mode is
+    thread-local, so a new thread starts without it)."""
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        fn(*args)
+        return time.perf_counter() - t0
+
+
+def host_profile(fn, n: int = 12) -> dict:
+    """cProfile over one fn(): the n functions with the most own host
+    seconds (tottime; a call that waits for the device counts its wait).
+    Python 3.12's cProfile sees every thread, so the idle waits of the
+    server's other threads (queue, lock, selector) are left out."""
+    import cProfile
+    import pstats
+
+    idle = ("queue.py", "threading.py", "selectors.py", "socketserver.py")
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    rows = [(k, v) for k, v in pstats.Stats(prof).stats.items()
+            if not (os.path.basename(k[0]) in idle
+                    or k[2] in ("<method 'acquire' of '_thread.lock' objects>",
+                                "<method 'poll' of 'select.poll' objects>",
+                                "<method 'poll' of 'select.epoll' objects>"))]
+    rows = sorted(rows, key=lambda kv: -kv[1][2])[:n]
+    return {f"{os.path.basename(f)}:{line}({name})": tt
+            for (f, line, name), (_, _, tt, _, _) in rows}
 
 
 def main_path(cfg, model):
@@ -1137,6 +1232,333 @@ def f0_card_vs_cpu(cfg, model, nets):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 11: serving over HTTP, fp32 and bf16
+# ---------------------------------------------------------------------------
+
+SERVE_S = 5                     # seconds of each served request
+SERVE_BATCH_TOL = 2e-3          # JAX tests/test_batcher.py
+
+
+def write_serve_files(d: str, cfg, model, seed: int = 0) -> dict:
+    """Phase 4's model as the files a user serves: the voice .pth (fp16,
+    as the reference writes it), rmvpe.pt (phase 4's RMVPE tree with
+    random BatchNorm statistics), a fairseq HuBERT .pt (phase 4's tree)
+    and the index as .npy.  Returns the request's file fields."""
+    from rvc_maker_tpu_torch.config import RVCConfig
+    from rvc_maker_tpu_torch.interop import from_jax
+    from rvc_maker_tpu_torch.interop.pth import export_synthesizer_pth
+
+    files = dict(model=os.path.join(d, "voice.pth"), rmvpe=os.path.join(d, "rmvpe.pt"),
+                 embedder=os.path.join(d, "hubert_base.pt"),
+                 index=os.path.join(d, "total_fea.npy"))
+    export_synthesizer_pth(model["synth_params"], RVCConfig(version="v2", model=cfg),
+                           files["model"])
+    torch.save(from_jax.rmvpe_state_dict(from_jax.random_rmvpe_tree(seed + 2),
+                                         np.random.RandomState(seed + 5)), files["rmvpe"])
+    torch.save({"model": from_jax.hubert_state_dict(from_jax.random_hubert_tree(seed + 1))},
+               files["embedder"])
+    np.save(files["index"], model["index_vectors"])
+    return files
+
+
+def wav_b64(audio16: np.ndarray) -> str:
+    import base64
+    import io
+
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, 16000, (np.clip(audio16, -1, 1) * 32767).astype(np.int16))
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def decode_wav(b64: str) -> np.ndarray:
+    """A response's WAV as its int16 samples."""
+    import base64
+    import io
+
+    from scipy.io import wavfile
+
+    return wavfile.read(io.BytesIO(base64.b64decode(b64)))[1]
+
+
+def post(port: int, path: str, obj: dict, timeout: float = 600.0):
+    """POST JSON to the server on 127.0.0.1 (http.client: no proxy is
+    consulted); returns (status, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, body=json.dumps(obj),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def served(port, req, expect=200):
+    """One /api/convert; the response's int16 samples and its wall s."""
+    t0 = time.perf_counter()
+    code, body = post(port, "/api/convert", req)
+    dt = time.perf_counter() - t0
+    if code != expect:
+        raise AssertionError(f"/api/convert answered {code}: {body.get('error')}")
+    return decode_wav(body["audio_b64"]), dt
+
+
+def corr(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+
+
+def serve_precision(srv, port, files, precision: str, per_decode: int):
+    """One precision's serving measurements and checks (module docstring,
+    phase 11).  Returns (results, the pipeline, the yin response)."""
+    import threading
+
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertSettings
+
+    code, body = post(port, "/api/settings", {"precision": precision})
+    if code != 200 or body["precision"] != precision:
+        raise AssertionError(f"/api/settings: {code} {body}")
+    audio = voice(SERVE_S, 170.0, 21)
+    req = dict(files, audio_b64=wav_b64(audio), f0_method="rmvpe", index_rate=0.5)
+    res = {}
+
+    srv._STATE.update(pipeline=None, pipeline_key=None)        # a cold pipeline
+    _, res["cold_first_request_s"] = served(port, req)
+    srv._STATE.update(pipeline=None, pipeline_key=None)
+    t0 = time.perf_counter()
+    res["warm_passes_s"] = srv.warm(files["model"], files["index"], files["rmvpe"],
+                                    files["embedder"], buckets=f"{SERVE_S},4x{SERVE_S}")
+    res["warm_s"] = time.perf_counter() - t0
+    pipe = srv._get_pipeline(files["model"], files["index"], files["rmvpe"],
+                             files["embedder"])
+    want = torch.bfloat16 if precision == "bf16" else None
+    if pipe.compute_dtype is not want:
+        raise AssertionError(f"{precision}: the pipeline runs {pipe.compute_dtype}")
+
+    # one request at a time, each with its launches counted
+    times, launches = [], []
+    for _ in range(4):
+        reset_counts(rb)
+        got, dt = served(port, req)
+        times.append(dt)
+        launches.append((rb.resblock_launches, rb.resblock_tc_launches))
+    res.update(first_after_warm_s=times[0], steady_s=float(np.mean(times[1:])),
+               launches=launches)
+    want_counts = (per_decode, per_decode if precision == "fp32" else 0)
+    if any(c != want_counts for c in launches):
+        raise AssertionError(f"{precision} serve: (all, resblock_tc) launches per request "
+                             f"{launches}, expected {want_counts} for one decode each")
+    tc = sum(t for _, t in launches)
+    fma = sum(a - t for a, t in launches)
+    res["resblock_tc_launches"], res["resblock_fma_launches"] = tc, fma
+
+    # the served response against the direct call on the server's pipeline
+    audio16 = srv._request_audio(req)
+    settings = ConvertSettings(pitch=0, index_rate=0.5, protect=0.33, f0_method="rmvpe")
+    saved = reset_counts(rb)
+    direct = pipe.convert_utterance(audio16, 0, settings)
+    reset_counts(rb, saved)
+    direct16 = (np.clip(direct, -1, 1) * 32767).astype(np.int16)
+    if got.shape != direct16.shape:
+        raise AssertionError(f"served {got.shape} vs direct {direct16.shape}")
+    steps = int(np.abs(got.astype(np.int32) - direct16).max())
+    res["served_vs_direct_int16_steps"] = steps
+    if steps > 1:
+        raise AssertionError(f"{precision}: served response {steps} int16 steps from direct")
+    if not np.abs(got).max() > 1000:
+        raise AssertionError(f"{precision}: served waveform near silent")
+
+    # the direct call's wall time (no HTTP), the host functions that take
+    # it (cProfile), and one call under torch.profiler
+    saved = reset_counts(rb)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe.convert_utterance(audio16, 0, settings)
+        walls.append(time.perf_counter() - t0)
+    res["direct_s"] = float(np.mean(walls))
+    # the same call from a new thread each time, as a handler thread would
+    # make it without the server's device thread (cuDNN's plans per thread)
+    fresh = []
+    for _ in range(3):
+        th = threading.Thread(target=lambda: fresh.append(wall_inference(
+            pipe.convert_utterance, audio16, 0, settings)))
+        th.start()
+        th.join()
+    res["direct_fresh_thread_s"] = fresh
+    res["host_tottime_s"] = host_profile(lambda: pipe.convert_utterance(audio16, 0, settings))
+    res["profile"] = profile_call(f"{precision} 5 s request (direct)",
+                                  lambda: pipe.convert_utterance(audio16, 0, settings),
+                                  res["direct_s"])
+    reset_counts(rb, saved)
+
+    # cuDNN's TF32 at PyTorch's default (on): the server's entry point
+    # (set_device) turns it off, so a request served after it is
+    # unchanged; the flags on around a direct call give what TF32 costs
+    if precision == "fp32":
+        saved = reset_counts(rb)
+        try:
+            torch.backends.cudnn.allow_tf32 = True
+            srv.set_device("cuda")
+            flags_off = not (torch.backends.cudnn.allow_tf32
+                             or torch.backends.cuda.matmul.allow_tf32)
+            same, _ = served(port, req)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            tf32 = pipe.convert_utterance(audio16, 0, settings)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            reset_counts(rb, saved)
+        res["tf32_default_int16_steps"] = int(np.abs(same.astype(np.int32) - got).max())
+        res["tf32_on_max_abs"] = float(np.abs(np.clip(tf32, -1, 1) - np.clip(direct, -1, 1)).max())
+        if not flags_off or res["tf32_default_int16_steps"] > 1:
+            raise AssertionError(f"fp32 with TF32 flags at PyTorch's default: flags off after "
+                                 f"set_device {flags_off}, {res['tf32_default_int16_steps']} "
+                                 "int16 steps from the TF32-off response")
+
+    # the batcher: 4 concurrent requests, the device batches recorded
+    calls, orig = [], pipe.convert_batch
+
+    def recording(audio_b, lengths, sid, s, **kw):
+        calls.append((np.array(audio_b), np.array(lengths), sid, s))
+        return orig(audio_b, lengths, sid, s, **kw)
+
+    pipe.convert_batch = recording
+    os.environ["RVC_TPU_BATCH_SERVE"] = "1"
+    reqs = [dict(files, audio_b64=wav_b64(voice(SERVE_S, f, 30 + i)), f0_method="rmvpe",
+                 index_rate=0.5) for i, f in enumerate((140.0, 180.0, 220.0, 260.0))]
+    outs, lat = [None] * 4, [None] * 4
+    try:
+        from concurrent.futures import ThreadPoolExecutor
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as ex:
+            futs = [ex.submit(served, port, r) for r in reqs]
+            for i, f in enumerate(futs):
+                outs[i], lat[i] = f.result()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        del os.environ["RVC_TPU_BATCH_SERVE"]
+        del pipe.convert_batch
+    res.update(batch_shapes=[list(c[0].shape) for c in calls], batch_latency_s=lat,
+               batch_wall_s=wall, batch_audio_s_per_s=4 * SERVE_S / wall,
+               batch_peak_bytes=peak)
+    # each response against its row of the same device batch, run directly
+    upp, worst = pipe.cfg.upp, 0.0
+    for r, out in zip(reqs, outs):
+        a16 = srv._request_audio(r)
+        for audio_b, lengths, sid, s in calls:
+            rows = [j for j in range(len(audio_b))
+                    if np.array_equal(audio_b[j, :len(a16)], a16)]
+            if rows:
+                break
+        else:
+            raise AssertionError("a batched request is in no device batch")
+        wav = pipe.convert_batch(audio_b, lengths, sid, s)[0][rows[0]].cpu().numpy()
+        got_f = out.astype(np.float64) / 32768.0
+        k = len(got_f) - upp
+        ref = np.clip(wav[:k], -1, 1)
+        err = float(np.abs(got_f[:k] - ref).max())
+        worst = max(worst, err)
+        if not np.all(np.abs(got_f[:k] - ref) <= SERVE_BATCH_TOL * (1 + np.abs(ref))):
+            raise AssertionError(f"{precision}: batched response {err} from its direct row")
+    res["batched_vs_direct_max_abs"] = worst
+
+    yin, _ = served(port, dict(req, f0_method="yin"))
+    log(f"  {precision}: cold first request {res['cold_first_request_s']:.3f} s; warm "
+        f"{res['warm_s']:.3f} s ({res['warm_passes_s']:.3f} s of passes); first after warm-up "
+        f"{res['first_after_warm_s']:.3f} s, mean of 3 more {res['steady_s']:.3f} s; launches "
+        f"per request {launches}; served vs direct {steps} int16 steps")
+    log(f"  {precision} batcher: device batches {res['batch_shapes']}, latency "
+        + ", ".join(f"{x:.3f}" for x in lat) + f" s, {res['batch_audio_s_per_s']:.2f} "
+        f"audio-s/s, peak {peak / 2**30:.2f} GiB, vs direct max abs {worst:.3e} (tol "
+        f"{SERVE_BATCH_TOL})")
+    log(f"  {precision} direct convert_utterance (no HTTP): {res['direct_s']:.3f} s, from a "
+        "new thread each: " + ", ".join(f"{x:.3f}" for x in fresh) + " s; host "
+        "tottime: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                for k, v in list(res["host_tottime_s"].items())[:8]))
+    if "tf32_on_max_abs" in res:
+        log(f"  fp32 with cuDNN TF32 at PyTorch's default before set_device: "
+            f"{res['tf32_default_int16_steps']} int16 steps from the TF32-off response "
+            f"(set_device turns it off); a direct call with TF32 on: "
+            f"{res['tf32_on_max_abs']:.3e} max abs from it off")
+    return res, pipe, yin
+
+
+def serve_phase(cfg, model):
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from rvc_maker_tpu_torch.app import server as srv
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertSettings
+
+    per_decode = sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates)
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        files = write_serve_files(d, cfg, model)
+        res["files_s"] = time.perf_counter() - t0
+        srv.SETTINGS_PATH = os.path.join(d, "settings.json")
+        srv.set_device("cuda")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = httpd.server_address[1]
+            pipes, yins = {}, {}
+            for precision in ("fp32", "bf16"):
+                res[precision], pipes[precision], yins[precision] = serve_precision(
+                    srv, port, files, precision, per_decode)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(30)
+            if srv._STATE.get("batcher") is not None:
+                srv._STATE["batcher"].close()
+            srv._STATE.update(pipeline=None, pipeline_key=None, batcher=None,
+                              batcher_pipe=None)
+
+    # bf16 against fp32: the served yin responses, and the direct pitchf
+    a, b = yins["fp32"].astype(np.float64), yins["bf16"].astype(np.float64)
+    res["bf16_vs_fp32_yin"] = dict(corr=corr(a, b),
+                                   max_abs=float(np.abs(a - b).max() / 32768.0))
+    audio = voice(SERVE_S, 170.0, 21)[None]
+    f0 = {}
+    for method in ("yin", "rmvpe"):
+        s = ConvertSettings(f0_method=method, index_rate=0.5, deterministic=True)
+        f0[method] = {p: pipes[p].convert_batch(audio, [audio.shape[1]], 0, s)[1].cpu().numpy()
+                      for p in pipes}
+    pf = f0["yin"]
+    res["bf16_vs_fp32_yin"]["pitchf_max_abs"] = float(np.abs(pf["bf16"] - pf["fp32"]).max())
+    r32, r16 = f0["rmvpe"]["fp32"], f0["rmvpe"]["bf16"]
+    both = (r32 > 0) & (r16 > 0)
+    res["bf16_vs_fp32_rmvpe_f0"] = dict(
+        max_abs_hz_where_both_voiced=float(np.abs(r32 - r16)[both].max()) if both.any() else 0.0,
+        voicing_differs_share=float(((r32 > 0) != (r16 > 0)).mean()),
+        frames_over_1hz_share=float((np.abs(r32 - r16) > 1.0).mean()))
+    y = res["bf16_vs_fp32_yin"]
+    log(f"  bf16 vs fp32, served yin request: corr {y['corr']:.6f}, max abs {y['max_abs']:.3e}; "
+        f"direct pitchf max abs {y['pitchf_max_abs']:.3e} Hz; rmvpe f0: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in res["bf16_vs_fp32_rmvpe_f0"].items()))
+    np.testing.assert_allclose(pf["bf16"], pf["fp32"], rtol=1e-5, atol=1e-4)
+    if not (y["corr"] > 0.98 and y["max_abs"] < 0.1):
+        raise AssertionError(f"bf16 vs fp32: corr {y['corr']}, max abs {y['max_abs']}")
+    del pipes
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -1222,7 +1644,14 @@ def main() -> int:
         + "/".join(str(c["w"].shape[0]) for c in nets["crepe"]["convs"]) + " channels")
     RESULTS["f0_methods"] = dict(timing=f0_timing(model_cfg, model, nets, smi))
     RESULTS["f0_methods"]["card_vs_cpu"] = f0_card_vs_cpu(model_cfg, model, nets)
-    del model, nets
+    del nets
+
+    log(f"[11 serve] the HTTP server on phase 4's model files, fp32 and bf16 "
+        f"({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["serve"] = serve_phase(model_cfg, model)
+    RESULTS["serve"]["phase_s"] = time.perf_counter() - t0
+    del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -1231,7 +1660,7 @@ def main() -> int:
         json.dump(RESULTS, f, indent=1)
 
     main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
-    voc = RESULTS["vocoders"]
+    voc, serve = RESULTS["vocoders"], RESULTS["serve"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16": "resblock"}
     common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
@@ -1250,19 +1679,28 @@ def main() -> int:
              launches_refinegan=voc["refinegan"]["resblock_tc_launches"],
              launches_f0_methods={m: r["resblock_tc_launches"]
                                   for m, r in RESULTS["f0_methods"]["timing"].items()},
+             launches_serve_fp32=serve["fp32"]["resblock_tc_launches"],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common),
-        # the wrapper's count: every resblock step of the path; fp32 steps
-        # route to resblock_tc, so launches_fma is what reached this source
-        dict(name="resblock", source="rvc_maker_tpu_torch/csrc/resblock.cu",
-             launches=main["resblock_launches"], launches_train=train["resblock_launches"],
-             launches_fma=main["resblock_launches"] - main["resblock_tc_launches"],
-             max_abs_err=totals["fma_max_abs_err"], ms=totals["fma_ms"],
-             bound_ms=totals["fp32_bound_ms"],
-             bound_by="operations" if totals["flops"] / H100_FP32_FLOPS
-             >= totals["bytes"] / H100_BYTES_PER_S else "bytes",
-             bf16_ms=totals["bf16_ms"], **common)]
+        # resblock.cu is the bf16 route, which the served bf16 path runs:
+        # its launches there, and its bf16 times beside the bf16 bound
+        # (operations at the dense bf16 rate); its fp32 timings, kept
+        # beside the tensor-core kernel that runs fp32, under fp32_*
+        {**common, **dict(
+            name="resblock", source="rvc_maker_tpu_torch/csrc/resblock.cu",
+            launches=serve["bf16"]["resblock_fma_launches"],
+            launches_serve_bf16=serve["bf16"]["resblock_fma_launches"],
+            launches_main_fma=main["resblock_launches"] - main["resblock_tc_launches"],
+            max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
+            plain_ms=totals["bf16_plain_ms"], library_ms=totals["bf16_library_ms"],
+            bound_ms=totals["bf16_bound_ms"],
+            bound_by="operations" if totals["flops"] / H100_BF16_FLOPS
+            >= totals["bytes"] / 2 / H100_BYTES_PER_S else "bytes",
+            tolerance=f"max abs vs the bf16 plain chain <= {BF16_ULPS} bf16 ulps of its "
+                      "|ref|max, and corr > 0.99 vs the fp32 plain chain",
+            fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
+            fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"])}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

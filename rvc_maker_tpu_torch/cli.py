@@ -260,6 +260,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if hasattr(args, "device"):
+        import torch
+
+        from .device import use_full_fp32
+
+        use_full_fp32(torch.device(args.device))
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     return args.func(args)
 

@@ -23,6 +23,18 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def use_full_fp32(device: torch.device) -> None:
+    """The entry points' precision policy: on the card, fp32 convolutions
+    and matmuls run in full fp32, never TF32 (PyTorch lets cuDNN use TF32
+    by default, which moves a v2-48k conversion's waveform by about 9e-2,
+    chip_smoke.py phase 11).  The flags are process-wide, so the process's
+    entry point (the server's `set_device`, the CLI) sets them once; bf16
+    compute does not read them."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def tree_to(tree, device: torch.device, dtype: torch.dtype | None = None):
     """Copy every tensor (and nn.Module) of a nested dict/list tree to
     `device`.  A module is copied before it moves (Module.to works in

@@ -15,7 +15,10 @@ interop/torch_import.py:15-19):
 
 The `random_*_tree` functions draw numpy trees in the same JAX layouts
 from a seed, at any width (the v2-48k preset for a full-width run), so
-a random full-size model needs neither JAX nor a checkpoint.
+a random full-size model needs neither JAX nor a checkpoint;
+`rmvpe_state_dict` and `hubert_state_dict` write such trees in the
+reference checkpoints' layouts (rmvpe.pt, a fairseq HuBERT .pt), so the
+model can also be served from files.
 """
 
 from __future__ import annotations
@@ -542,3 +545,91 @@ def random_crepe_tree(seed: int = 0, capacity: str = "full") -> dict:
                      "shift": rs.uniform(-0.2, 0.2, c).astype(np.float32)} for c in outs],
             "classifier": {"w": uni((n_in, PITCH_BINS), n_in),
                            "b": uni((PITCH_BINS,), n_in)}}
+
+
+def rmvpe_state_dict(tree, rs):
+    """A JAX-layout RMVPE tree as the reference rmvpe.pt's E2E state dict
+    (`models.rmvpe.load_rmvpe_pt` reads it back), with BatchNorm
+    statistics drawn from the numpy RandomState `rs`."""
+    sd = {}
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"] = rs.uniform(0.5, 1.5, c)
+        sd[f"{prefix}.bias"] = rs.randn(c) * 0.1
+        sd[f"{prefix}.running_mean"] = rs.randn(c) * 0.1
+        sd[f"{prefix}.running_var"] = rs.uniform(0.5, 2.0, c)
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = np.transpose(p["w"], (3, 2, 0, 1))
+        if "b" in p:
+            sd[f"{prefix}.bias"] = p["b"]
+
+    def block(prefix, p):
+        conv(f"{prefix}.conv.0", p["conv1"])
+        bn(f"{prefix}.conv.1", p["conv1"]["w"].shape[-1])
+        conv(f"{prefix}.conv.3", p["conv2"])
+        bn(f"{prefix}.conv.4", p["conv2"]["w"].shape[-1])
+        if "shortcut" in p:
+            conv(f"{prefix}.shortcut", p["shortcut"])
+
+    bn("unet.encoder.bn", 1)
+    for part in ("encoder", "intermediate"):
+        for i, lp in enumerate(tree[part]):
+            for j, bp in enumerate(lp["blocks"]):
+                block(f"unet.{part}.layers.{i}.conv.{j}", bp)
+    for i, lp in enumerate(tree["decoder"]):
+        w = np.flip(lp["convt"]["w"], axis=(0, 1))
+        sd[f"unet.decoder.layers.{i}.conv1.0.weight"] = np.transpose(w, (2, 3, 0, 1))
+        bn(f"unet.decoder.layers.{i}.conv1.1", w.shape[-1])
+        for j, bp in enumerate(lp["blocks"]):
+            block(f"unet.decoder.layers.{i}.conv2.{j}", bp)
+    conv("cnn", tree["cnn"])
+    names = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+             "b_hh": "bias_hh_l0"}
+    for k, v in names.items():
+        sd[f"fc.0.gru.{v}"] = tree["gru"][k]
+        sd[f"fc.0.gru.{v}_reverse"] = tree["gru"][k + "_r"]
+    sd["fc.1.weight"] = tree["fc"]["w"].T
+    sd["fc.1.bias"] = tree["fc"]["b"]
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+def hubert_state_dict(tree):
+    """A JAX-layout HuBERT tree (layer leaves stacked) as a fairseq
+    checkpoint's "model" state dict (`models.hubert.load_hubert_pt` reads
+    it back), the positional conv split into weight_g/weight_v."""
+    sd = {}
+
+    def lin(prefix, p, i=None):
+        w, b = np.asarray(p["w"]), np.asarray(p["b"])
+        if i is not None:
+            w, b = w[i], b[i]
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = w.T, b
+
+    def ln(prefix, p, i=None):
+        g, b = np.asarray(p["gamma"]), np.asarray(p["beta"])
+        if i is not None:
+            g, b = g[i], b[i]
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = g, b
+
+    for i, c in enumerate(tree["frontend"]["convs"]):
+        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = np.transpose(c["w"], (2, 1, 0))
+    ln("feature_extractor.conv_layers.0.2", tree["frontend"]["gn"])
+    ln("layer_norm", tree["ln_feats"])
+    lin("post_extract_proj", tree["post_proj"])
+    w = np.transpose(np.asarray(tree["pos_conv"]["w"]), (2, 1, 0))
+    sd["encoder.pos_conv.0.weight_g"] = np.sqrt(np.square(w).sum(axis=(0, 1), keepdims=True))
+    sd["encoder.pos_conv.0.weight_v"] = w
+    sd["encoder.pos_conv.0.bias"] = tree["pos_conv"]["b"]
+    ln("encoder.layer_norm", tree["ln_pre"])
+    st = tree["layers"]
+    for i in range(np.asarray(st["fc1"]["w"]).shape[0]):
+        p = f"encoder.layers.{i}"
+        for k, m in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            lin(f"{p}.self_attn.{m}", st["attn"][k], i)
+        ln(f"{p}.self_attn_layer_norm", st["ln1"], i)
+        lin(f"{p}.fc1", st["fc1"], i)
+        lin(f"{p}.fc2", st["fc2"], i)
+        ln(f"{p}.final_layer_norm", st["ln2"], i)
+    lin("final_proj", tree["final_proj"])
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}

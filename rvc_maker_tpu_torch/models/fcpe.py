@@ -157,9 +157,12 @@ def interp_to_length(f0, target_len: int):
 
 def infer(params: Params, audio_16k, *, threshold: float = 0.05,
           p_len: int | None = None):
-    """(B, L) 16 kHz -> f0 (B, p_len or L // 160 + 1) Hz."""
-    y = salience(params, fcpe_mel(audio_16k))
-    f0 = decode_local(y, params["cent_table"], threshold)
+    """(B, L) 16 kHz -> f0 (B, p_len or L // 160 + 1) Hz.  The salience
+    net runs in its weights' dtype (fp32 or bf16); the mel and the decode,
+    with the cent table, stay fp32."""
+    net_dtype = params["in_conv1"]["w"].dtype
+    y = salience(params, fcpe_mel(audio_16k).to(net_dtype)).to(torch.float32)
+    f0 = decode_local(y, params["cent_table"].to(torch.float32), threshold)
     if p_len is not None and p_len != f0.shape[1]:
         f0 = interp_to_length(f0, p_len)
     return f0

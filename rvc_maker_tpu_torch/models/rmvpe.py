@@ -115,12 +115,15 @@ def infer(params: Params, audio_16k, *, thred: float = 0.03,
           return_salience: bool = False):
     """audio_16k: (B, L) -> f0 (B, L//160 + 1) Hz.  The mel is
     reflect-padded to a multiple of 32 frames and the salience cropped
-    back.  With return_salience, also returns the (B, T, 360) salience."""
+    back.  With return_salience, also returns the (B, T, 360) salience.
+    The salience net runs in the params' dtype (fp32 or bf16); the mel
+    and the cents decode stay fp32, as JAX `infer`."""
     mel = rmvpe_mel(audio_16k)
     n_frames = mel.shape[-1]
     pad_to = 32 * ((n_frames - 1) // 32 + 1)
     mel = F.pad(mel, (0, pad_to - n_frames), mode="reflect")
-    hidden = e2e_apply(params, mel)[:, :n_frames].to(torch.float32)
+    net_dtype = params["in_bn"]["scale"].dtype
+    hidden = e2e_apply(params, mel.to(net_dtype))[:, :n_frames].to(torch.float32)
     f0 = decode_cents(hidden, thred=thred)
     if f0_min is not None:
         f0 = torch.where((f0 < f0_min) | (f0 > f0_max), 0.0, f0)

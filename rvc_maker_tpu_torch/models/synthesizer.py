@@ -15,6 +15,11 @@ weights, as the JAX package's does).  Noise comes in as tensors
 is drawn from an explicit torch.Generator, so a caller can hold the
 random draws.
 
+Precision: the functions run in the dtype of the params and activations
+they are given, fp32 or bf16 (the pipeline's compute_dtype, the
+JAX package's bf16 mode).  The sine sources stay fp32 and their output
+is cast to the activations' dtype, as JAX `generator_nsf` does.
+
 Layouts: the public functions take and return (B, T, C), as the JAX
 package does.  The decoders run in (B, C, T) inside: that is the layout
 of cuDNN's convolutions, of F.conv_transpose1d and of the resblock
@@ -30,7 +35,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.nn import (LRELU_SLOPE, conv1d, conv_transpose1d, embedding,
-                      fused_gate, layer_norm, leaky_relu, linear,
+                      fused_gate, layer_norm, leaky_relu, linear, linear_as_input,
                       rand_slice_segments, sequence_mask, slice_segments)
 from ..ops.resblock import fused_resblock
 
@@ -88,14 +93,14 @@ def multi_head_attention(p: Params, x, attn_mask, *, n_heads: int,
     v = heads(linear(x, p["v"]["w"], p["v"]["b"]))
 
     scores = torch.matmul(q, k.transpose(-1, -2))
-    rel_k = _get_relative_embeddings(p["emb_rel_k"], t, window_size)
+    rel_k = _get_relative_embeddings(p["emb_rel_k"].to(q.dtype), t, window_size)
     scores = scores + _relative_to_absolute(torch.matmul(q, rel_k[0].T))
     # masked logits are -1e4, not -inf (reference synthesizers.py:233)
     scores = scores.masked_fill(attn_mask == 0, -1e4)
     p_attn = torch.softmax(scores, dim=-1)
 
     out = torch.matmul(p_attn, v)
-    rel_v = _get_relative_embeddings(p["emb_rel_v"], t, window_size)
+    rel_v = _get_relative_embeddings(p["emb_rel_v"].to(p_attn.dtype), t, window_size)
     out = out + torch.matmul(_absolute_to_relative(p_attn), rel_v[0])
     out = out.transpose(1, 2).reshape(b, t, c)
     return linear(out, p["o"]["w"], p["o"]["b"])
@@ -235,9 +240,10 @@ def sine_gen(f0, noise, *, upp: int, sample_rate: int, sine_amp: float = 0.1,
 
 
 def source_module(p: Params, f0, noise, *, upp: int, sample_rate: int):
-    """SourceModuleHnNSF: sine source -> 1x1 linear -> tanh."""
+    """SourceModuleHnNSF: sine source -> 1x1 linear -> tanh, in fp32
+    whatever the weights' dtype."""
     s = sine_gen(f0, noise, upp=upp, sample_rate=sample_rate)
-    return torch.tanh(linear(s, p["l_linear"]["w"], p["l_linear"]["b"]))
+    return torch.tanh(linear_as_input(s, p["l_linear"]["w"], p["l_linear"]["b"]))
 
 
 def _stage_paddings(cfg: ModelConfig):
@@ -333,10 +339,12 @@ def decoder_kind(cfg: ModelConfig) -> str:
 
 
 def decoder_noise(cfg: ModelConfig, b: int, p_len: int,
-                  generator: torch.Generator | None, device) -> dict:
+                  generator: torch.Generator | None, device,
+                  dtype: torch.dtype = torch.float32) -> dict:
     """Each decoder's noise for b rows of p_len frames, drawn from
-    `generator` in one fixed order (the JAX package draws the same
-    shapes from a PRNG key, `infer_any`):
+    `generator` in one fixed order, the normals in `dtype` and the
+    uniform `rand_ini` in fp32 (the JAX package draws the same shapes
+    from a PRNG key, `infer_any`):
       nsf        {"sine": (b, p_len*upp, 1)}
       plain      {}
       mrf        {"source": (b, p_len*upp, H), "rand_ini": (b, H) uniform
@@ -350,7 +358,7 @@ def decoder_noise(cfg: ModelConfig, b: int, p_len: int,
     n = p_len * cfg.upp
 
     def randn(*shape):
-        return torch.randn(shape, generator=generator, device=device)
+        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
 
     if kind == "nsf":
         return {"sine": randn(b, n, 1)}

@@ -10,7 +10,8 @@ noise, `rand_ini`, the AdaIN noise), as `synthesizer.decoder_noise`
 draws it.
 
 Layouts: the decoders take and return (B, T, C), as the JAX package's
-do, and run in (B, C, T) inside.
+do, and run in (B, C, T) inside.  They run in the params' dtype (fp32 or
+bf16); the harmonic sources stay fp32, their phase sums float64.
 
 Kernels: an MRF block is the resblock function of `ops/resblock.py`
 (leaky-ReLU 0.1, the dilated conv, leaky-ReLU 0.1, a conv padded by
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.nn import conv1d, leaky_relu, linear
+from ..ops.nn import conv1d, leaky_relu, linear, linear_as_input
 from .synthesizer import _hifigan_stack, _stage_paddings
 
 Params = Any
@@ -103,7 +104,7 @@ def mrf_hifigan(p: Params, cfg: ModelConfig, x, f0, g, source_noise, rand_ini=No
     sines = _harmonic_source(f0_up, MRF_HARMONICS, source_noise, rand_ini,
                              sample_rate=cfg.sr)
     src = p["source"]["l_linear"]
-    har = torch.tanh(linear(sines, src["w"], src.get("b")))
+    har = torch.tanh(linear_as_input(sines, src["w"], src.get("b")))
     return _hifigan_stack(p, cfg, x, g, har.to(x.dtype).transpose(1, 2))
 
 
@@ -147,7 +148,7 @@ def refinegan(p: Params, cfg: ModelConfig, mel, f0, g, source_noise, adain_noise
     t_mel = mel.shape[1]
     f0_up = interp_linear(f0[:, None, :], t_mel * cfg.upp)[:, 0]
     sines = _harmonic_source(f0_up, 0, source_noise, rand_ini, sample_rate=cfg.sr)
-    har = torch.tanh(linear(sines, p["source"]["merge"]["w"]))
+    har = torch.tanh(linear_as_input(sines, p["source"]["merge"]["w"]))
     har = har.to(mel.dtype).transpose(1, 2)                       # (B, 1, T*upp)
 
     x = conv1d(har, p["pre_conv"]["w"], p["pre_conv"]["b"], padding=3)

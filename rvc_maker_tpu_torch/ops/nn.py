@@ -14,10 +14,29 @@ with `padding` / `output_padding` directly, so nothing is flipped.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1  # reference: main/library/algorithm/residuals.py:14
+
+
+def cast_floats(tree, dtype: torch.dtype):
+    """Cast the floating tensors of a nested dict/list tree, and the
+    floating parameters of its nn.Modules (copied first: Module.to works
+    in place), to dtype; integer and bool tensors and other leaves are
+    left as they are.  The inference compute_dtype cast, as JAX
+    `ops/nn.py` `cast_floats`."""
+    if isinstance(tree, dict):
+        return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floats(v, dtype) for v in tree)
+    if isinstance(tree, torch.nn.Module):
+        return copy.deepcopy(tree).to(dtype=dtype)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
 
 
 def leaky_relu(x, slope: float = LRELU_SLOPE):
@@ -49,6 +68,13 @@ def conv_transpose1d(x, w, b=None, *, stride: int, padding: int = 0,
 def linear(x, w, b=None):
     """x: (..., Cin); w: (Cout, Cin)."""
     return F.linear(x, w, b)
+
+
+def linear_as_input(x, w, b=None):
+    """`linear` in x's dtype, the weights cast to it: what jnp.matmul's
+    type promotion does when an fp32 source (the sine sources, which stay
+    fp32) meets bf16 weights."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):

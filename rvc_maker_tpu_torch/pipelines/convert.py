@@ -30,10 +30,24 @@ the decoder's noise, a dict laid out as `synthesizer.decoder_noise`
 draws it; `convert_batch` draws both from its `torch.Generator` when
 the caller gives none, so a caller can hold the random draws (and a
 test can feed the exact draws of the JAX package).
+
+Precision: `compute_dtype=None` runs fp32 (the parity path; the entry
+points turn TF32 off on the card);
+`torch.bfloat16` is the JAX package's bf16 mode, which the server runs
+by default: the weights of the synthesizer, HuBERT, RMVPE and FCPE, the
+index vectors, the features stage's audio and index rate, and the noise
+are cast to bf16, while the mels, the F0 decodes, the sine sources and
+CREPE stay fp32 and the waveform comes back fp32 (JAX convert.py:83-146,
+:462-466, :508-547).  On the card bf16 resblocks run `csrc/resblock.cu`.
+
+Profiling: with RVC_TPU_PROFILE=1 `convert_batch` logs each stage's
+wall ms, fenced on the device (`utils/profiling.py`), as JAX
+convert.py:874-927 does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -50,9 +64,10 @@ from ..models import fcpe as fcpe_mod
 from ..models import hubert as hubert_mod
 from ..models import rmvpe as rmvpe_mod
 from ..models import synthesizer as syn
-from ..ops.nn import interp_nearest_x2
+from ..ops.nn import cast_floats, interp_nearest_x2
 from ..retrieval.index import retrieval_blend
 from ..utils.audio import resample
+from ..utils.profiling import profiling_enabled, stage_timer
 
 SAMPLE_RATE = 16000
 WINDOW = 160
@@ -112,25 +127,48 @@ class ConvertPipeline:
                  rmvpe_params: Any = None, fcpe_params: Any = None,
                  crepe_params: Any = None,
                  index_vectors: Optional[np.ndarray] = None,
-                 max_device_batch: int = 8, device: str | torch.device = "cuda"):
+                 max_device_batch: int = 8, device: str | torch.device = "cuda",
+                 compute_dtype: torch.dtype | None = None):
         """Params are the port's trees (`interop.pth`, `interop.from_jax`,
         the models' `params_from_state_dict` / loaders); they are moved to
-        `device` in fp32.  Each F0 network's params are needed only by the
-        methods that run it; a method whose params are missing raises when
-        it is called.  device="cuda" raises when no card is present."""
+        `device` in fp32, then cast to `compute_dtype` when it is given
+        (torch.bfloat16: the bf16 mode of the module docstring; CREPE's
+        params and FCPE's cent table stay fp32).  Each F0 network's params
+        are needed only by the methods that run it; a method whose params
+        are missing raises when it is called.  device="cuda" raises when no
+        card is present.
+
+        fp32 on the card runs under the process's TF32 flags; the port's
+        entry points (the server, the CLI) turn TF32 off
+        (`device.use_full_fp32`)."""
+        if compute_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.version = version
         self.max_device_batch = max_device_batch
+        self.compute_dtype = compute_dtype
         f32 = torch.float32
-        self.synth_params = tree_to(synth_params, self.device, f32)
-        self.hubert_params = tree_to(hubert_params, self.device, f32)
-        self.rmvpe_params = tree_to(rmvpe_params, self.device, f32)
-        self.fcpe_params = tree_to(fcpe_params, self.device, f32)
+
+        def prep(tree):
+            tree = tree_to(tree, self.device, f32)
+            return tree if compute_dtype is None else cast_floats(tree, compute_dtype)
+
+        self.synth_params = prep(synth_params)
+        self.hubert_params = prep(hubert_params)
+        self.rmvpe_params = prep(rmvpe_params)
+        self.fcpe_params = prep(fcpe_params)
+        if fcpe_params is not None:          # a decode table, not a weight
+            self.fcpe_params["cent_table"] = tree_to(fcpe_params["cent_table"], self.device, f32)
         self.crepe_params = tree_to(crepe_params, self.device, f32)
         self.index_vectors = (None if index_vectors is None else
                               torch.as_tensor(np.asarray(index_vectors, np.float32),
-                                              device=self.device))
+                                              device=self.device).to(self.dtype))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the networks and the decode run in."""
+        return self.compute_dtype or torch.float32
 
     # -- the device step ------------------------------------------------
 
@@ -250,6 +288,10 @@ class ConvertPipeline:
         return out
 
     def _features(self, audio, lengths, settings: ConvertSettings):
+        # the audio and the index rate in the compute dtype (JAX
+        # convert.py:462-466); the F0 stage has read the fp32 audio
+        audio = audio.to(self.dtype)
+        index_rate = float(torch.tensor(settings.index_rate, dtype=self.dtype))
         feats, _ = hubert_mod.extract_features(
             self.hubert_params, audio, lengths,
             output_layer=12 if self.version == "v2" else 9)
@@ -257,7 +299,7 @@ class ConvertPipeline:
             feats = hubert_mod.final_proj(self.hubert_params, feats)
         feats0 = feats
         if self.index_vectors is not None and settings.index_rate > 0:
-            feats = retrieval_blend(feats, self.index_vectors, settings.index_rate)
+            feats = retrieval_blend(feats, self.index_vectors, index_rate)
         return interp_nearest_x2(feats), interp_nearest_x2(feats0)
 
     def _synth(self, feats, feats0, f0, lengths, sid, protect, z_noise, noise):
@@ -265,24 +307,36 @@ class ConvertPipeline:
         pitchf = f0[:, :p_len]
         pitch = coarse_f0(pitchf) if self.cfg.use_f0 else None
         if protect < 0.5:
-            # restore the original features on unvoiced frames
+            # restore the original features on unvoiced frames; the fp32
+            # weights cast to the features' dtype, as JAX does
             pitchff = torch.where(pitchf > 0, 1.0, protect)[:, :, None]
-            feats = feats * pitchff + feats0 * (1.0 - pitchff)
+            feats = (feats * pitchff.to(feats.dtype)
+                     + feats0 * (1.0 - pitchff).to(feats.dtype))
         frame_lengths = torch.clamp(
             torch.div(lengths, WINDOW, rounding_mode="floor"), max=p_len)
         wav = syn.infer_any(self.synth_params, self.cfg, feats, frame_lengths,
                             pitch, pitchf, sid, z_noise, noise)
-        return wav[:, :, 0], pitchf
+        return wav[:, :, 0].to(torch.float32), pitchf
 
     def draw_noise(self, b: int, p_len: int, generator: torch.Generator):
         """(z_noise (b, p_len, inter), the decoder's noise dict), drawn in
-        that order from `generator` on its device."""
+        that order from `generator` on its device, in the compute dtype
+        (JAX convert.py:544-547; `rand_ini` fp32)."""
         z = self._draw_z(b, p_len, generator)
-        return z, syn.decoder_noise(self.cfg, b, p_len, generator, generator.device)
+        return z, syn.decoder_noise(self.cfg, b, p_len, generator, generator.device,
+                                    self.dtype)
 
     def _draw_z(self, b: int, p_len: int, generator: torch.Generator):
         return torch.randn((b, p_len, self.cfg.inter_channels), generator=generator,
-                           device=generator.device)
+                           device=generator.device, dtype=self.dtype)
+
+    def _noise_to_device(self, noise: dict) -> dict:
+        """The decoder's noise on the device in the compute dtype, its
+        uniform `rand_ini` phases in fp32."""
+        out = tree_to(noise, self.device, self.dtype)
+        if "rand_ini" in noise:
+            out["rand_ini"] = torch.as_tensor(noise["rand_ini"]).to(self.device, torch.float32)
+        return out
 
     @staticmethod
     def frames(n_samples: int) -> int:
@@ -305,8 +359,9 @@ class ConvertPipeline:
         layout) cover the whole batch; what is absent is drawn per
         microbatch from `generator` (default, and always with
         settings.deterministic: a fresh one seeded 0), z before the
-        decoder's noise as in `draw_noise`.  settings.f0_file overwrites
-        the f0 after the F0 stage (`_apply_f0_file`)."""
+        decoder's noise as in `draw_noise`.  Given noise is cast to the
+        compute dtype.  settings.f0_file overwrites the f0 after the F0
+        stage (`_apply_f0_file`).  The waveform is fp32 in both modes."""
         audio = torch.as_tensor(np.asarray(audio_batch, np.float32)
                                 if not isinstance(audio_batch, torch.Tensor)
                                 else audio_batch, device=self.device,
@@ -318,6 +373,11 @@ class ConvertPipeline:
             generator = torch.Generator(device=self.device).manual_seed(0)
         b_total = audio.shape[0]
         mdb = self.max_device_batch
+        prof = profiling_enabled()
+
+        def timed(name):
+            return stage_timer(name, self.device) if prof else contextlib.nullcontext()
+
         wavs, pitchfs = [], []
         for lo in range(0, b_total, mdb):
             hi = min(lo + mdb, b_total)
@@ -325,26 +385,27 @@ class ConvertPipeline:
             # named ranges: a torch.profiler trace sums each stage's
             # device time under them (chip_smoke.py reads them); the F0
             # stage's range is set by its method, in `_f0`
-            f0 = self._f0(a, settings)
-            if settings.f0_file:
-                f0 = torch.as_tensor(_apply_f0_file(f0.cpu().numpy(), settings),
-                                     device=self.device)
-            with record_function("convert.hubert_retrieval"):
+            with timed(f"f0:{settings.f0_method}"):
+                f0 = self._f0(a, settings)
+                if settings.f0_file:
+                    f0 = torch.as_tensor(_apply_f0_file(f0.cpu().numpy(), settings),
+                                         device=self.device)
+            with timed("features"), record_function("convert.hubert_retrieval"):
                 feats, feats0 = self._features(a, ln, settings)
             p_len = min(a.shape[1] // WINDOW, feats.shape[1])
             # only the noise the caller did not give is drawn, z first
             if z_noise is None:
                 zn = self._draw_z(hi - lo, p_len, generator).to(self.device)
             else:
-                zn = torch.as_tensor(z_noise, device=self.device)[lo:hi]
+                zn = torch.as_tensor(z_noise, device=self.device)[lo:hi].to(self.dtype)
             if noise is None:
-                dn = tree_to(syn.decoder_noise(self.cfg, hi - lo, p_len, generator,
-                                               generator.device), self.device, torch.float32)
+                dn = self._noise_to_device(syn.decoder_noise(
+                    self.cfg, hi - lo, p_len, generator, generator.device, self.dtype))
             else:
-                dn = tree_to(_rows(noise, lo, hi), self.device, torch.float32)
+                dn = self._noise_to_device(_rows(noise, lo, hi))
             sid_t = torch.full((hi - lo,), sid, dtype=torch.int64,
                                device=self.device)
-            with record_function("convert.synthesizer"):
+            with timed("synth"), record_function("convert.synthesizer"):
                 wav, pitchf = self._synth(feats[:, :p_len], feats0[:, :p_len],
                                           f0[:, :p_len], ln, sid_t,
                                           settings.protect, zn, dn)

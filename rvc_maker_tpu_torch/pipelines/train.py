@@ -30,6 +30,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import RVCConfig
+from ..device import resolve_device
 from ..interop import from_jax
 from ..models import discriminator as disc
 from ..models import synthesizer as syn
@@ -100,11 +101,12 @@ def _trainable(tree, device: torch.device):
 
 
 def init_state(cfg: RVCConfig, params_g=None, params_d=None, *,
-               device: torch.device | str = "cpu", disc_width_div: int = 1,
+               device: torch.device | str = "cuda", disc_width_div: int = 1,
                seed: Optional[int] = None) -> TrainState:
     """A fresh training state on `device`.  params_g / params_d are the
     port's trees (generator with `enc_q`); absent ones are drawn from
-    `seed` (default cfg.train.seed) like the JAX package's init."""
+    `seed` (default cfg.train.seed) like the JAX package's init.
+    device="cuda" raises when no card is present."""
     seed = cfg.train.seed if seed is None else seed
     if params_g is None:
         params_g = from_jax.synthesizer_from_jax(
@@ -112,7 +114,7 @@ def init_state(cfg: RVCConfig, params_g=None, params_d=None, *,
     if params_d is None:
         params_d = from_jax.discriminator_from_jax(
             from_jax.random_discriminator_tree(cfg.version, disc_width_div, seed + 1))
-    device = torch.device(device)
+    device = resolve_device(device)
     trees = [_trainable(tree, device) for tree in (params_g, params_d)]
     return TrainState(step=0, params_g=trees[0], params_d=trees[1],
                       opt_g=make_optimizer(trees[0], cfg),

@@ -377,3 +377,135 @@ def test_device_f0_method_card_matches_cpu(cuda, method):
     np.testing.assert_array_equal(a > 0, b > 0)
     assert both.any() and f0_err <= 1e-2
     assert np.isfinite(wav["cuda"]).all() and err <= 1e-3
+
+
+def _narrow_cfg():
+    """Decode stages C = 128/64/32/16, every width the kernels take."""
+    return ModelConfig(
+        spec_channels=129, segment_size=8, inter_channels=32, hidden_channels=32,
+        filter_channels=64, n_heads=2, n_layers=1, kernel_size=3,
+        upsample_rates=(4, 4, 2, 2), upsample_initial_channel=256,
+        upsample_kernel_sizes=(8, 8, 4, 4), spk_embed_dim=4, gin_channels=16,
+        sr=6400, text_enc_hidden_dim=768)
+
+
+def _loud_synth(cfg, seed=0):
+    tree = from_jax.random_synthesizer_tree(cfg, seed)
+    for u in tree["dec"]["ups"]:
+        u["w"] *= 20.0
+    return from_jax.synthesizer_from_jax(tree, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_served_convert_matches_direct_on_card(cuda, tmp_path, monkeypatch, precision):
+    """One /api/convert on the card in each precision: the response
+    equals the direct convert_utterance of the server's pipeline within 1
+    int16 step, and its decode launched the precision's kernel (fp32:
+    36 resblock_tc; bf16: 36 resblock, 0 resblock_tc)."""
+    import base64
+    import http.client
+    import io
+    import json
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from scipy.io import wavfile
+
+    from rvc_maker_tpu_torch.app import server as srv
+    from rvc_maker_tpu_torch.config import RVCConfig
+    from rvc_maker_tpu_torch.interop.pth import export_synthesizer_pth
+    from torch_port_util import hubert_state_dict
+
+    cfg = _narrow_cfg()
+    files = dict(model=str(tmp_path / "voice.pth"), embedder=str(tmp_path / "hubert.pt"),
+                 index=str(tmp_path / "total_fea.npy"))
+    export_synthesizer_pth(_loud_synth(cfg), RVCConfig(version="v2", model=cfg), files["model"])
+    torch.save({"model": hubert_state_dict(from_jax.random_hubert_tree(1, n_layers=2))},
+               files["embedder"])
+    np.save(files["index"], np.random.RandomState(2).randn(200, 768).astype(np.float32))
+    monkeypatch.setattr(srv, "SETTINGS_PATH", str(tmp_path / "settings.json"))
+    monkeypatch.setitem(srv._SETTINGS, "precision", precision)
+    monkeypatch.setitem(srv._STATE, "device", srv.resolve_device("cuda"))
+    tt = np.arange(24000) / 16000
+    buf = io.BytesIO()
+    wavfile.write(buf, 16000, (0.3 * np.sin(2 * np.pi * 200 * tt) * 32767).astype(np.int16))
+    req = dict(files, audio_b64=base64.b64encode(buf.getvalue()).decode(), f0_method="yin",
+               index_rate=0.5)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        srv._get_pipeline(files["model"], files["index"], "", files["embedder"])
+        before = trb.resblock_launches, trb.resblock_tc_launches
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=300)
+        conn.request("POST", "/api/convert", body=json.dumps(req),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200, body
+        launched = (trb.resblock_launches - before[0], trb.resblock_tc_launches - before[1])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert launched == (36, 36 if precision == "fp32" else 0), launched
+    got = wavfile.read(io.BytesIO(base64.b64decode(body["audio_b64"])))[1]
+    pipe = srv._get_pipeline(files["model"], files["index"], "", files["embedder"])
+    assert pipe.compute_dtype is (torch.bfloat16 if precision == "bf16" else None)
+    direct = pipe.convert_utterance(srv._request_audio(req), 0, ConvertSettings(
+        index_rate=0.5, protect=0.33, f0_method="yin"))
+    direct = (np.clip(direct, -1, 1) * 32767).astype(np.int16)
+    assert got.shape == direct.shape and np.abs(got).max() > 1000
+    assert np.abs(got.astype(np.int32) - direct).max() <= 1
+    srv._STATE.update(pipeline=None, pipeline_key=None)
+
+
+@pytest.mark.gpu
+def test_bf16_pipeline_launches_fma_kernel_on_card(cuda):
+    """bf16 resblocks on the card run csrc/resblock.cu and never
+    resblock_tc; the waveform comes back fp32 and follows the fp32 one
+    (correlation > 0.98, max abs < 0.1, the JAX bf16 thresholds)."""
+    cfg = _narrow_cfg()
+    kw = dict(synth_params=_loud_synth(cfg), model_cfg=cfg, device="cuda",
+              hubert_params=from_jax.hubert_from_jax(from_jax.random_hubert_tree(1, n_layers=2)))
+    audio = (0.3 * np.sin(2 * np.pi * 200 * np.arange(32000) / 16000)).astype(np.float32)[None]
+    settings = ConvertSettings(f0_method="yin", deterministic=True)
+    wavs = {}
+    for dtype in (None, torch.bfloat16):
+        pipe = ConvertPipeline(**kw, compute_dtype=dtype)
+        before = trb.resblock_launches, trb.resblock_tc_launches
+        wav, pitchf = pipe.convert_batch(audio, [32000], 0, settings)
+        torch.cuda.synchronize()
+        launched = (trb.resblock_launches - before[0], trb.resblock_tc_launches - before[1])
+        assert launched == (36, 0 if dtype else 36), launched
+        assert wav.dtype == pitchf.dtype == torch.float32
+        wavs[dtype] = n(wav)[0]
+    a, b = wavs[None], wavs[torch.bfloat16]
+    corr = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+    err = float(np.abs(a - b).max())
+    print(f"bf16 vs fp32 on the card: corr {corr:.6f}, max abs {err:.3e}")
+    assert np.isfinite(b).all() and corr > 0.98 and err < 0.1, (corr, err)
+
+
+@pytest.mark.gpu
+def test_server_set_device_turns_tf32_off_on_card(cuda):
+    """PyTorch lets cuDNN run fp32 convolutions in TF32 by default; the
+    server's set_device turns TF32 off for cuDNN and cuBLAS, and an fp32
+    pipeline then gives the TF32-off waveform."""
+    from rvc_maker_tpu_torch.app import server as srv
+
+    cfg = _narrow_cfg()
+    pipe = ConvertPipeline(_loud_synth(cfg), cfg, from_jax.hubert_from_jax(
+        from_jax.random_hubert_tree(1, n_layers=2)), device="cuda")
+    audio = (0.3 * np.sin(2 * np.pi * 200 * np.arange(16000) / 16000)).astype(np.float32)[None]
+    settings = ConvertSettings(f0_method="yin", deterministic=True)
+    ref = n(pipe.convert_batch(audio, [16000], 0, settings)[0])
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        srv.set_device("cuda")
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+        np.testing.assert_array_equal(n(pipe.convert_batch(audio, [16000], 0, settings)[0]), ref)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -247,7 +247,7 @@ def test_adamw_matches_optax_adamw():
 
 
 def test_lr_decay():
-    state = ttrain.init_state(TCFG, disc_width_div=DIV)
+    state = ttrain.init_state(TCFG, device="cpu", disc_width_div=DIV)
     ttrain.decay_lr(state, TCFG)
     assert state.lr == pytest.approx(TCFG.train.learning_rate * TCFG.train.lr_decay, rel=1e-12)
 
@@ -262,19 +262,19 @@ def test_exact_resume_is_bitwise(tmp_path):
     before the third step."""
     batches = [ttrain.Batch(**_batch_np(seed=s)).to("cpu") for s in (10, 11, 12)]
     step = ttrain.make_train_step(TCFG, DIV)
-    straight = ttrain.init_state(TCFG, disc_width_div=DIV, seed=3)
+    straight = ttrain.init_state(TCFG, device="cpu", disc_width_div=DIV, seed=3)
     step(straight, batches[0])
     step(straight, batches[1])
     ttrain.decay_lr(straight, TCFG)
     m_straight = step(straight, batches[2])
 
-    first = ttrain.init_state(TCFG, disc_width_div=DIV, seed=3)
+    first = ttrain.init_state(TCFG, device="cpu", disc_width_div=DIV, seed=3)
     step(first, batches[0])
     step(first, batches[1])
     ttrain.decay_lr(first, TCFG)
     path = os.path.join(tmp_path, "ckpt.pt")
     tloop.save_checkpoint(first, path, epoch=4)
-    resumed = ttrain.init_state(TCFG, disc_width_div=DIV, seed=99)
+    resumed = ttrain.init_state(TCFG, device="cpu", disc_width_div=DIV, seed=99)
     assert tloop.load_checkpoint(path, resumed) == 4
     m_resumed = step(resumed, batches[2])
 

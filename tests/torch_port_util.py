@@ -8,6 +8,9 @@ import numpy as np
 import pytest
 import torch
 
+# the reference-layout writers, for the tests that import them from here
+from rvc_maker_tpu_torch.interop.from_jax import hubert_state_dict, rmvpe_state_dict  # noqa: F401
+
 TORCH_THREADS = 2
 
 
@@ -89,127 +92,63 @@ def tree_np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_noise(b, p_len, inter, upp, seed=0):
+def jax_noise(b, p_len, inter, upp, seed=0, dtype=None):
     """The z / sine noise the JAX ConvertPipeline draws for one call
-    (pipelines/convert.py `_synth_raw`: split(PRNGKey(seed)), normals)."""
+    (pipelines/convert.py `_synth_raw`: split(PRNGKey(seed)), normals in
+    the compute dtype).  dtype=None: fp32 numpy arrays; a JAX dtype
+    (jnp.bfloat16): the draws in that dtype, as torch tensors of it."""
     import jax
 
     k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
-    z = np.array(jax.random.normal(k1, (b, p_len, inter)))
-    s = np.array(jax.random.normal(k2, (b, p_len * upp, 1)))
-    return z, s
+    if dtype is None:
+        return (np.array(jax.random.normal(k1, (b, p_len, inter))),
+                np.array(jax.random.normal(k2, (b, p_len * upp, 1))))
+    return (jax_to_torch(jax.random.normal(k1, (b, p_len, inter), dtype)),
+            jax_to_torch(jax.random.normal(k2, (b, p_len * upp, 1), dtype)))
 
 
-def rmvpe_state_dict(tree, rs):
-    """A reference-layout E2E state dict with the keys the JAX importer
-    reads, built from a JAX-layout tree plus random BN statistics."""
-    sd = {}
+def jax_to_torch(a):
+    """A JAX array -> a CPU tensor of the same dtype (bf16 included, by
+    way of fp32, which holds every bf16 value exactly)."""
+    import jax.numpy as jnp
 
-    def bn(prefix, c):
-        sd[f"{prefix}.weight"] = rs.uniform(0.5, 1.5, c)
-        sd[f"{prefix}.bias"] = rs.randn(c) * 0.1
-        sd[f"{prefix}.running_mean"] = rs.randn(c) * 0.1
-        sd[f"{prefix}.running_var"] = rs.uniform(0.5, 2.0, c)
-
-    def conv(prefix, p):
-        sd[f"{prefix}.weight"] = np.transpose(p["w"], (3, 2, 0, 1))
-        if "b" in p:
-            sd[f"{prefix}.bias"] = p["b"]
-
-    def block(prefix, p):
-        conv(f"{prefix}.conv.0", p["conv1"])
-        bn(f"{prefix}.conv.1", p["conv1"]["w"].shape[-1])
-        conv(f"{prefix}.conv.3", p["conv2"])
-        bn(f"{prefix}.conv.4", p["conv2"]["w"].shape[-1])
-        if "shortcut" in p:
-            conv(f"{prefix}.shortcut", p["shortcut"])
-
-    bn("unet.encoder.bn", 1)
-    for part in ("encoder", "intermediate"):
-        for i, lp in enumerate(tree[part]):
-            for j, bp in enumerate(lp["blocks"]):
-                block(f"unet.{part}.layers.{i}.conv.{j}", bp)
-    for i, lp in enumerate(tree["decoder"]):
-        w = np.flip(lp["convt"]["w"], axis=(0, 1))
-        sd[f"unet.decoder.layers.{i}.conv1.0.weight"] = np.transpose(w, (2, 3, 0, 1))
-        bn(f"unet.decoder.layers.{i}.conv1.1", w.shape[-1])
-        for j, bp in enumerate(lp["blocks"]):
-            block(f"unet.decoder.layers.{i}.conv2.{j}", bp)
-    conv("cnn", tree["cnn"])
-    names = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
-             "b_hh": "bias_hh_l0"}
-    for k, v in names.items():
-        sd[f"fc.0.gru.{v}"] = tree["gru"][k]
-        sd[f"fc.0.gru.{v}_reverse"] = tree["gru"][k + "_r"]
-    sd["fc.1.weight"] = tree["fc"]["w"].T
-    sd["fc.1.bias"] = tree["fc"]["b"]
-    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+    if a.dtype == jnp.bfloat16:
+        return torch.as_tensor(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+    return torch.as_tensor(np.array(a))
 
 
-def hubert_state_dict(tree):
-    """A fairseq-layout HuBERT state dict from a JAX-layout tree (layer
-    leaves stacked), the positional conv split into weight_g/weight_v."""
-    sd = {}
-
-    def lin(prefix, p, i=None):
-        w, b = np.asarray(p["w"]), np.asarray(p["b"])
-        if i is not None:
-            w, b = w[i], b[i]
-        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = w.T, b
-
-    def ln(prefix, p, i=None):
-        g, b = np.asarray(p["gamma"]), np.asarray(p["beta"])
-        if i is not None:
-            g, b = g[i], b[i]
-        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = g, b
-
-    for i, c in enumerate(tree["frontend"]["convs"]):
-        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = np.transpose(c["w"], (2, 1, 0))
-    ln("feature_extractor.conv_layers.0.2", tree["frontend"]["gn"])
-    ln("layer_norm", tree["ln_feats"])
-    lin("post_extract_proj", tree["post_proj"])
-    w = np.transpose(np.asarray(tree["pos_conv"]["w"]), (2, 1, 0))
-    sd["encoder.pos_conv.0.weight_g"] = np.sqrt(np.square(w).sum(axis=(0, 1), keepdims=True))
-    sd["encoder.pos_conv.0.weight_v"] = w
-    sd["encoder.pos_conv.0.bias"] = tree["pos_conv"]["b"]
-    ln("encoder.layer_norm", tree["ln_pre"])
-    st = tree["layers"]
-    for i in range(np.asarray(st["fc1"]["w"]).shape[0]):
-        p = f"encoder.layers.{i}"
-        for k, m in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
-            lin(f"{p}.self_attn.{m}", st["attn"][k], i)
-        ln(f"{p}.self_attn_layer_norm", st["ln1"], i)
-        lin(f"{p}.fc1", st["fc1"], i)
-        lin(f"{p}.fc2", st["fc2"], i)
-        ln(f"{p}.final_layer_norm", st["ln2"], i)
-    lin("final_proj", tree["final_proj"])
-    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
-
-
-def jax_decoder_noise(cfg, b, t, seed=0):
+def jax_decoder_noise(cfg, b, t, seed=0, dtype=None):
     """The z noise and decoder noise that the JAX package's `infer_any`
     draws from PRNGKey(seed) (models/synthesizer.py:551-593), laid out
-    as the port's `decoder_noise`: numpy arrays."""
+    as the port's `decoder_noise`: numpy arrays; with a JAX dtype
+    (jnp.bfloat16) the normals are drawn in it, as JAX's bf16 mode draws
+    them, and returned as torch tensors of it (`rand_ini` stays fp32)."""
     import jax
 
     k_z, k_src, k_ini, k_adain = jax.random.split(jax.random.PRNGKey(seed), 4)
-    z = np.array(jax.random.normal(k_z, (b, t, cfg.inter_channels)))
+    out = np.array if dtype is None else jax_to_torch
+
+    def normal(key, shape):
+        return out(jax.random.normal(key, shape) if dtype is None
+                   else jax.random.normal(key, shape, dtype))
+
+    z = normal(k_z, (b, t, cfg.inter_channels))
     n = t * cfg.upp
     if not cfg.use_f0:
         return z, {}
     if cfg.vocoder in ("MRF HiFi-GAN", "MRF-HiFi-GAN"):
-        return z, {"source": np.array(jax.random.normal(k_src, (b, n, 9))),
+        return z, {"source": normal(k_src, (b, n, 9)),
                    "rand_ini": np.array(jax.random.uniform(k_ini, (b, 9)).at[:, 0].set(0.0))}
     if cfg.vocoder == "RefineGAN":
         keys = iter(jax.random.split(k_adain, 6 * len(cfg.upsample_rates)))
         adain, ch, tc = [], cfg.upsample_initial_channel, t
         for rate in cfg.upsample_rates:
             ch, tc = ch // 2, tc * rate
-            adain.append([tuple(np.array(jax.random.normal(next(keys), (b, tc, ch)))
-                                for _ in range(2)) for _ in range(3)])
-        return z, {"source": np.array(jax.random.normal(k_src, (b, n, 1))),
+            adain.append([tuple(normal(next(keys), (b, tc, ch)) for _ in range(2))
+                          for _ in range(3)])
+        return z, {"source": normal(k_src, (b, n, 1)),
                    "rand_ini": np.zeros((b, 1), np.float32), "adain": adain}
-    return z, {"sine": np.array(jax.random.normal(k_src, (b, n, 1)))}
+    return z, {"sine": normal(k_src, (b, n, 1))}
 
 
 def voice(seconds, f0=180.0, seed=0):
