@@ -11,19 +11,21 @@ Phases, each printed as it runs; any failure exits non-zero:
   3. kernels  each kernel against its plain PyTorch version at the
               shapes the main path gives it: fp32 through the tensor-core
               kernel (resblock_tc.cu, the route of every fp32 width) and
-              through the FMA kernel (resblock.cu), each max abs err <=
-              1e-4 * max(1, |ref|max); bf16 (resblock.cu, the bf16 route)
-              max abs err against the bf16 plain chain <= 4 bf16 ulps
-              of its |ref|max, and correlation > 0.99 against the fp32
-              plain chain.  Then timed with CUDA events: the
-              tensor-core kernel, the FMA kernel in fp32 (its earlier
-              version), the plain version, and the library yardstick (a
-              cuDNN F.conv1d chain, never used by the port), beside two
-              bounds: the fp32 CUDA-core one and the 3xTF32 one (3 x flops
-              at the dense TF32 rate), the roofline share taken against the
-              latter; and in bf16 the FMA kernel, the plain chain and the
-              cuDNN chain beside the bf16 bound (flops at the dense bf16
-              rate).
+              through the FMA kernel (resblock.cu, on no route), each max
+              abs err <= 1e-4 * max(1, |ref|max); bf16 through the bf16
+              tensor-core kernel (resblock_tc_bf16.cu, the route of every
+              bf16 width) and through resblock.cu, each max abs err
+              against the bf16 plain chain <= 4 bf16 ulps of its
+              |ref|max, and correlation > 0.99 against the fp32 plain
+              chain.  Then timed with CUDA events: the tensor-core
+              kernel, the FMA kernel in fp32 (its earlier version), the
+              plain version, and the library yardstick (a cuDNN F.conv1d
+              chain, never used by the port), beside two bounds: the fp32
+              CUDA-core one and the 3xTF32 one (3 x flops at the dense
+              TF32 rate), the roofline share taken against the latter;
+              and in bf16 the bf16 tensor-core kernel, resblock.cu, the
+              plain chain and the cuDNN chain beside the bf16 bound (flops
+              at the dense bf16 rate).
   4. main     the port's ConvertPipeline at the full v2 / 48 kHz width
               (12-layer HuBERT, full RMVPE, 10,000 x 768 index, random
               weights from a seed): convert_batch on 2 x 10 s and
@@ -94,7 +96,7 @@ Phases, each printed as it runs; any failure exits non-zero:
               a cold pipeline's first 5 s request, `warm(buckets="5,4x5")`,
               the first request after it and the mean of 3 more, each with
               its launches counted (36 resblock_tc per fp32 decode; 36
-              resblock and 0 resblock_tc per bf16 one), each response
+              resblock_tc_bf16 and no other per bf16 one), each response
               equal to the direct convert_utterance within 1 int16 step;
               4 concurrent requests through the batcher (device batch
               shapes, latencies, audio-s/s, peak memory), each within 2e-3
@@ -157,10 +159,11 @@ def bounds_ms(flops: float, nbytes: float):
             "operations" if tc_ms >= by_ms else "bytes")
 
 
-def reset_counts(rb, counts=(0, 0)):
-    """Set the resblock launch counts (all, tensor-core) and return the old ones."""
-    old = rb.resblock_launches, rb.resblock_tc_launches
-    rb.resblock_launches, rb.resblock_tc_launches = counts
+def reset_counts(rb, counts=(0, 0, 0)):
+    """Set the resblock launch counts (all, resblock_tc, resblock_tc_bf16)
+    and return the old ones."""
+    old = rb.resblock_launches, rb.resblock_tc_launches, rb.resblock_tc_bf16_launches
+    rb.resblock_launches, rb.resblock_tc_launches, rb.resblock_tc_bf16_launches = counts
     return old
 
 
@@ -208,8 +211,8 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
     gen = torch.Generator().manual_seed(0)
     rows, worst, worst_fma = [], 0.0, 0.0
     totals = dict(ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0,
-                  bf16_plain_ms=0.0, bf16_library_ms=0.0, flops=0, bytes=0)
-    worst_bf16 = 0.0
+                  bf16_fma_ms=0.0, bf16_plain_ms=0.0, bf16_library_ms=0.0, flops=0, bytes=0)
+    worst_bf16, worst_bf16_fma = 0.0, 0.0
     saved = reset_counts(rb)
     for (b, c, t) in stage_shapes:
         for k in kernels:
@@ -234,10 +237,16 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             worst, worst_fma = max(worst, err), max(worst_fma, fma_err)
             argsb = tuple(a.bfloat16() for a in args)
             gotb = rb.fused_resblock(*argsb, **kw).float()
+            torch.cuda.synchronize()
+            if rb.resblock_tc_bf16_launches != len(dilations):
+                raise AssertionError(f"bf16 C={c} did not take the bf16 tensor-core kernel")
+            gotb_fma = rb._fma_resblock(*argsb, **kw).float()
             corr = torch.corrcoef(torch.stack([gotb.flatten(), ref.flatten()]))[0, 1].item()
+            corr_fma = torch.corrcoef(torch.stack([gotb_fma.flatten(), ref.flatten()]))[0, 1].item()
             # bf16 against the plain chain on the same bf16 inputs
             refb = rb._resblock(*argsb, **kw).float()
             bf16_err = (gotb - refb).abs().max().item()
+            bf16_fma_err = (gotb_fma - refb).abs().max().item()
             bf16_tol = BF16_ULPS * bf16_ulp(refb.abs().max().item())
             wt1 = w1.permute(0, 3, 2, 1).contiguous()
             wt2 = w2.permute(0, 3, 2, 1).contiguous()
@@ -248,41 +257,54 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             plain_ms = cuda_ms(lambda: rb._resblock(*args, **kw), iters)
             lib_ms = cuda_ms(lambda: library_resblock(x, wt1, b1, wt2, b2, k, dilations), iters)
             bf16_ms = cuda_ms(lambda: rb.fused_resblock(*argsb, **kw), iters)
+            bf16_fma_ms = cuda_ms(lambda: rb._fma_resblock(*argsb, **kw), iters)
             bf16_plain_ms = cuda_ms(lambda: rb._resblock(*argsb, **kw), iters)
             bf16_lib_ms = cuda_ms(lambda: library_resblock(argsb[0], wt1b, b1b, wt2b, b2b, k,
                                                            dilations), iters)
             worst_bf16 = max(worst_bf16, bf16_err)
+            worst_bf16_fma = max(worst_bf16_fma, bf16_fma_err)
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + w1.numel() + w2.numel() + b1.numel() + b2.numel())
             fp32_bound_ms, bound_ms, _ = bounds_ms(flops, nbytes)
+            bf16_bound_ms = 1e3 * max(flops / H100_BF16_FLOPS, nbytes / 2 / H100_BYTES_PER_S)
             smem = {d: rb.smem_bytes(c, k, d) for d in dilations}
-            rows.append(dict(B=b, C=c, T=t, k=k, smem_bytes_tc=smem, max_abs_err=err,
-                             fma_max_abs_err=fma_err, tol=tol, bf16_corr=corr,
-                             bf16_max_abs_err=bf16_err, bf16_tol=bf16_tol, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bf16_ms=bf16_ms, bf16_plain_ms=bf16_plain_ms,
+            smem_bf16 = {d: rb.smem_bytes(c, k, d, torch.bfloat16) for d in dilations}
+            rows.append(dict(B=b, C=c, T=t, k=k, smem_bytes_tc=smem, smem_bytes_tc_bf16=smem_bf16,
+                             max_abs_err=err, fma_max_abs_err=fma_err, tol=tol, bf16_corr=corr,
+                             bf16_fma_corr=corr_fma, bf16_max_abs_err=bf16_err,
+                             bf16_fma_max_abs_err=bf16_fma_err, bf16_tol=bf16_tol, ms=ms,
+                             fma_ms=fma_ms, plain_ms=plain_ms, library_ms=lib_ms, bf16_ms=bf16_ms,
+                             bf16_fma_ms=bf16_fma_ms, bf16_plain_ms=bf16_plain_ms,
                              bf16_library_ms=bf16_lib_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
-                             fp32_bound_ms=fp32_bound_ms, roofline_share=bound_ms / ms))
-            log(f"  resblock B={b} C={c} T={t} k={k}: tensor-core kernel shared memory "
-                "per block " + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem.items()))
+                             fp32_bound_ms=fp32_bound_ms, roofline_share=bound_ms / ms,
+                             bf16_bound_ms=bf16_bound_ms, bf16_roofline_share=bf16_bound_ms / bf16_ms))
+            log(f"  resblock B={b} C={c} T={t} k={k}: shared memory per block, tc "
+                + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem.items())
+                + "; tc_bf16 " + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem_bf16.items()))
             log(f"  resblock B={b} C={c} T={t} k={k}: err tc {err:.3e} fma {fma_err:.3e} "
-                f"(tol {tol:.1e}) bf16 corr {corr:.6f} | tc kernel {ms:.3f} ms, fma kernel "
-                f"{fma_ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms | bf16: "
-                f"fma kernel {bf16_ms:.3f} ms, plain {bf16_plain_ms:.3f} ms, library "
-                f"{bf16_lib_ms:.3f} ms, err vs plain {bf16_err:.3e} (tol {bf16_tol:.3e}) | {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, "
-                f"bound 3xTF32 {bound_ms:.3f} ms / fp32 {fp32_bound_ms:.3f} ms, roofline "
-                f"share {bound_ms / ms:.3f}")
+                f"(tol {tol:.1e}) | tc kernel {ms:.3f} ms, fma kernel {fma_ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms | {flops / 1e9:.1f} GFLOP, "
+                f"{nbytes / 1e6:.1f} MB, bound 3xTF32 {bound_ms:.3f} ms / fp32 "
+                f"{fp32_bound_ms:.3f} ms, roofline share {bound_ms / ms:.3f}")
+            log(f"  resblock B={b} C={c} T={t} k={k} bf16: tc_bf16 kernel {bf16_ms:.3f} ms, fma "
+                f"kernel {bf16_fma_ms:.3f} ms, plain {bf16_plain_ms:.3f} ms, library "
+                f"{bf16_lib_ms:.3f} ms, bound {bf16_bound_ms:.3f} ms, roofline share "
+                f"{bf16_bound_ms / bf16_ms:.3f} | err vs the bf16 plain chain tc_bf16 "
+                f"{bf16_err:.3e} fma {bf16_fma_err:.3e} (tol {bf16_tol:.3e}), corr vs fp32 "
+                f"{corr:.6f} / {corr_fma:.6f}")
             if not (err <= tol and fma_err <= tol):
                 raise AssertionError(f"resblock C={c} k={k}: err {err}, fma {fma_err} > {tol}")
-            if not (corr > 0.99 and bf16_err <= bf16_tol):
-                raise AssertionError(f"resblock bf16 C={c} k={k}: corr {corr}, err vs the "
-                                     f"bf16 plain chain {bf16_err} > {bf16_tol}")
+            if not (min(corr, corr_fma) > 0.99 and max(bf16_err, bf16_fma_err) <= bf16_tol):
+                raise AssertionError(f"resblock bf16 C={c} k={k}: corr {corr} / fma {corr_fma}, "
+                                     f"err vs the bf16 plain chain {bf16_err} / fma "
+                                     f"{bf16_fma_err} > {bf16_tol}")
             for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
                            ("library_ms", lib_ms), ("bf16_ms", bf16_ms),
-                           ("bf16_plain_ms", bf16_plain_ms), ("bf16_library_ms", bf16_lib_ms),
-                           ("flops", flops),
+                           ("bf16_fma_ms", bf16_fma_ms), ("bf16_plain_ms", bf16_plain_ms),
+                           ("bf16_library_ms", bf16_lib_ms), ("flops", flops),
                            ("bytes", nbytes)):
                 totals[key] += v
-            del x, w1, w2, b1, b2, args, argsb, ref, refb, got, got_fma, gotb, wt1, wt2
+            del x, w1, w2, b1, b2, args, argsb, ref, refb, got, got_fma, gotb, gotb_fma, wt1, wt2
             del wt1b, b1b, wt2b, b2b
             reset_counts(rb)
     reset_counts(rb, saved)           # comparison launches do not count
@@ -291,12 +313,14 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
     totals.update(bound_ms=bound, bound_by=bound_by, fp32_bound_ms=fp32_bound,
                   bf16_bound_ms=1e3 * max(totals["flops"] / H100_BF16_FLOPS,
                                           totals["bytes"] / 2 / H100_BYTES_PER_S),
-                  max_abs_err=worst, fma_max_abs_err=worst_fma, bf16_max_abs_err=worst_bf16)
+                  max_abs_err=worst, fma_max_abs_err=worst_fma, bf16_max_abs_err=worst_bf16,
+                  bf16_fma_max_abs_err=worst_bf16_fma)
     log(f"  one decode's 12 resblocks: tc kernel {totals['ms']:.3f} ms, fma kernel "
         f"{totals['fma_ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, library "
-        f"{totals['library_ms']:.3f} ms; bf16: fma kernel {totals['bf16_ms']:.3f} ms, plain "
-        f"{totals['bf16_plain_ms']:.3f} ms, library {totals['bf16_library_ms']:.3f} ms, bound "
-        f"{totals['bf16_bound_ms']:.3f} ms; "
+        f"{totals['library_ms']:.3f} ms; bf16: tc_bf16 kernel {totals['bf16_ms']:.3f} ms, fma "
+        f"kernel {totals['bf16_fma_ms']:.3f} ms, plain {totals['bf16_plain_ms']:.3f} ms, "
+        f"library {totals['bf16_library_ms']:.3f} ms, bound {totals['bf16_bound_ms']:.3f} ms "
+        f"(roofline share {totals['bf16_bound_ms'] / totals['bf16_ms']:.3f}); "
         f"{totals['flops'] / 1e12:.3f} TFLOP, {totals['bytes'] / 1e9:.3f} GB -> bound "
         f"3xTF32 {bound:.3f} ms ({bound_by}) / fp32 {fp32_bound:.3f} ms, roofline share "
         f"{bound / totals['ms']:.3f}; on {card}")
@@ -336,7 +360,8 @@ def voice(seconds: float, f0: float, seed: int) -> np.ndarray:
 
 
 def is_resblock_kernel(name: str) -> bool:
-    return "resblock_tc_step_kernel" in name or "resblock_step_kernel" in name
+    return any(k in name for k in ("resblock_tc_step_kernel", "resblock_tc_bf16_step_kernel",
+                                   "resblock_step_kernel"))
 
 
 def profile_call(label, fn, wall_s):
@@ -848,8 +873,8 @@ def train_parity():
             state, batch.to(dev), keep_grads=True,
             noise={k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
         launched = reset_counts(rb, saved)  # comparison launches do not count
-        if launched != ((0, 0) if dev == "cpu" else (36, 36)):
-            raise AssertionError(f"{dev}: {launched} resblock launches (all, tc)")
+        if launched != ((0, 0, 0) if dev == "cpu" else (36, 36, 0)):
+            raise AssertionError(f"{dev}: {launched} resblock launches (all, tc, tc_bf16)")
         out[dev] = m
     worst_loss = 0.0
     for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
@@ -1347,16 +1372,19 @@ def serve_precision(srv, port, files, precision: str, per_decode: int):
         reset_counts(rb)
         got, dt = served(port, req)
         times.append(dt)
-        launches.append((rb.resblock_launches, rb.resblock_tc_launches))
+        launches.append((rb.resblock_launches, rb.resblock_tc_launches,
+                         rb.resblock_tc_bf16_launches))
     res.update(first_after_warm_s=times[0], steady_s=float(np.mean(times[1:])),
                launches=launches)
-    want_counts = (per_decode, per_decode if precision == "fp32" else 0)
+    want_counts = ((per_decode, per_decode, 0) if precision == "fp32"
+                   else (per_decode, 0, per_decode))
     if any(c != want_counts for c in launches):
-        raise AssertionError(f"{precision} serve: (all, resblock_tc) launches per request "
-                             f"{launches}, expected {want_counts} for one decode each")
-    tc = sum(t for _, t in launches)
-    fma = sum(a - t for a, t in launches)
-    res["resblock_tc_launches"], res["resblock_fma_launches"] = tc, fma
+        raise AssertionError(f"{precision} serve: (all, resblock_tc, resblock_tc_bf16) "
+                             f"launches per request {launches}, expected {want_counts} for "
+                             "one decode each")
+    res["resblock_tc_launches"] = sum(c[1] for c in launches)
+    res["resblock_tc_bf16_launches"] = sum(c[2] for c in launches)
+    res["resblock_fma_launches"] = sum(a - tc - tb for a, tc, tb in launches)
 
     # the served response against the direct call on the server's pipeline
     audio16 = srv._request_audio(req)
@@ -1662,15 +1690,25 @@ def main() -> int:
     main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
     voc, serve = RESULTS["vocoders"], RESULTS["serve"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
-              "cuda bf16": "resblock"}
+              "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
     common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
-                  plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
-                  fma_ms=totals["fma_ms"], fp32_bound_ms=totals["fp32_bound_ms"],
-                  tf32x3_bound_ms=totals["bound_ms"], launches_per_decode=main["launches_per_decode"],
-                  launches_per_train_step=train["launches_per_step"], routes=routes,
-                  train_fwd_ms=tk["totals"]["fwd_ms"], train_fma_fwd_ms=tk["totals"]["fma_fwd_ms"],
-                  train_fwd_bound_ms=tk["totals"]["fwd_bound_ms"],
-                  grad_max_abs_err=tk["max_grad_err"])
+                  launches_per_decode=main["launches_per_decode"], routes=routes)
+    fp32 = dict(plain_ms=totals["plain_ms"], library_ms=totals["library_ms"],
+                fma_ms=totals["fma_ms"], fp32_bound_ms=totals["fp32_bound_ms"],
+                tf32x3_bound_ms=totals["bound_ms"],
+                launches_per_train_step=train["launches_per_step"],
+                train_fwd_ms=tk["totals"]["fwd_ms"], train_fma_fwd_ms=tk["totals"]["fma_fwd_ms"],
+                train_fwd_bound_ms=tk["totals"]["fwd_bound_ms"],
+                grad_max_abs_err=tk["max_grad_err"])
+    # the bf16 times: the plain chain and cuDNN's in bf16, beside the bf16
+    # bound (operations at the dense bf16 rate)
+    bf16 = dict(
+        plain_ms=totals["bf16_plain_ms"], library_ms=totals["bf16_library_ms"],
+        bound_ms=totals["bf16_bound_ms"],
+        bound_by="operations" if totals["flops"] / H100_BF16_FLOPS
+        >= totals["bytes"] / 2 / H100_BYTES_PER_S else "bytes",
+        tolerance=f"max abs vs the bf16 plain chain <= {BF16_ULPS} bf16 ulps of its "
+                  "|ref|max, and corr > 0.99 vs the fp32 plain chain")
     kernels = [
         dict(name="resblock_tc", source="rvc_maker_tpu_torch/csrc/resblock_tc.cu",
              launches=main["resblock_tc_launches"], launches_train=train["resblock_tc_launches"],
@@ -1682,25 +1720,26 @@ def main() -> int:
              launches_serve_fp32=serve["fp32"]["resblock_tc_launches"],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
-             **common),
-        # resblock.cu is the bf16 route, which the served bf16 path runs:
-        # its launches there, and its bf16 times beside the bf16 bound
-        # (operations at the dense bf16 rate); its fp32 timings, kept
-        # beside the tensor-core kernel that runs fp32, under fp32_*
-        {**common, **dict(
-            name="resblock", source="rvc_maker_tpu_torch/csrc/resblock.cu",
-            launches=serve["bf16"]["resblock_fma_launches"],
-            launches_serve_bf16=serve["bf16"]["resblock_fma_launches"],
-            launches_main_fma=main["resblock_launches"] - main["resblock_tc_launches"],
-            max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
-            plain_ms=totals["bf16_plain_ms"], library_ms=totals["bf16_library_ms"],
-            bound_ms=totals["bf16_bound_ms"],
-            bound_by="operations" if totals["flops"] / H100_BF16_FLOPS
-            >= totals["bytes"] / 2 / H100_BYTES_PER_S else "bytes",
-            tolerance=f"max abs vs the bf16 plain chain <= {BF16_ULPS} bf16 ulps of its "
-                      "|ref|max, and corr > 0.99 vs the fp32 plain chain",
-            fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
-            fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"])}]
+             **common, **fp32),
+        # the bf16 route, which the served bf16 path runs: its launches
+        # there; fma_ms is resblock.cu's bf16 time, its earlier version
+        dict(name="resblock_tc_bf16", source="rvc_maker_tpu_torch/csrc/resblock_tc_bf16.cu",
+             launches=serve["bf16"]["resblock_tc_bf16_launches"],
+             launches_serve_bf16=serve["bf16"]["resblock_tc_bf16_launches"],
+             max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
+             fma_ms=totals["bf16_fma_ms"],
+             roofline_share=totals["bf16_bound_ms"] / totals["bf16_ms"], **common, **bf16),
+        # resblock.cu, on no path (its launches on the main paths are 0):
+        # its bf16 times, and its fp32 ones under fp32_*
+        dict(name="resblock", source="rvc_maker_tpu_torch/csrc/resblock.cu",
+             launches=main["resblock_launches"] - main["resblock_tc_launches"]
+             + serve["bf16"]["resblock_fma_launches"],
+             launches_serve_bf16=serve["bf16"]["resblock_fma_launches"],
+             launches_main_fma=main["resblock_launches"] - main["resblock_tc_launches"],
+             max_abs_err=totals["bf16_fma_max_abs_err"], ms=totals["bf16_fma_ms"],
+             fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
+             fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"],
+             **common, **bf16)]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

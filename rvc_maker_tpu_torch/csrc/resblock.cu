@@ -48,11 +48,11 @@
 // CUDA cores (67 TFLOP/s peak), in fp32 and in bf16.  The halo
 // recompute of conv1 costs (TT + 2c) / TT, at most 16 %.
 //
-// Which tensors reach it.  fp32 at every width (C = 16..256) runs on the
-// tensor cores in csrc/resblock_tc.cu, the same design with 3xTF32
-// mma.sync in place of the two inner FMA loops (ops/resblock.py
-// `_route`).  This kernel takes bf16, and fp32 only through
-// `_fma_resblock`, which times it beside the tensor-core kernel.
+// Which tensors reach it.  None on a route: every width runs on the
+// tensor cores, the same design with mma.sync in place of the two inner
+// FMA loops (ops/resblock.py `_route`): fp32 in csrc/resblock_tc.cu
+// (3xTF32), bf16 in csrc/resblock_tc_bf16.cu.  This kernel takes either
+// dtype only through `_fma_resblock`, which times it beside them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

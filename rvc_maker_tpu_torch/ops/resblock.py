@@ -11,11 +11,13 @@ dtype and the width alone:
 
     cpu                               -> the plain steps
     cuda, fp32, C in TC_WIDTHS        -> csrc/resblock_tc.cu (3xTF32 mma.sync)
-    cuda, bf16 (or fp32 outside them) -> csrc/resblock.cu (fp32 FMA)
+    cuda, bf16, C in SUPPORTED_C      -> csrc/resblock_tc_bf16.cu (bf16 mma.sync)
 
 A failed build or launch raises; no route is taken because another
-failed.  It replaces the Pallas TPU kernel `rvc_maker_tpu/ops/
-pallas_resblock.py` `fused_resblock`; `_resblock` is the counterpart of
+failed.  csrc/resblock.cu (fp32 FMA on the CUDA cores, either dtype) is
+on no route; `_fma_resblock` times it beside the tensor-core kernels.
+They replace the Pallas TPU kernel `rvc_maker_tpu/ops/pallas_resblock.py`
+`fused_resblock`; `_resblock` is the counterpart of
 `rvc_maker_tpu/models/synthesizer.py` `_resblock`.
 
 Layout: x is (B, C, T), torch's conv layout, used for the whole decode.
@@ -46,14 +48,19 @@ from . import build
 LRELU_SLOPE = 0.1
 SUPPORTED_C = (16, 32, 64, 128, 256)
 SUPPORTED_K = (3, 7, 11)
-MAX_DILATION = 5      # csrc/resblock.cu and resblock_tc.cu kMaxDil
+MAX_DILATION = 5      # kMaxDil of every csrc/resblock*.cu
 TC_WIDTHS = SUPPORTED_C   # fp32 widths that csrc/resblock_tc.cu takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (one per dilation step): all of
-# them, and those of the tensor-core kernel
+# them, and those of each tensor-core kernel
 resblock_launches = 0
 resblock_tc_launches = 0
+resblock_tc_bf16_launches = 0
+# route -> (csrc library, prefix of its C functions)
+_LIBRARIES = {"tc": ("resblock_tc", "rvc_resblock_tc"),
+              "tc_bf16": ("resblock_tc_bf16", "rvc_resblock_tc_bf16"),
+              "fma": ("resblock", "rvc_resblock")}
 
 
 def _branch(x, w1, b1, w2, b2, k: int, d: int):
@@ -130,69 +137,65 @@ def _check(x, w1, b1, w2, b2, kernel_size, dilations):
 
 
 def _route(device_type: str, dtype: torch.dtype, channels: int) -> str:
-    """"plain", "tc" (csrc/resblock_tc.cu) or "fma" (csrc/resblock.cu)."""
+    """"plain", "tc" (csrc/resblock_tc.cu), "tc_bf16" (csrc/resblock_tc_bf16.cu)
+    or, for a width no kernel takes, "fma", which `_check` then refuses."""
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":
         raise ValueError(f"unsupported device {device_type}")
-    return "tc" if dtype == torch.float32 and channels in TC_WIDTHS else "fma"
+    if dtype == torch.float32 and channels in TC_WIDTHS:
+        return "tc"
+    if dtype == torch.bfloat16 and channels in SUPPORTED_C:
+        return "tc_bf16"
+    return "fma"
 
 
-def _library(route: str = "fma"):
-    if route == "tc":
-        lib = build.load("resblock_tc")
-        if lib.rvc_resblock_tc_step.argtypes is None:
-            lib.rvc_resblock_tc_step.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            lib.rvc_resblock_tc_step.restype = ctypes.c_int
-            lib.rvc_resblock_tc_smem_bytes.argtypes = [ctypes.c_int] * 3
-            lib.rvc_resblock_tc_smem_bytes.restype = ctypes.c_size_t
-        return lib
-    lib = build.load("resblock")
-    if lib.rvc_resblock_step.argtypes is None:
-        lib.rvc_resblock_step.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.rvc_resblock_step.restype = ctypes.c_int
-        lib.rvc_resblock_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.rvc_resblock_smem_bytes.restype = ctypes.c_size_t
-    return lib
+def _library(route: str):
+    """The route's kernel library, built on first use; its step function
+    takes (x, out, w1, b1, w2, b2, B, C, T, K, dil[, dtype code], stream)."""
+    name, prefix = _LIBRARIES[route]
+    lib = build.load(name)
+    step, smem = getattr(lib, prefix + "_step"), getattr(lib, prefix + "_smem_bytes")
+    if step.argtypes is None:
+        dtype_arg = [ctypes.c_int] if route == "fma" else []   # resblock.cu's dtype code
+        step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + dtype_arg + [ctypes.c_void_p]
+        step.restype = ctypes.c_int
+        smem.argtypes = [ctypes.c_int] * 3 + dtype_arg
+        smem.restype = ctypes.c_size_t
+    return lib, step, smem
 
 
 def smem_bytes(channels: int, kernel_size: int, dilation: int,
                dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one launch of the kernel that `_route` picks
     for a CUDA tensor of this dtype and width (0: shape not taken)."""
-    if _route("cuda", dtype, channels) == "tc":
-        return int(_library("tc").rvc_resblock_tc_smem_bytes(channels, kernel_size,
-                                                            dilation))
-    return int(_library().rvc_resblock_smem_bytes(channels, kernel_size, dilation,
-                                                  _DTYPE_CODE[dtype]))
+    route = _route("cuda", dtype, channels)
+    extra = (_DTYPE_CODE[dtype],) if route == "fma" else ()
+    return int(_library(route)[2](channels, kernel_size, dilation, *extra))
 
 
 def _launch_steps(route: str, x, w1, b1, w2, b2, kernel_size: int, dilations):
     """[x_0, ..., x_D] through the route's kernel, one launch per step;
     raises if a launch fails."""
-    global resblock_launches, resblock_tc_launches
+    global resblock_launches, resblock_tc_launches, resblock_tc_bf16_launches
     _check(x, w1, b1, w2, b2, kernel_size, dilations)
-    lib = _library(route)
+    lib, step, _ = _library(route)
+    extra = (_DTYPE_CODE[x.dtype],) if route == "fma" else ()
     b, c, t = x.shape
     xs = [x]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for i, d in enumerate(dilations):
             out = torch.empty_like(x)
-            ptrs = (xs[-1].data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-                    w2[i].data_ptr(), b2[i].data_ptr())
-            if route == "tc":
-                rc = lib.rvc_resblock_tc_step(*ptrs, b, c, t, kernel_size, int(d), stream)
-            else:
-                rc = lib.rvc_resblock_step(*ptrs, b, c, t, kernel_size, int(d),
-                                           _DTYPE_CODE[x.dtype], stream)
+            rc = step(xs[-1].data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
+                      w2[i].data_ptr(), b2[i].data_ptr(), b, c, t, kernel_size, int(d),
+                      *extra, stream)
             if rc != 0:
                 raise RuntimeError(f"resblock {route} kernel launch failed: "
                                    f"{build.error_string(lib, rc)} (code {rc})")
             resblock_launches += 1
             resblock_tc_launches += route == "tc"
+            resblock_tc_bf16_launches += route == "tc_bf16"
             xs.append(out)
     return xs
 
@@ -212,7 +215,7 @@ def _forward_steps(x, w1, b1, w2, b2, kernel_size: int, dilations):
 
 def _fma_resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
     """The resblock through csrc/resblock.cu whatever the dtype: the
-    tensor-core kernel's earlier version, for timing beside it.  No path
+    tensor-core kernels' earlier version, for timing beside them.  No path
     calls it."""
     return _launch_steps("fma", x, w1, b1, w2, b2, kernel_size, tuple(dilations))[-1]
 

@@ -407,12 +407,12 @@ def test_library_fault_is_a_server_error(servers, files, tmp_path):
 def test_kernel_failure_answers_500_without_the_plain_chain(servers, files, monkeypatch):
     """A request whose resblock route is a kernel that cannot be built
     answers 500, and the plain F.conv1d chain never runs in its place.
-    (On the CPU the route is the plain chain; it is pointed at the FMA
-    kernel here, whose build has no nvcc on this machine.)"""
+    (On the CPU the route is the plain chain; it is pointed at the bf16
+    tensor-core kernel here, whose build has no nvcc on this machine.)"""
     _set_precision(servers[:1], "bf16")
     branches = []
-    monkeypatch.setattr(rb, "_route", lambda device_type, dtype, channels: "fma")
-    monkeypatch.setattr(rb, "_library", lambda route="fma": (_ for _ in ()).throw(
+    monkeypatch.setattr(rb, "_route", lambda device_type, dtype, channels: "tc_bf16")
+    monkeypatch.setattr(rb, "_library", lambda route: (_ for _ in ()).throw(
         RuntimeError("nvcc not found: the CUDA toolkit is needed")))
     orig = rb._branch
     monkeypatch.setattr(rb, "_branch", lambda *a, **k: branches.append(1) or orig(*a, **k))

@@ -17,8 +17,8 @@ from rvc_maker_tpu_torch.config import ModelConfig
 from rvc_maker_tpu_torch.interop import from_jax
 from rvc_maker_tpu_torch.ops import resblock as trb
 from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
-from torch_port_util import (assert_grads_close, n, packed_resblock, resblock_params,
-                             resblock_x, t)
+from torch_port_util import (BF16_ULPS, assert_grads_close, bf16_ulp, n, packed_resblock,
+                             resblock_params, resblock_x, t)
 
 
 @pytest.fixture
@@ -99,21 +99,68 @@ def test_tc_kernel_edge_rows_on_card(cuda, C):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tc", [(torch.float32, 3), (torch.bfloat16, 0)],
+@pytest.mark.parametrize("dtype,tc,tc_bf16", [(torch.float32, 3, 0), (torch.bfloat16, 0, 3)],
                          ids=["fp32", "bf16"])
-def test_tc_route_counts_on_card(cuda, dtype, tc):
-    """fp32 launches resblock_tc (both counts move); bf16 launches the
-    FMA kernel (only resblock_launches moves)."""
+def test_tc_route_counts_on_card(cuda, dtype, tc, tc_bf16):
+    """fp32 launches resblock_tc, bf16 resblock_tc_bf16; resblock_launches
+    counts both."""
     k, dils, C, T = 3, (1, 3, 5), 128, 300
     p = resblock_params(8, k, C, 3)
     x = t(resblock_x(T, C, b=1)).transpose(1, 2).contiguous().to(cuda)
     args = [a.to(cuda) for a in packed_resblock(p)]
-    before, before_tc = trb.resblock_launches, trb.resblock_tc_launches
+    before = (trb.resblock_launches, trb.resblock_tc_launches, trb.resblock_tc_bf16_launches)
     trb.fused_resblock(x.to(dtype), *[a.to(dtype) for a in args], kernel_size=k,
                        dilations=dils)
     torch.cuda.synchronize()
-    assert trb.resblock_launches - before == 3
-    assert trb.resblock_tc_launches - before_tc == tc
+    assert trb.resblock_launches - before[0] == 3
+    assert trb.resblock_tc_launches - before[1] == tc
+    assert trb.resblock_tc_bf16_launches - before[2] == tc_bf16
+
+
+def _bf16_tol(ref) -> float:
+    return BF16_ULPS * bf16_ulp(ref.abs().max().item())
+
+
+def _bf16_case(cuda, C, k, T, b=2):
+    dils = (1, 3, 5)
+    p = resblock_params(C + 2 * k, k, C, 3)
+    args = [a.to(cuda).bfloat16() for a in packed_resblock(p)]
+    x = t(resblock_x(T, C, b=b)).transpose(1, 2).contiguous().to(cuda).bfloat16()
+    ref = trb._resblock(x, *args, kernel_size=k, dilations=dils).float()
+    return x, args, dils, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", trb.SUPPORTED_C)
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_tc_bf16_kernel_matches_plain_on_card(cuda, C, k):
+    """The bf16 route (csrc/resblock_tc_bf16.cu) at every width, T two
+    full tiles and a ragged one, against the bf16 plain chain on the same
+    inputs: max abs <= 4 bf16 ulps of |ref|max; 3 launches of it."""
+    x, args, dils, ref = _bf16_case(cuda, C, k, 2 * TC_TT[C] + 37)
+    assert trb._route("cuda", x.dtype, C) == "tc_bf16"
+    before = trb.resblock_tc_bf16_launches
+    got = trb.fused_resblock(x, *args, kernel_size=k, dilations=dils)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and trb.resblock_tc_bf16_launches == before + 3
+    err = (got.float() - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= _bf16_tol(ref), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["tc_bf16", "fma"])
+@pytest.mark.parametrize("C,T", [(256, 1), (16, 7), (64, 257)])
+def test_bf16_kernels_called_directly_on_card(cuda, route, C, T):
+    """Each bf16 kernel called directly, not through `_route`
+    (resblock.cu, on no route now, through `_fma_resblock`), at k = 11 on
+    sequences shorter than a tile and than the halo, and one row past a
+    tile: within 4 bf16 ulps of the bf16 plain chain."""
+    x, args, dils, ref = _bf16_case(cuda, C, 11, T, b=3)
+    got = (trb._fma_resblock(x, *args, kernel_size=11, dilations=dils) if route == "fma"
+           else trb._launch_steps(route, x, *args, 11, dils)[-1])
+    torch.cuda.synchronize()
+    err = (got.float() - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= _bf16_tol(ref), err
 
 
 @pytest.mark.gpu
@@ -133,13 +180,17 @@ def test_tc_autograd_matches_plain_on_card(cuda):
 
 @pytest.mark.gpu
 def test_kernel_bf16_correlates_on_card(cuda):
+    """The bf16 route (resblock_tc_bf16) follows the fp32 plain chain:
+    correlation > 0.99."""
     k, dils, C, T = 3, (1, 3, 5), 64, 600
     p = resblock_params(7, k, C, 3)
     x = t(resblock_x(T, C, b=1)).transpose(1, 2).contiguous().to(cuda)
     args = [a.to(cuda) for a in packed_resblock(p)]
     ref = trb._resblock(x, *args, kernel_size=k, dilations=dils)
+    before = trb.resblock_tc_bf16_launches
     got = trb.fused_resblock(x.bfloat16(), *[a.bfloat16() for a in args],
                              kernel_size=k, dilations=dils).float()
+    assert trb.resblock_tc_bf16_launches == before + len(dils)
     corr = np.corrcoef(n(got).ravel(), n(ref).ravel())[0, 1]
     assert corr > 0.99, corr
 
@@ -389,6 +440,11 @@ def _narrow_cfg():
         sr=6400, text_enc_hidden_dim=768)
 
 
+def _counts():
+    """The resblock launch counts: all, resblock_tc, resblock_tc_bf16."""
+    return trb.resblock_launches, trb.resblock_tc_launches, trb.resblock_tc_bf16_launches
+
+
 def _loud_synth(cfg, seed=0):
     tree = from_jax.random_synthesizer_tree(cfg, seed)
     for u in tree["dec"]["ups"]:
@@ -402,7 +458,7 @@ def test_served_convert_matches_direct_on_card(cuda, tmp_path, monkeypatch, prec
     """One /api/convert on the card in each precision: the response
     equals the direct convert_utterance of the server's pipeline within 1
     int16 step, and its decode launched the precision's kernel (fp32:
-    36 resblock_tc; bf16: 36 resblock, 0 resblock_tc)."""
+    36 resblock_tc; bf16: 36 resblock_tc_bf16; no other)."""
     import base64
     import http.client
     import io
@@ -436,7 +492,7 @@ def test_served_convert_matches_direct_on_card(cuda, tmp_path, monkeypatch, prec
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
         srv._get_pipeline(files["model"], files["index"], "", files["embedder"])
-        before = trb.resblock_launches, trb.resblock_tc_launches
+        before = _counts()
         conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=300)
         conn.request("POST", "/api/convert", body=json.dumps(req),
                      headers={"Content-Type": "application/json"})
@@ -444,11 +500,11 @@ def test_served_convert_matches_direct_on_card(cuda, tmp_path, monkeypatch, prec
         body = json.loads(resp.read())
         conn.close()
         assert resp.status == 200, body
-        launched = (trb.resblock_launches - before[0], trb.resblock_tc_launches - before[1])
+        launched = tuple(a - b for a, b in zip(_counts(), before))
     finally:
         httpd.shutdown()
         httpd.server_close()
-    assert launched == (36, 36 if precision == "fp32" else 0), launched
+    assert launched == ((36, 36, 0) if precision == "fp32" else (36, 0, 36)), launched
     got = wavfile.read(io.BytesIO(base64.b64decode(body["audio_b64"])))[1]
     pipe = srv._get_pipeline(files["model"], files["index"], "", files["embedder"])
     assert pipe.compute_dtype is (torch.bfloat16 if precision == "bf16" else None)
@@ -462,9 +518,10 @@ def test_served_convert_matches_direct_on_card(cuda, tmp_path, monkeypatch, prec
 
 @pytest.mark.gpu
 def test_bf16_pipeline_launches_fma_kernel_on_card(cuda):
-    """bf16 resblocks on the card run csrc/resblock.cu and never
-    resblock_tc; the waveform comes back fp32 and follows the fp32 one
-    (correlation > 0.98, max abs < 0.1, the JAX bf16 thresholds)."""
+    """bf16 resblocks on the card run csrc/resblock_tc_bf16.cu (36 launches
+    per decode) and never resblock_tc or resblock.cu; the waveform comes
+    back fp32 and follows the fp32 one (correlation > 0.98, max abs < 0.1,
+    the JAX bf16 thresholds)."""
     cfg = _narrow_cfg()
     kw = dict(synth_params=_loud_synth(cfg), model_cfg=cfg, device="cuda",
               hubert_params=from_jax.hubert_from_jax(from_jax.random_hubert_tree(1, n_layers=2)))
@@ -473,11 +530,11 @@ def test_bf16_pipeline_launches_fma_kernel_on_card(cuda):
     wavs = {}
     for dtype in (None, torch.bfloat16):
         pipe = ConvertPipeline(**kw, compute_dtype=dtype)
-        before = trb.resblock_launches, trb.resblock_tc_launches
+        before = _counts()
         wav, pitchf = pipe.convert_batch(audio, [32000], 0, settings)
         torch.cuda.synchronize()
-        launched = (trb.resblock_launches - before[0], trb.resblock_tc_launches - before[1])
-        assert launched == (36, 0 if dtype else 36), launched
+        launched = tuple(a - b for a, b in zip(_counts(), before))
+        assert launched == ((36, 0, 36) if dtype else (36, 36, 0)), launched
         assert wav.dtype == pitchf.dtype == torch.float32
         wavs[dtype] = n(wav)[0]
     a, b = wavs[None], wavs[torch.bfloat16]

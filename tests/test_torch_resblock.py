@@ -15,8 +15,8 @@ from rvc_maker_tpu.models.synthesizer import _resblock as jax_resblock
 from rvc_maker_tpu.ops.pallas_resblock import fused_resblock as pallas_resblock
 from rvc_maker_tpu.ops.pallas_resblock import pack_resblock_weights
 from rvc_maker_tpu_torch.ops import resblock as trb
-from torch_port_util import (n, packed_resblock, resblock_params, resblock_x, t, tree_np,
-                             torch_threads)  # noqa: F401
+from torch_port_util import (BF16_ULPS, bf16_ulp, n, packed_resblock, resblock_params,
+                             resblock_x, t, tree_np, torch_threads)  # noqa: F401
 
 SHAPES = [
     (3, (1, 3, 5), 32, 700),
@@ -118,12 +118,12 @@ def test_autograd_matches_jax_grad(k, dils, C, T):
     ("cpu", torch.float32, 128, "plain"),
     ("cpu", torch.bfloat16, 256, "plain"),
     *[("cuda", torch.float32, c, "tc") for c in trb.TC_WIDTHS],
-    ("cuda", torch.bfloat16, 128, "fma"),
-    ("cuda", torch.bfloat16, 256, "fma"),
+    ("cuda", torch.bfloat16, 128, "tc_bf16"),
+    ("cuda", torch.bfloat16, 256, "tc_bf16"),
 ])
 def test_route(device, dtype, C, route):
     """cpu -> the plain steps; a CUDA fp32 tensor whose width the tensor-core
-    kernel takes -> csrc/resblock_tc.cu; bf16 -> csrc/resblock.cu."""
+    kernel takes -> csrc/resblock_tc.cu; bf16 -> csrc/resblock_tc_bf16.cu."""
     assert trb._route(device, dtype, C) == route
 
 
@@ -338,6 +338,204 @@ def test_three_tf32_passes_hold_fp32_accuracy():
         errs[method] = np.abs(acc - ref).max() / np.abs(ref).max()
     assert errs["3xtf32"] <= min(1e-5, 3 * errs["fp32"]), errs
     assert errs["1xtf32"] > 1e-4, errs
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of csrc/resblock_tc_bf16.cu: one dilation step in bf16,
+# tiled as the kernel tiles it, with the m16n8k8 bf16 fragment maps, the
+# [channel pair][row] word images of lrelu(x) and of the intermediate,
+# and the weights' B fragments as ldmatrix.trans reads them.
+# ---------------------------------------------------------------------------
+
+def bf16(v):
+    """Round fp32 to bf16 (to nearest, ties to even), kept as fp32."""
+    bits = np.asarray(v, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
+
+
+def tc_bf16_geometry(C, K):
+    tt = 16384 // C
+    hc = (K - 1) // 2
+    m1 = -(-(tt + 2 * hc) // 16) * 16
+    ntw = min(4, C // 8)
+    wn = C // 8 // ntw
+    return dict(TT=tt, HC=hc, M1=m1, MT1=m1 // 16, MT2=tt // 16, NTW=ntw, WN=wn, WM=8 // wn,
+                CS=C + 8, S1=stride8(m1), TTP=tt + 4, NSTEP=C // 8)
+
+
+def mma_bf16(acc, a0, a1, b0):
+    """mma.sync.m16n8k8 f32.bf16.bf16.f32 over a warp's tiles.  Each
+    operand register is a (low, high) pair of bf16 values: a0, a1 (MT,
+    32) per lane, b0 (NT, 32).  A[g][2q + i] = a0[i], A[g + 8][2q + i] =
+    a1[i]; B[2q + i][g] = b0[i]; c0..c3 as in m16n8k4."""
+    a = np.zeros((a0[0].shape[0], 16, 8))
+    for i in range(2):
+        a[:, G, 2 * Q + i], a[:, G + 8, 2 * Q + i] = a0[i], a1[i]
+    b = np.zeros((b0[0].shape[0], 8, 8))
+    for i in range(2):
+        b[:, 2 * Q + i, G] = b0[i]
+    d = np.einsum("mik,nkj->mnij", a, b)          # products of bf16 are exact
+    c = np.stack([d[:, :, G, 2 * Q], d[:, :, G, 2 * Q + 1],
+                  d[:, :, G + 8, 2 * Q], d[:, :, G + 8, 2 * Q + 1]], -1)
+    return (acc + c).astype(np.float32)
+
+
+def tc_bf16_step_model(x, w1, b1, w2, b2, K, dil):
+    """One bf16 step of one batch row, x (C, T) of bf16 values ->
+    bf16(x + conv2(bf16(lrelu(conv1(bf16(lrelu(x))))))), through shared-
+    memory images laid out as the kernel lays them out.  A word image is
+    a (low, high) pair of arrays; words and weights the kernel never
+    writes hold NaN, so a fragment that reads one poisons the result."""
+    C, T = x.shape
+    g = tc_bf16_geometry(C, K)
+    TT, HC, M1, CS, S1, TTP = g["TT"], g["HC"], g["M1"], g["CS"], g["S1"], g["TTP"]
+    lrelu = lambda v: np.where(v >= 0, v, np.float32(0.1) * v).astype(np.float32)
+    xr = M1 + (K - 1) * dil
+    xrs = stride8(xr)
+    out = np.empty_like(x)
+
+    def stage_w(w, s):               # [K][kCI][CS] bf16, columns C..CS unwritten
+        ws = np.full((K, 8, CS), np.nan, np.float32)
+        ws[:, :, :C] = w[:, 8 * s:8 * s + 8, :]
+        return ws.ravel()
+
+    def b_frags(ws, j, nts):
+        """ldmatrix.trans: lanes 8i..8i+7 give n-tile i's rows k = 0..7 at
+        element (j * 8 + k) * CS + nt * 8; lane (g, q) receives rows 2q and
+        2q + 1 of column g.  Each 8-row read covers 32 distinct banks."""
+        rows = (j * 8 + np.arange(8))[None, :] * CS + nts[:, None] * 8       # (NT, 8)
+        for r in rows:
+            assert r.min() % 8 == 0 and (CS * 2) % 16 == 0          # 16-byte rows
+            assert_banks_distinct((r[:, None] // 2 + np.arange(4)).ravel())
+        return tuple(ws[rows[:, 2 * Q + i] + G] for i in range(2))
+
+    def a_frags(lo, hi, addr):
+        assert_banks_distinct(addr[0])
+        assert_banks_distinct(addr[0] + 8)
+        return (lo[addr], hi[addr]), (lo[addr + 8], hi[addr + 8])
+
+    for t0 in range(0, T, TT):
+        xstart = t0 - HC - HC * dil
+        # ---- conv1 over rows [t0 - HC, t0 - HC + M1)
+        acc1 = {w: np.zeros((len(warp_tiles(w, g, g["MT1"])[0]), g["NTW"], 32, 4),
+                            np.float32) for w in range(8)}
+        for s in range(g["NSTEP"]):
+            xlo, xhi = (np.full(4 * xrs, np.nan, np.float32) for _ in range(2))  # [kCP][xrs]
+            tt = xstart + np.arange(xr)
+            ok = (tt >= 0) & (tt < T)
+            for p in range(4):
+                for half, c in ((xlo, 8 * s + 2 * p), (xhi, 8 * s + 2 * p + 1)):
+                    half[p * xrs + np.arange(xr)] = np.where(
+                        ok, bf16(lrelu(x[c, np.clip(tt, 0, T - 1)])), 0.0)
+            ws = stage_w(w1, s)
+            for w in range(8):
+                mts, nts = warp_tiles(w, g, g["MT1"])
+                for j in range(K):
+                    a0, a1 = a_frags(xlo, xhi, Q * xrs + mts[:, None] * 16 + G + j * dil)
+                    acc1[w] = mma_bf16(acc1[w], a0, a1, b_frags(ws, j, nts))
+        # ---- bf16(lrelu(+ b1)), 0 outside [0, T) -> t1s [C/2][S1] words
+        tlo, thi = (np.full(C // 2 * S1, np.nan, np.float32) for _ in range(2))
+        for w in range(8):
+            mts, nts = warp_tiles(w, g, g["MT1"])
+            for h in range(2):
+                m = mts[:, None, None] * 16 + G + 8 * h                # (MT, 1, 32)
+                nn = nts[None, :, None] * 8 + 2 * Q                   # (1, NT, 32)
+                addr = (nn // 2) * S1 + m
+                assert_banks_distinct(addr[0, 0])
+                seq = (t0 - HC + m >= 0) & (t0 - HC + m < T)
+                for half, r, dn in ((tlo, 2 * h, 0), (thi, 2 * h + 1, 1)):
+                    v = bf16(lrelu(acc1[w][..., r] + b1[nn + dn]))
+                    half[addr] = np.where(seq, v, 0.0)
+        # ---- conv2 over rows [t0, t0 + TT), A from t1s offset by j rows
+        acc2 = {w: np.zeros((len(warp_tiles(w, g, g["MT2"])[0]), g["NTW"], 32, 4),
+                            np.float32) for w in range(8)}
+        for s in range(g["NSTEP"]):
+            ws = stage_w(w2, s)
+            for w in range(8):
+                mts, nts = warp_tiles(w, g, g["MT2"])
+                for j in range(K):
+                    a0, a1 = a_frags(tlo, thi, (4 * s + Q) * S1 + mts[:, None] * 16 + G + j)
+                    acc2[w] = mma_bf16(acc2[w], a0, a1, b_frags(ws, j, nts))
+        # ---- + b2 into an fp32 tile [C][TTP], then bf16(x + tile) along time
+        tile = np.full(C * TTP, np.nan, np.float32)
+        for w in range(8):
+            mts, nts = warp_tiles(w, g, g["MT2"])
+            for r in range(4):
+                m = mts[:, None, None] * 16 + G + 8 * (r >> 1)
+                nn = nts[None, :, None] * 8 + 2 * Q + (r & 1)
+                assert_banks_distinct((nn * TTP + m)[0, 0])
+                tile[nn * TTP + m] = acc2[w][..., r] + b2[nn]
+        n_rows = min(TT, T - t0)
+        tile = tile.reshape(C, TTP)[:, :n_rows]
+        out[:, t0:t0 + n_rows] = bf16(x[:, t0:t0 + n_rows] + tile)
+    return out
+
+
+@pytest.mark.parametrize("C", [16, 32])
+@pytest.mark.parametrize("k", [3, 7])
+def test_tc_bf16_fragment_model_matches_branch(C, k):
+    """The model of the bf16 tensor-core kernel's step, at T across two
+    time tiles, against x + _branch in bf16 on the same bf16 inputs: max
+    abs <= 4 bf16 ulps of |ref|max (both accumulate in fp32; the plain
+    chain also rounds each conv's output and the sum to bf16)."""
+    dil = 3
+    T = tc_bf16_geometry(C, k)["TT"] + 37
+    p = resblock_params(C * k + 1, k, C, 1)
+    w1, b1, w2, b2 = (bf16(n(a[0])) for a in packed_resblock(p))
+    x = bf16(resblock_x(T, C, b=1)[0].T)                  # (C, T)
+    got = tc_bf16_step_model(x, w1, b1, w2, b2, k, dil)
+    xt, wt = t(x, torch.bfloat16)[None], [t(a, torch.bfloat16) for a in (w1, b1, w2, b2)]
+    ref = n((xt + trb._branch(xt, *wt, k, dil)).float())[0]
+    err = np.abs(got - ref).max()
+    assert np.isfinite(got).all() and np.array_equal(got, bf16(got))
+    assert err <= BF16_ULPS * bf16_ulp(np.abs(ref).max()), err
+
+
+def test_tc_bf16_model_matches_pallas_bf16_interpret():
+    """The model run over the D = 3 steps of a resblock against the JAX
+    package's Pallas kernel in bf16 (interpret mode) on the same bf16
+    inputs and `pack_resblock_weights(dtype=bfloat16)` weights: max abs
+    <= 4 bf16 ulps of |ref|max.  The Pallas kernel keeps x in fp32
+    across the dilations and rounds once at the end; the port's steps
+    round x to bf16 between launches."""
+    k, dils, C, T = 3, (1, 3, 5), 32, 300
+    p = resblock_params(12, k, C, len(dils))
+    x = bf16(resblock_x(T, C, b=2))                         # (B, T, C)
+    w1, b1, w2, b2 = pack_resblock_weights(jax.tree_util.tree_map(jnp.asarray, p),
+                                           kernel_size=k, dilations=dils, dtype=jnp.bfloat16)
+    ref = np.asarray(pallas_resblock(jnp.asarray(x, jnp.bfloat16), w1, b1, w2, b2,
+                                     kernel_size=k, dilations=dils, interpret=True,
+                                     t_tile=256).astype(jnp.float32))
+    pw = [np.asarray(a.astype(jnp.float32))[..., :C] for a in (w1, b1, w2, b2)]
+    pw[0], pw[2] = pw[0][:, :, :C, :C], pw[2][:, :, :C, :C]
+    got = []
+    for row in x:
+        y = row.T.copy()                                        # (C, T)
+        for i, d in enumerate(dils):
+            y = tc_bf16_step_model(y, pw[0][i], pw[1][i], pw[2][i], pw[3][i], k, d)
+        got.append(y.T)
+    err = np.abs(np.stack(got) - ref).max()
+    assert err <= BF16_ULPS * bf16_ulp(np.abs(ref).max()), err
+
+
+def test_tc_bf16_geometry_fits_shared_memory():
+    """Every (C, k, dil) the bf16 kernel takes fits the 227 KB a block may
+    use (the kernel's `launch`: the staging buffers, or the fp32 output
+    tile laid over them after conv2, whichever is larger); conv1's rows
+    cover conv2's halo, the intermediate's row stride holds them, and
+    NSTEP is even (the weight ring alternates per step)."""
+    for C in trb.SUPPORTED_C:
+        for k in trb.SUPPORTED_K:
+            g = tc_bf16_geometry(C, k)
+            assert g["M1"] >= g["TT"] + 2 * g["HC"] and g["M1"] <= g["S1"]
+            assert g["TT"] % 32 == 0 and g["NSTEP"] % 2 == 0
+            assert g["WN"] * g["NTW"] * 8 == C and 8 % g["WN"] == 0
+            for dil in range(1, trb.MAX_DILATION + 1):
+                xrs = stride8(g["M1"] + (k - 1) * dil)
+                staging = 2 * 2 * k * 8 * g["CS"] + 4 * (C // 2 * g["S1"] + 2 * 4 * xrs)
+                smem = max(staging, 4 * C * g["TTP"])
+                assert smem <= 232448, (C, k, dil, smem)
 
 
 def test_slope_pinned_reference_is_the_plain_chain_at_its_own_steps():

@@ -4,6 +4,8 @@ Data passes between JAX and PyTorch as numpy arrays.  Torch's CPU
 threads are capped so that the xdist workers do not oversubscribe.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +47,14 @@ def assert_grads_close(got, ref, what=""):
             continue
         err = float(np.abs(g - r).max())
         assert err <= 1e-3 * np.abs(r).max(), (what, i, r.shape, err)
+
+
+BF16_ULPS = 4     # a bf16 kernel vs a bf16 reference: max abs <= 4 ulps of |ref|max
+
+
+def bf16_ulp(v: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at |v|."""
+    return 2.0 ** (math.frexp(float(v))[1] - 8)
 
 
 def t(a, dtype=torch.float32):
