@@ -115,8 +115,32 @@ Phases, each printed as it runs; any failure exits non-zero:
               functions by own time (cProfile), and one call under
               torch.profiler.
 
+ 12. train-all  (a) the autograd resblock in bf16 at phase 6's shapes:
+              the forward against the bf16 plain chain (4 bf16 ulps), the
+              gradients against fp32 autograd through the plain chain at
+              pinned slopes (within 4 bf16 ulps of |ref|max or twice the
+              plain bf16 chain's own distance), timed beside cuDNN's bf16
+              chain and the bf16 bound.  (b) train() at v2-48k, B = 8 on
+              phase 7's segments: the f0-less decoder, MRF-HiFi-GAN and
+              RefineGAN (4 steps each), NSF in bf16 (4 steps) and NSF in
+              bf16 with checkpointing (2 steps); launches counted: 36
+              resblock_tc per step (f0-less, MRF), 0 (RefineGAN), 36 and 72
+              resblock_tc_bf16 per step (bf16, bf16 + checkpointing), plus
+              36 resblock_tc of the TensorBoard eval sample (0 for RefineGAN);
+              finite losses, peak memory, three more steps' ms per range and
+              one step's device ms under the profiler; each exported .pth
+              converts 2 s.  (c) `cli extract --f0-method yin`
+              without --embedder-path (a random HuBERT), and hybrid[rmvpe+yin]
+              against the nanmedian of its members.  (d) build_index on
+              250,000 x 768 random features (k-means to 10,000 centroids on
+              the card, timed alone too), build_ivf_file (nlist 256), the file
+              read back to the same vectors, `cli convert --index` on it.
+              (e) phase 8's narrow step card against CPU for MRF fp32 (its
+              tolerances) and NSF bf16 (losses within 0.1 relative, the G
+              gradient norm within 0.25).
+
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
-says otherwise; phases 3 and 11 also run bf16.
+says otherwise; phases 3, 11 and 12 also run bf16.
 The line before the last holds the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
@@ -124,8 +148,10 @@ is {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -401,8 +427,9 @@ def profile_call(label, fn, wall_s):
     log(f"  profile of {label}: device {device_ms:.3f} ms of "
         f"{1e3 * wall_s:.3f} ms wall (busy share {res['busy_share']:.3f}); resblock "
         f"kernel {resblock_ms:.3f} ms ({res['resblock_share']:.3f} of device time)")
-    log("  by stage: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
-        + f", outside the stages {res['unattributed_ms']:.3f} ms")
+    if stages:
+        log("  by stage: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+            + f", outside the stages {res['unattributed_ms']:.3f} ms")
     for name, ms in top:
         log(f"    {ms:9.3f} ms  {name[:110]}")
     log("  host self time: " + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top_host))
@@ -688,9 +715,9 @@ def write_dataset(root: str, n_files: int, seconds: float, sr: int, seed: int):
                  (x + 0.01 * rs.randn(len(tt))).astype(np.float32), sr)
 
 
-def train_flow(model, card: str):
+def train_flow(model, card: str, tmp: str):
+    """Phase 7 in `tmp`; the experiment dir tmp/voice stays for phase 12."""
     import dataclasses
-    import tempfile
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -710,147 +737,153 @@ def train_flow(model, card: str):
     per_step = sum(len(d) for d in cfg.model.resblock_dilation_sizes) * len(
         cfg.model.upsample_rates)
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        exp = os.path.join(tmp, "voice")
-        write_dataset(os.path.join(tmp, "dataset"), 32, 3.5, 48000, seed=5)
-        t0 = time.perf_counter()
-        n_seg = preprocess_dataset(os.path.join(tmp, "dataset"), exp, 48000, per=3.7,
-                                   num_workers=4)
-        res["preprocess_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        nf = ex.extract_f0(exp, model["rmvpe_params"], device="cuda")
-        ne = ex.extract_embeddings(exp, model["hubert_params"], version="v2", device="cuda")
-        ex.write_mute_fixture(exp, cfg, model["hubert_params"], "v2", device="cuda")
-        ex.generate_filelist(exp, cfg, "v2", seed=0)
-        torch.cuda.synchronize()
-        res["extract_s"] = time.perf_counter() - t0
-        if not n_seg == nf == ne == 32:
-            raise AssertionError(f"segments {n_seg}, f0 {nf}, features {ne}: expected 32")
-        log(f"  preprocess {n_seg} segments in {res['preprocess_s']:.2f} s; extract "
-            f"(RMVPE + HuBERT on the card) in {res['extract_s']:.2f} s")
+    exp = os.path.join(tmp, "voice")
+    write_dataset(os.path.join(tmp, "dataset"), 32, 3.5, 48000, seed=5)
+    t0 = time.perf_counter()
+    n_seg = preprocess_dataset(os.path.join(tmp, "dataset"), exp, 48000, per=3.7,
+                               num_workers=4)
+    res["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nf = ex.extract_f0(exp, model["rmvpe_params"], device="cuda")
+    ne = ex.extract_embeddings(exp, model["hubert_params"], version="v2", device="cuda")
+    ex.write_mute_fixture(exp, cfg, model["hubert_params"], "v2", device="cuda")
+    ex.generate_filelist(exp, cfg, "v2", seed=0)
+    torch.cuda.synchronize()
+    res["extract_s"] = time.perf_counter() - t0
+    if not n_seg == nf == ne == 32:
+        raise AssertionError(f"segments {n_seg}, f0 {nf}, features {ne}: expected 32")
+    log(f"  preprocess {n_seg} segments in {res['preprocess_s']:.2f} s; extract "
+        f"(RMVPE + HuBERT on the card) in {res['extract_s']:.2f} s")
 
-        stamps, metrics = [], []
+    stamps, metrics = [], []
 
-        def log_writer(step, m):
-            stamps.append(time.perf_counter())
-            metrics.append(m)
+    def log_writer(step, m):
+        stamps.append(time.perf_counter())
+        metrics.append(m)
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(rb)
-        t0 = time.perf_counter()
-        state = train_loop.train(exp, cfg, total_epochs=1, batch_size=8,
-                                 save_every_epoch=1, device="cuda", log_writer=log_writer)
-        torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        launches, tc_launches = rb.resblock_launches, rb.resblock_tc_launches
-        peak = torch.cuda.max_memory_allocated()
-        steps = state.step
-        if steps < 3 or not launches == tc_launches == per_step * steps:
-            raise AssertionError(f"{steps} steps, {launches} resblock launches ({tc_launches} "
-                                 f"resblock_tc): expected >= 3 steps and {per_step} "
-                                 "tensor-core launches per step")
-        for m in metrics:
-            if not all(np.isfinite(v) for v in m.values()):
-                raise AssertionError(f"non-finite training metrics {m}")
-        gaps = np.diff(stamps)
-        warm_s = float(np.mean(gaps))
-        res.update(steps=steps, resblock_launches=launches, resblock_tc_launches=tc_launches,
-                   launches_per_step=launches // steps,
-                   train_s=t_train, first_step_s=stamps[0] - t0, warm_step_s=warm_s,
-                   steps_per_s=1.0 / warm_s, max_memory_allocated=peak,
-                   losses=[{k: v for k, v in m.items() if k.startswith(("loss", "grad"))}
-                           for m in metrics])
-        log(f"  train(): {steps} steps at B = 8 in {t_train:.3f} s; first step "
-            f"{res['first_step_s']:.3f} s, warm step {warm_s:.4f} s ({1.0 / warm_s:.3f} "
-            f"steps/s, the loop's own step-to-step time); peak device memory "
-            f"{peak / 2**30:.2f} GiB; resblock launches {launches} ({launches // steps} per step)")
-        for i, m in enumerate(metrics):
-            log(f"    step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()
-                                                if k != "lr"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(rb)
+    t0 = time.perf_counter()
+    state = train_loop.train(exp, cfg, total_epochs=1, batch_size=8,
+                             save_every_epoch=1, device="cuda", log_writer=log_writer)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches, tc_launches = rb.resblock_launches, rb.resblock_tc_launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = state.step
+    if steps < 3 or not launches == tc_launches == per_step * steps:
+        raise AssertionError(f"{steps} steps, {launches} resblock launches ({tc_launches} "
+                             f"resblock_tc): expected >= 3 steps and {per_step} "
+                             "tensor-core launches per step")
+    for m in metrics:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite training metrics {m}")
+    gaps = np.diff(stamps)
+    warm_s = float(np.mean(gaps))
+    res.update(steps=steps, resblock_launches=launches, resblock_tc_launches=tc_launches,
+               launches_per_step=launches // steps,
+               train_s=t_train, first_step_s=stamps[0] - t0, warm_step_s=warm_s,
+               steps_per_s=1.0 / warm_s, max_memory_allocated=peak,
+               losses=[{k: v for k, v in m.items() if k.startswith(("loss", "grad"))}
+                       for m in metrics])
+    log(f"  train(): {steps} steps at B = 8 in {t_train:.3f} s; first step "
+        f"{res['first_step_s']:.3f} s, warm step {warm_s:.4f} s ({1.0 / warm_s:.3f} "
+        f"steps/s, the loop's own step-to-step time); peak device memory "
+        f"{peak / 2**30:.2f} GiB; resblock launches {launches} ({launches // steps} per step)")
+    for i, m in enumerate(metrics):
+        log(f"    step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()
+                                            if k != "lr"))
 
-        pths = sorted(f for f in os.listdir(exp) if f.endswith(".pth"))
-        if pths != [f"voice_1e_{steps}s.pth"]:
-            raise AssertionError(f"exported weights {pths}")
-        params, mcfg, meta = load_synthesizer_pth(os.path.join(exp, pths[0]))
-        pipe = ConvertPipeline(params, mcfg, model["hubert_params"], version="v2",
-                               rmvpe_params=model["rmvpe_params"], device="cuda")
-        reset_counts(rb)
-        out = pipe.convert_utterance(voice(5.0, 180.0, 9), 0, ConvertSettings())
-        if not np.isfinite(out).all() or abs(len(out) - 5.0 * mcfg.sr) > 2 * mcfg.upp:
-            raise AssertionError(f"converted utterance: {len(out)} samples, finite "
-                                 f"{np.isfinite(out).all()}")
-        if rb.resblock_launches != per_step:
-            raise AssertionError(f"conversion launched {rb.resblock_launches}")
-        res.update(exported=pths[0], convert_samples=len(out),
-                   convert_absmax=float(np.abs(out).max()))
-        log(f"  exported {pths[0]} (step {meta['step']}); converted 5 s on the card: "
-            f"{len(out)} samples at {mcfg.sr} Hz, |out|max {res['convert_absmax']:.3f}")
-        del pipe
+    pths = sorted(f for f in os.listdir(exp) if f.endswith(".pth"))
+    if pths != [f"voice_1e_{steps}s.pth"]:
+        raise AssertionError(f"exported weights {pths}")
+    params, mcfg, meta = load_synthesizer_pth(os.path.join(exp, pths[0]))
+    pipe = ConvertPipeline(params, mcfg, model["hubert_params"], version="v2",
+                           rmvpe_params=model["rmvpe_params"], device="cuda")
+    reset_counts(rb)
+    out = pipe.convert_utterance(voice(5.0, 180.0, 9), 0, ConvertSettings())
+    if not np.isfinite(out).all() or abs(len(out) - 5.0 * mcfg.sr) > 2 * mcfg.upp:
+        raise AssertionError(f"converted utterance: {len(out)} samples, finite "
+                             f"{np.isfinite(out).all()}")
+    if rb.resblock_launches != per_step:
+        raise AssertionError(f"conversion launched {rb.resblock_launches}")
+    res.update(exported=pths[0], convert_samples=len(out),
+               convert_absmax=float(np.abs(out).max()))
+    log(f"  exported {pths[0]} (step {meta['step']}); converted 5 s on the card: "
+        f"{len(out)} samples at {mcfg.sr} Hz, |out|max {res['convert_absmax']:.3f}")
+    del pipe
 
-        # one more step, three ways, on the trained state
-        dataset = data_mod.TrainingDataset(os.path.join(exp, "filelist.txt"), cfg)
-        batch = next(data_mod.batches_for_epoch(dataset, batch_size=8, epoch=2)).to("cuda")
-        step_fn = tr.make_train_step(cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    # one more step, three ways, on the trained state
+    dataset = data_mod.TrainingDataset(os.path.join(exp, "filelist.txt"), cfg)
+    batch = next(data_mod.batches_for_epoch(dataset, batch_size=8, epoch=2)).to("cuda")
+    step_fn = tr.make_train_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    timer = tr.RangeTimer()
+    step_fn(state, batch, timer=timer)
+    ranges, ranges_host = timer.ms()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step_fn(state, batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        timer = tr.RangeTimer()
-        step_fn(state, batch, timer=timer)
-        ranges, ranges_host = timer.ms()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step_fn(state, batch)
-            torch.cuda.synchronize()
-        by_kernel = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
-        device_ms = sum(by_kernel.values())
-        resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-        res["profile"] = dict(step_wall_ms=wall_ms, ranges_ms=ranges,
-                              ranges_host_ms=ranges_host,
-                              ranges_sum_ms=sum(ranges.values()), device_ms=device_ms,
-                              busy_share=device_ms / wall_ms if device_ms else None,
-                              resblock_kernel_ms=resblock_ms, top_kernels_ms=dict(top),
-                              batch_frames=int(batch.spec.shape[1]))
-        log(f"  one step (T = {batch.spec.shape[1]} frames): {wall_ms:.3f} ms wall; device ms "
-            "per range (CUDA events) / host ms: " + ", ".join(
-                f"{k} {v:.3f} / {ranges_host[k]:.3f}" for k, v in ranges.items()))
-        if device_ms:
-            log(f"  profiler: device {device_ms:.3f} ms of {wall_ms:.3f} ms wall (busy share "
-                f"{device_ms / wall_ms:.3f}); resblock kernel {resblock_ms:.3f} ms; on {card}")
-            for name, ms in top:
-                log(f"    {ms:9.3f} ms  {name[:110]}")
-        else:
-            log("  profiler: device time not measured (the profiler saw no kernels)")
-        del state, batch
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+    device_ms = sum(by_kernel.values())
+    resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    res["profile"] = dict(step_wall_ms=wall_ms, ranges_ms=ranges,
+                          ranges_host_ms=ranges_host,
+                          ranges_sum_ms=sum(ranges.values()), device_ms=device_ms,
+                          busy_share=device_ms / wall_ms if device_ms else None,
+                          resblock_kernel_ms=resblock_ms, top_kernels_ms=dict(top),
+                          batch_frames=int(batch.spec.shape[1]))
+    log(f"  one step (T = {batch.spec.shape[1]} frames): {wall_ms:.3f} ms wall; device ms "
+        "per range (CUDA events) / host ms: " + ", ".join(
+            f"{k} {v:.3f} / {ranges_host[k]:.3f}" for k, v in ranges.items()))
+    if device_ms:
+        log(f"  profiler: device {device_ms:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+            f"{device_ms / wall_ms:.3f}); resblock kernel {resblock_ms:.3f} ms; on {card}")
+        for name, ms in top:
+            log(f"    {ms:9.3f} ms  {name[:110]}")
+    else:
+        log("  profiler: device time not measured (the profiler saw no kernels)")
+    del state, batch
     torch.cuda.empty_cache()
     return res
 
 
-def _narrow_train_config():
+def _narrow_train_config(vocoder: str = "Default", bf16: bool = False):
     from rvc_maker_tpu_torch.config import DataConfig, ModelConfig, RVCConfig, TrainConfig
 
     return RVCConfig(
-        version="v2", train=TrainConfig(segment_size=8 * 64),
+        version="v2", train=TrainConfig(segment_size=8 * 64, bf16=bf16),
         data=DataConfig(sample_rate=6400, filter_length=256, hop_length=64, win_length=256,
                         n_mel_channels=32),
         model=ModelConfig(spec_channels=129, segment_size=8, inter_channels=32,
                           hidden_channels=32, filter_channels=64, n_heads=2, n_layers=1,
                           kernel_size=3, upsample_rates=(4, 4, 2, 2),
                           upsample_initial_channel=256, upsample_kernel_sizes=(8, 8, 4, 4),
-                          spk_embed_dim=4, gin_channels=16, sr=6400, text_enc_hidden_dim=96))
+                          spk_embed_dim=4, gin_channels=16, sr=6400, text_enc_hidden_dim=96,
+                          vocoder=vocoder))
 
 
-def train_parity():
+def train_parity(vocoder: str = "Default", bf16: bool = False):
+    """One narrow train step (decode C = 128..16, k = 3/7/11) from the same
+    state and explicit noise on the CPU and on the card.  fp32: each loss
+    term <= 1e-4 relative, each gradient leaf <= 1e-3 * its max |g|.  bf16
+    (the JAX package's bf16 tests' gates): loss_g, loss_d, loss_mel and
+    loss_kl within 0.1 relative, the G gradient norm within 0.25."""
     from rvc_maker_tpu_torch.interop import from_jax
+    from rvc_maker_tpu_torch.models.vocoders import MRF_HARMONICS
     from rvc_maker_tpu_torch.ops import resblock as rb
     from rvc_maker_tpu_torch.pipelines import train as tr
 
-    cfg = _narrow_train_config()
+    cfg = _narrow_train_config(vocoder, bf16)
     b, t, seg, upp = 4, 24, cfg.model.segment_size, cfg.model.upp
     rs = np.random.RandomState(0)
     lengths = np.array([t, t, seg + 2, t - 5], np.int32)
@@ -859,23 +892,47 @@ def train_parity():
                      pitchf=(rs.rand(b, t) * 200 + 80).astype(np.float32),
                      spec=np.abs(rs.randn(b, t, 129)).astype(np.float32), spec_lengths=lengths,
                      wave=(rs.randn(b, t * 64, 1) * 0.1).astype(np.float32), sid=rs.randint(0, 4, b))
-    noise = dict(post_noise=rs.randn(b, t, 32).astype(np.float32),
-                 ids_slice=np.array([0, 16, 1, 9], np.int32),
-                 sine_noise=rs.randn(b, seg * upp, 1).astype(np.float32))
+    post = rs.randn(b, t, 32).astype(np.float32)
+    ids = np.array([0, 16, 1, 9], np.int32)
+    if vocoder == "Default":
+        dec = {"sine": rs.randn(b, seg * upp, 1).astype(np.float32)}
+    else:
+        ini = rs.rand(b, MRF_HARMONICS + 1).astype(np.float32)
+        ini[:, 0] = 0.0
+        dec = {"source": rs.randn(b, seg * upp, MRF_HARMONICS + 1).astype(np.float32),
+               "rand_ini": ini}
+    dtype = torch.bfloat16 if bf16 else torch.float32
     params_g = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg.model, 4),
                                              cfg.model, train=True)
     params_d = from_jax.discriminator_from_jax(from_jax.random_discriminator_tree("v2", 16, 5))
+    per_step = sum(len(d) for d in cfg.model.resblock_dilation_sizes) * len(
+        cfg.model.upsample_rates)
+    want = (per_step, 0, per_step) if bf16 else (per_step, per_step, 0)
     out = {}
     for dev in ("cpu", "cuda"):
         state = tr.init_state(cfg, params_g, params_d, device=dev, disc_width_div=16)
+        noise = dict(post_noise=torch.as_tensor(post, device=dev).to(dtype),
+                     ids_slice=torch.as_tensor(ids, device=dev),
+                     dec_noise={k: torch.as_tensor(v, device=dev).to(
+                         torch.float32 if k == "rand_ini" else dtype) for k, v in dec.items()})
         saved = reset_counts(rb)
-        m = tr.make_train_step(cfg, 16)(
-            state, batch.to(dev), keep_grads=True,
-            noise={k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
+        m = tr.make_train_step(cfg, 16)(state, batch.to(dev), keep_grads=True, noise=noise)
         launched = reset_counts(rb, saved)  # comparison launches do not count
-        if launched != ((0, 0, 0) if dev == "cpu" else (36, 36, 0)):
+        if launched != ((0, 0, 0) if dev == "cpu" else want):
             raise AssertionError(f"{dev}: {launched} resblock launches (all, tc, tc_bf16)")
         out[dev] = m
+    name = f"{vocoder}{' bf16' if bf16 else ''}"
+    if bf16:
+        rel = {k: abs(float(out["cuda"][k]) - float(out["cpu"][k]))
+               / max(abs(float(out["cpu"][k])), 1e-6)
+               for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "grad_norm_g")}
+        log(f"  card vs CPU, one narrow {name} train step: relative differences "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + " (tol 0.1 for the losses, 0.25 for grad_norm_g)")
+        for k, v in rel.items():
+            if not v < (0.25 if k == "grad_norm_g" else 0.1):
+                raise AssertionError(f"card vs CPU bf16 {k}: rel {v:.3e}")
+        return dict(relative_differences=rel)
     worst_loss = 0.0
     for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
         a, r = float(out["cuda"][k]), float(out["cpu"][k])
@@ -884,8 +941,8 @@ def train_parity():
         if not rel <= 1e-4:
             raise AssertionError(f"card vs CPU {k}: {a} vs {r} (rel {rel:.2e})")
     worst_grad, n_zero = 0.0, 0
-    for name in ("grads_g", "grads_d"):
-        got, ref = out["cuda"][name], out["cpu"][name]
+    for gname in ("grads_g", "grads_d"):
+        got, ref = out["cuda"][gname], out["cpu"][gname]
         floor = 1e-6 * max(g.abs().max().item() for g in ref)
         for i, (a, r) in enumerate(zip(got, ref)):
             a = a.cpu()
@@ -893,17 +950,17 @@ def train_parity():
             if r_max < floor:         # an exact-zero gradient: rounding noise on both
                 n_zero += 1
                 if not a.abs().max().item() < floor:
-                    raise AssertionError(f"{name}[{i}]: card {a.abs().max().item()} "
+                    raise AssertionError(f"{gname}[{i}]: card {a.abs().max().item()} "
                                          f"where the CPU is at rounding level")
                 continue
             rel = (a - r).abs().max().item() / r_max
             worst_grad = max(worst_grad, rel)
             if not rel <= 1e-3:
-                raise AssertionError(f"{name}[{i}] {tuple(r.shape)}: rel err {rel:.2e}")
-    log(f"  card vs CPU, one narrow train step: loss terms max rel err {worst_loss:.3e} "
-        f"(tol 1e-4); gradient leaves max err / max|g| {worst_grad:.3e} (tol 1e-3) over "
-        f"{len(out['cpu']['grads_g'])} G and {len(out['cpu']['grads_d'])} D leaves "
-        f"({n_zero} at rounding level on both)")
+                raise AssertionError(f"{name} {gname}[{i}] {tuple(r.shape)}: rel err {rel:.2e}")
+    log(f"  card vs CPU, one narrow {name} train step: loss terms max rel err "
+        f"{worst_loss:.3e} (tol 1e-4); gradient leaves max err / max|g| {worst_grad:.3e} "
+        f"(tol 1e-3) over {len(out['cpu']['grads_g'])} G and {len(out['cpu']['grads_d'])} D "
+        f"leaves ({n_zero} at rounding level on both)")
     return dict(loss_max_rel_err=worst_loss, grad_max_rel_err=worst_grad,
                 zero_grad_leaves=n_zero)
 
@@ -1587,10 +1644,439 @@ def serve_phase(cfg, model):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training every decoder and mode, extract, the index build
+# ---------------------------------------------------------------------------
+
+def check_resblock_train_bf16(stage_shapes, kernels, dilations, card: str):
+    """The autograd resblock in bf16 (resblock_tc_bf16.cu forward, the
+    backward recomputed in cuDNN bf16) at the training stage shapes.  The
+    forward against the bf16 plain chain (4 bf16 ulps of |ref|max); the
+    gradients of x, w1, b1, w2, b2 against fp32 autograd through the plain
+    chain with its slopes pinned at the kernel's step inputs, beside the
+    bf16 plain chain's own autograd against the same reference: each
+    within the larger of 4 bf16 ulps of |ref|max and twice the plain bf16
+    chain's distance.  Timed: the kernel's forward, cuDNN's bf16 chain
+    (the library yardstick), the plain bf16 chain, forward + backward of
+    both, beside the bf16 bound."""
+    from rvc_maker_tpu_torch.ops import resblock as rb
+
+    gen = torch.Generator().manual_seed(2)
+    names = ("x", "w1", "b1", "w2", "b2")
+    rows, worst = [], dict(fwd=0.0, grad_over_tol=0.0)
+    saved = reset_counts(rb)
+    for (b, c, t) in stage_shapes:
+        stage = dict(B=b, C=c, T=t, fwd_ms=0.0, plain_fwd_ms=0.0, library_fwd_ms=0.0,
+                     fwd_bwd_ms=0.0, plain_fwd_bwd_ms=0.0, flops=0, bytes=0)
+        for k in kernels:
+            D = len(dilations)
+            scale = 0.5 / (k * c) ** 0.5
+            args = [(torch.randn(b, c, t, generator=gen) * 0.3).cuda().bfloat16(),
+                    (torch.randn(D, k, c, c, generator=gen) * scale).cuda().bfloat16(),
+                    (torch.randn(D, c, generator=gen) * 0.1).cuda().bfloat16(),
+                    (torch.randn(D, k, c, c, generator=gen) * scale).cuda().bfloat16(),
+                    (torch.randn(D, c, generator=gen) * 0.1).cuda().bfloat16()]
+            cot = torch.randn(b, c, t, generator=gen).cuda().bfloat16()
+            kw = dict(kernel_size=k, dilations=dilations)
+            ref = rb._resblock(*args, **kw).float()
+            rb.resblock_tc_bf16_launches = 0
+            got = rb.fused_resblock(*args, **kw).float()
+            if rb.resblock_tc_bf16_launches != D:
+                raise AssertionError(f"bf16 C={c} did not take the bf16 tensor-core kernel")
+            fwd_err = (got - ref).abs().max().item()
+            fwd_tol = BF16_ULPS * bf16_ulp(ref.abs().max().item())
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            g_kernel = torch.autograd.grad(rb.fused_resblock(*leaves, **kw), leaves, cot)
+            g_plain = torch.autograd.grad(rb._resblock(*leaves, **kw), leaves, cot)
+            steps = rb._forward_steps(*args, k, dilations)
+            leaves32 = [a.float().detach().requires_grad_(True) for a in args]
+            pinned, flip = rb._resblock_at_slopes(
+                *leaves32, **kw, step_inputs=[s.float() for s in steps[:-1]])
+            g_ref = torch.autograd.grad(pinned, leaves32, cot.float())
+            grad = {}
+            for nm, gk, gp, gr in zip(names, g_kernel, g_plain, g_ref):
+                if gk.dtype != torch.bfloat16:
+                    raise AssertionError(f"bf16 gradient of {nm} came back in {gk.dtype}")
+                e_k = (gk.float() - gr).abs().max().item()
+                e_p = (gp.float() - gr).abs().max().item()
+                tol = max(BF16_ULPS * bf16_ulp(gr.abs().max().item()), 2 * e_p)
+                grad[nm] = (e_k, e_p, tol)
+                worst["grad_over_tol"] = max(worst["grad_over_tol"], e_k / tol)
+            worst["fwd"] = max(worst["fwd"], fwd_err)
+            iters = 5
+            fwd_ms = cuda_ms(lambda: rb.fused_resblock(*args, **kw), iters)
+            plain_ms = cuda_ms(lambda: rb._resblock(*args, **kw), iters)
+            wt1 = args[1].permute(0, 3, 2, 1).contiguous()
+            wt2 = args[3].permute(0, 3, 2, 1).contiguous()
+            lib_ms = cuda_ms(lambda: library_resblock(args[0], wt1, args[2], wt2, args[4],
+                                                      k, dilations), iters)
+            fb_ms = cuda_ms(lambda: torch.autograd.grad(
+                rb.fused_resblock(*leaves, **kw), leaves, cot), iters)
+            plain_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+                rb._resblock(*leaves, **kw), leaves, cot), iters)
+            flops = rb.resblock_flops(b, t, c, k, D)
+            nbytes = 2 * (2 * b * c * t + sum(a.numel() for a in args[1:]))
+            log(f"  train resblock bf16 B={b} C={c} T={t} k={k}: forward err {fwd_err:.3e} "
+                f"(tol {fwd_tol:.3e}); grad err kernel / plain bf16 vs fp32 pinned ("
+                + ", ".join(f"{nm} {ek:.3e} / {ep:.3e} tol {tl:.3e}"
+                            for nm, (ek, ep, tl) in grad.items())
+                + f"), slopes pinned at |pre-activation| <= {flip:.2e} | tc_bf16 fwd "
+                f"{fwd_ms:.3f} ms, library (cuDNN bf16) fwd {lib_ms:.3f} ms, plain bf16 fwd "
+                f"{plain_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms, plain fwd+bwd {plain_fb_ms:.3f} ms")
+            if not fwd_err <= fwd_tol:
+                raise AssertionError(f"train resblock bf16 C={c} k={k}: forward err {fwd_err}")
+            for nm, (ek, ep, tl) in grad.items():
+                if not ek <= tl:
+                    raise AssertionError(f"train resblock bf16 C={c} k={k}: grad {nm} err "
+                                         f"{ek} > {tl}")
+            for key, v in (("fwd_ms", fwd_ms), ("plain_fwd_ms", plain_ms),
+                           ("library_fwd_ms", lib_ms), ("fwd_bwd_ms", fb_ms),
+                           ("plain_fwd_bwd_ms", plain_fb_ms), ("flops", flops),
+                           ("bytes", nbytes)):
+                stage[key] += v
+            del args, leaves, leaves32, ref, got, g_kernel, g_plain, g_ref, cot, wt1, wt2, steps
+            del pinned
+        stage["bound_ms"] = 1e3 * max(stage["flops"] / H100_BF16_FLOPS,
+                                      stage["bytes"] / H100_BYTES_PER_S)
+        rows.append(stage)
+        log(f"  stage C={c} bf16: tc_bf16 fwd {stage['fwd_ms']:.3f} ms (bound "
+            f"{stage['bound_ms']:.3f}), library (cuDNN bf16) fwd {stage['library_fwd_ms']:.3f} "
+            f"ms, plain bf16 fwd {stage['plain_fwd_ms']:.3f} ms, fwd+bwd "
+            f"{stage['fwd_bwd_ms']:.3f} ms, plain fwd+bwd {stage['plain_fwd_bwd_ms']:.3f} ms")
+    reset_counts(rb, saved)           # comparison launches do not count
+    torch.cuda.empty_cache()
+    tot = {key: sum(r[key] for r in rows) for key in
+           ("fwd_ms", "plain_fwd_ms", "library_fwd_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms",
+            "flops", "bytes")}
+    tot["bound_ms"] = 1e3 * max(tot["flops"] / H100_BF16_FLOPS, tot["bytes"] / H100_BYTES_PER_S)
+    tot["bound_by"] = ("operations" if tot["flops"] / H100_BF16_FLOPS
+                       >= tot["bytes"] / H100_BYTES_PER_S else "bytes")
+    log(f"  one bf16 generator forward's 12 resblocks at B = 8: tc_bf16 {tot['fwd_ms']:.3f} ms "
+        f"(bound {tot['bound_ms']:.3f}, {tot['bound_by']}), library (cuDNN bf16) "
+        f"{tot['library_fwd_ms']:.3f} ms, plain bf16 {tot['plain_fwd_ms']:.3f} ms; fwd+bwd "
+        f"{tot['fwd_bwd_ms']:.3f} ms, plain {tot['plain_fwd_bwd_ms']:.3f} ms; max forward err "
+        f"{worst['fwd']:.3e}, worst gradient err / tol {worst['grad_over_tol']:.3f}; on {card}")
+    return dict(rows=rows, totals=tot, max_fwd_err=worst["fwd"],
+                max_grad_err_over_tol=worst["grad_over_tol"])
+
+
+# (name, vocoder, pitch guidance, bf16, remat, steps, the kernel that runs,
+# its launches per step)
+TRAIN_RUNS = (("f0less", "Default", False, False, False, 4, "tc", 36),
+              ("mrf", "MRF HiFi-GAN", True, False, False, 4, "tc", 36),
+              ("refinegan", "RefineGAN", True, False, False, 4, None, 0),
+              ("nsf_bf16", "Default", True, True, False, 4, "tc_bf16", 36),
+              ("nsf_bf16_ckpt", "Default", True, True, True, 2, "tc_bf16", 72))
+
+
+def train_decoder(run, exp_src: str, work: str, model, card: str) -> dict:
+    """One TRAIN_RUNS entry: train() on phase 7's extracted segments for
+    its steps at v2-48k, B = 8, with its default TensorBoard writer (the
+    eval sample decodes once in fp32 on the card), launches counted; more
+    steps timed by range; the exported .pth converted on 2 s."""
+    import dataclasses
+    import importlib.util
+    import logging
+
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.interop.pth import load_synthesizer_pth
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines import data as data_mod
+    from rvc_maker_tpu_torch.pipelines import train as tr
+    from rvc_maker_tpu_torch.pipelines import train_loop
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+
+    name, vocoder, pitch, bf16, remat, n_steps, route, per_step = run
+    cfg = preset("v2", 48000, vocoder=vocoder, pitch_guidance=pitch)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_interval=1, bf16=bf16, remat=remat))
+    exp = os.path.join(work, name)
+    os.makedirs(exp)
+    # phase 7's voiced segments, 8 rows per step (the outputs go to `exp`)
+    with open(os.path.join(exp_src, "filelist.txt")) as f:
+        rows = [r for r in f.read().splitlines() if "/mute/" not in r]
+    with open(os.path.join(exp, "filelist.txt"), "w") as f:
+        f.write("\n".join(rows[:8 * n_steps]))
+    # the loop's log records: each step's metrics (rounded to 4 places)
+    # and time, and a failed eval sample, which the loop only logs
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    loop_log = logging.getLogger(train_loop.__name__)
+    level = loop_log.level
+    loop_log.addHandler(handler)
+    loop_log.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(rb)
+    t0, t0_clock = time.perf_counter(), time.time()      # log records carry time.time()
+    try:
+        state = train_loop.train(exp, cfg, total_epochs=1, batch_size=8, save_every_epoch=1,
+                                 device="cuda")
+    finally:
+        loop_log.removeHandler(handler)
+        loop_log.setLevel(level)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    steps = [r for r in records if r.msg.startswith("epoch %d step %d")]
+    stamps, metrics = [r.created for r in steps], [r.args[2] for r in steps]
+    failed = [logging.Formatter().format(r) for r in records if r.levelno >= logging.ERROR]
+    if failed or not os.path.isdir(os.path.join(exp, "tb")):
+        raise AssertionError(f"{name}: eval sample / TensorBoard: " + "\n".join(failed))
+    # what the card's machine has of TensorBoard's writer and its images
+    res_tb = {m: importlib.util.find_spec(m) is not None
+              for m in ("tensorboard", "matplotlib", "PIL")}
+    launches = (rb.resblock_launches, rb.resblock_tc_launches, rb.resblock_tc_bf16_launches)
+    peak = torch.cuda.max_memory_allocated()
+    eval_tc = 0 if route is None else 36       # the eval sample's fp32 decode
+    train_n = per_step * n_steps
+    want = (train_n + eval_tc, (train_n if route == "tc" else 0) + eval_tc,
+            train_n if route == "tc_bf16" else 0)
+    if state.step != n_steps or len(metrics) != n_steps or launches != want:
+        raise AssertionError(f"{name}: {state.step} steps ({len(metrics)} logged), launches "
+                             f"(all, tc, tc_bf16) {launches}, expected {n_steps} steps and "
+                             f"{want}")
+    for m in metrics:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{name}: non-finite training metrics {m}")
+    res = dict(steps=state.step, launches=launches[0], launches_tc=launches[1],
+               launches_tc_bf16=launches[2], launches_eval_sample=eval_tc,
+               tensorboard_modules=res_tb,
+               launches_per_step=(launches[0] - eval_tc) // n_steps,
+               train_s=t_train, first_step_s=stamps[0] - t0_clock,
+               warm_step_s=float(np.mean(np.diff(stamps))) if len(stamps) > 1 else None,
+               max_memory_allocated=peak,
+               losses=[{k: v for k, v in m.items() if k.startswith(("loss", "grad"))}
+                       for m in metrics])
+    # three more steps: wall time, ms per range (CUDA events at the
+    # range edges), their means; then one under torch.profiler
+    dataset = data_mod.TrainingDataset(os.path.join(exp, "filelist.txt"), cfg)
+    batch = next(data_mod.batches_for_epoch(dataset, batch_size=8, epoch=2)).to(
+        "cuda", torch.bfloat16 if bf16 else None)
+    step_fn = tr.make_train_step(cfg)
+    timer, reps = tr.RangeTimer(), 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step_fn(state, batch, timer=timer)
+    torch.cuda.synchronize()
+    res["step_wall_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    ranges, ranges_host = timer.ms()
+    res["ranges_ms"] = {k: v / reps for k, v in ranges.items()}
+    res["ranges_host_ms"] = {k: v / reps for k, v in ranges_host.items()}
+    # the ranges' CUDA-event spans hold the device's waits on the host
+    res["step_range_ms"] = sum(res["ranges_ms"].values())
+    log(f"  {name}: {n_steps} steps at B = 8 in {t_train:.3f} s (first step "
+        f"{res['first_step_s']:.3f} s); resblock launches per step {res['launches_per_step']} "
+        f"(tc {launches[1]}, tc_bf16 {launches[2]}, the eval sample's {eval_tc} tc among them); peak {peak / 2**30:.2f} GiB; the mean "
+        f"of {reps} more steps: {res['step_wall_ms']:.3f} ms wall, ms per range (CUDA events, the device's "
+        "waits on the host included) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["ranges_ms"].items())
+        + f" (sum {res['step_range_ms']:.3f}); TensorBoard's modules present: {res_tb}; "
+        f"on {card}")
+    res["profile"] = profile_call(f"one {name} step", lambda: step_fn(state, batch),
+                                  res["step_wall_ms"] / 1e3)
+    res["step_device_ms"] = res["profile"]["device_ms"]
+    for i, m in enumerate(metrics):
+        log(f"    step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()
+                                            if k != "lr"))
+    del state, batch, step_fn
+    torch.cuda.empty_cache()
+
+    pths = [f for f in os.listdir(exp) if f.endswith(".pth")]
+    if pths != [f"{name}_1e_{n_steps}s.pth"]:
+        raise AssertionError(f"{name}: exported weights {pths}")
+    params, mcfg, meta = load_synthesizer_pth(os.path.join(exp, pths[0]))
+    if (mcfg.vocoder, mcfg.use_f0) != (vocoder, pitch):
+        raise AssertionError(f"{name}: the .pth says {mcfg.vocoder}, f0 {mcfg.use_f0}")
+    pipe = ConvertPipeline(params, mcfg, model["hubert_params"], version="v2",
+                           rmvpe_params=model["rmvpe_params"], device="cuda")
+    reset_counts(rb)
+    out = pipe.convert_utterance(voice(2.0, 170.0, 13), 0, ConvertSettings())
+    conv_launches = rb.resblock_tc_launches
+    if not np.isfinite(out).all() or abs(len(out) - 2.0 * mcfg.sr) > 2 * mcfg.upp:
+        raise AssertionError(f"{name}: converted {len(out)} samples, finite "
+                             f"{np.isfinite(out).all()}")
+    want_conv = 0 if route is None else 36
+    if conv_launches != want_conv or rb.resblock_launches != want_conv:
+        raise AssertionError(f"{name}: conversion launched {rb.resblock_launches} "
+                             f"({conv_launches} tc), expected {want_conv}")
+    res.update(exported=pths[0], pth=os.path.join(exp, pths[0]), convert_samples=len(out),
+               convert_absmax=float(np.abs(out).max()), convert_launches=conv_launches)
+    log(f"  {name}: exported {pths[0]}; converted 2 s on the card: {len(out)} samples, "
+        f"|out|max {res['convert_absmax']:.3f}, {conv_launches} resblock_tc launches")
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def extract_phase(exp_src: str, work: str, model) -> dict:
+    """extract through the CLI with yin and no --embedder-path (a random
+    HuBERT), and extract_f0 with hybrid[rmvpe+yin], on phase 7's segments;
+    the hybrid is the per-frame nanmedian of its members."""
+    import shutil
+
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.pipelines import extract as ex
+
+    res = {}
+    exp = os.path.join(work, "extract")
+    for sub in ("sliced_audios", "sliced_audios_16k"):
+        shutil.copytree(os.path.join(exp_src, sub), os.path.join(exp, sub))
+    t0 = time.perf_counter()
+    rc = cli.main(["extract", "--exp-dir", exp, "--f0-method", "yin"])
+    torch.cuda.synchronize()
+    res["cli_yin_s"] = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(exp, "f0_voiced")))
+    n_feat = len(os.listdir(os.path.join(exp, "v2_extracted")))
+    if rc != 0 or len(names) != 32 or n_feat != 32:
+        raise AssertionError(f"cli extract: rc {rc}, {len(names)} f0 files, {n_feat} features")
+    yin = {n: np.load(os.path.join(exp, "f0_voiced", n)) for n in names}
+    hyb_dir = os.path.join(work, "extract_hybrid")
+    os.makedirs(hyb_dir)
+    os.symlink(os.path.join(exp, "sliced_audios_16k"), os.path.join(hyb_dir, "sliced_audios_16k"))
+    t0 = time.perf_counter()
+    n = ex.extract_f0(hyb_dir, model["rmvpe_params"], method="hybrid[rmvpe+yin]",
+                      device="cuda")
+    res["hybrid_s"] = time.perf_counter() - t0
+    rmvpe_dir = os.path.join(exp_src, "f0_voiced")
+    worst, voiced = 0.0, []
+    for name in names:
+        hyb = np.load(os.path.join(hyb_dir, "f0_voiced", name))
+        stack = np.vstack([np.load(os.path.join(rmvpe_dir, name)), yin[name]]).astype(np.float64)
+        want = np.nan_to_num(np.nanmedian(np.where(stack < 0.001, np.nan, stack), axis=0))
+        worst = max(worst, float(np.abs(hyb - want).max()))
+        voiced.append(float((hyb > 0).mean()))
+    res.update(segments=n, hybrid_vs_members_max_hz=worst,
+               hybrid_voiced_share=float(np.mean(voiced)),
+               yin_voiced_share=float(np.mean([(f > 0).mean() for f in yin.values()])))
+    log(f"  cli extract --f0-method yin, no --embedder-path (random HuBERT): 32 segments in "
+        f"{res['cli_yin_s']:.2f} s, voiced share {res['yin_voiced_share']:.3f}; "
+        f"hybrid[rmvpe+yin] in {res['hybrid_s']:.2f} s, voiced share "
+        f"{res['hybrid_voiced_share']:.3f}, {worst:.3e} Hz from the nanmedian of phase 7's "
+        "batched rmvpe and the yin run (rmvpe here runs one segment at a time)")
+    if n != 32 or not worst <= F0_TOL_HZ:
+        raise AssertionError(f"hybrid extract: {n} segments, {worst} Hz from its members")
+    return res
+
+
+INDEX_ROWS, INDEX_DIM, INDEX_CLUSTERS, INDEX_NLIST = 250_000, 768, 10_000, 256
+
+
+def index_phase(work: str, serve_files: dict, pth: str, card: str) -> dict:
+    """build_index on 250,000 x 768 random features (k-means to 10,000
+    centroids on the card), build_ivf_file (nlist 256) on its result, read
+    back; then `cli convert --index` on that file."""
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.retrieval import faiss_io
+    from rvc_maker_tpu_torch.retrieval.index import build_index, kmeans, load_index
+    from rvc_maker_tpu_torch.retrieval.ivf import build_ivf_file
+    from rvc_maker_tpu_torch.utils.audio import save_wav
+
+    gen = torch.Generator("cuda").manual_seed(31)
+    feats = torch.randn(INDEX_ROWS, INDEX_DIM, generator=gen, device="cuda").cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_index(feats, version="v2", seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if index.vectors.shape != (INDEX_CLUSTERS, INDEX_DIM) or not np.isfinite(index.vectors).all():
+        raise AssertionError(f"build_index: {index.vectors.shape}")
+    # the k-means alone on the card, on the same shuffled rows and seed
+    x = torch.as_tensor(feats[np.random.RandomState(0).permutation(INDEX_ROWS)], device="cuda")
+    kmeans(x, INDEX_CLUSTERS, n_iters=2, generator=torch.Generator("cuda").manual_seed(1))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    cent = kmeans(x, INDEX_CLUSTERS, generator=torch.Generator("cuda").manual_seed(0))
+    end.record()
+    torch.cuda.synchronize()
+    kmeans_ms = start.elapsed_time(end)
+    rerun = float(np.abs(cent.cpu().numpy() - index.vectors).max())
+    del x, cent
+    torch.cuda.empty_cache()
+    path = os.path.join(work, "added_voice_v2.index")
+    t0 = time.perf_counter()
+    nlist = build_ivf_file(index.vectors, path, nlist=INDEX_NLIST, device="cuda")
+    ivf_s = time.perf_counter() - t0
+    back = faiss_io.read_index(path)
+    same = np.array_equal(back.reconstruct_n(), index.vectors)
+    if nlist != INDEX_NLIST or back.centroids.shape != (INDEX_NLIST, INDEX_DIM) or not same:
+        raise AssertionError(f"ivf file: nlist {nlist}, read back equal {same}")
+    # the k-means work: per iteration the batch's distances to every
+    # centroid (2 B K D), the segment sums and the update
+    it_flops = 2 * 16384 * INDEX_CLUSTERS * INDEX_DIM
+    res = dict(rows=INDEX_ROWS, dim=INDEX_DIM, clusters=INDEX_CLUSTERS, iters=25, batch=16384,
+               build_index_s=build_s, kmeans_ms=kmeans_ms,
+               kmeans_fp32_bound_ms=1e3 * 25 * it_flops / H100_FP32_FLOPS,
+               kmeans_rerun_max_abs=rerun, ivf_s=ivf_s, ivf_nlist=nlist,
+               ivf_bytes=os.path.getsize(path), read_back_equal=same)
+    log(f"  build_index 250,000 x 768 -> 10,000 centroids in {build_s:.3f} s wall; k-means "
+        f"alone {kmeans_ms:.3f} ms on the card (25 iterations at batch 16,384; its distance "
+        f"matmuls at the fp32 CUDA-core peak {res['kmeans_fp32_bound_ms']:.3f} ms), "
+        f"{rerun:.3e} from build_index's centroids (index_add_ sums in a varying order); "
+        f"build_ivf_file (nlist 256) {ivf_s:.3f} s, {res['ivf_bytes']} bytes, read back "
+        f"equal: {same}; on {card}")
+    wav = os.path.join(work, "in2s.wav")
+    save_wav(wav, voice(2.0, 160.0, 17), 16000)
+    out = os.path.join(work, "out_index.wav")
+    t0 = time.perf_counter()
+    rc = cli.main(["convert", "--input", wav, "--output", out, "--model", pth,
+                   "--rmvpe-path", serve_files["rmvpe"], "--hubert-path", serve_files["embedder"],
+                   "--index", path, "--index-rate", "0.75"])
+    res["cli_convert_s"] = time.perf_counter() - t0
+    from rvc_maker_tpu_torch.utils.audio import read_wav
+
+    audio, sr = read_wav(out)
+    if rc != 0 or not np.isfinite(audio).all() or abs(len(audio) / sr - 2.0) > 0.1:
+        raise AssertionError(f"cli convert --index: rc {rc}, {len(audio)} samples at {sr}")
+    res["cli_convert_samples"] = len(audio)
+    log(f"  cli convert --index {os.path.basename(path)} (load_index reads "
+        f"{load_index(path).vectors.shape}): {len(audio)} samples at {sr} Hz in "
+        f"{res['cli_convert_s']:.2f} s")
+    return res
+
+
+def train_all(model, work: str, card: str) -> dict:
+    """Phase 12."""
+    from rvc_maker_tpu_torch.config import preset
+
+    res = {}
+    cfg = preset("v2", 48000).model
+    shapes, t, c = [], cfg.segment_size, cfg.upsample_initial_channel
+    for u in cfg.upsample_rates:
+        t, c = t * u, c // 2
+        shapes.append((8, c, t))
+    log(f"  [12a] bf16 autograd resblock at the training shapes {shapes}")
+    res["train_kernel_bf16"] = check_resblock_train_bf16(
+        shapes, cfg.resblock_kernel_sizes, tuple(cfg.resblock_dilation_sizes[0]), card)
+    exp_src = os.path.join(work, "voice")
+    log("  [12b] train every decoder and mode at v2-48k, B = 8, on phase 7's segments")
+    res["runs"] = {run[0]: train_decoder(run, exp_src, work, model, card) for run in TRAIN_RUNS}
+    log("  [12c] extract")
+    res["extract"] = extract_phase(exp_src, work, model)
+    log("  [12d] index")
+    serve_dir = os.path.join(work, "serve_files")
+    os.makedirs(serve_dir)
+    res["index"] = index_phase(work, write_serve_files(serve_dir, cfg, model),
+                               res["runs"]["mrf"]["pth"], card)
+    log("  [12e] narrow train steps, card against CPU: MRF fp32, NSF bf16")
+    res["parity_mrf"] = train_parity("MRF HiFi-GAN")
+    res["parity_bf16"] = train_parity(bf16=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
         return 1
+    work = tempfile.mkdtemp(prefix="chip_smoke_")     # phases 7 and 12
+    try:
+        return run(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(work: str) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from rvc_maker_tpu_torch.ops import build
@@ -1654,7 +2140,7 @@ def main() -> int:
         train_shapes, cfg.resblock_kernel_sizes, tuple(cfg.resblock_dilation_sizes[0]), smi)
 
     log("[7 train] preprocess -> extract -> train -> export -> convert at v2-48k")
-    RESULTS["train"] = train_flow(model, smi)
+    RESULTS["train"] = train_flow(model, smi, work)
 
     log("[8 train-parity] one narrow train step, card against CPU")
     RESULTS["train_parity"] = train_parity()
@@ -1679,6 +2165,12 @@ def main() -> int:
     t0 = time.perf_counter()
     RESULTS["serve"] = serve_phase(model_cfg, model)
     RESULTS["serve"]["phase_s"] = time.perf_counter() - t0
+
+    log(f"[12 train-all] every decoder and training mode, extract, the index build "
+        f"({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["train_all"] = train_all(model, work, smi)
+    RESULTS["train_all"]["phase_s"] = time.perf_counter() - t0
     del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
@@ -1688,7 +2180,8 @@ def main() -> int:
         json.dump(RESULTS, f, indent=1)
 
     main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
-    voc, serve = RESULTS["vocoders"], RESULTS["serve"]
+    voc, serve, ta = RESULTS["vocoders"], RESULTS["serve"], RESULTS["train_all"]
+    runs, tkb = ta["runs"], ta["train_kernel_bf16"]["totals"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
     common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
@@ -1709,6 +2202,8 @@ def main() -> int:
         >= totals["bytes"] / 2 / H100_BYTES_PER_S else "bytes",
         tolerance=f"max abs vs the bf16 plain chain <= {BF16_ULPS} bf16 ulps of its "
                   "|ref|max, and corr > 0.99 vs the fp32 plain chain")
+    # launches_train_*: phase 12's train() runs, each with its eval
+    # sample's fp32 decode (36 resblock_tc; the bf16 runs' tc launches)
     kernels = [
         dict(name="resblock_tc", source="rvc_maker_tpu_torch/csrc/resblock_tc.cu",
              launches=main["resblock_tc_launches"], launches_train=train["resblock_tc_launches"],
@@ -1718,6 +2213,10 @@ def main() -> int:
              launches_f0_methods={m: r["resblock_tc_launches"]
                                   for m, r in RESULTS["f0_methods"]["timing"].items()},
              launches_serve_fp32=serve["fp32"]["resblock_tc_launches"],
+             launches_train_f0less=runs["f0less"]["launches_tc"],
+             launches_train_mrf=runs["mrf"]["launches_tc"],
+             launches_train_refinegan=runs["refinegan"]["launches_tc"],
+             launches_train_bf16_eval_sample=runs["nsf_bf16"]["launches_tc"],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),
@@ -1726,6 +2225,10 @@ def main() -> int:
         dict(name="resblock_tc_bf16", source="rvc_maker_tpu_torch/csrc/resblock_tc_bf16.cu",
              launches=serve["bf16"]["resblock_tc_bf16_launches"],
              launches_serve_bf16=serve["bf16"]["resblock_tc_bf16_launches"],
+             launches_train_bf16=runs["nsf_bf16"]["launches_tc_bf16"],
+             launches_train_bf16_checkpointing=runs["nsf_bf16_ckpt"]["launches_tc_bf16"],
+             train_fwd_ms=tkb["fwd_ms"], train_fwd_bound_ms=tkb["bound_ms"],
+             train_fwd_library_ms=tkb["library_fwd_ms"], train_fwd_plain_ms=tkb["plain_fwd_ms"],
              max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
              fma_ms=totals["bf16_fma_ms"],
              roofline_share=totals["bf16_bound_ms"] / totals["bf16_ms"], **common, **bf16),

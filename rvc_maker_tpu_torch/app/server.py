@@ -835,18 +835,14 @@ def _start_job(req: dict) -> dict:
         dataset = req["dataset"]
         num_workers = _int_field(req, "num_workers", 2)
     elif kind == "extract":
-        if not req.get("rmvpe"):
-            raise NotPorted("the extract job without an rmvpe path (F0 by yin in "
-                            "pipelines/extract.py)")
         embedder = req.get("embedder", "")
         if embedder.endswith(".onnx"):
             raise NotPorted("ONNX embedders (interop/onnx_embedder.py)")
     else:
         vocoder = req.get("vocoder", "Default")
-        if vocoder != "Default" or not req.get("pitch_guidance", True):
-            raise NotPorted(f"training the {vocoder} decoder"
-                            + ("" if req.get("pitch_guidance", True) else " without pitch")
-                            + " (models/synthesizer.py train_forward)")
+        if vocoder not in ("Default", "MRF HiFi-GAN", "MRF-HiFi-GAN", "RefineGAN"):
+            raise ValueError(f"unknown vocoder {vocoder!r}")
+        pitch_guidance = bool(req.get("pitch_guidance", True))
         epochs = _int_field(req, "epochs", 100)
         batch_size = _int_field(req, "batch_size", 8)
     device = _STATE["device"]
@@ -876,7 +872,10 @@ def _start_job(req: dict) -> dict:
                 from ..pipelines import extract as ex
 
                 hubert = _load_hubert(embedder)
-                ex.extract_f0(exp_dir, load_rmvpe_pt(req["rmvpe"]), device=device)
+                # without an rmvpe path the f0 comes from yin (JAX server.py:1037-1046)
+                rmvpe = load_rmvpe_pt(req["rmvpe"]) if req.get("rmvpe") else None
+                ex.extract_f0(exp_dir, rmvpe, method="rmvpe" if rmvpe else "yin",
+                              device=device)
                 ex.extract_embeddings(exp_dir, hubert, version=version, device=device)
                 cfg = preset(version, sr)
                 ex.write_mute_fixture(exp_dir, cfg, hubert, version, device=device)
@@ -886,7 +885,8 @@ def _start_job(req: dict) -> dict:
                 from ..config import preset
                 from ..pipelines.train_loop import train
 
-                train(exp_dir, preset(version, sr), total_epochs=epochs,
+                cfg = preset(version, sr, vocoder=vocoder, pitch_guidance=pitch_guidance)
+                train(exp_dir, cfg, total_epochs=epochs,
                       batch_size=batch_size, pretrain_g=req.get("pretrain_g", ""),
                       pretrain_d=req.get("pretrain_d", ""), device=device)
                 job["log"].append("train: done")

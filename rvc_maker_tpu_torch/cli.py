@@ -3,9 +3,15 @@
     python -m rvc_maker_tpu_torch.cli preprocess --dataset data/ \\
         --exp-dir exp/ [--sample-rate 48000 --per 3.7]
     python -m rvc_maker_tpu_torch.cli extract --exp-dir exp/ \\
-        --rmvpe-path rmvpe.pt --embedder-path hubert_base.pt [--version v2]
+        [--f0-method rmvpe --rmvpe-path rmvpe.pt | yin | pyin | fcpe
+        --fcpe-path fcpe.pt | crepe-tiny --crepe-path crepe_tiny.pth |
+        hybrid[rmvpe+yin] ...] [--embedder-path hubert_base.pt] [--version v2]
     python -m rvc_maker_tpu_torch.cli train --exp-dir exp/ --epochs 200 \\
         [--batch-size 8 --pretrain-g f0G48k.pth --pretrain-d f0D48k.pth]
+        [--vocoder "MRF HiFi-GAN" | RefineGAN] [--no-pitch-guidance]
+        [--bf16] [--checkpointing]
+    python -m rvc_maker_tpu_torch.cli index --exp-dir exp/ [--version v2]
+    python -m rvc_maker_tpu_torch.cli tensorboard --logdir exp/tb [--port 6006]
     python -m rvc_maker_tpu_torch.cli convert --input in.wav \\
         --output out.wav --model model.pth --rmvpe-path rmvpe.pt \\
         --hubert-path hubert_base.pt [--index added.index --index-rate 0.5]
@@ -18,9 +24,15 @@ Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
 f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN) and every F0
 method of the JAX package but its ONNX predictors; each F0 network's
-weights are needed only by the methods that run it.  train writes
-NSF-HiFiGAN models of f0.  extract, train and convert run on the card
-unless `--device cpu` is passed.
+weights are needed only by the methods that run it.  extract runs every
+F0 method of the JAX package's extract; without --rmvpe-path an rmvpe
+method falls back to yin, and without --embedder-path the features come
+from a random HuBERT (debug only), each with a warning.  train writes
+every decoder, in fp32 or bf16, with or without checkpointing; it
+downloads no pretrained weights (--no-pretrained is accepted for the
+JAX package's command line and changes nothing).  index writes the
+`.npz`, `total_fea.npy` and a faiss `added_*.index`.  extract, train,
+index and convert run on the card unless `--device cpu` is passed.
 """
 
 from __future__ import annotations
@@ -44,29 +56,75 @@ def cmd_preprocess(args) -> int:
 def cmd_extract(args) -> int:
     from .config import preset
     from .models.hubert import load_hubert_pt
-    from .models.rmvpe import load_rmvpe_pt
     from .pipelines import extract as ex
+    from .pipelines.convert import f0_members
+    from .utils.i18n import tr
 
-    for flag, path in (("--rmvpe-path", args.rmvpe_path),
-                       ("--embedder-path", args.embedder_path)):
-        if not os.path.isfile(path):
-            raise FileNotFoundError(f"{flag}: no such file {path!r}")
     cfg = preset(args.version, args.sample_rate)
-    hubert = load_hubert_pt(args.embedder_path)
-    ex.extract_f0(args.exp_dir, load_rmvpe_pt(args.rmvpe_path), method=args.f0_method,
-                  device=args.device)
+    if args.embedder_path:
+        if not os.path.isfile(args.embedder_path):
+            raise FileNotFoundError(f"--embedder-path: no such file {args.embedder_path!r}")
+        hubert = load_hubert_pt(args.embedder_path)
+    else:
+        from .interop import from_jax
+
+        logging.warning(tr("random_hubert"))
+        hubert = from_jax.hubert_from_jax(from_jax.random_hubert_tree(seed=0))
+    method = args.f0_method
+    members = f0_members(method)
+    rmvpe = fcpe = crepe = None
+    if any(m.startswith("rmvpe") for m in members):
+        if args.rmvpe_path:
+            from .models.rmvpe import load_rmvpe_pt
+
+            rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt)
+        elif method.startswith("rmvpe"):
+            logging.warning(tr("fallback_yin"))
+            method = "yin"
+    fcpe, crepe = _fcpe_crepe(args, method, members)
+    ex.extract_f0(args.exp_dir, rmvpe, method=method, fcpe_params=fcpe, crepe_params=crepe,
+                  hop_length=args.hop_length, device=args.device)
     ex.extract_embeddings(args.exp_dir, hubert, version=args.version, device=args.device)
     ex.write_mute_fixture(args.exp_dir, cfg, hubert, args.version, device=args.device)
     path = ex.generate_filelist(args.exp_dir, cfg, args.version)
-    print(f"extract: wrote {path}")
+    print(f"extract: wrote {path} (f0 by {method})")
+    return 0
+
+
+def cmd_index(args) -> int:
+    import numpy as np
+
+    from .retrieval.index import build_index, save_index
+    from .retrieval.ivf import build_ivf_file
+    from .utils.i18n import tr
+
+    feat_dir = os.path.join(args.exp_dir, f"{args.version}_extracted")
+    arrays = [np.load(os.path.join(feat_dir, n))
+              for n in sorted(os.listdir(feat_dir)) if n.endswith(".npy")]
+    index = build_index(np.concatenate(arrays, axis=0), version=args.version,
+                        device=args.device)
+    stem = f"added_{os.path.basename(os.path.normpath(args.exp_dir))}_{args.version}"
+    out = os.path.join(args.exp_dir, f"{stem}.index.npz")
+    save_index(index, out)
+    np.save(os.path.join(args.exp_dir, "total_fea.npy"), index.vectors)
+    # the faiss IVF-Flat file that reference tools load (reference
+    # create_index.py:66-83: nlist = min(16 sqrt(N), N / 39), nprobe 1)
+    fa = os.path.join(args.exp_dir, f"{stem}.index")
+    build_ivf_file(index.vectors, fa, device=args.device)
+    print(tr("save_index") + f": {index.vectors.shape} -> {out} + {fa}")
     return 0
 
 
 def cmd_train(args) -> int:
+    import dataclasses
+
     from .config import preset
     from .pipelines.train_loop import train
 
-    cfg = preset(args.version, args.sample_rate)
+    cfg = preset(args.version, args.sample_rate, vocoder=args.vocoder,
+                 pitch_guidance=args.pitch_guidance)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, bf16=args.bf16, remat=args.checkpointing))
     train(args.exp_dir, cfg, total_epochs=args.epochs, batch_size=args.batch_size,
           save_every_epoch=args.save_every_epoch, save_only_latest=not args.save_all,
           pretrain_g=args.pretrain_g, pretrain_d=args.pretrain_d,
@@ -79,6 +137,18 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_tensorboard(args) -> int:
+    import time
+
+    from .pipelines.tb_logging import launch_tensorboard
+    from .utils.i18n import tr
+
+    print(tr("tensorboard_url") + f": {launch_tensorboard(args.logdir, args.port)}",
+          flush=True)
+    while True:
+        time.sleep(60)
+
+
 def _f0_weights(method: str, flag: str, path: str, loader):
     """`loader(path)`, for the F0 weights that `method` needs.  An absent
     flag, a missing file or an ONNX predictor raises."""
@@ -89,6 +159,27 @@ def _f0_weights(method: str, flag: str, path: str, loader):
     if not os.path.isfile(path):
         raise FileNotFoundError(f"{flag}: no such file {path!r}")
     return loader(path)
+
+
+def _fcpe_crepe(args, method: str, members: list):
+    """The FCPE and CREPE weights that `method`'s members need (None when
+    they need none); the CREPE capacity is a member's suffix (JAX
+    cli.py:272-274)."""
+    from .models.crepe import CAPACITIES, load_crepe_pth
+    from .models.fcpe import load_fcpe_ckpt
+
+    fcpe = crepe = None
+    if any(m.startswith("fcpe") for m in members):
+        fcpe = _f0_weights(method, "--fcpe-path", args.fcpe_path,
+                           lambda p: load_fcpe_ckpt(p)[0])
+    crepe_methods = [m for m in members if "crepe" in m]
+    if crepe_methods:
+        capacity = crepe_methods[0].split("-")[-1]
+        if capacity not in CAPACITIES:
+            capacity = "full"
+        crepe = _f0_weights(method, "--crepe-path", args.crepe_path,
+                            lambda p: load_crepe_pth(p, capacity))
+    return fcpe, crepe
 
 
 def _load_embedder(args):
@@ -114,8 +205,6 @@ def cmd_convert(args) -> int:
     import numpy as np
 
     from .interop.pth import load_synthesizer_pth
-    from .models.crepe import CAPACITIES, load_crepe_pth
-    from .models.fcpe import load_fcpe_ckpt
     from .models.rmvpe import load_rmvpe_pt
     from .pipelines.convert import (ConvertPipeline, ConvertSettings, convert_split,
                                     f0_members)
@@ -127,21 +216,10 @@ def cmd_convert(args) -> int:
             raise FileNotFoundError(f"{flag}: no such file {path!r}")
     method = args.f0_method
     members = f0_members(method)
-    rmvpe = fcpe = crepe = None
+    rmvpe = None
     if any(m.startswith("rmvpe") for m in members):
         rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt)
-    if any(m.startswith("fcpe") for m in members):
-        fcpe = _f0_weights(method, "--fcpe-path", args.fcpe_path,
-                           lambda p: load_fcpe_ckpt(p)[0])
-    crepe_methods = [m for m in members if "crepe" in m]
-    if crepe_methods:
-        # the capacity is the method's suffix (JAX cli.py:272-274), a
-        # hybrid's CREPE member's here
-        capacity = crepe_methods[0].split("-")[-1]
-        if capacity not in CAPACITIES:
-            capacity = "full"
-        crepe = _f0_weights(method, "--crepe-path", args.crepe_path,
-                            lambda p: load_crepe_pth(p, capacity))
+    fcpe, crepe = _fcpe_crepe(args, method, members)
     synth_params, cfg, meta = load_synthesizer_pth(args.model)
     index_vectors = None
     if args.index and args.index_rate > 0:
@@ -186,14 +264,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-process-effects", dest="process_effects", action="store_false")
     p.set_defaults(func=cmd_preprocess)
 
-    e = sub.add_parser("extract", help="RMVPE f0 + HuBERT features, filelist")
+    e = sub.add_parser("extract", help="f0 + HuBERT features, filelist")
     e.add_argument("--exp-dir", required=True)
     e.add_argument("--version", default="v2", choices=["v1", "v2"])
     e.add_argument("--sample-rate", type=int, default=48000)
-    e.add_argument("--f0-method", default="rmvpe", choices=["rmvpe", "rmvpe-legacy"])
-    e.add_argument("--rmvpe-path", required=True, help="reference rmvpe.pt")
-    e.add_argument("--embedder-path", required=True,
-                   help="fairseq HuBERT/ContentVec .pt")
+    e.add_argument("--f0-method", default="rmvpe",
+                   help="rmvpe | rmvpe-legacy | yin | pm | dio | harvest | swipe | pyin | "
+                        "crepe-* | mangio-crepe-* | fcpe[-legacy] | hybrid[a+b]")
+    e.add_argument("--rmvpe-path", default="",
+                   help="reference rmvpe.pt (without it rmvpe falls back to yin)")
+    e.add_argument("--embedder-path", default="",
+                   help="fairseq HuBERT/ContentVec .pt (without it: random weights)")
+    e.add_argument("--crepe-path", default="", help="reference crepe_<capacity>.pth")
+    e.add_argument("--fcpe-path", default="", help="reference fcpe.pt / fcpe_legacy.pt")
+    e.add_argument("--hop-length", type=int, default=160,
+                   help="frame hop of mangio-crepe and pyin")
     e.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     e.set_defaults(func=cmd_extract)
 
@@ -217,9 +302,30 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--cache-data", action="store_true",
                    help="keep decoded training items in RAM")
     t.add_argument("--cleanup", action="store_true",
-                   help="delete old checkpoints and weights first")
+                   help="delete old checkpoints, weights and TensorBoard logs first")
+    t.add_argument("--vocoder", default="Default",
+                   choices=["Default", "MRF HiFi-GAN", "RefineGAN"])
+    t.add_argument("--no-pitch-guidance", dest="pitch_guidance", action="store_false",
+                   help="train an f0-less model (plain HiFi-GAN decoder)")
+    t.add_argument("--bf16", action="store_true",
+                   help="bf16 forward/backward over fp32 master params")
+    t.add_argument("--checkpointing", action="store_true",
+                   help="recompute the G and D forwards in the backward")
+    t.add_argument("--no-pretrained", action="store_true",
+                   help="accepted for the JAX command line; nothing is downloaded")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     t.set_defaults(func=cmd_train)
+
+    i = sub.add_parser("index", help="build the retrieval index of an extracted exp dir")
+    i.add_argument("--exp-dir", required=True)
+    i.add_argument("--version", default="v2", choices=["v1", "v2"])
+    i.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    i.set_defaults(func=cmd_index)
+
+    b = sub.add_parser("tensorboard", help="serve the TensorBoard of a training run")
+    b.add_argument("--logdir", required=True)
+    b.add_argument("--port", type=int, default=6006)
+    b.set_defaults(func=cmd_tensorboard)
     c = sub.add_parser("convert", help="convert one utterance")
     c.add_argument("--input", required=True)
     c.add_argument("--output", required=True)

@@ -24,14 +24,10 @@ class TrainConfig:
     segment_size: int = 12800       # waveform samples per training slice
     c_mel: float = 45.0
     c_kl: float = 1.0
-    # the JAX package's bf16 and rematerialized training modes; the port
-    # trains in fp32 without rematerialization for now
+    # bf16 forward/backward over fp32 masters; checkpointed (recomputed)
+    # forwards of G and D (pipelines/train.py make_train_step)
     bf16: bool = False
     remat: bool = False
-
-    def __post_init__(self):
-        if self.bf16 or self.remat:
-            raise NotImplementedError("bf16 and remat training are not ported")
 
 
 @dataclass(frozen=True)

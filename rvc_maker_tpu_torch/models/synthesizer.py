@@ -7,11 +7,12 @@ in both directions, and the decoders.  Inference runs every decoder the
 JAX package has: the NSF-HiFiGAN decoder with its sine source, the plain
 HiFi-GAN `generator` of f0-less models, and (in `models/vocoders.py`)
 MRF-HiFi-GAN and RefineGAN, dispatched by `infer_any`.  The training
-forward is ported for the NSF decoder of f0 models only.  Functions
+forward (`train_forward`) runs every decoder as well.  Functions
 over explicit parameter dicts of torch tensors (layouts in `ops/nn.py`;
 weight-norm folded at load, and the generator trains on the folded
 weights, as the JAX package's does).  Noise comes in as tensors
-(`z_noise`, `sine_noise`, `post_noise`, the `decoder_noise` dict), or
+(`z_noise`, `sine_noise`, `post_noise`, the `decoder_noise` dict, the
+training forward's `train_noise`), or
 is drawn from an explicit torch.Generator, so a caller can hold the
 random draws.
 
@@ -36,7 +37,7 @@ import torch
 from ..config import ModelConfig
 from ..ops.nn import (LRELU_SLOPE, conv1d, conv_transpose1d, embedding,
                       fused_gate, layer_norm, leaky_relu, linear, linear_as_input,
-                      rand_slice_segments, sequence_mask, slice_segments)
+                      sequence_mask, slice_segments)
 from ..ops.resblock import fused_resblock
 
 Params = Any
@@ -410,62 +411,85 @@ def infer(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
     return o, x_mask, (z, z_p, m_p, logs_p)
 
 
+def decode(dec: Params, cfg: ModelConfig, z, f0, g, noise: dict):
+    """The decoder `decoder_kind(cfg)` names on z (B, T, inter), f0 (B, T)
+    Hz (unused by the plain decoder) and its noise as `decoder_noise`
+    lays it out (JAX `infer_any`'s and `_decode_train`'s dispatch).
+    Returns the waveform (B, T*upp, 1)."""
+    from . import vocoders
+
+    kind = decoder_kind(cfg)
+    if kind == "plain":
+        return generator(dec, cfg, z, g)
+    if kind == "mrf":
+        return vocoders.mrf_hifigan(dec, cfg, z, f0, g, noise["source"],
+                                    noise["rand_ini"])
+    if kind == "refinegan":
+        return vocoders.refinegan(dec, cfg, z, f0, g, noise["source"],
+                                  noise["adain"], noise["rand_ini"])
+    return generator_nsf(dec, cfg, z, f0, g, noise["sine"])
+
+
 def infer_any(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
               nsff0, sid, z_noise, noise: dict):
     """Inference with the decoder dispatch of the JAX package's
     `infer_any` (`decoder_kind`), on explicit noise: z_noise (B, T,
     inter) and `noise` as `decoder_noise` lays it out.  Returns the
     waveform (B, T*upp, 1)."""
-    from . import vocoders
-
-    kind = decoder_kind(cfg)
     g, z, x_mask, *_ = _prior(params, cfg, phone, phone_lengths, pitch, sid,
                               z_noise)
-    z = z * x_mask
-    dec = params["dec"]
-    if kind == "plain":
-        return generator(dec, cfg, z, g)
-    if kind == "mrf":
-        return vocoders.mrf_hifigan(dec, cfg, z, nsff0, g, noise["source"],
-                                    noise["rand_ini"])
-    if kind == "refinegan":
-        return vocoders.refinegan(dec, cfg, z, nsff0, g, noise["source"],
-                                  noise["adain"], noise["rand_ini"])
-    return generator_nsf(dec, cfg, z, nsff0, g, noise["sine"])
+    return decode(params["dec"], cfg, z * x_mask, nsff0, g, noise)
+
+
+def train_noise(cfg: ModelConfig, y, y_lengths, generator: torch.Generator | None,
+                *, dtype: torch.dtype | None = None, post_noise=None, ids_slice=None,
+                dec_noise=None) -> dict:
+    """The training forward's random inputs: the posterior noise (B,
+    T_spec, inter) in `dtype` (default y's), the slice starts (B,)
+    int(u * (length - segment_size + 1)) with u ~ U[0, 1) (reference
+    commons.py:27-33), and the decoder's noise for one segment (a dict as
+    `decoder_noise` lays it out, its normals in `dtype`).  Those given
+    are kept; the rest are drawn from `generator` in that order."""
+    b, t = y.shape[:2]
+    seg = cfg.segment_size
+    dtype = dtype or y.dtype
+    if post_noise is None:
+        post_noise = torch.randn((b, t, cfg.inter_channels), generator=generator,
+                                 device=y.device, dtype=dtype)
+    if ids_slice is None:
+        u = torch.rand(b, generator=generator, device=y.device)
+        ids_slice = (u * (y_lengths - seg + 1)).to(torch.int32)
+    if dec_noise is None:
+        dec_noise = decoder_noise(cfg, b, seg, generator, y.device, dtype)
+    return {"post_noise": post_noise, "ids_slice": torch.as_tensor(ids_slice, device=y.device),
+            "dec_noise": dec_noise}
 
 
 def train_forward(params: Params, cfg: ModelConfig, phone, phone_lengths,
                   pitch, pitchf, y, y_lengths, ds, *, post_noise=None,
-                  ids_slice=None, sine_noise=None,
+                  ids_slice=None, dec_noise=None,
                   generator: torch.Generator | None = None):
-    """Training path (reference synthesizers.py:434-443), NSF-HiFiGAN
-    decoder of f0 models.
+    """Training path (reference synthesizers.py:434-443) of every decoder:
+    the NSF, MRF-HiFi-GAN and RefineGAN decoders of f0 models on the
+    sliced pitch, the plain decoder of f0-less ones (pitch None; JAX
+    `train_forward` / `_decode_train`).
 
     y: (B, T_spec, spec_channels) linear spectrogram; pitchf: (B, T_spec)
-    Hz.  post_noise (B, T_spec, inter), ids_slice (B,) and sine_noise
-    (B, segment_size * upp, 1) are used when given, else drawn from
-    `generator` in that order.  Returns (y_hat (B, segment_size * upp,
-    1), ids_slice, x_mask, y_mask, (z, z_flowed, m_p, logs_p, m_q,
-    logs_q))."""
-    if not cfg.use_f0 or cfg.vocoder != "Default":
-        raise NotImplementedError(
-            "only the NSF-HiFiGAN decoder of f0 models is ported")
+    Hz.  The noise (`train_noise`: post_noise, ids_slice, dec_noise) is
+    used where given, else drawn from `generator`.  Returns (y_hat (B,
+    segment_size * upp, 1), ids_slice, x_mask, y_mask, (z, z_flowed, m_p,
+    logs_p, m_q, logs_q))."""
+    noise = train_noise(cfg, y, y_lengths, generator, post_noise=post_noise,
+                        ids_slice=ids_slice, dec_noise=dec_noise)
     g = embedding(params["emb_g"]["w"], ds)[:, None, :]
     m_p, logs_p, x_mask = text_encoder(params["enc_p"], cfg, phone, pitch,
                                        phone_lengths)
-    b, t = y.shape[:2]
-    seg = cfg.segment_size
-    if post_noise is None:
-        post_noise = torch.randn((b, t, cfg.inter_channels), generator=generator,
-                                 device=y.device, dtype=y.dtype)
     z, m_q, logs_q, y_mask = posterior_encoder(params["enc_q"], y, y_lengths, g,
-                                               post_noise)
-    z_slice, ids_slice = rand_slice_segments(z, y_lengths, seg, ids_str=ids_slice,
-                                             generator=generator)
-    pitchf_slice = slice_segments(pitchf, ids_slice, seg)
-    if sine_noise is None:
-        sine_noise = torch.randn((b, seg * cfg.upp, 1), generator=generator,
-                                 device=y.device, dtype=y.dtype)
-    y_hat = generator_nsf(params["dec"], cfg, z_slice, pitchf_slice, g, sine_noise)
+                                               noise["post_noise"])
+    seg = cfg.segment_size
+    ids_slice = noise["ids_slice"]
+    z_slice = slice_segments(z, ids_slice, seg)
+    pitchf_slice = slice_segments(pitchf, ids_slice, seg) if cfg.use_f0 else None
+    y_hat = decode(params["dec"], cfg, z_slice, pitchf_slice, g, noise["dec_noise"])
     z_flowed = flow(params["flow"], z, y_mask, g, reverse=False)
     return y_hat, ids_slice, x_mask, y_mask, (z, z_flowed, m_p, logs_p, m_q, logs_q)

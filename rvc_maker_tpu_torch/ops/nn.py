@@ -130,17 +130,3 @@ def slice_segments(x, ids_str, segment_size: int):
     idx = start[:, None] + torch.arange(segment_size, device=x.device)[None, :]
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     return x[rows, idx]
-
-
-def rand_slice_segments(x, x_lengths, segment_size: int, *, ids_str=None,
-                        generator: torch.Generator | None = None):
-    """Random per-sample slices for training (reference commons.py:27-33).
-
-    The start ids are `ids_str` when given, else
-    int(u * (length - segment_size + 1)) with u ~ U[0, 1) drawn from
-    `generator`.  Returns (slices, ids_str)."""
-    if ids_str is None:
-        u = torch.rand(x.shape[0], generator=generator, device=x.device)
-        ids_str = (u * (x_lengths - segment_size + 1)).to(torch.int32)
-    ids_str = torch.as_tensor(ids_str, device=x.device)
-    return slice_segments(x, ids_str, segment_size), ids_str

@@ -4,7 +4,8 @@ train.py:700-716).
 
 The mel filterbank reproduces librosa.filters.mel numerics (triangular
 filters, slaney area norm) from the published formulas.  The STFT runs
-in fp32 on explicit frames through torch.fft.rfft.
+in fp32 (float64 input stays float64) on explicit frames through
+torch.fft.rfft.
 """
 
 from __future__ import annotations
@@ -79,8 +80,8 @@ def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
 
     y: (B, L); window: (win_length,) numpy, zero-padded to n_fft
     centered.  center=True reflect-pads n_fft//2 on both sides.
-    Returns (B, n_frames, n_fft//2 + 1) fp32."""
-    y = y.to(torch.float32)
+    Returns (B, n_frames, n_fft//2 + 1) fp32, float64 for float64 y."""
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
     if center:
         p = n_fft // 2
         y = F.pad(y[:, None], (p, p), mode="reflect")[:, 0]
@@ -88,7 +89,8 @@ def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         win = np.pad(win, (lpad, n_fft - win_length - lpad))
-    frames = frame_signal(y, n_fft, hop_length) * torch.as_tensor(win, device=y.device)
+    frames = frame_signal(y, n_fft, hop_length) * torch.as_tensor(win, device=y.device,
+                                                                  dtype=y.dtype)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     return torch.sqrt(spec.real.square() + spec.imag.square() + eps)
 
@@ -99,7 +101,8 @@ def spectrogram(y, *, n_fft: int, hop_length: int, win_length: int):
     y: (B, L).  Reflect-pads (n_fft - hop) / 2 on both sides, center=False,
     eps 1e-6.  Returns (B, L // hop, n_fft//2 + 1) when hop divides L."""
     p = int((n_fft - hop_length) / 2)
-    y = F.pad(y.to(torch.float32)[:, None], (p, p), mode="reflect")[:, 0]
+    y = y.to(torch.promote_types(y.dtype, torch.float32))
+    y = F.pad(y[:, None], (p, p), mode="reflect")[:, 0]
     return stft_magnitude(y, n_fft=n_fft, hop_length=hop_length,
                           win_length=win_length, window=hann_window(win_length),
                           center=False, eps=1e-6)
@@ -110,7 +113,7 @@ def spec_to_mel(spec, *, n_fft: int, n_mels: int, sample_rate: int,
     """(B, T, n_fft//2 + 1) -> (B, T, n_mels) log-mel (slaney filters;
     reference train.py:708-713)."""
     basis = torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax,
-                                           htk=False), device=spec.device)
+                                           htk=False), device=spec.device, dtype=spec.dtype)
     mel = torch.matmul(spec, basis.T)
     return torch.log(torch.clamp(mel, min=1e-5))
 
@@ -134,7 +137,7 @@ def rmvpe_mel(audio_16k, *, n_mels: int = 128, n_fft: int = 1024,
                          win_length=win_length, window=hann_window(win_length),
                          center=True)
     basis = torch.as_tensor(mel_filterbank(16000, n_fft, n_mels, fmin, fmax,
-                                           htk=True), device=mag.device)
+                                           htk=True), device=mag.device, dtype=mag.dtype)
     mel = torch.matmul(mag, basis.T)                    # (B, T, n_mels)
     mel = torch.log(torch.clamp(mel, min=1e-5))
     return mel.transpose(1, 2)

@@ -17,8 +17,8 @@ as in the JAX package, it still runs F0, whose f0 sets `protect`'s
 unvoiced frames (the reference toolkit skips both for such models).
 
 F0 methods: every one the JAX package runs outside ONNX.  On the device
-(`_device_f0`): rmvpe, rmvpe-legacy, yin, fcpe, fcpe-legacy.  On the host
-(`_host_f0`, JAX convert.py:652-751): dio (+ stonemask), harvest, swipe,
+(`device_f0`): rmvpe, rmvpe-legacy, yin, fcpe, fcpe-legacy.  On the host
+(`host_f0_member`, JAX convert.py:652-751): dio (+ stonemask), harvest, swipe,
 pm, pyin, crepe-<capacity> and mangio-crepe-<capacity> (CREPE's network
 on the device, its Viterbi on the host), and hybrid[a+b+...], the
 per-frame nanmedian of its members.  `f0_file` overwrites the contour
@@ -89,6 +89,113 @@ def f0_members(method: str) -> list[str]:
     if method.startswith("hybrid["):
         return [m.strip() for m in method[len("hybrid["):-1].split("+")]
     return [method]
+
+
+def device_f0(method: str, audio, params) -> torch.Tensor:
+    """A device method on (B, L) 16 kHz audio on the device -> f0 (B,
+    frames) Hz at pitch 0, no autotune (JAX `_f0_raw`).  params(name,
+    method) gives the network `name`'s params ("rmvpe", "fcpe") and
+    raises when they are not loaded."""
+    if method in ("rmvpe", "rmvpe-legacy"):
+        kw = {"f0_min": 50.0, "f0_max": 1100.0} if method == "rmvpe-legacy" else {}
+        return rmvpe_mod.infer(params("rmvpe", method), audio, **kw)
+    if method in ("fcpe", "fcpe-legacy"):
+        return fcpe_mod.infer(params("fcpe", method), audio, threshold=0.03,
+                              p_len=audio.shape[1] // WINDOW + 1)
+    if method == "yin":
+        return yin(audio, sr=SAMPLE_RATE, fmin=50.0, fmax=1100.0, hop_length=WINDOW)
+    raise ValueError(f"unknown f0 method {method!r}")
+
+
+def _crepe_probs(params, audio: np.ndarray, hop: int, device) -> np.ndarray:
+    """CREPE's probabilities (1, T, 360) of one row, on the device."""
+    from ..models import crepe as crepe_mod
+
+    with record_function(CREPE_RANGE):
+        x = torch.as_tensor(audio, device=device)
+        return crepe_mod.predict_probs(params, x, hop_length=hop).cpu().numpy()
+
+
+def host_f0_member(method: str, row: np.ndarray, *, hop_length: int, params,
+                   device) -> np.ndarray:
+    """One F0 method on one 16 kHz row (L,) -> f0 Hz at the method's own
+    frame rate, NaN where pyin and mangio-crepe find no pitch (JAX
+    convert.py `_host_f0`'s member loop).  The host methods run on the
+    host (CREPE's network on `device`, its Viterbi on the host); a device
+    method (a hybrid's member) runs on `device` on this row alone.
+    params(name, method) as `device_f0` takes it, "crepe" too."""
+    from ..models import crepe as crepe_mod
+
+    m = method
+    if m in ("dio", "harvest"):
+        from ..f0 import world
+
+        fn = world.harvest if m == "harvest" else world.dio
+        f0, t = fn(row.astype(np.float64), SAMPLE_RATE, f0_floor=50.0,
+                   f0_ceil=1100.0, frame_period=10.0)
+        if m == "dio":
+            f0 = world.stonemask(row.astype(np.float64), SAMPLE_RATE, t, f0)
+        return f0
+    if m == "swipe":
+        from ..f0.swipe import swipe
+
+        return swipe(row, SAMPLE_RATE, f0_floor=50.0, f0_ceil=1100.0)[0]
+    if m == "pm":
+        from ..f0.praat_ac import praat_ac
+
+        return praat_ac(row, SAMPLE_RATE, f0_floor=50.0, f0_ceil=1100.0,
+                        voicing_threshold=0.6)
+    if m.startswith("mangio-crepe"):
+        # reference convert.py:215-228: quantile normalization, the
+        # settings' hop, Viterbi, NaN below 0.001 Hz
+        x = row.astype(np.float32)
+        x = x / np.quantile(np.abs(x), 0.999)
+        probs = _crepe_probs(params("crepe", m), x[None], hop_length, device)
+        f0 = crepe_mod.decode(probs, 50.0, 1100.0)[0]
+        return np.where(f0 < 0.001, np.nan, f0)
+    if m.startswith("crepe"):
+        # reference convert.py:230-237: hop = window, mean(f0, 3),
+        # median(periodicity, 3), gate at periodicity 0.1
+        probs = _crepe_probs(params("crepe", m), row[None], WINDOW, device)
+        f0, pd = crepe_mod.decode(probs, 50.0, 1100.0, return_periodicity=True)
+        f0 = crepe_mod.mean_filter(f0, 3)
+        pd = crepe_mod.median_filter(pd, 3)
+        f0[pd < 0.1] = 0.0
+        return f0[0]
+    if m == "pyin":
+        from ..f0.pyin import pyin
+
+        f0 = pyin(row, SAMPLE_RATE, fmin=50.0, fmax=1100.0, hop_length=hop_length)[0]
+        return np.where(f0 < 0.001, np.nan, f0)
+    if m in DEVICE_F0:
+        with record_function(F0_RANGES[m]):
+            x = torch.as_tensor(row[None], device=device)
+            return device_f0(m, x, params)[0].cpu().numpy()
+    raise ValueError(f"unknown f0 method {m!r}")
+
+
+def host_f0_row(method: str, row: np.ndarray, *, hop_length: int, params, device,
+                extract_rule: bool = False) -> np.ndarray:
+    """One row, one method or hybrid[...] -> float64 f0 Hz at len(row) //
+    160 + 1 frames: each member resampled to that length (reference
+    convert.py:299-300), a hybrid's members merged by their per-frame
+    nanmedian, NaN set to 0 (convert.py:281), as JAX convert.py
+    `_host_f0` does.  extract_rule is JAX extract.py `_host_f0_single`'s:
+    each member's NaN set to 0 before the resampling and a hybrid's zeros
+    taken as NaN before the median."""
+    p_len = len(row) // WINDOW + 1
+    stack = []
+    for m in f0_members(method):
+        f0 = np.asarray(host_f0_member(m, row, hop_length=hop_length, params=params,
+                                       device=device), np.float64).ravel()
+        if extract_rule:
+            f0 = np.nan_to_num(f0)
+        stack.append(np.interp(np.linspace(0, len(f0) - 1, p_len), np.arange(len(f0)), f0))
+    if len(stack) == 1:
+        return np.nan_to_num(stack[0])
+    if extract_rule:
+        stack = [np.where(f0 < 0.001, np.nan, f0) for f0 in stack]
+    return np.nan_to_num(np.nanmedian(np.vstack(stack), axis=0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,7 +291,7 @@ class ConvertPipeline:
         m = settings.f0_method
         if m in DEVICE_F0:
             with record_function(F0_RANGES[m]):
-                f0 = shift_f0(self._device_f0(m, audio), settings.pitch)
+                f0 = shift_f0(device_f0(m, audio, self._params), settings.pitch)
                 if settings.f0_autotune and settings.f0_autotune_strength > 0:
                     f0 = autotune_f0(f0, settings.f0_autotune_strength)
                 return f0
@@ -193,94 +300,15 @@ class ConvertPipeline:
             f0 = self._host_f0(m, audio.cpu().numpy(), settings)
             return torch.as_tensor(f0, device=self.device)
 
-    def _device_f0(self, method: str, audio):
-        """A device method at pitch 0, no autotune (JAX `_f0_raw`)."""
-        if method in ("rmvpe", "rmvpe-legacy"):
-            kw = {"f0_min": 50.0, "f0_max": 1100.0} if method == "rmvpe-legacy" else {}
-            return rmvpe_mod.infer(self._params("rmvpe", method), audio, **kw)
-        if method in ("fcpe", "fcpe-legacy"):
-            return fcpe_mod.infer(self._params("fcpe", method), audio, threshold=0.03,
-                                  p_len=audio.shape[1] // WINDOW + 1)
-        if method == "yin":
-            return yin(audio, sr=SAMPLE_RATE, fmin=50.0, fmax=1100.0, hop_length=WINDOW)
-        raise ValueError(f"unknown f0 method {method!r}")
-
-    def _crepe_probs(self, method: str, audio: np.ndarray, hop: int) -> np.ndarray:
-        """CREPE's probabilities (1, T, 360) of one row, on the device."""
-        from ..models import crepe as crepe_mod
-
-        params = self._params("crepe", method)
-        with record_function(CREPE_RANGE):
-            x = torch.as_tensor(audio, device=self.device)
-            return crepe_mod.predict_probs(params, x, hop_length=hop).cpu().numpy()
-
     def _host_f0(self, method: str, audio_batch: np.ndarray,
                  settings: ConvertSettings) -> np.ndarray:
         """F0 of the host methods and of hybrid[...] (reference convert.py
-        get_f0 / get_f0_hybrid:283-323), row by row, line for line as JAX
-        `_host_f0`.  Returns (B, L // 160 + 1) float32 Hz, shifted and
-        autotuned on the host."""
-        from ..models import crepe as crepe_mod
-
-        b, L = audio_batch.shape
-        p_len = L // WINDOW + 1
-        out = np.zeros((b, p_len), np.float32)
-        methods = f0_members(method)
-        for i in range(b):
-            row = audio_batch[i]
-            stack = []
-            for m in methods:
-                if m in ("dio", "harvest"):
-                    from ..f0 import world
-
-                    fn = world.harvest if m == "harvest" else world.dio
-                    f0, t = fn(row.astype(np.float64), SAMPLE_RATE, f0_floor=50.0,
-                               f0_ceil=1100.0, frame_period=10.0)
-                    if m == "dio":
-                        f0 = world.stonemask(row.astype(np.float64), SAMPLE_RATE, t, f0)
-                elif m == "swipe":
-                    from ..f0.swipe import swipe
-
-                    f0, _ = swipe(row, SAMPLE_RATE, f0_floor=50.0, f0_ceil=1100.0)
-                elif m == "pm":
-                    from ..f0.praat_ac import praat_ac
-
-                    f0 = praat_ac(row, SAMPLE_RATE, f0_floor=50.0, f0_ceil=1100.0,
-                                  voicing_threshold=0.6)
-                elif m.startswith("mangio-crepe"):
-                    # reference convert.py:215-228: quantile normalization,
-                    # the settings' hop, Viterbi, NaN below 0.001 Hz
-                    x = row.astype(np.float32)
-                    x = x / np.quantile(np.abs(x), 0.999)
-                    probs = self._crepe_probs(m, x[None], settings.hop_length)
-                    f0 = crepe_mod.decode(probs, 50.0, 1100.0)[0]
-                    f0 = np.where(f0 < 0.001, np.nan, f0)
-                elif m.startswith("crepe"):
-                    # reference convert.py:230-237: hop = window, mean(f0, 3),
-                    # median(periodicity, 3), gate at periodicity 0.1
-                    probs = self._crepe_probs(m, audio_batch[i : i + 1], WINDOW)
-                    f0, pd = crepe_mod.decode(probs, 50.0, 1100.0, return_periodicity=True)
-                    f0 = crepe_mod.mean_filter(f0, 3)
-                    pd = crepe_mod.median_filter(pd, 3)
-                    f0[pd < 0.1] = 0.0
-                    f0 = f0[0]
-                elif m == "pyin":
-                    from ..f0.pyin import pyin
-
-                    f0 = pyin(row, SAMPLE_RATE, fmin=50.0, fmax=1100.0,
-                              hop_length=settings.hop_length)[0]
-                    f0 = np.where(f0 < 0.001, np.nan, f0)
-                elif m in DEVICE_F0:
-                    with record_function(F0_RANGES[m]):
-                        x = torch.as_tensor(audio_batch[i : i + 1], device=self.device)
-                        f0 = self._device_f0(m, x)[0].cpu().numpy()
-                else:
-                    raise ValueError(f"unknown f0 method {m!r}")
-                # to p_len frames (reference convert.py:299-300)
-                stack.append(np.interp(np.linspace(0, len(f0) - 1, p_len),
-                                       np.arange(len(f0)), f0))
-            f0 = stack[0] if len(stack) == 1 else np.nanmedian(np.vstack(stack), axis=0)
-            out[i] = np.nan_to_num(f0)               # reference convert.py:281
+        get_f0 / get_f0_hybrid:283-323), row by row (`host_f0_row`), line
+        for line as JAX `_host_f0`.  Returns (B, L // 160 + 1) float32 Hz,
+        shifted and autotuned on the host."""
+        out = np.stack([host_f0_row(method, row, hop_length=settings.hop_length,
+                                    params=self._params, device=self.device)
+                        for row in audio_batch]).astype(np.float32)
         out = out * (2.0 ** (settings.pitch / 12.0))
         if settings.f0_autotune:
             nearest = NOTE_FREQS[np.argmin(np.abs(out[..., None] - NOTE_FREQS), axis=-1)]

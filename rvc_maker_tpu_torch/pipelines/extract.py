@@ -1,9 +1,14 @@
 """Feature extraction for training: F0 and HuBERT features per segment.
 
 Counterpart of `rvc_maker_tpu/pipelines/extract.py` (reference
-main/inference/extract.py), with RMVPE as the F0 method:
-  * stage A: RMVPE F0 per 16 kHz segment -> `f0/` (coarse 1..255 int)
-    and `f0_voiced/` (Hz)
+main/inference/extract.py), with every F0 method of the JAX package's
+extract:
+  * stage A: F0 per 16 kHz segment -> `f0/` (coarse 1..255 int) and
+    `f0_voiced/` (Hz).  The device methods (rmvpe, rmvpe-legacy, yin,
+    fcpe, fcpe-legacy) run batched on the device; the host ones (pyin,
+    swipe, pm, dio, harvest, crepe-*, mangio-crepe-*) and hybrid[a+b+...]
+    one segment at a time, through the dispatch of `pipelines/convert.py`
+    (`device_f0`, `host_f0_row` with JAX extract's NaN rule).
   * stage B: HuBERT features -> `{v1,v2}_extracted/*.npy` (T x 768 from
     layer 12 for v2; T x 256 through final_proj for v1), NaN-checked
   * a silent MUTE fixture row set, and `filelist.txt`
@@ -28,14 +33,13 @@ from ..config import RVCConfig
 from ..device import resolve_device, tree_to
 from ..f0.common import coarse_f0
 from ..models import hubert as hubert_mod
-from ..models import rmvpe as rmvpe_mod
 from ..utils.audio import load_audio, save_wav
+from .convert import DEVICE_F0, device_f0, host_f0_row
 
 logger = logging.getLogger(__name__)
 
 SR16K = 16000
 WINDOW = 160
-F0_METHODS = ("rmvpe", "rmvpe-legacy")
 
 
 def _bucket(n: int, step: int = SR16K) -> int:
@@ -63,25 +67,41 @@ def _pending(wav_dir: str, out_dir: str, out_name) -> dict:
 
 
 @torch.inference_mode()
-def extract_f0(exp_dir: str, rmvpe_params, *, method: str = "rmvpe",
+def extract_f0(exp_dir: str, rmvpe_params=None, *, method: str = "rmvpe",
+               crepe_params=None, fcpe_params=None, hop_length: int = 160,
                batch_size: int = 8, device: str | torch.device = "cuda") -> int:
-    """Stage A.  Returns the number of segments processed."""
-    if method not in F0_METHODS:
-        raise ValueError(f"f0 method {method!r} is not ported (have {F0_METHODS})")
+    """Stage A with any F0 method (module docstring).  Each method needs
+    the params of its network (rmvpe_params for rmvpe*, fcpe_params for
+    fcpe*, crepe_params for *crepe*; the port's trees) and raises without
+    them.  hop_length is the frame hop of pyin and mangio-crepe.  Returns
+    the number of segments processed."""
     dev = resolve_device(device)
-    params = tree_to(rmvpe_params, dev, torch.float32)
+    nets = {"rmvpe": rmvpe_params, "fcpe": fcpe_params, "crepe": crepe_params}
+    nets = {k: None if v is None else tree_to(v, dev, torch.float32) for k, v in nets.items()}
+
+    def params(name, m):
+        if nets[name] is None:
+            raise ValueError(f"{name}_params not loaded: f0 method {m!r} needs them")
+        return nets[name]
+
     wav_dir = os.path.join(exp_dir, "sliced_audios_16k")
     f0_dir = os.path.join(exp_dir, "f0")
     f0v_dir = os.path.join(exp_dir, "f0_voiced")
     os.makedirs(f0_dir, exist_ok=True)
     os.makedirs(f0v_dir, exist_ok=True)
     audios = _pending(wav_dir, f0v_dir, lambda n: n + ".npy")
-    kw = {"f0_min": 50.0, "f0_max": 1100.0} if method == "rmvpe-legacy" else {}
     done = 0
     for chunk, batch, _ in _batches(audios, batch_size):
-        f0 = rmvpe_mod.infer(params, torch.as_tensor(batch, device=dev), **kw)
-        coarse = coarse_f0(f0).cpu().numpy()
-        f0 = f0.cpu().numpy()
+        if method in DEVICE_F0:
+            f0 = device_f0(method, torch.as_tensor(batch, device=dev), params).cpu()
+            coarse = coarse_f0(f0).numpy()
+        else:
+            # float64 Hz, one segment at a time (JAX extract.py:172-179); the
+            # coarse codes from its fp32 values, as JAX computes them
+            f0 = np.stack([host_f0_row(method, row, hop_length=hop_length, params=params,
+                                       device=dev, extract_rule=True) for row in batch])
+            coarse = coarse_f0(torch.as_tensor(f0, dtype=torch.float32)).numpy()
+        f0 = np.asarray(f0)
         for i, n in enumerate(chunk):
             p_len = len(audios[n]) // WINDOW
             np.save(os.path.join(f0_dir, n + ".npy"), coarse[i, :p_len],
@@ -89,7 +109,7 @@ def extract_f0(exp_dir: str, rmvpe_params, *, method: str = "rmvpe",
             np.save(os.path.join(f0v_dir, n + ".npy"), f0[i, :p_len],
                     allow_pickle=False)
             done += 1
-    logger.info("f0 extracted for %d segments", done)
+    logger.info("f0 (%s) extracted for %d segments", method, done)
     return done
 
 

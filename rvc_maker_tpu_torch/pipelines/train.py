@@ -11,8 +11,12 @@ forward; the D step on y_hat.detach(); the G loss against the updated D;
 ONE backward through the generator.  The state is updated in place
 (parameters, AdamW moments, step), the PyTorch idiom, where the JAX step
 returns a new state.  Noise (the posterior noise, the slice ids, the
-sine-source noise) comes in explicitly or is drawn from the state's
+decoder's noise) comes in explicitly or is drawn from the state's
 torch.Generator, whose state a checkpoint keeps for an exact resume.
+
+Every decoder trains (NSF, f0-less, MRF-HiFi-GAN, RefineGAN), in fp32 or
+in the JAX package's bf16 mode, with or without checkpointed forwards
+(`make_train_step`).
 
 Each part of the step runs under a torch.profiler range: train.g_forward,
 train.d_step, train.g_loss, train.g_backward, train.optim.
@@ -28,13 +32,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RVCConfig
 from ..device import resolve_device
 from ..interop import from_jax
 from ..models import discriminator as disc
 from ..models import synthesizer as syn
-from ..ops.nn import slice_segments
+from ..ops.nn import cast_floats, slice_segments
 from ..ops.stft import mel_spectrogram, spec_to_mel
 
 def tree_leaves(tree) -> list:
@@ -59,15 +64,19 @@ class Batch:
     wave: Any           # (B, T * hop, 1)
     sid: Any            # (B,)
 
-    def to(self, device) -> "Batch":
+    def to(self, device, half: Optional[torch.dtype] = None) -> "Batch":
+        """The batch as tensors on `device`.  half: phone and wave cast to
+        it on the host before the copy (the bf16 step casts them anyway,
+        and the copy halves; JAX train_loop.py:316-330)."""
         def conv(a, dtype):
-            return torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
-                                   else a, device=device, dtype=dtype)
+            a = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
+            return a.to(dtype).to(device)
         f, i = torch.float32, torch.int64
-        return Batch(phone=conv(self.phone, f), phone_lengths=conv(self.phone_lengths, i),
+        return Batch(phone=conv(self.phone, half or f),
+                     phone_lengths=conv(self.phone_lengths, i),
                      pitch=conv(self.pitch, i), pitchf=conv(self.pitchf, f),
                      spec=conv(self.spec, f), spec_lengths=conv(self.spec_lengths, i),
-                     wave=conv(self.wave, f), sid=conv(self.sid, i))
+                     wave=conv(self.wave, half or f), sid=conv(self.sid, i))
 
 
 @dataclasses.dataclass
@@ -174,18 +183,70 @@ class RangeTimer:
         return device, host
 
 
+def _cast_batch(batch: Batch, dtype: torch.dtype) -> Batch:
+    """The batch's float fields (phone, pitchf, spec, wave) in dtype; the
+    int fields as they are (JAX `cast_floats` of the Batch pytree)."""
+    return dataclasses.replace(batch, phone=batch.phone.to(dtype),
+                               pitchf=batch.pitchf.to(dtype),
+                               spec=batch.spec.to(dtype), wave=batch.wave.to(dtype))
+
+
+def _checkpointed(fn):
+    """fn under torch.utils.checkpoint: its activations are dropped after
+    the forward and recomputed in the backward (JAX `jax.checkpoint`).
+    Nothing inside draws random numbers (the step draws its noise first),
+    so no RNG state is stashed."""
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
     """Returns train_step(state, batch, *, noise=None, timer=None,
     keep_grads=False) -> metrics, which updates `state` in place.
 
     batch: a Batch of tensors on the state's device.  noise: optional
-    dict with post_noise, ids_slice, sine_noise (see
-    synthesizer.train_forward).  timer: a RangeTimer.  keep_grads adds
-    the gradient lists `grads_g` and `grads_d` (in tree_leaves order) to
-    the metrics."""
+    dict with post_noise, ids_slice and dec_noise (see
+    synthesizer.train_noise); what it lacks is drawn from the state's
+    generator before the forward.  timer: a RangeTimer.
+    keep_grads adds the gradient lists `grads_g` and `grads_d` (in
+    tree_leaves order) to the metrics.
+
+    cfg.train.remat runs the generator forward and each discriminator
+    application under torch.utils.checkpoint, recomputed in the backward
+    (JAX train.py:145-147; the reference's --checkpointing).
+    cfg.train.bf16 is the JAX package's mixed precision
+    (train.py:111-118): fp32 master params and AdamW state; the params and
+    the batch's floats are cast to bf16 inside the differentiated
+    functions, so the gradients land in fp32; the posterior noise and the
+    decoder's normals are drawn in bf16; the mel and KL losses compute in
+    fp32, the sine phases stay fp32; no loss scaling."""
     mcfg, dcfg, tcfg = cfg.model, cfg.data, cfg.train
+    half = torch.bfloat16 if tcfg.bf16 else None
     seg_frames = tcfg.segment_size // dcfg.hop_length
     periods = disc.periods_for(cfg.version)
+
+    def forward_g(params_g, batch: Batch, noise: dict):
+        if half is not None:
+            params_g, batch = cast_floats(params_g, half), _cast_batch(batch, half)
+        y_hat, _, _, y_mask, latents = syn.train_forward(
+            params_g, mcfg, batch.phone, batch.phone_lengths,
+            batch.pitch if mcfg.use_f0 else None, batch.pitchf, batch.spec,
+            batch.spec_lengths, batch.sid, **noise)
+        if half is not None:      # the KL loss and its mask in fp32
+            latents = tuple(v.float() for v in latents)
+            y_mask = y_mask.float()
+        return y_hat, y_mask, latents
+
+    def mpd(params_d, wave_slice, y_hat):
+        if half is not None:
+            params_d = cast_floats(params_d, half)
+            wave_slice, y_hat = wave_slice.to(half), y_hat.to(half)
+        out = disc.mpd_apply(params_d, wave_slice, y_hat, periods, disc_width_div)
+        return out if half is None else cast_floats(out, torch.float32)
+
+    if tcfg.remat:
+        forward_g, mpd = _checkpointed(forward_g), _checkpointed(mpd)
 
     def train_step(state: TrainState, batch: Batch, *, noise: Optional[dict] = None,
                    timer: Optional[RangeTimer] = None, keep_grads: bool = False):
@@ -193,17 +254,15 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
         leaves_d = tree_leaves(state.params_d)
         noise = noise or {}
         with _range("train.g_forward", timer):
-            y_hat, ids_slice, _, y_mask, latents = syn.train_forward(
-                state.params_g, mcfg, batch.phone, batch.phone_lengths, batch.pitch,
-                batch.pitchf, batch.spec, batch.spec_lengths, batch.sid,
-                post_noise=noise.get("post_noise"), ids_slice=noise.get("ids_slice"),
-                sine_noise=noise.get("sine_noise"), generator=state.generator)
+            noise = syn.train_noise(mcfg, batch.spec, batch.spec_lengths, state.generator,
+                                    dtype=half, **noise)
+            y_hat, y_mask, latents = forward_g(state.params_g, batch, noise)
+            ids_slice = noise["ids_slice"]
             wave_slice = slice_segments(batch.wave, ids_slice * dcfg.hop_length,
                                         tcfg.segment_size)
 
         with _range("train.d_step", timer):
-            y_d_r, y_d_g, _, _ = disc.mpd_apply(state.params_d, wave_slice,
-                                                y_hat.detach(), periods, disc_width_div)
+            y_d_r, y_d_g, _, _ = mpd(state.params_d, wave_slice, y_hat.detach())
             loss_d, _, _ = disc.discriminator_loss(y_d_r, y_d_g)
             grads_d = torch.autograd.grad(loss_d, leaves_d)
             _apply(state.opt_d, leaves_d, grads_d, state.lr)
@@ -215,11 +274,11 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
                               fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
             y_mel = slice_segments(mel, ids_slice, seg_frames)
             y_hat_mel = mel_spectrogram(
-                y_hat[:, :, 0], n_fft=dcfg.filter_length, num_mels=dcfg.n_mel_channels,
-                sample_rate=dcfg.sample_rate, hop_length=dcfg.hop_length,
-                win_length=dcfg.win_length, fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
-            _, y_d_g, fmap_r, fmap_g = disc.mpd_apply(state.params_d, wave_slice, y_hat,
-                                                      periods, disc_width_div)
+                y_hat[:, :, 0], n_fft=dcfg.filter_length,
+                num_mels=dcfg.n_mel_channels, sample_rate=dcfg.sample_rate,
+                hop_length=dcfg.hop_length, win_length=dcfg.win_length,
+                fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
+            _, y_d_g, fmap_r, fmap_g = mpd(state.params_d, wave_slice, y_hat)
             loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * tcfg.c_mel
             loss_kl = disc.kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * tcfg.c_kl
             loss_fm = disc.feature_loss(fmap_r, fmap_g)

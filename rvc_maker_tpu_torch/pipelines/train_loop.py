@@ -1,11 +1,14 @@
 """Epoch loop, checkpoint / exact resume, and inference-weight export.
 
 Counterpart of `rvc_maker_tpu/pipelines/train_loop.py` (reference
-train.py run / train_and_evaluate), on one device: per-epoch learning
-rate decay, a `ckpt_latest.pt` checkpoint (and `ckpt_e{N}.pt` unless
-save_only_latest), the interchange `.pth` exported at save epochs, the
-overtraining detector on EMA-smoothed losses with its JSON, metrics
-logged every `log_interval` steps.  SIGTERM saves and stops.
+train.py run / train_and_evaluate), on one device, for every decoder and
+in fp32 or bf16, with or without checkpointed forwards (cfg.train.bf16 /
+remat): per-epoch learning rate decay, a `ckpt_latest.pt` checkpoint (and
+`ckpt_e{N}.pt` unless save_only_latest), the interchange `.pth` exported
+at save epochs, the overtraining detector on EMA-smoothed losses with its
+JSON, metrics logged every `log_interval` steps (to TensorBoard under
+`tb/` unless the caller gives a log_writer, with a generated sample and
+its mel image at save epochs).  SIGTERM saves and stops.
 
 The checkpoint holds G, D, both AdamW states, the step, the learning
 rate and the state of the generator that draws the step noise, so a
@@ -17,6 +20,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import signal
 import threading
 import time
@@ -27,6 +31,8 @@ import torch
 from ..config import RVCConfig
 from ..device import resolve_device
 from ..interop.pth import export_synthesizer_pth, load_pretrained_d, load_pretrained_g
+from ..models import synthesizer as syn
+from ..ops.stft import mel_spectrogram
 from . import data as data_mod
 from . import train as train_mod
 
@@ -144,6 +150,7 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
     steps.  device="cuda" raises without a card."""
     dev = resolve_device(device)
     if cleanup:
+        shutil.rmtree(os.path.join(exp_dir, "tb"), ignore_errors=True)
         for f in os.listdir(exp_dir) if os.path.isdir(exp_dir) else []:
             if f.startswith("ckpt_") or f.endswith("s.pth"):
                 os.remove(os.path.join(exp_dir, f))
@@ -151,6 +158,17 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
     dataset = data_mod.TrainingDataset(os.path.join(exp_dir, "filelist.txt"), cfg,
                                        cache_in_memory=cache_data)
     logger.info("dataset: %d rows; device %s", len(dataset), dev)
+
+    tb = None
+    if log_writer is None:
+        from .tb_logging import TensorBoardLogger
+
+        tb = TensorBoardLogger(os.path.join(exp_dir, "tb"))
+
+        def log_writer(step, metrics):
+            tb.scalars(step, {f"loss/{k}" if k.startswith("loss") else k: v
+                              for k, v in metrics.items()})
+            tb.flush()
 
     latest = os.path.join(exp_dir, LATEST)
     resume = os.path.isfile(latest)
@@ -181,6 +199,7 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
     # registers the handler
     on_main = threading.current_thread() is threading.main_thread()
     old_handler = signal.signal(signal.SIGTERM, _sigterm) if on_main else None
+    half = torch.bfloat16 if cfg.train.bf16 else None
     try:
         for epoch in range(start_epoch, total_epochs + 1):
             t0 = time.time()
@@ -188,7 +207,8 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
             metrics = None
             for batch in data_mod.batches_for_epoch(dataset, batch_size=batch_size,
                                                     epoch=epoch, seed=cfg.train.seed):
-                metrics = step_fn(state, batch.to(dev))
+                batch = batch.to(dev, half)
+                metrics = step_fn(state, batch)
                 n_batches += 1
                 if state.step % cfg.train.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}
@@ -221,9 +241,50 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                         state.params_g, cfg,
                         os.path.join(exp_dir, f"{name}_{epoch}e_{state.step}s.pth"),
                         epoch=epoch, step=state.step, author=author)
+                if tb is not None and n_batches:
+                    _log_eval_sample(tb, state, cfg, batch, state.step)
             if stop["now"]:
                 break
     finally:
         if on_main:
             signal.signal(signal.SIGTERM, old_handler)
+        if tb is not None:
+            tb.close()
     return state
+
+
+def _log_eval_sample(tb, state: train_mod.TrainState, cfg: RVCConfig,
+                     batch: train_mod.Batch, step: int) -> None:
+    """The generated audio and its mel image for the first item of the
+    last batch, every decoder on zero noise (reference train_and_evaluate
+    eval block, train.py:883-895; JAX train_loop.py:418-452)."""
+    try:
+        m = cfg.model
+        p = state.params_g
+        with torch.inference_mode():
+            phone = batch.phone[:1].float()
+            t = phone.shape[1]
+            lengths = torch.clamp(batch.phone_lengths[:1], max=t)
+            pitch = batch.pitch[:1] if m.use_f0 else None
+            z = torch.zeros((1, t, m.inter_channels), device=phone.device)
+            noise = _zeros_like(syn.decoder_noise(m, 1, t, torch.Generator(phone.device),
+                                                  phone.device))
+            wav = syn.infer_any(p, m, phone, lengths, pitch, batch.pitchf[:1].float(),
+                                batch.sid[:1], z, noise)[0, :, 0].float()
+            mel = mel_spectrogram(wav[None], n_fft=cfg.data.filter_length,
+                                  num_mels=cfg.data.n_mel_channels, sample_rate=m.sr,
+                                  hop_length=cfg.data.hop_length,
+                                  win_length=cfg.data.win_length, fmin=0.0, fmax=None)[0]
+        tb.audio(step, "eval/generated", wav.cpu().numpy(), m.sr)
+        tb.mel_image(step, "eval/mel_generated", mel.cpu().numpy())
+        tb.flush()
+    except Exception:  # noqa: BLE001 — eval logging must never kill training
+        logger.exception("eval sample logging failed")
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_like(v) for v in tree)
+    return torch.zeros_like(tree)

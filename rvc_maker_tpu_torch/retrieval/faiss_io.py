@@ -1,10 +1,12 @@
-"""Reader of faiss `.index` files, with no faiss dependency.
+"""Reader and writer of faiss `.index` files, with no faiss dependency.
 
-Counterpart of the read side of `rvc_maker_tpu/retrieval/faiss_io.py`
-(the port keeps its own copy; it imports nothing of the JAX package).
-Every RVC user's `added_*.index` is an `IndexIVFFlat` written by faiss;
-the reference densifies it with `faiss.read_index` + `reconstruct_n`
-(reference convert.py:394-395), and so does `load_index`.
+Counterpart of `rvc_maker_tpu/retrieval/faiss_io.py` (the port keeps its
+own copy; it imports nothing of the JAX package).  Every RVC user's
+`added_*.index` is an `IndexIVFFlat` written by faiss; the reference
+densifies it with `faiss.read_index` + `reconstruct_n` (reference
+convert.py:394-395), and so does `load_index`.  `write_ivf_flat` writes
+that layout (reference create_index.py:66-83) byte for byte as the JAX
+package does.
 
 Binary layout, from the published faiss serialization
 (faiss/impl/index_read.cpp), little-endian:
@@ -39,6 +41,7 @@ def _fourcc(s: str) -> int:
 
 
 _FLAT = (_fourcc("IxF2"), _fourcc("IxFI"))
+_METRIC_L2 = 1
 
 
 class _Reader:
@@ -182,3 +185,91 @@ def read_index(path_or_bytes) -> IvfFlatIndex:
     if idx.ntotal != ntotal:
         raise ValueError(f"lists hold {idx.ntotal} vectors, header says {ntotal}")
     return idx
+
+
+# ---------------------------------------------------------------------------
+# writing (reference create_index.py output)
+# ---------------------------------------------------------------------------
+
+class _Writer:
+    def __init__(self):
+        self.parts: list[bytes] = []
+
+    def u32(self, v):
+        self.parts.append(struct.pack("<I", v))
+
+    def i32(self, v):
+        self.parts.append(struct.pack("<i", v))
+
+    def i64(self, v):
+        self.parts.append(struct.pack("<q", v))
+
+    def u8(self, v):
+        self.parts.append(struct.pack("<B", v))
+
+    def raw(self, b):
+        self.parts.append(bytes(b))
+
+    def vector_bytes(self, b: bytes):
+        """WRITEVECTOR of a uint8 vector (element count == byte count)."""
+        self.i64(len(b))
+        self.raw(b)
+
+    def vector_i64(self, arr: np.ndarray):
+        """WRITEVECTOR of an int64/size_t vector (count = elements)."""
+        self.i64(len(arr))
+        self.raw(np.ascontiguousarray(arr).tobytes())
+
+    def getvalue(self) -> bytes:
+        return b"".join(self.parts)
+
+
+def _write_header(w: _Writer, d: int, ntotal: int):
+    w.i32(d)
+    w.i64(ntotal)
+    w.i64(1 << 20)
+    w.i64(1 << 20)
+    w.u8(1)          # is_trained
+    w.i32(_METRIC_L2)
+
+
+def write_ivf_flat(path: str, vectors: np.ndarray, centroids: np.ndarray,
+                   assignments: np.ndarray) -> None:
+    """Write an L2 IndexIVFFlat file with nprobe 1, as the reference's
+    `IVF{nlist},Flat` is, that faiss can read back.
+
+    vectors: (N, d) float32 in id order; assignments: (N,) list index of
+    each vector (nearest centroid); centroids: (nlist, d).  Each list
+    holds its ids in ascending order."""
+    vectors = np.ascontiguousarray(vectors, np.float32)
+    centroids = np.ascontiguousarray(centroids, np.float32)
+    n, d = vectors.shape
+    nlist = centroids.shape[0]
+    w = _Writer()
+    w.u32(_fourcc("IwFl"))
+    _write_header(w, d, n)
+    w.i64(nlist)
+    w.i64(1)         # nprobe
+    # quantizer: IndexFlatL2 with the centroids (modern uint8 codes)
+    w.u32(_FLAT[0])
+    _write_header(w, d, nlist)
+    w.vector_bytes(centroids.tobytes())
+    # direct map: NoMap, empty array
+    w.u8(0)
+    w.i64(0)
+    # inverted lists
+    w.u32(_fourcc("ilar"))
+    w.i64(nlist)
+    w.i64(d * 4)
+    w.u32(_fourcc("full"))
+    assignments = np.asarray(assignments, np.int64)
+    order = np.argsort(assignments, kind="stable")       # ids ascending per list
+    sizes = np.bincount(assignments, minlength=nlist).astype(np.uint64)
+    w.vector_i64(sizes)
+    bounds = np.concatenate([[0], np.cumsum(sizes.astype(np.int64))])
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        ids = order[lo:hi]
+        w.raw(ids.tobytes())
+        w.raw(vectors[ids].tobytes())
+    with open(path, "wb") as f:
+        f.write(w.getvalue())

@@ -19,6 +19,7 @@ import io
 import json
 import os
 import re
+import shutil
 import threading
 import time
 from http.server import ThreadingHTTPServer
@@ -576,17 +577,80 @@ def test_train_job_endpoint(servers, tmp_path, monkeypatch):
     ({"kind": "train", "exp_dir": "/x", "epochs": "many"}, 400),
     ({"kind": "preprocess"}, 400),
     ({"kind": "create_dataset", "inputs": ["https://example.invalid/a"]}, 501),
-    ({"kind": "extract", "exp_dir": "/x"}, 501),
+    ({"kind": "extract", "exp_dir": "/x"}, 200),
     ({"kind": "extract", "exp_dir": "/x", "rmvpe": "r.pt", "embedder": "e.onnx"}, 501),
-    ({"kind": "train", "exp_dir": "/x", "vocoder": "RefineGAN"}, 501),
-    ({"kind": "train", "exp_dir": "/x", "pitch_guidance": False}, 501),
+    ({"kind": "train", "exp_dir": "/x", "vocoder": "RefineGAN"}, 200),
+    ({"kind": "train", "exp_dir": "/x", "pitch_guidance": False}, 200),
 ], ids=["unknown-kind", "bad-epochs", "no-dataset", "create-dataset", "extract-yin",
         "extract-onnx", "train-refinegan", "train-no-pitch"])
-def test_job_start_refusals(servers, req, code):
+def test_job_start_refusals(servers, req, code, tmp_path):
+    """Malformed jobs answer 400, unported ones 501.  The extract job
+    without an rmvpe path (yin) and the train jobs of another vocoder or
+    without pitch are ported: they start, and on an experiment dir with
+    nothing in it they finish with an error."""
+    if code == 200:
+        req = dict(req, exp_dir=str(tmp_path / "empty"))
     status, body = _call(servers[0], "/api/job_start", req)
     assert status == code, (status, body)
     if code == 501:
         assert body["not_ported"] is True and "not ported" in body["error"]
+    if code == 200:
+        st = _wait_job(servers[0], body["job_id"])
+        assert st["error"] and "No such file" in st["error"], st
+
+
+def test_extract_job_without_rmvpe_runs_yin(servers, tmp_path):
+    """An extract job with neither an rmvpe nor an embedder path: yin F0
+    and a random HuBERT, as the JAX server runs it; it writes the f0
+    files, the features and the filelist."""
+    from rvc_maker_tpu_torch.pipelines import extract as ex
+    from rvc_maker_tpu_torch.pipelines.preprocess import preprocess_dataset
+    from rvc_maker_tpu_torch.utils.audio import save_wav
+
+    data = tmp_path / "data"
+    data.mkdir()
+    sr = 32000
+    tt = np.arange(3 * sr) / sr
+    save_wav(str(data / "a.wav"), (0.3 * np.sin(2 * np.pi * 180 * tt)).astype(np.float32), sr)
+    exp = tmp_path / "exp"
+    assert preprocess_dataset(str(data), str(exp), sr, per=1.5, num_workers=1) > 0
+    job = _ok(servers[0], "/api/job_start", {"kind": "extract", "exp_dir": str(exp),
+                                              "sr": sr})["job_id"]
+    st = _wait_job(servers[0], job)
+    assert not st["error"] and "extract: done" in st["log"], st
+    names = sorted(os.listdir(exp / "f0_voiced"))
+    assert names and os.path.isfile(exp / "filelist.txt")
+    assert sorted(os.listdir(exp / "v2_extracted")) == [n[:-len(".wav.npy")] + ".npy"
+                                                         for n in names]
+    # the f0 is yin's: the same files as extract_f0(method="yin")
+    ref = tmp_path / "ref"
+    shutil.copytree(exp / "sliced_audios_16k", ref / "sliced_audios_16k")
+    ex.extract_f0(str(ref), method="yin", device="cpu")
+    for n in names:
+        np.testing.assert_array_equal(np.load(exp / "f0_voiced" / n),
+                                      np.load(ref / "f0_voiced" / n))
+
+
+@pytest.mark.parametrize("vocoder,pitch", [("MRF HiFi-GAN", True), ("RefineGAN", True),
+                                           ("Default", False)])
+def test_train_job_takes_vocoder_and_pitch_guidance(servers, tmp_path, monkeypatch,
+                                                    vocoder, pitch):
+    """A train job of another vocoder or an f0-less model runs
+    `train_loop.train` with that preset on the server's device."""
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.pipelines import train_loop
+
+    calls = []
+    monkeypatch.setattr(train_loop, "train", lambda exp_dir, cfg, **kw: calls.append(
+        (exp_dir, cfg, kw)))
+    job = _ok(servers[0], "/api/job_start", {
+        "kind": "train", "exp_dir": str(tmp_path), "sr": 48000, "epochs": 1,
+        "vocoder": vocoder, "pitch_guidance": pitch})["job_id"]
+    st = _wait_job(servers[0], job)
+    assert not st["error"] and "train: done" in st["log"], st
+    (exp_dir, cfg, kw), = calls
+    assert cfg == preset("v2", 48000, vocoder=vocoder, pitch_guidance=pitch)
+    assert kw["total_epochs"] == 1 and kw["device"] == torch.device("cpu")
 
 
 def test_job_status_unknown_id(servers):

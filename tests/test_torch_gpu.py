@@ -304,7 +304,7 @@ def test_train_step_card_matches_cpu(cuda):
                      sid=np.array([0, 3]))
     noise = dict(post_noise=rs.randn(b, tl, 32).astype(np.float32),
                  ids_slice=np.array([5, 2], np.int32),
-                 sine_noise=rs.randn(b, 8 * 64, 1).astype(np.float32))
+                 sine=rs.randn(b, 8 * 64, 1).astype(np.float32))
     params_g = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg.model, 2),
                                              cfg.model, train=True)
     params_d = from_jax.discriminator_from_jax(from_jax.random_discriminator_tree("v2", 16, 3))
@@ -313,7 +313,9 @@ def test_train_step_card_matches_cpu(cuda):
         state = tr.init_state(cfg, params_g, params_d, device=dev, disc_width_div=16)
         out[dev] = tr.make_train_step(cfg, 16)(
             state, batch.to(dev), keep_grads=True,
-            noise={k: torch.as_tensor(v, device=dev) for k, v in noise.items()})
+            noise=dict(post_noise=torch.as_tensor(noise["post_noise"], device=dev),
+                       ids_slice=torch.as_tensor(noise["ids_slice"], device=dev),
+                       dec_noise={"sine": torch.as_tensor(noise["sine"], device=dev)}))
     for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
         np.testing.assert_allclose(float(out["cuda"][k]), float(out["cpu"][k]), rtol=1e-4)
     for name in ("grads_g", "grads_d"):

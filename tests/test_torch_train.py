@@ -75,7 +75,7 @@ def _jax_draws(rng, lengths):
     ids = (u * (jnp.asarray(lengths) - SEG + 1)).astype(jnp.int32)
     sine = jax.random.normal(k_sine, (B, SEG * m.upp, 1), jnp.float32)
     return dict(post_noise=np.asarray(post), ids_slice=np.asarray(ids),
-                sine_noise=np.asarray(sine))
+                dec_noise={"sine": np.asarray(sine)})
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +129,8 @@ def _port_state(setup):
 
 
 def _noise(draws):
-    return {k: torch.tensor(v) for k, v in draws.items()}
+    return {k: {kk: torch.tensor(vv) for kk, vv in v.items()} if isinstance(v, dict)
+            else torch.tensor(v) for k, v in draws.items()}
 
 
 @pytest.mark.parametrize("which", ["full", "short"])
@@ -286,10 +287,10 @@ def test_exact_resume_is_bitwise(tmp_path):
 
 
 def test_train_config_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        tconfig.TrainConfig(bf16=True)
-    with pytest.raises(NotImplementedError):
-        tconfig.TrainConfig(remat=True)
+    """bf16 and remat training are ported: TrainConfig takes both (it
+    refused them before they were), and the presets match JAX's."""
+    tc = tconfig.TrainConfig(bf16=True, remat=True)
+    assert tc.bf16 and tc.remat
     assert tconfig.preset("v2", 48000).train.segment_size == 17280
     from rvc_maker_tpu.config import model_config_to_ckpt_list as jlist
     from rvc_maker_tpu.config import preset as jpreset

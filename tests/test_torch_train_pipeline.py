@@ -3,6 +3,9 @@ extract (RMVPE + HuBERT) -> train -> .pth export -> convert, each held
 against the JAX package where it has a counterpart; the pretrained-G
 loader; the entry points' refusal to run without a card."""
 
+import dataclasses
+import functools
+import logging
 import os
 import shutil
 
@@ -18,6 +21,7 @@ from rvc_maker_tpu.interop import torch_import as jimport
 from rvc_maker_tpu.models import synthesizer as jsyn
 from rvc_maker_tpu.pipelines import extract as jextract
 from rvc_maker_tpu.pipelines.preprocess import preprocess_dataset as jpreprocess
+from rvc_maker_tpu.retrieval.index import load_index as jload_index
 from rvc_maker_tpu_torch import config as tconfig
 from rvc_maker_tpu_torch.interop import from_jax
 from rvc_maker_tpu_torch.interop import pth as tpth
@@ -28,7 +32,8 @@ from rvc_maker_tpu_torch.pipelines import train_loop as tloop
 from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
 from rvc_maker_tpu_torch.pipelines.preprocess import preprocess_dataset
 from rvc_maker_tpu_torch.utils.audio import read_wav, save_wav
-from torch_port_util import jax_noise, n, t, torch_threads, tree_np  # noqa: F401
+from torch_port_util import (hubert_state_dict, jax_noise, n, t, torch_threads,  # noqa: F401
+                             tree_np)
 
 # hop == prod(upsample_rates) == sr / 100, as in every real preset
 SR, HOP, SEG = 6400, 64, 8
@@ -263,3 +268,70 @@ def test_entry_points_raise_without_card(prepared, models):
         textract.extract_embeddings(str(exp), models["hubert"])
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["train", "--exp-dir", str(exp), "--epochs", "1"])
+
+
+def test_cli_flow_mrf_with_index(tmp_path, monkeypatch, caplog):
+    """The training CLI end to end on the CPU at this file's narrow size:
+    preprocess -> extract (no rmvpe file: yin; no embedder: a random
+    HuBERT) -> train --vocoder "MRF HiFi-GAN" (TensorBoard logs) -> index
+    (.npz, total_fea.npy, faiss added_*.index) -> convert --index with
+    each of the three.  The exported .pth loads in the JAX loader to the
+    port loader's weights."""
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch import config as cfg_mod
+    from rvc_maker_tpu_torch.utils.i18n import tr
+
+    def narrow_preset(version="v2", sample_rate=SR, *, vocoder="Default", pitch_guidance=True):
+        return dataclasses.replace(TCFG, model=dataclasses.replace(
+            TCFG.model, vocoder=vocoder, use_f0=pitch_guidance))
+
+    monkeypatch.setattr(cfg_mod, "preset", narrow_preset)
+    monkeypatch.setattr(tloop, "train", functools.partial(tloop.train, disc_width_div=16))
+    _dataset(tmp_path / "dataset")
+    exp = str(tmp_path / "voice")
+    common = ["--exp-dir", exp, "--device", "cpu"]
+    assert cli.main(["preprocess", "--dataset", str(tmp_path / "dataset"), "--exp-dir", exp,
+                     "--sample-rate", str(SR), "--per", "1.0", "--cpu-cores", "1"]) == 0
+    with caplog.at_level(logging.WARNING):
+        assert cli.main(["extract", *common, "--sample-rate", str(SR)]) == 0
+    assert tr("fallback_yin") in caplog.text and tr("random_hubert") in caplog.text
+    assert len(os.listdir(os.path.join(exp, "f0_voiced"))) == 4
+    assert cli.main(["train", *common, "--sample-rate", str(SR), "--epochs", "1",
+                     "--batch-size", "2", "--save-every-epoch", "1",
+                     "--vocoder", "MRF HiFi-GAN", "--no-pretrained"]) == 0
+    pths = [f for f in os.listdir(exp) if f.endswith(".pth")]
+    assert len(pths) == 1 and any(f.startswith("events") for f in os.listdir(
+        os.path.join(exp, "tb")))
+    assert cli.main(["index", *common]) == 0
+    stem = os.path.join(exp, "added_voice_v2")
+    vectors = np.load(os.path.join(exp, "total_fea.npy"))
+    assert vectors.shape[1] == 768 and vectors.shape[0] > 100
+    for path in (stem + ".index.npz", stem + ".index", os.path.join(exp, "total_fea.npy")):
+        np.testing.assert_array_equal(jload_index(path).vectors, vectors)
+
+    hubert_pt = tmp_path / "hubert.pt"
+    torch.save({"model": hubert_state_dict(from_jax.random_hubert_tree(seed=0))}, hubert_pt)
+    save_wav(str(tmp_path / "in.wav"), (0.3 * np.sin(2 * np.pi * 190 * np.arange(24000)
+                                                     / 16000)).astype(np.float32), 16000)
+    outs = []
+    for path in (stem + ".index.npz", stem + ".index", os.path.join(exp, "total_fea.npy")):
+        out = str(tmp_path / "out.wav")
+        assert cli.main(["convert", "--input", str(tmp_path / "in.wav"), "--output", out,
+                         "--model", os.path.join(exp, pths[0]), "--hubert-path",
+                         str(hubert_pt), "--f0-method", "yin", "--index", path,
+                         "--index-rate", "0.75", "--device", "cpu"]) == 0
+        audio, sr = read_wav(out)
+        assert sr == SR and np.isfinite(audio).all() and abs(len(audio) / SR - 1.5) < 0.2
+        outs.append(audio)
+    # the three files hold the same vectors: the same conversion
+    np.testing.assert_allclose(outs[1], outs[0], atol=1e-6)
+    np.testing.assert_allclose(outs[2], outs[0], atol=1e-6)
+
+    tparams, tcfg, _ = tpth.load_synthesizer_pth(os.path.join(exp, pths[0]))
+    jparams, jcfg, _ = jimport.load_synthesizer_pth(os.path.join(exp, pths[0]))
+    assert tcfg.vocoder == jcfg.vocoder == "MRF HiFi-GAN" and tcfg.use_f0
+    got = ttrain.tree_leaves(tparams)
+    ref = ttrain.tree_leaves(from_jax.synthesizer_from_jax(tree_np(jparams), tcfg))
+    assert len(got) == len(ref)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(n(a), n(r), rtol=1e-5, atol=1e-6)

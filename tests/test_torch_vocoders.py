@@ -259,10 +259,26 @@ def test_decoder_noise_layout():
 
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_train_forward_not_ported(kind):
-    """Training these decoders comes later: train_forward refuses them."""
+    """Training these decoders is ported (it was refused before): the
+    training forward runs each one, its noise drawn from the generator,
+    and gives a segment of upp samples per frame with gradients to the
+    decoder.  tests/test_torch_train_vocoders.py holds it against JAX."""
     _, cfg = _cfgs(kind)
-    with pytest.raises(NotImplementedError):
-        tsyn.train_forward({}, cfg, None, None, None, None, None, None, None)
+    params = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg, seed=1), cfg,
+                                           train=True)
+    leaf = params["dec"]["conv_post"]["w"].requires_grad_(True)
+    rs = np.random.RandomState(2)
+    b, frames = 2, cfg.segment_size + 6
+    lengths = torch.tensor([frames, frames - 3])
+    y_hat, ids, *_ = tsyn.train_forward(
+        params, cfg, t(rs.randn(b, frames, cfg.text_enc_hidden_dim)), lengths,
+        torch.as_tensor(rs.randint(1, 256, (b, frames))) if cfg.use_f0 else None,
+        t(rs.rand(b, frames) * 200 + 90), t(np.abs(rs.randn(b, frames, cfg.spec_channels))),
+        lengths, torch.tensor([0, 1]), generator=torch.Generator().manual_seed(0))
+    assert y_hat.shape == (b, cfg.segment_size * cfg.upp, 1) and torch.isfinite(y_hat).all()
+    assert ((ids >= 0) & (ids <= lengths - cfg.segment_size)).all()
+    (g,) = torch.autograd.grad(y_hat.square().sum(), [leaf])
+    assert g.abs().max() > 0
 
 
 # ---------------------------------------------------------------------------

@@ -31,8 +31,8 @@ def rel_close(got, ref, rel, what=""):
     assert err <= rel * scale, (what, err, rel * scale)
 
 
-def assert_grads_close(got, ref, what=""):
-    """Each gradient leaf within 1e-3 x the max |g| of its reference.  A
+def assert_grads_close(got, ref, what="", rel=1e-3):
+    """Each gradient leaf within rel (1e-3) x the max |g| of its reference.  A
     leaf whose exact gradient is zero (the attention key bias: softmax
     does not see a shift shared by all keys) holds rounding noise on both
     sides, below 1e-6 x the largest gradient of the tree; there both
@@ -46,7 +46,16 @@ def assert_grads_close(got, ref, what=""):
             assert np.abs(g).max() < floor, (what, i, r.shape)
             continue
         err = float(np.abs(g - r).max())
-        assert err <= 1e-3 * np.abs(r).max(), (what, i, r.shape, err)
+        assert err <= rel * np.abs(r).max(), (what, i, r.shape, err)
+
+
+def grads_rel_err(got, ref) -> float:
+    """The largest leaf error over the max |g| of its reference leaf, the
+    measure `assert_grads_close` bounds, over the leaves above its floor."""
+    got, ref = [n(g) for g in got], [n(g) for g in ref]
+    floor = 1e-6 * max(float(np.abs(r).max()) for r in ref)
+    return max(float(np.abs(g - r).max() / np.abs(r).max())
+               for g, r in zip(got, ref) if np.abs(r).max() >= floor)
 
 
 BF16_ULPS = 4     # a bf16 kernel vs a bf16 reference: max abs <= 4 ulps of |ref|max
