@@ -7,7 +7,9 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. device   the card's name and power limit; no card -> exit 1.
   2. build    every kernel of the port from rvc_maker_tpu_torch/csrc/
               (one nvcc per source, started together), with each
-              source's build time and ptxas's registers / spills.
+              source's build time and ptxas's registers / spills; beside
+              them the g++ builds of the WORLD library and the FLAC
+              decoder (native/src/worldlike.cpp, flacdec.cpp).
   3. kernels  each kernel against its plain PyTorch version at the
               shapes the main path gives it: fp32 through the tensor-core
               kernel (resblock_tc.cu, the route of every fp32 width) and
@@ -131,7 +133,9 @@ Phases, each printed as it runs; any failure exits non-zero:
               one step's device ms under the profiler; each exported .pth
               converts 2 s.  (c) `cli extract --f0-method yin`
               without --embedder-path (a random HuBERT), and hybrid[rmvpe+yin]
-              against the nanmedian of its members.  (d) build_index on
+              against the nanmedian of its members run as it runs them;
+              phase 7's batched rmvpe within 1e-2 Hz of the per-segment
+              run on 99% of the frames.  (d) build_index on
               250,000 x 768 random features (k-means to 10,000 centroids on
               the card, timed alone too), build_ivf_file (nlist 256), the file
               read back to the same vectors, `cli convert --index` on it.
@@ -139,10 +143,26 @@ Phases, each printed as it runs; any failure exits non-zero:
               tolerances) and NSF bf16 (losses within 0.1 relative, the G
               gradient norm within 0.25).
 
+ 13. audio-tools  on phase 11's served files (phase 4's model): `cli
+              convert` with a preset JSON (cleaner, formant shifting, pitch)
+              on a 10 s 48 kHz FLAC the port writes, exported as FLAC: 36
+              resblock_tc launches, and the FLAC read back within 1 int16
+              step of the same steps run in process (the CLI's own pipeline
+              builder); FLAC encode / decode and formant_shift timed on the
+              host.  reduce_noise on the card against the CPU on that
+              output and on 30 s at 48 kHz (3 chunks), both modes, max abs
+              <= 1e-4, each side timed.  `cli tts --model` against a
+              loopback read-aloud server (tests/read_aloud_fake.py, the
+              port's ws.py framing): 36 launches.  The HTTP server's /api/tts in
+              fp32: 36 launches, converted on the device thread, within 1
+              int16 step of the direct call; /api/effects, /api/model_info
+              and /api/fuse answer 200.  Each step's wall ms printed.
+
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16.
-The line before the last holds the kernels' JSON summary; the last line
-is {"ok": true, "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
+The line before the last holds the kernels' JSON summary, the line before
+it nvidia-smi's name and power limit; the last line is {"ok": true,
+"device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
 import json
@@ -972,6 +992,7 @@ def train_parity(vocoder: str = "Default", bf16: bool = False):
 VOCODER_KINDS = (("f0less", "Default", False), ("mrf", "MRF HiFi-GAN", True),
                  ("refinegan", "RefineGAN", True))
 F0_TOL_HZ = 1e-2     # RMVPE f0, card against CPU on the 2 s input
+BATCHED_F0_SHARE = 0.01   # frames where batched and per-segment RMVPE may part (phase 12c)
 
 
 def vocoder_model(kind: str, vocoder: str, use_f0: bool, seed: int):
@@ -1913,7 +1934,11 @@ def train_decoder(run, exp_src: str, work: str, model, card: str) -> dict:
 def extract_phase(exp_src: str, work: str, model) -> dict:
     """extract through the CLI with yin and no --embedder-path (a random
     HuBERT), and extract_f0 with hybrid[rmvpe+yin], on phase 7's segments;
-    the hybrid is the per-frame nanmedian of its members."""
+    the hybrid is the per-frame nanmedian of its members, each run as the
+    hybrid runs it (rmvpe one segment at a time).  Phase 7's batched rmvpe
+    is held to the per-segment one on all but BATCHED_F0_SHARE of the
+    frames: the two round differently, and on random weights a frame near
+    a tie of RMVPE's argmax can land on another bin."""
     import shutil
 
     from rvc_maker_tpu_torch import cli
@@ -1939,24 +1964,40 @@ def extract_phase(exp_src: str, work: str, model) -> dict:
     n = ex.extract_f0(hyb_dir, model["rmvpe_params"], method="hybrid[rmvpe+yin]",
                       device="cuda")
     res["hybrid_s"] = time.perf_counter() - t0
-    rmvpe_dir = os.path.join(exp_src, "f0_voiced")
-    worst, voiced = 0.0, []
+    one_dir = os.path.join(work, "extract_rmvpe_one")
+    os.makedirs(one_dir)
+    os.symlink(os.path.join(exp, "sliced_audios_16k"), os.path.join(one_dir, "sliced_audios_16k"))
+    ex.extract_f0(one_dir, model["rmvpe_params"], method="rmvpe", batch_size=1, device="cuda")
+    batched_dir = os.path.join(exp_src, "f0_voiced")
+    worst, voiced, batched_worst, batched_off, frames = 0.0, [], 0.0, 0, 0
     for name in names:
         hyb = np.load(os.path.join(hyb_dir, "f0_voiced", name))
-        stack = np.vstack([np.load(os.path.join(rmvpe_dir, name)), yin[name]]).astype(np.float64)
+        rmvpe = np.load(os.path.join(one_dir, "f0_voiced", name))
+        stack = np.vstack([rmvpe, yin[name]]).astype(np.float64)
         want = np.nan_to_num(np.nanmedian(np.where(stack < 0.001, np.nan, stack), axis=0))
         worst = max(worst, float(np.abs(hyb - want).max()))
         voiced.append(float((hyb > 0).mean()))
+        gap = np.abs(np.load(os.path.join(batched_dir, name)).astype(np.float64) - rmvpe)
+        batched_worst = max(batched_worst, float(gap.max()))
+        batched_off += int((gap > F0_TOL_HZ).sum())
+        frames += gap.size
     res.update(segments=n, hybrid_vs_members_max_hz=worst,
                hybrid_voiced_share=float(np.mean(voiced)),
-               yin_voiced_share=float(np.mean([(f > 0).mean() for f in yin.values()])))
+               yin_voiced_share=float(np.mean([(f > 0).mean() for f in yin.values()])),
+               batched_rmvpe_max_hz=batched_worst, batched_rmvpe_frames_off=batched_off,
+               rmvpe_frames=frames)
     log(f"  cli extract --f0-method yin, no --embedder-path (random HuBERT): 32 segments in "
         f"{res['cli_yin_s']:.2f} s, voiced share {res['yin_voiced_share']:.3f}; "
         f"hybrid[rmvpe+yin] in {res['hybrid_s']:.2f} s, voiced share "
-        f"{res['hybrid_voiced_share']:.3f}, {worst:.3e} Hz from the nanmedian of phase 7's "
-        "batched rmvpe and the yin run (rmvpe here runs one segment at a time)")
+        f"{res['hybrid_voiced_share']:.3f}, {worst:.3e} Hz from the nanmedian of its members "
+        f"(rmvpe one segment at a time, and the yin run); phase 7's batched rmvpe "
+        f"{batched_worst:.3e} Hz from the per-segment one, {batched_off} of {frames} frames "
+        f"beyond {F0_TOL_HZ} Hz")
     if n != 32 or not worst <= F0_TOL_HZ:
         raise AssertionError(f"hybrid extract: {n} segments, {worst} Hz from its members")
+    if not batched_off <= BATCHED_F0_SHARE * frames:
+        raise AssertionError(f"batched rmvpe: {batched_off} of {frames} frames beyond "
+                             f"{F0_TOL_HZ} Hz of the per-segment run")
     return res
 
 
@@ -2065,6 +2106,240 @@ def train_all(model, work: str, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of cli convert and the host audio tools
+# ---------------------------------------------------------------------------
+
+AUDIO_CONVERT_S = 10            # the FLAC input of `cli convert`
+AUDIO_GATE_S = 30               # the noise gate's long signal: 3 chunks at 48 kHz
+GATE_TOL = 1e-4                 # reduce_noise, card against CPU (cuFFT, cuDNN rounding)
+AUDIO_PRESET = dict(cleaner=True, clean_strength=0.7, formant_shifting=True,
+                    formant_qfrency=1.0, formant_timbre=1.2, pitch=2)
+
+
+def timed(label, fn, *args, **kw):
+    """fn(*args, **kw) and its wall ms, printed."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    ms = 1e3 * (time.perf_counter() - t0)
+    log(f"  {label}: {ms:.1f} ms")
+    return out, ms
+
+
+def launches_of(rb, fn, *args):
+    """fn(*args) with the resblock launch counts zeroed just before and
+    read just after: (result, (all, resblock_tc, resblock_tc_bf16))."""
+    saved = reset_counts(rb)
+    try:
+        out = fn(*args)
+        return out, (rb.resblock_launches, rb.resblock_tc_launches, rb.resblock_tc_bf16_launches)
+    finally:
+        reset_counts(rb, saved)
+
+
+def gate_card_vs_cpu(x: np.ndarray, sr: int, label: str) -> dict:
+    """reduce_noise on the card against the CPU in both modes: the
+    distance and each side's wall ms (the card's after one warm-up call)."""
+    from rvc_maker_tpu_torch.utils.noisereduce import reduce_noise
+
+    res = {}
+    for stationary in (False, True):
+        mode = "stationary" if stationary else "nonstationary"
+        reduce_noise(x, sr, stationary=stationary, device="cuda")
+        torch.cuda.synchronize()
+        card, card_ms = timed(f"reduce_noise {label} {mode} on the card", reduce_noise, x, sr,
+                              stationary=stationary, device="cuda")
+        cpu, cpu_ms = timed(f"reduce_noise {label} {mode} on the CPU", reduce_noise, x, sr,
+                            stationary=stationary, device="cpu")
+        err = float(np.abs(card - cpu).max())
+        log(f"  reduce_noise {label} {mode}: card vs CPU max abs {err:.3e} (tol {GATE_TOL})")
+        if not (np.isfinite(card).all() and card.shape == x.shape and err <= GATE_TOL):
+            raise AssertionError(f"reduce_noise {label} {mode}: card vs CPU {err}")
+        res[mode] = dict(max_abs=err, card_ms=card_ms, cpu_ms=cpu_ms)
+    return res
+
+
+def cli_convert_step(cli, rb, files, d: str, per_decode: int) -> dict:
+    """`cli convert` with a preset (cleaner, formant shifting, pitch) on a
+    10 s 48 kHz FLAC written by the port, exported as FLAC; against the
+    same steps run in process."""
+    from rvc_maker_tpu_torch.utils import audio as A
+    from rvc_maker_tpu_torch.utils.noisereduce import reduce_noise
+    from rvc_maker_tpu_torch.utils.pitchshift import formant_shift
+    from rvc_maker_tpu_torch.utils.presets import (apply_preset_to_args, load_preset,
+                                                   save_preset)
+
+    res = {}
+    x48 = A.resample(voice(AUDIO_CONVERT_S, 160.0, 31), 16000, 48000)
+    _, res["flac_encode_ms"] = timed(f"save_wav FLAC, {AUDIO_CONVERT_S} s at 48 kHz",
+                                     A.save_wav, os.path.join(d, "in.flac"), x48, 48000)
+    back, res["flac_decode_ms"] = timed(f"read_wav FLAC, {AUDIO_CONVERT_S} s at 48 kHz",
+                                        A.read_wav, os.path.join(d, "in.flac"))
+    if not np.abs(back[0] - np.clip(x48, -1, 1)).max() <= 1.0 / 32768:
+        raise AssertionError("FLAC round trip off by more than one int16 step")
+    a16 = A.load_audio(os.path.join(d, "in.flac"), 16000)
+    _, res["formant_shift_ms"] = timed(f"formant_shift, {AUDIO_CONVERT_S} s at 16 kHz",
+                                       formant_shift, a16, 16000, quefrency=1.0, timbre=1.2)
+    save_preset(os.path.join(d, "preset.json"), **AUDIO_PRESET)
+    argv = ["convert", "--input", os.path.join(d, "in.flac"),
+            "--output", os.path.join(d, "out.wav"), "--model", files["model"],
+            "--rmvpe-path", files["rmvpe"], "--hubert-path", files["embedder"],
+            "--index", files["index"], "--preset", os.path.join(d, "preset.json"),
+            "--export-format", "flac"]
+    (rc, counts), res["cli_ms"] = timed("cli convert --preset --export-format flac "
+                                        "(loads the files, builds the pipeline)",
+                                        launches_of, rb, cli.main, argv)
+    res["launches"] = counts
+    if rc != 0 or counts != (per_decode, per_decode, 0):
+        raise AssertionError(f"cli convert: rc {rc}, launches (all, tc, tc_bf16) {counts}, "
+                             f"expected {per_decode} on resblock_tc")
+    got, sr = A.read_wav(os.path.join(d, "out.flac"))
+
+    # the same steps in process: the CLI's own pipeline builder on the
+    # same flags, then formant shift, peak, conversion, gate, FLAC's rounding
+    args = cli.build_parser().parse_args(argv)
+    apply_preset_to_args(args, load_preset(args.preset))
+    pipe, settings = cli._build_convert_pipeline(args)
+    audio = A.peak_normalize(formant_shift(a16, 16000, quefrency=args.formant_qfrency,
+                                               timbre=args.formant_timbre))
+    raw, res["convert_ms"] = timed("convert_utterance (in process)", pipe.convert_utterance,
+                                   audio, 0, settings)
+    ref, res["reduce_noise_ms"] = timed("reduce_noise of the output on the card",
+                                        reduce_noise, raw, pipe.cfg.sr,
+                                        prop_decrease=args.clean_strength, device="cuda")
+    want = np.clip(np.round(np.clip(ref, -1, 1).astype(np.float64) * 32768), -32768, 32767)
+    steps = float(np.abs(got.astype(np.float64) * 32768 - want).max()) if \
+        got.shape == want.shape else float("inf")
+    res["flac_vs_in_process_int16_steps"] = steps
+    log(f"  the FLAC read back against the steps in process: {steps:.0f} int16 steps; "
+        f"{len(got) / sr:.2f} s at {sr} Hz, |out|max {np.abs(got).max():.3f}")
+    if sr != pipe.cfg.sr or steps > 1 or not np.abs(got).max() > 1000 / 32768:
+        raise AssertionError(f"cli convert FLAC: sr {sr}, {steps} int16 steps from in process")
+    res["gate_on_output"] = gate_card_vs_cpu(raw, pipe.cfg.sr, "of the converted 10 s")
+    del pipe
+    return res
+
+
+def tts_steps(cli, rb, files, d: str, per_decode: int) -> dict:
+    """`cli tts --model` and the four served routes against a loopback
+    read-aloud server."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from rvc_maker_tpu_torch.app import server as srv
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertSettings
+    from rvc_maker_tpu_torch.utils import audio as A
+    from rvc_maker_tpu_torch.utils.tts import _read_tts_output
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from read_aloud_fake import FakeReadAloudServer, pcm_wav_bytes
+
+    res = {}
+    speech = pcm_wav_bytes(A.resample(voice(5, 210.0, 32), 16000, 24000))
+    tts = FakeReadAloudServer(speech)
+    saved_url = os.environ.get("RVC_TPU_EDGE_TTS_URL")
+    os.environ["RVC_TPU_EDGE_TTS_URL"] = tts.url
+    httpd = None
+    try:
+        argv = ["tts", "--text", "hello", "--output", os.path.join(d, "tts.wav"),
+                "--model", files["model"], "--rmvpe-path", files["rmvpe"],
+                "--hubert-path", files["embedder"], "--index", files["index"],
+                "--convert-output", os.path.join(d, "tts_converted.wav")]
+        (rc, counts), res["cli_tts_ms"] = timed("cli tts --model", launches_of, rb,
+                                                cli.main, argv)
+        res["cli_tts_launches"] = counts
+        out, sr = A.read_wav(os.path.join(d, "tts_converted.wav"))
+        if rc != 0 or counts != (per_decode, per_decode, 0) or sr != 48000 or \
+                abs(len(out) / sr - 5.0) > 0.05 or not np.isfinite(out).all():
+            raise AssertionError(f"cli tts --model: rc {rc}, launches {counts}, "
+                                 f"{len(out)} samples at {sr} Hz")
+
+        srv.SETTINGS_PATH = os.path.join(d, "settings.json")
+        srv.set_device("cuda")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port = httpd.server_address[1]
+        code, body = post(port, "/api/settings", {"precision": "fp32"})
+        if code != 200:
+            raise AssertionError(f"/api/settings: {code} {body}")
+        req = dict(files, text="hello", endpoint=tts.url, f0_method="rmvpe", index_rate=0.5,
+                   pitch=1)
+        post(port, "/api/tts", req)                    # builds the pipeline, warms it
+        pipe = srv._get_pipeline(files["model"], files["index"], files["rmvpe"],
+                                 files["embedder"])
+        threads = []
+        orig = pipe.convert_utterance
+
+        def spy(*a, **kw):
+            threads.append(threading.current_thread().name)
+            return orig(*a, **kw)
+
+        pipe.convert_utterance = spy
+        ((code, body), counts), res["serve_tts_ms"] = timed(
+            "/api/tts with a voice (fp32)", launches_of, rb, post, port, "/api/tts", req)
+        del pipe.convert_utterance
+        res["serve_tts_launches"] = counts
+        if code != 200 or counts != (per_decode, per_decode, 0) or threads != ["rvc-device_0"]:
+            raise AssertionError(f"/api/tts: {code} {body.get('error')}, launches {counts}, "
+                                 f"converted on {threads}")
+        with open(os.path.join(d, "speech.wav"), "wb") as f:
+            f.write(speech)
+        audio16 = A.peak_normalize(A.resample(
+            _read_tts_output(os.path.join(d, "speech.wav"), 24000), 24000, 16000))
+        direct, _ = launches_of(rb, pipe.convert_utterance, audio16, 0, ConvertSettings(
+            pitch=1, index_rate=0.5, protect=0.33, f0_method="rmvpe"))
+        direct16 = (np.clip(direct, -1, 1) * 32767).astype(np.int16)
+        got = decode_wav(body["converted_b64"])
+        steps = int(np.abs(got.astype(np.int32) - direct16).max()) if \
+            got.shape == direct16.shape else 1 << 16
+        res["serve_tts_vs_direct_int16_steps"] = steps
+        log(f"  /api/tts against the direct call: {steps} int16 steps")
+        if steps > 1 or decode_wav(body["audio_b64"]).shape != (24000 * 5,):
+            raise AssertionError(f"/api/tts: {steps} int16 steps from the direct call")
+
+        fx = dict(audio_b64=wav_b64(voice(5, 190.0, 33)), reverb=True, chorus=True,
+                  compressor=True, pitchshift=True, pitch_shift=2.0)
+        for path, r in (("/api/effects", fx), ("/api/model_info", {"model": files["model"]}),
+                        ("/api/fuse", {"a": files["model"], "b": files["model"], "ratio": 0.4,
+                                       "out": os.path.join(d, "fused.pth")})):
+            (code, body), res[path] = timed(path, post, port, path, r)
+            if code != 200:
+                raise AssertionError(f"{path}: {code} {body.get('error')}")
+        if not os.path.isfile(os.path.join(d, "fused.pth")):
+            raise AssertionError("/api/fuse wrote no file")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            srv._STATE.update(pipeline=None, pipeline_key=None)
+        tts.close()
+        if saved_url is None:
+            os.environ.pop("RVC_TPU_EDGE_TTS_URL", None)
+        else:
+            os.environ["RVC_TPU_EDGE_TTS_URL"] = saved_url
+    return res
+
+
+def audio_tools_phase(cfg, model, work: str) -> dict:
+    """Phase 13 (module docstring), on phase 11's served files."""
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.ops import resblock as rb
+
+    per_decode = sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates)
+    d = os.path.join(work, "audio_tools")
+    os.makedirs(d, exist_ok=True)
+    files, files_ms = timed("the served files (phase 11's)", write_serve_files, d, cfg, model)
+    res = dict(files_ms=files_ms)
+    res["convert"] = cli_convert_step(cli, rb, files, d, per_decode)
+    rs = np.random.RandomState(34)
+    tt = np.arange(AUDIO_GATE_S * 48000) / 48000
+    long = (0.4 * np.sin(2 * np.pi * 220 * tt) + 0.05 * rs.randn(len(tt))).astype(np.float32)
+    res["gate_30s"] = gate_card_vs_cpu(long, 48000, f"{AUDIO_GATE_S} s at 48 kHz")
+    res.update(tts_steps(cli, rb, files, d, per_decode))
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -2094,17 +2369,19 @@ def run(work: str) -> int:
                              cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    # the WORLD F0 library's g++ alongside the kernels' nvcc
+    # the host libraries' g++ (the WORLD F0 library, the FLAC decoder) alongside
+    # the kernels' nvcc
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(1) as pool:
-        world = pool.submit(build.load_host, "worldlike")
+        host = pool.submit(lambda: [build.load_host(n) for n in build.HOST_SOURCES])
         logs = build.build_all()
-        world.result()
+        host.result()
     RESULTS["build_s"] = time.perf_counter() - t0
     RESULTS["build_s_by_source"] = dict(build.build_seconds)
-    log(f"[2 build] {list(logs)} + worldlike in {RESULTS['build_s']:.1f} s; each source's "
-        "nvcc (and the WORLD library's g++), all started together: " + ", ".join(
+    log(f"[2 build] {list(logs)} + worldlike + flacdec in {RESULTS['build_s']:.1f} s; each "
+        "source's nvcc (and the WORLD library's and the FLAC decoder's g++, one after the "
+        "other), all started together: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in build.build_seconds.items()))
     for src, text in logs.items():
         for line in text.splitlines():
@@ -2171,6 +2448,13 @@ def run(work: str) -> int:
     t0 = time.perf_counter()
     RESULTS["train_all"] = train_all(model, work, smi)
     RESULTS["train_all"]["phase_s"] = time.perf_counter() - t0
+
+    log(f"[13 audio-tools] cli convert with a preset and FLAC, the noise gate, cli tts, "
+        f"/api/tts and the host routes ({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["audio_tools"] = audio_tools_phase(model_cfg, model, work)
+    RESULTS["audio_tools"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 in {RESULTS['audio_tools']['phase_s']:.1f} s")
     del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
@@ -2181,6 +2465,7 @@ def run(work: str) -> int:
 
     main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
     voc, serve, ta = RESULTS["vocoders"], RESULTS["serve"], RESULTS["train_all"]
+    at = RESULTS["audio_tools"]
     runs, tkb = ta["runs"], ta["train_kernel_bf16"]["totals"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
@@ -2217,6 +2502,9 @@ def run(work: str) -> int:
              launches_train_mrf=runs["mrf"]["launches_tc"],
              launches_train_refinegan=runs["refinegan"]["launches_tc"],
              launches_train_bf16_eval_sample=runs["nsf_bf16"]["launches_tc"],
+             launches_cli_convert=at["convert"]["launches"][1],
+             launches_cli_tts=at["cli_tts_launches"][1],
+             launches_serve_tts=at["serve_tts_launches"][1],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),
@@ -2243,8 +2531,8 @@ def run(work: str) -> int:
              fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
              fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"],
              **common, **bf16)]
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -11,7 +11,9 @@ time, or the dynamic batcher `app/batcher.py` under
 RVC_TPU_BATCH_SERVE=1; 503 and a retry while a train job runs, unless
 RVC_TPU_SERVE_DURING_TRAIN=1), `/api/f0_extract` (yin, pyin, swipe, pm,
 dio, harvest), `/api/job_start` and `/api/job_status` (preprocess,
-extract, train), `/api/settings`.  The routes whose modules are not yet
+extract, train), `/api/settings`, `/api/effects`, `/api/model_info`,
+`/api/fuse` (host work, in the handler thread) and `/api/tts` (its
+conversion on the device thread).  The routes whose modules are not yet
 ported (`UNPORTED_ROUTES`), the `create_dataset` job and `.onnx` voice
 or embedder paths answer 501 with a message that names what is missing.
 A malformed request answers 400; a fault in the library answers 500.
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, use_full_fp32
+from ..utils.audio import peak_normalize, resample
 from ..utils.i18n import (available_languages, catalog, current_language,
                           set_language, tr)
 
@@ -72,13 +75,9 @@ _JOB_COUNTER = itertools.count()
 # the JAX server's routes whose modules the port has not ported yet,
 # each with what it needs (ROADMAP queue 1)
 UNPORTED_ROUTES = {
-    "/api/model_info": "model info (utils/model_tools.py)",
-    "/api/fuse": "model fusion (utils/model_tools.py)",
-    "/api/effects": "audio effects (utils/effects.py)",
     "/api/separate": "source separation (pipelines/separate.py, pipelines/mdx.py)",
     "/api/export_onnx": "ONNX export (interop/onnx_voice.py)",
     "/api/download": "model download (utils/scrapers.py)",
-    "/api/tts": "text to speech (utils/tts.py)",
     "/api/audio_edit": "audio editing (edit/pipeline.py)",
     "/api/convert_whisper": "diarized conversion (speaker/diarize.py)",
     "/api/search_models": "model search (network)",
@@ -537,8 +536,6 @@ def _audio_to_wav_b64(audio: np.ndarray, sr: int) -> str:
 def _request_audio(req: dict) -> np.ndarray:
     """The request's base64 WAV as float32 at 16 kHz; empty audio is a
     malformed request."""
-    from ..utils.audio import resample
-
     wav, sr = _wav_bytes_to_audio(base64.b64decode(req["audio_b64"]))
     if wav.size == 0:
         raise ValueError("the request's audio is empty")
@@ -624,6 +621,26 @@ def _get_pipeline(model: str, index: str, rmvpe: str, embedder: str):
     return pipe
 
 
+def _conversion(req: dict):
+    """A conversion request's (pipeline, speaker id, settings): its
+    files' resident pipeline, and sid, pitch, index_rate, protect and
+    f0_method checked.  A sid the model does not have is a malformed
+    request."""
+    from ..pipelines.convert import ConvertSettings
+
+    f0_method = _f0_method(req)
+    sid = _int_field(req, "sid", 0)
+    settings = ConvertSettings(pitch=_int_field(req, "pitch", 0),
+                               index_rate=float(req.get("index_rate", 0.5)),
+                               protect=float(req.get("protect", 0.33)), f0_method=f0_method)
+    pipe = _get_pipeline(req["model"], req.get("index", ""), req.get("rmvpe", ""),
+                         req.get("embedder", ""))
+    if not 0 <= sid < pipe.cfg.spk_embed_dim:
+        raise ValueError(f"sid {sid} out of range: the model has "
+                         f"{pipe.cfg.spk_embed_dim} speakers")
+    return pipe, sid, settings
+
+
 def _get_batcher(pipe):
     with _LOCK:
         if _STATE.get("batcher_pipe") is not pipe:
@@ -663,7 +680,11 @@ class Handler(BaseHTTPRequestHandler):
                   "/api/f0_extract": self._api_f0_extract,
                   "/api/job_start": lambda req: self._json(_start_job(req)),
                   "/api/job_status": self._api_job_status,
-                  "/api/settings": self._api_settings}
+                  "/api/settings": self._api_settings,
+                  "/api/effects": self._api_effects,
+                  "/api/model_info": self._api_model_info,
+                  "/api/fuse": self._api_fuse,
+                  "/api/tts": self._api_tts}
         try:
             n = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(n) or b"{}")
@@ -698,8 +719,6 @@ class Handler(BaseHTTPRequestHandler):
             self._json({"error": str(e)}, 500)
 
     def _api_convert(self, req):
-        from ..pipelines.convert import ConvertSettings
-
         # while a training job owns the card, conversion is refused with
         # 503 and a retry; RVC_TPU_SERVE_DURING_TRAIN=1 opts into sharing
         if os.environ.get("RVC_TPU_SERVE_DURING_TRAIN", "0") != "1":
@@ -709,21 +728,8 @@ class Handler(BaseHTTPRequestHandler):
             if busy:
                 self._json({"error": tr("busy_training"), "retry": True}, 503)
                 return
-        audio16 = _request_audio(req)
-        peak = np.abs(audio16).max() / 0.95
-        if peak > 1:
-            audio16 = audio16 / peak
-        f0_method = _f0_method(req)
-        sid = _int_field(req, "sid", 0)
-        settings = ConvertSettings(pitch=_int_field(req, "pitch", 0),
-                                   index_rate=float(req.get("index_rate", 0.5)),
-                                   protect=float(req.get("protect", 0.33)),
-                                   f0_method=f0_method)
-        pipe = _get_pipeline(req["model"], req.get("index", ""), req.get("rmvpe", ""),
-                             req.get("embedder", ""))
-        if not 0 <= sid < pipe.cfg.spk_embed_dim:
-            raise ValueError(f"sid {sid} out of range: the model has "
-                             f"{pipe.cfg.spk_embed_dim} speakers")
+        audio16 = peak_normalize(_request_audio(req))
+        pipe, sid, settings = _conversion(req)
         if os.environ.get("RVC_TPU_BATCH_SERVE") == "1":
             out = _get_batcher(pipe).convert(audio16, sid, settings)
         else:
@@ -761,6 +767,56 @@ class Handler(BaseHTTPRequestHandler):
             fn = world.dio if method == "dio" else world.harvest
             f0 = fn(audio16.astype(np.float64), 16000)[0]
         self._json({"f0": [float(x) for x in np.asarray(f0).ravel()], "hop_ms": 10.0})
+
+    def _api_effects(self, req):
+        """The effects chain on the request's WAV (JAX server.py:759-770)."""
+        import dataclasses
+
+        from ..utils.effects import EffectsSettings, apply_effects
+
+        wav, sr = _wav_bytes_to_audio(base64.b64decode(req["audio_b64"]))
+        fields = {f.name for f in dataclasses.fields(EffectsSettings)}
+        settings = EffectsSettings(**{k: v for k, v in req.items() if k in fields})
+        out, out_sr = apply_effects(wav, sr, settings)
+        self._json({"audio_b64": _audio_to_wav_b64(out, out_sr), "sr": out_sr})
+
+    def _api_model_info(self, req):
+        from ..utils.model_tools import model_info
+
+        self._json(model_info(req["model"]))
+
+    def _api_fuse(self, req):
+        from ..utils.model_tools import fuse_models
+
+        self._json({"output": fuse_models(req["a"], req["b"], req["out"],
+                                          ratio=float(req.get("ratio", 0.5)))})
+
+    def _api_tts(self, req):
+        """Synthesize (the Edge read-aloud protocol, or Google's with
+        "google"), and with "model" convert the speech as /api/convert
+        does, on the device thread (JAX server.py:772-812)."""
+        import tempfile
+
+        from ..utils import edge_tts_client as etc
+        from ..utils.tts import _read_tts_output, synthesize_tts
+
+        google = bool(req.get("google"))
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "tts.wav")
+            synthesize_tts(req["text"], req.get("voice", etc.DEFAULT_VOICE), path,
+                           rate=_int_field(req, "rate", 0),
+                           pitch=_int_field(req, "tts_pitch", 0), google=google,
+                           endpoint=req.get("endpoint"),
+                           output_format=None if google else etc.PCM_FORMAT)
+            audio24 = _read_tts_output(path, 24000)
+        resp = {"audio_b64": _audio_to_wav_b64(audio24, 24000), "sr": 24000}
+        if req.get("model"):
+            audio16 = peak_normalize(resample(audio24, 24000, 16000))
+            pipe, sid, settings = _conversion(req)
+            out = _on_device_thread(pipe.convert_utterance, audio16, sid, settings)
+            resp.update(converted_b64=_audio_to_wav_b64(out, pipe.cfg.sr),
+                        converted_sr=pipe.cfg.sr)
+        self._json(resp)
 
     def _api_job_status(self, req):
         with _JOBS_LOCK:

@@ -18,7 +18,18 @@
         [--pitch 0 --protect 0.33 --sid 0] [--f0-method fcpe
         --fcpe-path fcpe.pt | crepe-full --crepe-path crepe_full.pth |
         harvest | hybrid[rmvpe+fcpe] ...] [--embedder-path hf_hubert_dir/]
-        [--f0-file f0.txt] [--split-audio]
+        [--f0-file f0.txt] [--split-audio] [--preset preset.json]
+        [--formant-shifting --formant-qfrency 0.8 --formant-timbre 0.8]
+        [--clean-audio --clean-strength 0.7] [--export-format flac]
+    python -m rvc_maker_tpu_torch.cli effects --input in.wav --output out.wav \
+        [--reverb --reverb-room-size 0.5 --gain --gain-db -3 ...]
+    python -m rvc_maker_tpu_torch.cli tts --text "hello" --output tts.wav \
+        [--voice en-US-AriaNeural | --google --voice en] [--srt cues.srt]
+        [--model model.pth --hubert-path hubert_base.pt --convert-output out.wav
+        and the conversion flags of convert]
+    python -m rvc_maker_tpu_torch.cli fuse --model-a a.pth --model-b b.pth \
+        --output fused.pth [--ratio 0.5]
+    python -m rvc_maker_tpu_torch.cli info --model model.pth
 
 Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
@@ -31,8 +42,14 @@ from a random HuBERT (debug only), each with a warning.  train writes
 every decoder, in fp32 or bf16, with or without checkpointing; it
 downloads no pretrained weights (--no-pretrained is accepted for the
 JAX package's command line and changes nothing).  index writes the
-`.npz`, `total_fea.npy` and a faiss `added_*.index`.  extract, train,
-index and convert run on the card unless `--device cpu` is passed.
+`.npz`, `total_fea.npy` and a faiss `added_*.index`.  convert reads
+and writes WAV and FLAC (other export formats through ffmpeg), applies
+a preset JSON first, shifts the input's formants before the conversion
+and spectral-gates its output (`utils/noisereduce.py`, on the device).
+extract, train, index, convert and tts --model run on the card unless
+`--device cpu` is passed; effects, fuse and info are host work.  tts
+needs the network (the Edge read-aloud service, or Google's with
+--google; RVC_TPU_EDGE_TTS_URL names another Edge endpoint).
 """
 
 from __future__ import annotations
@@ -201,19 +218,17 @@ def _load_embedder(args):
     return load_hubert_pt(args.hubert_path)
 
 
-def cmd_convert(args) -> int:
-    import numpy as np
-
+def _build_convert_pipeline(args):
+    """The conversion pipeline and settings of the conversion flags, shared
+    by `convert` and `tts --model` (JAX cli.py:169): every weight file
+    given explicitly, on args.device."""
     from .interop.pth import load_synthesizer_pth
     from .models.rmvpe import load_rmvpe_pt
-    from .pipelines.convert import (ConvertPipeline, ConvertSettings, convert_split,
-                                    f0_members)
+    from .pipelines.convert import ConvertPipeline, ConvertSettings, f0_members
     from .retrieval.index import load_index
-    from .utils.audio import load_audio, save_wav
 
-    for flag, path in (("--model", args.model), ("--input", args.input)):
-        if not os.path.isfile(path):
-            raise FileNotFoundError(f"{flag}: no such file {path!r}")
+    if not os.path.isfile(args.model):
+        raise FileNotFoundError(f"--model: no such file {args.model!r}")
     method = args.f0_method
     members = f0_members(method)
     rmvpe = None
@@ -234,19 +249,147 @@ def cmd_convert(args) -> int:
         f0_autotune_strength=args.f0_autotune_strength,
         volume_envelope=args.volume_envelope, resample_sr=args.resample_sr,
         hop_length=args.hop_length, filter_radius=args.filter_radius, f0_file=args.f0_file)
+    return pipe, settings
+
+
+def _out_sr(args, cfg) -> int:
+    """The output's sample rate.  convert_utterance resamples to
+    --resample-sr only from 16 kHz up, so below that the samples stay at
+    the model's rate, and so does their header (JAX writes
+    --resample-sr's rate on the model's samples there)."""
+    return args.resample_sr if args.resample_sr >= 16000 else cfg.sr
+
+
+def cmd_convert(args) -> int:
+    from .pipelines.convert import convert_split
+    from .utils.audio import load_audio, peak_normalize, save_audio, save_wav
+
+    if args.preset:
+        from .utils.presets import apply_preset_to_args, load_preset
+
+        apply_preset_to_args(args, load_preset(args.preset))
+    if not os.path.isfile(args.input):
+        raise FileNotFoundError(f"--input: no such file {args.input!r}")
+    pipe, settings = _build_convert_pipeline(args)
     audio = load_audio(args.input, 16000)
-    peak = np.abs(audio).max() / 0.95
-    if peak > 1:
-        audio = audio / peak
+    if args.formant_shifting:
+        from .utils.pitchshift import formant_shift
+
+        audio = formant_shift(audio, 16000, quefrency=args.formant_qfrency,
+                              timbre=args.formant_timbre)
+    audio = peak_normalize(audio)
     if args.split_audio:
         out = convert_split(pipe, audio, args.sid, settings)
     else:
         out = pipe.convert_utterance(audio, args.sid, settings)
-    # convert_utterance resamples to resample_sr only from 16 kHz up
-    out_sr = args.resample_sr if args.resample_sr >= 16000 else cfg.sr
+    out_sr = _out_sr(args, pipe.cfg)
+    if args.clean_audio:
+        from .utils.noisereduce import reduce_noise
+
+        out = reduce_noise(out, out_sr, prop_decrease=args.clean_strength, device=args.device)
+    if args.export_format != "wav":
+        written = save_audio(args.output, out, out_sr, args.export_format)
+    else:
+        save_wav(args.output, out, out_sr)
+        written = args.output
+    print(f"wrote {written} ({len(out) / out_sr:.2f}s @ {out_sr} Hz)")
+    return 0
+
+
+def cmd_effects(args) -> int:
+    from .utils.audio import read_wav, save_wav
+    from .utils.effects import EffectsSettings, apply_effects
+
+    audio, sr = read_wav(args.input)
+    if audio.ndim == 2:
+        audio = audio.mean(axis=1)
+    settings = EffectsSettings(**{f: getattr(args, f)
+                                  for f in EffectsSettings.__dataclass_fields__})
+    out, out_sr = apply_effects(audio, sr, settings)
     save_wav(args.output, out, out_sr)
     print(f"wrote {args.output} ({len(out) / out_sr:.2f}s @ {out_sr} Hz)")
     return 0
+
+
+def cmd_tts(args) -> int:
+    """Synthesize speech (the Edge read-aloud protocol, or Google
+    translate TTS), SRT-timed or not, and with --model convert it through
+    a voice on args.device (JAX cli.py:495-528)."""
+    from .device import resolve_device
+    from .utils import edge_tts_client as etc
+    from .utils.audio import peak_normalize, save_wav
+    from .utils.i18n import tr
+    from .utils.tts import _read_tts_output, srt_tts, synthesize_tts
+
+    if not args.text and not args.srt:
+        raise SystemExit(tr("enter_the_text"))
+    if args.model:
+        resolve_device(args.device)          # no card: raise before any synthesis
+    print(tr("start_tts"))
+    if args.srt:
+        srt_tts(args.srt, args.output, args.voice, rate=args.rate, google=args.google)
+    else:
+        synthesize_tts(args.text, args.voice, args.output, rate=args.rate,
+                       pitch=args.tts_pitch, google=args.google,
+                       output_format=None if args.google else etc.PCM_FORMAT)
+    print(tr("tts_success") + f" -> {args.output}")
+    if args.model:
+        pipe, settings = _build_convert_pipeline(args)
+        audio16 = peak_normalize(_read_tts_output(args.output, 16000))
+        out = pipe.convert_utterance(audio16, args.sid, settings)
+        save_wav(args.convert_output, out, _out_sr(args, pipe.cfg))
+        print(tr("output_file_tts_convert") + f" -> {args.convert_output}")
+    return 0
+
+
+def cmd_fuse(args) -> int:
+    from .utils.i18n import tr
+    from .utils.model_tools import fuse_models
+
+    out = fuse_models(args.model_a, args.model_b, args.output, ratio=args.ratio)
+    print(tr("fusion_success") + f" -> {out}")
+    return 0
+
+
+def cmd_info(args) -> int:
+    import json
+
+    from .utils.model_tools import model_info
+
+    print(json.dumps(model_info(args.model), indent=2, default=str))
+    return 0
+
+
+def _conversion_flags(c) -> None:
+    """The flags of `_build_convert_pipeline`, shared by convert and tts."""
+    c.add_argument("--rmvpe-path", default="",
+                   help="reference rmvpe.pt; needed by the rmvpe methods")
+    c.add_argument("--hubert-path", default="", help="fairseq HuBERT/ContentVec .pt")
+    c.add_argument("--embedder-path", default="",
+                   help="transformers HuBERT directory or weights file (in place "
+                        "of --hubert-path)")
+    c.add_argument("--f0-method", default="rmvpe",
+                   help="rmvpe | rmvpe-legacy | yin | pyin | fcpe | fcpe-legacy | dio | "
+                        "harvest | swipe | pm | crepe-{tiny,small,medium,large,full} | "
+                        "mangio-crepe-{...} | hybrid[a+b]")
+    c.add_argument("--fcpe-path", default="", help="reference fcpe.pt / fcpe_legacy.pt")
+    c.add_argument("--crepe-path", default="", help="reference crepe_<capacity>.pth")
+    c.add_argument("--f0-file", default="", help='external "time,f0" contour')
+    c.add_argument("--hop-length", type=int, default=160,
+                   help="frame hop of mangio-crepe and pyin")
+    c.add_argument("--filter-radius", type=int, default=3)
+    c.add_argument("--f0-autotune", action="store_true")
+    c.add_argument("--f0-autotune-strength", type=float, default=1.0)
+    c.add_argument("--volume-envelope", type=float, default=1.0)
+    c.add_argument("--resample-sr", type=int, default=0,
+                   help="output rate, from 16000 up (below it the model's rate)")
+    c.add_argument("--index", default="",
+                   help=".npz index, faiss .index (added_*.index) or total_fea.npy")
+    c.add_argument("--index-rate", type=float, default=0.5)
+    c.add_argument("--pitch", type=int, default=0)
+    c.add_argument("--protect", type=float, default=0.33)
+    c.add_argument("--sid", type=int, default=0)
+    c.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -327,40 +470,65 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--port", type=int, default=6006)
     b.set_defaults(func=cmd_tensorboard)
     c = sub.add_parser("convert", help="convert one utterance")
-    c.add_argument("--input", required=True)
+    c.add_argument("--input", required=True, help="wav or flac")
     c.add_argument("--output", required=True)
     c.add_argument("--model", required=True,
                    help="interchange .pth voice model, any of the reference's decoders")
-    c.add_argument("--rmvpe-path", default="",
-                   help="reference rmvpe.pt; needed by the rmvpe methods")
-    c.add_argument("--hubert-path", default="", help="fairseq HuBERT/ContentVec .pt")
-    c.add_argument("--embedder-path", default="",
-                   help="transformers HuBERT directory or weights file (in place "
-                        "of --hubert-path)")
-    c.add_argument("--f0-method", default="rmvpe",
-                   help="rmvpe | rmvpe-legacy | yin | pyin | fcpe | fcpe-legacy | dio | "
-                        "harvest | swipe | pm | crepe-{tiny,small,medium,large,full} | "
-                        "mangio-crepe-{...} | hybrid[a+b]")
-    c.add_argument("--fcpe-path", default="", help="reference fcpe.pt / fcpe_legacy.pt")
-    c.add_argument("--crepe-path", default="", help="reference crepe_<capacity>.pth")
-    c.add_argument("--f0-file", default="", help='external "time,f0" contour')
-    c.add_argument("--hop-length", type=int, default=160,
-                   help="frame hop of mangio-crepe and pyin")
-    c.add_argument("--filter-radius", type=int, default=3)
-    c.add_argument("--f0-autotune", action="store_true")
-    c.add_argument("--f0-autotune-strength", type=float, default=1.0)
-    c.add_argument("--volume-envelope", type=float, default=1.0)
-    c.add_argument("--resample-sr", type=int, default=0)
+    c.add_argument("--preset", default="",
+                   help="preset JSON (the reference's keys); its values replace the flags'")
     c.add_argument("--split-audio", action="store_true",
                    help="convert the voiced pieces between silences")
-    c.add_argument("--index", default="",
-                   help=".npz index, faiss .index (added_*.index) or total_fea.npy")
-    c.add_argument("--index-rate", type=float, default=0.5)
-    c.add_argument("--pitch", type=int, default=0)
-    c.add_argument("--protect", type=float, default=0.33)
-    c.add_argument("--sid", type=int, default=0)
-    c.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    c.add_argument("--clean-audio", action="store_true",
+                   help="spectral-gate the output (on --device)")
+    c.add_argument("--clean-strength", type=float, default=0.7)
+    c.add_argument("--formant-shifting", action="store_true",
+                   help="shift the input's formants before conversion")
+    c.add_argument("--formant-qfrency", type=float, default=0.8)
+    c.add_argument("--formant-timbre", type=float, default=0.8)
+    c.add_argument("--export-format", default="wav",
+                   help="wav | flac (written here) | mp3/ogg/m4a (through ffmpeg)")
+    _conversion_flags(c)
     c.set_defaults(func=cmd_convert)
+
+    x = sub.add_parser("effects", help="apply the audio effects chain")
+    x.add_argument("--input", required=True)
+    x.add_argument("--output", required=True)
+    from .utils.effects import EffectsSettings
+
+    for fname, fdef in EffectsSettings.__dataclass_fields__.items():
+        arg = "--" + fname.replace("_", "-")
+        if isinstance(fdef.default, bool):
+            x.add_argument(arg, dest=fname, action="store_true")
+        else:
+            x.add_argument(arg, dest=fname, type=type(fdef.default), default=fdef.default)
+    x.set_defaults(func=cmd_effects)
+
+    y = sub.add_parser("tts", help="text to speech (and conversion with --model)")
+    y.add_argument("--text", default="")
+    y.add_argument("--srt", default="", help="SRT file for timed synthesis")
+    y.add_argument("--voice", default="en-US-EmmaMultilingualNeural",
+                   help="edge voice name, or language code with --google")
+    y.add_argument("--output", required=True, help="synthesized wav path")
+    y.add_argument("--rate", type=int, default=0, help="speed delta %%")
+    y.add_argument("--tts-pitch", type=int, default=0, help="pitch delta Hz")
+    y.add_argument("--google", action="store_true",
+                   help="use Google translate TTS instead of edge")
+    y.add_argument("--model", default="",
+                   help="voice model: also convert the TTS output")
+    y.add_argument("--convert-output", default="tts_converted.wav")
+    _conversion_flags(y)
+    y.set_defaults(func=cmd_tts)
+
+    f = sub.add_parser("fuse", help="blend two voice models of one architecture")
+    f.add_argument("--model-a", required=True)
+    f.add_argument("--model-b", required=True)
+    f.add_argument("--output", required=True)
+    f.add_argument("--ratio", type=float, default=0.5)
+    f.set_defaults(func=cmd_fuse)
+
+    n = sub.add_parser("info", help="a voice model's metadata, as JSON")
+    n.add_argument("--model", required=True)
+    n.set_defaults(func=cmd_info)
     return ap
 
 

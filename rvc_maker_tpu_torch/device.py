@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -33,6 +34,19 @@ def use_full_fp32(device: torch.device) -> None:
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_fp32(device: torch.device):
+    """`use_full_fp32` for one block only, for a library function that
+    must not change the process's flags: they are restored on the way
+    out."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    use_full_fp32(device)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def tree_to(tree, device: torch.device, dtype: torch.dtype | None = None):

@@ -96,10 +96,12 @@ def build_all(names=None) -> dict[str, str]:
     return logs
 
 
-# C++ host libraries: name -> source.  The WORLD-style F0 estimators are
-# the repo's own native/src/worldlike.cpp, built alone with the flags of
-# native/Makefile; the library the Makefile builds is never loaded.
-HOST_SOURCES = {"worldlike": PACKAGE_DIR.parent / "native" / "src" / "worldlike.cpp"}
+# C++ host libraries: name -> source.  The WORLD-style F0 estimators and
+# the FLAC decoder are the repo's own native/src/worldlike.cpp and
+# flacdec.cpp, each built alone with the flags of native/Makefile; the
+# library the Makefile builds is never loaded.
+HOST_SOURCES = {"worldlike": PACKAGE_DIR.parent / "native" / "src" / "worldlike.cpp",
+                "flacdec": PACKAGE_DIR.parent / "native" / "src" / "flacdec.cpp"}
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-march=native", "-Wall", "-shared")
 
 

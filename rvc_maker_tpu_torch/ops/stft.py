@@ -1,4 +1,4 @@
-"""STFT, the RMVPE mel front end and the training spectrograms
+"""STFT and its inverse, the RMVPE mel front end and the training spectrograms
 (counterpart of `rvc_maker_tpu/ops/stft.py`; reference RMVPE.py:146-181,
 train.py:700-716).
 
@@ -73,6 +73,30 @@ def frame_signal(y, n_fft: int, hop_length: int):
     return y.unfold(-1, n_fft, hop_length)
 
 
+def _padded_window(window, win_length: int, n_fft: int, like: torch.Tensor) -> torch.Tensor:
+    """The (win_length,) window zero-padded to n_fft centered, as torch
+    does, on `like`'s device in its real dtype."""
+    win = np.asarray(window, np.float32)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        win = np.pad(win, (lpad, n_fft - win_length - lpad))
+    real = like.real.dtype if like.is_complex() else like.dtype
+    return torch.as_tensor(win, device=like.device, dtype=real)
+
+
+def stft_complex(y, *, n_fft: int, hop_length: int, win_length: int, window,
+                 center: bool = True, pad_mode: str = "reflect"):
+    """Complex STFT as torch.stft(..., return_complex=True), on explicit
+    frames (JAX `ops/stft.py` `stft_complex`).  y: (B, L) real ->
+    (B, n_frames, n_fft//2 + 1) complex of y's precision; center pads
+    n_fft//2 on both sides with `pad_mode` ("reflect" or "constant")."""
+    if center:
+        p = n_fft // 2
+        y = F.pad(y[:, None], (p, p), mode=pad_mode)[:, 0]
+    frames = frame_signal(y, n_fft, hop_length) * _padded_window(window, win_length, n_fft, y)
+    return torch.fft.rfft(frames, n=n_fft, dim=-1)
+
+
 def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
                    window, center: bool = False, eps: float = 0.0):
     """|STFT| as torch.stft(onesided, return_complex).abs(), computed as
@@ -82,17 +106,35 @@ def stft_magnitude(y, *, n_fft: int, hop_length: int, win_length: int,
     centered.  center=True reflect-pads n_fft//2 on both sides.
     Returns (B, n_frames, n_fft//2 + 1) fp32, float64 for float64 y."""
     y = y.to(torch.promote_types(y.dtype, torch.float32))
-    if center:
-        p = n_fft // 2
-        y = F.pad(y[:, None], (p, p), mode="reflect")[:, 0]
-    win = np.asarray(window, np.float32)
-    if win_length < n_fft:
-        lpad = (n_fft - win_length) // 2
-        win = np.pad(win, (lpad, n_fft - win_length - lpad))
-    frames = frame_signal(y, n_fft, hop_length) * torch.as_tensor(win, device=y.device,
-                                                                  dtype=y.dtype)
-    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    spec = stft_complex(y, n_fft=n_fft, hop_length=hop_length, win_length=win_length,
+                        window=window, center=center)
     return torch.sqrt(spec.real.square() + spec.imag.square() + eps)
+
+
+def istft(spec, *, n_fft: int, hop_length: int, win_length: int, window,
+          length: int):
+    """Inverse STFT (JAX `ops/stft.py` `istft`): irfft, window, overlap-add,
+    then division by the overlap-added squared window wherever it is
+    above 1e-11 (by 1e-11 elsewhere, where torch.istft would raise).
+    spec: (B, T, n_fft//2 + 1) complex of a centered STFT -> (B, length):
+    n_fft//2 trimmed at the start, then zero-padded or cut to `length`.
+    The overlap-add is F.fold, which sums each output sample's frames in
+    one thread on the card (no atomics), so a run repeats bit for bit."""
+    win = _padded_window(window, win_length, n_fft, spec)
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * win            # (B, T, n_fft)
+    t = frames.shape[1]
+    total = (t - 1) * hop_length + n_fft
+
+    def overlap_add(cols):                                          # (N, n_fft, T)
+        return F.fold(cols, (1, total), (1, n_fft), stride=(1, hop_length))[:, 0, 0]
+
+    y = overlap_add(frames.transpose(1, 2))
+    norm = overlap_add(win.square()[None, :, None].expand(1, n_fft, t))
+    y = y / torch.clamp(norm, min=1e-11)
+    y = y[:, n_fft // 2:]
+    if y.shape[1] < length:
+        return F.pad(y, (0, length - y.shape[1]))
+    return y[:, :length]
 
 
 def spectrogram(y, *, n_fft: int, hop_length: int, win_length: int):

@@ -664,7 +664,8 @@ def _jax_post_routes():
 
 def test_every_jax_route_is_served_or_answers_501():
     served = {"/api/convert", "/api/f0_extract", "/api/job_start", "/api/job_status",
-              "/api/settings", "/api/i18n"}
+              "/api/settings", "/api/i18n", "/api/effects", "/api/model_info", "/api/fuse",
+              "/api/tts"}
     assert served | set(srv.UNPORTED_ROUTES) == _jax_post_routes()
     assert not served & set(srv.UNPORTED_ROUTES)
 
@@ -676,6 +677,74 @@ def test_unported_route_answers_501(servers, path):
     code, body = _call(servers[0], path, {"model": "m.pth"})
     assert code == 501 and body["not_ported"] is True
     assert body["error"] == tr("not_ported", what=srv.UNPORTED_ROUTES[path])
+
+
+def _both_ok(servers, path, req, jreq=None):
+    return _ok(servers[0], path, req), _ok(servers[1], path, req if jreq is None else jreq)
+
+
+def test_effects_matches_jax_server(servers):
+    """The same effects request to both servers: the same WAV back."""
+    req = dict(audio_b64=_wav_b64(_voice(0.6, 210.0, 3)), reverb=True, reverb_room_size=0.7,
+               pitchshift=True, pitch_shift=3.0, chorus=True, compressor=True, gain=True,
+               gain_db=-2.0, resample_sr=22050)
+    got, ref = _both_ok(servers, "/api/effects", req)
+    assert got == ref and got["sr"] == 22050
+    assert abs(len(_decode(got["audio_b64"])[1]) / 22050 - 0.6) < 0.01
+
+
+def test_model_info_matches_jax_server(servers, files):
+    got, ref = _both_ok(servers, "/api/model_info", {"model": files["model"]})
+    assert got == ref and got["sr"] == JCFG.sr and got["n_speakers"] == JCFG.spk_embed_dim
+    assert _call(servers[0], "/api/model_info", {})[0] == 400
+
+
+def test_fuse_matches_jax_server(servers, files, tmp_path):
+    """Both servers fuse the voice with itself at 0.3: the same weights,
+    each written where the request says."""
+    req = {"a": files["model"], "b": files["model"], "ratio": 0.3}
+    got, ref = _both_ok(servers, "/api/fuse", dict(req, out=str(tmp_path / "p.pth")),
+                        dict(req, out=str(tmp_path / "j.pth")))
+    assert got == {"output": str(tmp_path / "p.pth")} and ref == {"output": str(tmp_path / "j.pth")}
+    wp, wj = (torch.load(tmp_path / f, weights_only=False)["weight"] for f in ("p.pth", "j.pth"))
+    assert list(wp) == list(wj) and all(torch.equal(wp[k], wj[k]) for k in wj)
+
+
+def test_tts_matches_jax_server(servers, files, monkeypatch):
+    """The same /api/tts request, with a voice to convert into, to both
+    servers against one loopback read-aloud server: the synthesized audio
+    equal, the fp32 conversion within 1e-3 plus one int16 step, and the
+    port's conversion on its device thread."""
+    from read_aloud_fake import FakeReadAloudServer, pcm_wav_bytes
+    from rvc_maker_tpu_torch.utils.audio import resample
+
+    tts = FakeReadAloudServer(pcm_wav_bytes(resample(_voice(1.0, 200.0, 4), 16000, 24000)))
+    try:
+        _set_precision(servers, "fp32")
+        pipe = srv._get_pipeline(files["model"], files["index"], files["rmvpe"],
+                                 files["embedder"])
+        _with_jax_noise(pipe, monkeypatch)
+        threads = []
+        noisy = pipe.convert_utterance
+
+        def spy(*a, **kw):
+            threads.append(threading.current_thread().name)
+            return noisy(*a, **kw)
+
+        monkeypatch.setattr(pipe, "convert_utterance", spy)
+        req = dict(files, text="hello", voice="en-US-AriaNeural", endpoint=tts.url,
+                   f0_method="rmvpe", index_rate=0.5, protect=0.33, pitch=1)
+        got, ref = _both_ok(servers, "/api/tts", req)
+    finally:
+        tts.close()
+    assert got["audio_b64"] == ref["audio_b64"] and got["sr"] == ref["sr"] == 24000
+    assert got["converted_sr"] == ref["converted_sr"] == JCFG.sr
+    (_, wav_p), (_, wav_j) = (_decode(o["converted_b64"]) for o in (got, ref))
+    err = float(np.abs(wav_p - wav_j).max())
+    print(f"\nfp32 /api/tts, port vs JAX server: max abs {err:.3e} (tol {FP32_ATOL:.3e})")
+    assert wav_p.shape == wav_j.shape and np.abs(wav_j).max() > 0.1
+    assert err <= FP32_ATOL, err
+    assert threads == ["rvc-device_0"]
 
 
 @pytest.mark.parametrize("field", ["model", "embedder"])

@@ -292,3 +292,53 @@ def hf_hubert_state_dict(tree):
         k = k.replace(".fc2.", ".feed_forward.output_dense.")
         out["hubert." + k] = v
     return out
+
+
+def patch_jax_noise(monkeypatch):
+    """Every call of the port's `ConvertPipeline.convert_utterance` gets
+    the noise the JAX pipeline draws for each chunk (PRNGKey(0)), so that
+    a port command line's output can be held against the JAX one's."""
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline
+
+    orig = ConvertPipeline.convert_utterance
+
+    def convert_utterance(self, *a, **kw):
+        cfg = self.cfg
+
+        def noise_fn(b, p_len):
+            z, s = jax_noise(b, p_len, cfg.inter_channels, cfg.upp)
+            return torch.as_tensor(z), {"sine": torch.as_tensor(s)}
+
+        kw["noise_fn"] = noise_fn          # convert_split passes its own (None)
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(ConvertPipeline, "convert_utterance", convert_utterance)
+
+
+def write_voice_files(d, jcfg, seed=0, scale=20.0):
+    """A voice the JAX exporter writes (fp16 .pth of a seeded random tree,
+    its decode scaled up so that 1e-3 is a tight bound on the waveform),
+    a reference-layout rmvpe.pt of a narrow RMVPE and a 2-layer fairseq
+    HuBERT .pt, under directory `d`.  Returns their paths by name; the
+    JAX fairseq loader needs its N_LAYERS set to 2 to read the HuBERT."""
+    import jax
+    import jax.numpy as jnp
+
+    from rvc_maker_tpu.config import RVCConfig as JaxRVCConfig
+    from rvc_maker_tpu.interop.torch_export import export_synthesizer_pth
+    from rvc_maker_tpu_torch.interop import from_jax
+
+    tree = from_jax.random_synthesizer_tree(jcfg, seed=seed)
+    for u in tree["dec"]["ups"]:
+        u["w"] *= scale
+    tree["dec"]["conv_post"]["w"] *= scale
+    files = dict(model=str(d / f"voice{seed}.pth"), rmvpe=str(d / "rmvpe.pt"),
+                 embedder=str(d / "hubert.pt"))
+    export_synthesizer_pth(jax.tree_util.tree_map(jnp.asarray, tree),
+                           JaxRVCConfig(version="v2", model=jcfg), files["model"])
+    torch.save(rmvpe_state_dict(from_jax.random_rmvpe_tree(
+        seed=2, widths=(4, 8, 16, 32, 64), inter_width=128), np.random.RandomState(0)),
+        files["rmvpe"])
+    torch.save({"model": hubert_state_dict(from_jax.random_hubert_tree(seed=1, n_layers=2))},
+               files["embedder"])
+    return files
