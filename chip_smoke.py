@@ -80,7 +80,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               mels, 512 wide, 6 conv-only layers), FCPE legacy (512 wide,
               12 layers of FAVOR+ attention, 8 heads of 64, a 266 x 64
               projection), CREPE full.  Each method: convert_batch on 2 x
-              10 s after a warm-up, wall time, the F0 stage's device and
+              10 s (pyin and harvest, host F0 on one thread: 2 x 2 s)
+              after a warm-up, wall time, the F0 stage's device and
               host ms (its profiler range; CREPE's network in its own),
               device time and busy share, peak memory, 36 resblock_tc
               launches per call.  Card against
@@ -157,9 +158,26 @@ Phases, each printed as it runs; any failure exits non-zero:
               fp32: 36 launches, converted on the device thread, within 1
               int16 step of the direct call; /api/effects, /api/model_info
               and /api/fuse answer 200.  Each step's wall ms printed.
+ 14. int8     the W8A8 mode.  csrc/conv1d_w8a8.cu (int8 mma.sync) at the
+              54 conv shapes of an int8 decode of 2 x 10 s (C = 256 / 128
+              / 64, k = 3 / 7 / 11, dilations 1 / 3 / 5, conv2 with the
+              residual add), each against its plain version (quantize,
+              im2col, torch._int_mm): int32-exact, so within 1 bf16 ulp of
+              |ref|max; timed with the plain version and cuDNN's bf16
+              F.conv1d on the same shapes (the yardstick: PyTorch has no
+              int8 conv), beside the bound (int8 operations at 1,979 TOPS,
+              bytes at 3.35 TB/s).  Then phase 4's model in bf16 without
+              and with RVC_TPU_INT8=1 (set for the phase): the int8
+              pipeline's build and calibration timed; convert_batch 2 x 10
+              s on the same noise with yin and with rmvpe (index 0.5):
+              launches counted (54 conv1d_w8a8 and 9 resblock_tc_bf16 per
+              int8 decode, 36 resblock_tc_bf16 per bf16 one), int8 against
+              bf16 held at JAX's gate on yin (corr > 0.98, relative L2 <
+              0.2) and printed on rmvpe, each rmvpe call profiled; and
+              audit_int8_scales on a 10 s voice (54 finite ratios > 0).
 
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
-says otherwise; phases 3, 11 and 12 also run bf16.
+says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
 The line before the last holds the kernels' JSON summary, the line before
 it nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
@@ -434,6 +452,7 @@ def profile_call(label, fn, wall_s):
         log("  profile: device time not measured (the profiler saw no kernels)")
         return dict(device_ms=None)
     resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
+    w8a8_ms = sum(v for k, v in by_kernel.items() if "conv1d_w8a8" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     # the host side: self CPU time by op and CUDA runtime call
     host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
@@ -443,10 +462,11 @@ def profile_call(label, fn, wall_s):
                busy_share=device_ms / (1e3 * wall_s), stages_ms=stages,
                unattributed_ms=device_ms - sum(stages.values()),
                resblock_ms=resblock_ms, resblock_share=resblock_ms / device_ms,
-               top_kernels_ms=dict(top), top_host_self_ms=dict(top_host))
+               w8a8_ms=w8a8_ms, top_kernels_ms=dict(top), top_host_self_ms=dict(top_host))
     log(f"  profile of {label}: device {device_ms:.3f} ms of "
         f"{1e3 * wall_s:.3f} ms wall (busy share {res['busy_share']:.3f}); resblock "
-        f"kernel {resblock_ms:.3f} ms ({res['resblock_share']:.3f} of device time)")
+        f"kernel {resblock_ms:.3f} ms ({res['resblock_share']:.3f} of device time)"
+        + (f"; conv1d_w8a8 {w8a8_ms:.3f} ms" if w8a8_ms else ""))
     if stages:
         log("  by stage: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
             + f", outside the stages {res['unattributed_ms']:.3f} ms")
@@ -1136,6 +1156,7 @@ def vocoders_phase(model, card: str):
 
 F0_TIMED = ("yin", "fcpe", "fcpe-legacy", "crepe-full", "mangio-crepe-full", "pyin",
             "harvest", "dio", "swipe", "pm", "hybrid[rmvpe+fcpe+harvest]")
+F0_SHORT = ("pyin", "harvest")     # one host thread: timed on 2 x 2 s, not 2 x 10 s
 F0_DEVICE_CHECKED = ("yin", "fcpe", "fcpe-legacy", "crepe-full")
 F0_HOST_CHECKED = ("pyin", "harvest", "dio", "swipe", "pm")
 
@@ -1212,13 +1233,15 @@ def f0_timing(cfg, model, nets, card: str):
     from rvc_maker_tpu_torch.ops import resblock as rb
     from rvc_maker_tpu_torch.pipelines.convert import F0_RANGES, HOST_F0_RANGE, ConvertSettings
 
-    batch = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
-    L = batch.shape[1]
-    lengths = np.array([L, L])
+    long = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
     per_decode = sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates)
     pipe = f0_pipeline(cfg, model, nets, "cuda")
     res = {}
     for m in F0_TIMED:
+        batch = long[:, :2 * 16000] if m in F0_SHORT else long
+        L = batch.shape[1]
+        lengths = np.array([L, L])
+        seconds = 2 * L / 16000
         use_fcpe(pipe, nets, m)
         settings = ConvertSettings(index_rate=0.5, f0_method=m)
         pipe.convert_batch(batch, lengths, 0, settings)          # warm-up
@@ -1237,10 +1260,12 @@ def f0_timing(cfg, model, nets, card: str):
         if tuple(wav.shape) != (2, pipe.frames(L) * cfg.upp) or not torch.isfinite(wav).all():
             raise AssertionError(f"{m}: wav {tuple(wav.shape)}")
         voiced = float((pitchf > 0).float().mean())
-        log(f"  {m}: convert_batch 2 x 10 s {wall:.3f} s wall ({20.0 / wall:.2f} audio-s/s), "
+        log(f"  {m}: convert_batch 2 x {seconds / 2:.0f} s {wall:.3f} s wall "
+            f"({seconds / wall:.2f} audio-s/s), "
             f"peak device memory {peak / 2**30:.2f} GiB, voiced share {voiced:.3f}, "
             f"resblock_tc launches {tc}")
-        r = dict(batch_s=wall, batch_audio_s_per_s=20.0 / wall, max_memory_allocated=peak,
+        r = dict(batch_s=wall, batch_seconds=seconds, batch_audio_s_per_s=seconds / wall,
+                 max_memory_allocated=peak,
                  resblock_launches=launches, resblock_tc_launches=tc, voiced_share=voiced)
         r["profile"] = f0_range_ms(f"{m} convert_batch", lambda: pipe.convert_batch(
             batch, lengths, 0, settings), wall, F0_RANGES.get(m, HOST_F0_RANGE))
@@ -2340,6 +2365,206 @@ def audio_tools_phase(cfg, model, work: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the int8 W8A8 mode
+# ---------------------------------------------------------------------------
+
+H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, H100 SXM data sheet
+W8A8_REPLACES = "rvc_maker_tpu/ops/int8_conv.py:179"   # conv1d_w8a8 (XLA, no Pallas kernel)
+
+
+def w8a8_shapes(cfg, batch: int = 2, seconds: float = 10.0):
+    """The int8 decode's convs on batch x seconds: for each stage at C >=
+    64, resblock and dilation, (B, C, T, k, dilation, is_conv2); conv2
+    has dilation 1 and the residual add.  54 at v2-48k."""
+    from rvc_maker_tpu_torch.ops.int8_conv import DECODE_MIN_C
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline
+
+    out, t, c = [], ConvertPipeline.frames(int(16000 * seconds)), cfg.upsample_initial_channel
+    for u in cfg.upsample_rates:
+        t, c = t * u, c // 2
+        if c < DECODE_MIN_C:
+            continue
+        for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            for d in dils:
+                out += [(batch, c, t, k, d, False), (batch, c, t, k, 1, True)]
+    return out
+
+
+def check_w8a8(shapes, card: str):
+    """csrc/conv1d_w8a8.cu against its plain version at each shape (the
+    leaky ReLU fused, conv2 with the residual add): int32-exact, so within
+    1 bf16 ulp of |ref|max; then the kernel, the plain version and cuDNN's
+    bf16 F.conv1d (the yardstick: PyTorch has no int8 conv) timed."""
+    from rvc_maker_tpu_torch.ops import int8_conv as q
+
+    F = torch.nn.functional
+    gen = torch.Generator().manual_seed(14)
+    saved = q.conv1d_w8a8_launches
+    rows = []
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, ops=0, bytes=0, bound_ms=0.0)
+    worst, worst_ulps, n_diff = 0.0, 0.0, 0
+    for (b, c, t, k, d, second) in shapes:
+        x = (torch.randn(b, c, t, generator=gen) * 0.5).cuda().bfloat16()
+        r = (torch.randn(b, c, t, generator=gen) * 0.5).cuda().bfloat16() if second else None
+        w = torch.randn(k, c, c, generator=gen) * (0.5 / (k * c) ** 0.5)
+        w_q, w_s = q.quantize_weight(w)
+        w_q, w_s = w_q.transpose(1, 2).contiguous().cuda(), w_s.cuda()
+        bias = (torch.randn(c, generator=gen) * 0.1).cuda().bfloat16()
+        a_s = q.activation_scale(q.lrelu(x)).reshape(1)
+        kw = dict(dilation=d, apply_lrelu=True, residual=r)
+        ref = q._conv1d_w8a8_plain(x, w_q, w_s, bias, a_s, **kw).float()
+        got = q.conv1d_w8a8(x, w_q, w_s, bias, a_scale=a_s, **kw).float()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        ulp = bf16_ulp(ref.abs().max().item())
+        diff = int((got != ref).sum().item())
+        wt = w.permute(2, 1, 0).contiguous().cuda().bfloat16()
+        iters = 5
+        ms = cuda_ms(lambda: q.conv1d_w8a8(x, w_q, w_s, bias, a_scale=a_s, **kw), iters)
+        plain_ms = cuda_ms(lambda: q._conv1d_w8a8_plain(x, w_q, w_s, bias, a_s, **kw), iters)
+        lib_ms = cuda_ms(lambda: F.conv1d(x, wt, bias, dilation=d, padding=(k * d - d) // 2),
+                         iters)
+        ops = q.conv1d_w8a8_ops(b, t, c, k)
+        nbytes = 2 * b * c * t * (3 if second else 2) + k * c * c + 4 * c + 2 * c + 4
+        bound = 1e3 * max(ops / H100_INT8_OPS, nbytes / H100_BYTES_PER_S)
+        rows.append(dict(B=b, C=c, T=t, k=k, dilation=d, residual=second,
+                         smem_bytes=q.smem_bytes(c, k, d), max_abs_err=err, ulp=ulp,
+                         elements_differing=diff, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         ops=ops, bytes=nbytes, bound_ms=bound, roofline_share=bound / ms))
+        worst, worst_ulps, n_diff = max(worst, err), max(worst_ulps, err / ulp), n_diff + diff
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms), ("ops", ops),
+                       ("bytes", nbytes), ("bound_ms", bound)):
+            tot[key] += v
+        if err > ulp:
+            raise AssertionError(f"conv1d_w8a8 C={c} T={t} k={k} d={d}: err {err} > 1 bf16 "
+                                 f"ulp {ulp}")
+        del x, r, w_q, w_s, bias, ref, got, wt
+    q.conv1d_w8a8_launches = saved         # comparison launches do not count
+    torch.cuda.empty_cache()
+    op_ms = 1e3 * tot["ops"] / H100_INT8_OPS
+    by_ms = 1e3 * tot["bytes"] / H100_BYTES_PER_S
+    tot.update(max_abs_err=worst, max_err_in_ulps=worst_ulps, elements_differing=n_diff,
+               ops_ms=op_ms, bytes_ms=by_ms, sum_bound_ms=tot["bound_ms"],
+               bound_ms=max(op_ms, by_ms), bound_by="operations" if op_ms >= by_ms else "bytes")
+    for c in sorted({r["C"] for r in rows}, reverse=True):
+        sel = [r for r in rows if r["C"] == c]
+        log(f"  W8A8 C={c} T={sel[0]['T']}: {len(sel)} convs, kernel "
+            f"{sum(r['ms'] for r in sel):.3f} ms, plain {sum(r['plain_ms'] for r in sel):.3f} ms, "
+            f"cuDNN bf16 {sum(r['library_ms'] for r in sel):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in sel):.3f} ms; shared memory "
+            f"{max(r['smem_bytes'] for r in sel) / 1024:.1f} KB at most")
+    log(f"  one int8 decode's {len(shapes)} W8A8 convs: kernel {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, cuDNN bf16 F.conv1d {tot['library_ms']:.3f} ms; "
+        f"{tot['ops'] / 1e12:.3f} TOP ({op_ms:.3f} ms at 1,979 TOPS), {tot['bytes'] / 1e9:.3f} GB "
+        f"({by_ms:.3f} ms at 3.35 TB/s) -> bound {tot['bound_ms']:.3f} ms ({tot['bound_by']}), "
+        f"roofline share {tot['bound_ms'] / tot['ms']:.3f}; max err {worst:.3e} "
+        f"({worst_ulps:.2f} bf16 ulps), {n_diff} elements differ; on {card}")
+    return rows, tot
+
+
+def int8_phase(cfg, model, card: str) -> dict:
+    """Phase 14's pipeline part: phase 4's model in bf16, without and with
+    RVC_TPU_INT8=1 (set for the phase), on 2 x 10 s."""
+    from rvc_maker_tpu_torch.ops import int8_conv as q
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+
+    def build():
+        return ConvertPipeline(model["synth_params"], cfg, model["hubert_params"],
+                               version="v2", rmvpe_params=model["rmvpe_params"],
+                               index_vectors=model["index_vectors"], device="cuda",
+                               compute_dtype=torch.bfloat16)
+
+    per_decode = len(w8a8_shapes(cfg))          # two W8A8 convs per dilation step
+    steps = sum(len(d) for d in cfg.resblock_dilation_sizes) * len(cfg.upsample_rates)
+    narrow = steps - per_decode // 2           # the steps of the C < 64 stages
+    batch = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
+    lengths = np.array([batch.shape[1]] * 2)
+    res = {}
+    saved_env = os.environ.get("RVC_TPU_INT8")
+    os.environ.pop("RVC_TPU_INT8", None)
+    pipes = {"bf16": build()}
+    os.environ["RVC_TPU_INT8"] = "1"
+    try:
+        t0 = time.perf_counter()
+        pipes["int8"] = build()
+        torch.cuda.synchronize()
+        res["build_s"] = time.perf_counter() - t0
+        p8 = pipes["int8"]
+        if getattr(p8.use_int8, "mode", None) != "static" or len(p8.use_int8.sigs) != per_decode:
+            raise AssertionError(f"int8 pipeline not calibrated: {p8.use_int8}")
+        t0 = time.perf_counter()
+        p8._int8_calibrate()
+        torch.cuda.synchronize()
+        res["calibration_s"] = time.perf_counter() - t0
+        scales = p8.use_int8.scales.cpu().numpy()
+        log(f"  int8 pipeline built in {res['build_s']:.3f} s (bf16 cast, prequantize, "
+            f"calibration); calibration alone {res['calibration_s']:.3f} s; {len(scales)} site "
+            f"scales {scales.min():.3e} .. {scales.max():.3e}")
+        p_len = p8.frames(batch.shape[1])
+        z, noise = p8.draw_noise(2, p_len, torch.Generator(device="cuda").manual_seed(21))
+        wavs = {}
+        for method in ("yin", "rmvpe"):
+            settings = ConvertSettings(index_rate=0.5, f0_method=method)
+            for name, pipe in pipes.items():
+                pipe.convert_batch(batch, lengths, 0, settings, z_noise=z, noise=noise)
+                torch.cuda.synchronize()
+                reset_counts(rb)
+                launches0 = q.conv1d_w8a8_launches
+                t0 = time.perf_counter()
+                wav, _ = pipe.convert_batch(batch, lengths, 0, settings, z_noise=z, noise=noise)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(conv1d_w8a8=q.conv1d_w8a8_launches - launches0,
+                              resblock_tc_bf16=rb.resblock_tc_bf16_launches,
+                              resblock_tc=rb.resblock_tc_launches,
+                              resblock=rb.resblock_launches)
+                wavs[method, name] = wav.float().cpu().numpy()
+                r = res.setdefault(f"{method}_{name}", {})
+                r.update(batch_s=wall, audio_s_per_s=20.0 / wall, launches=counts)
+                expect = (dict(conv1d_w8a8=per_decode, resblock_tc_bf16=narrow, resblock_tc=0,
+                               resblock=narrow) if name == "int8" else
+                          dict(conv1d_w8a8=0, resblock_tc_bf16=steps, resblock_tc=0,
+                               resblock=steps))
+                log(f"  {method} {name}: convert_batch 2 x 10 s {wall:.3f} s wall, launches "
+                    f"{counts}")
+                if counts != expect:
+                    raise AssertionError(f"{method} {name}: launches {counts}, expected {expect}")
+                if method == "rmvpe":
+                    r["profile"] = profile_call(
+                        f"{name} convert_batch 2 x 10 s (rmvpe, index 0.5)",
+                        lambda: pipe.convert_batch(batch, lengths, 0, settings, z_noise=z,
+                                                   noise=noise), wall)
+            a, b = wavs[method, "int8"], wavs[method, "bf16"]
+            corr_ = corr(a.ravel(), b.ravel())
+            rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+            res[f"{method}_quality"] = dict(corr=corr_, rel_l2=rel, max_abs=float(
+                np.abs(a - b).max()), finite=bool(np.isfinite(a).all()))
+            log(f"  {method}: int8 against bf16 on the same noise: corr {corr_:.6f}, relative L2 "
+                f"{rel:.4f}, max abs {np.abs(a - b).max():.3e}")
+            if method == "yin" and not (np.isfinite(a).all() and corr_ > 0.98 and rel < 0.2):
+                raise AssertionError(f"int8 quality gate: corr {corr_}, rel {rel}")
+        t0 = time.perf_counter()
+        ratio = p8.audit_int8_scales(voice(10.0, 190.0, 3))
+        res["audit"] = dict(s=time.perf_counter() - t0, sites=len(ratio),
+                            min=float(ratio.min()), max=float(ratio.max()))
+        log(f"  audit_int8_scales on a 10 s voice: {len(ratio)} ratios "
+            f"{ratio.min():.3f} .. {ratio.max():.3f} in {res['audit']['s']:.3f} s")
+        if not (len(ratio) == per_decode and np.isfinite(ratio).all() and (ratio > 0).all()):
+            raise AssertionError(f"audit ratios {ratio}")
+    finally:
+        if saved_env is None:
+            os.environ.pop("RVC_TPU_INT8", None)
+        else:
+            os.environ["RVC_TPU_INT8"] = saved_env
+    res["launches_per_decode"] = dict(conv1d_w8a8=per_decode, resblock_tc_bf16=narrow)
+    del pipes
+    torch.cuda.empty_cache()
+    log(f"  on {card}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -2455,6 +2680,16 @@ def run(work: str) -> int:
     RESULTS["audio_tools"] = audio_tools_phase(model_cfg, model, work)
     RESULTS["audio_tools"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 13 in {RESULTS['audio_tools']['phase_s']:.1f} s")
+
+    shapes14 = w8a8_shapes(model_cfg)
+    log(f"[14 int8] the W8A8 mode: csrc/conv1d_w8a8.cu at the int8 decode's {len(shapes14)} "
+        f"conv shapes, then the int8 pipeline ({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    rows14, tot14 = check_w8a8(shapes14, smi)
+    RESULTS["int8"] = dict(rows=rows14, totals=tot14,
+                           pipeline=int8_phase(model_cfg, model, smi))
+    RESULTS["int8"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 14 in {RESULTS['int8']['phase_s']:.1f} s")
     del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
@@ -2466,6 +2701,7 @@ def run(work: str) -> int:
     main, train, tk = RESULTS["main_path"], RESULTS["train"], RESULTS["train_kernel"]
     voc, serve, ta = RESULTS["vocoders"], RESULTS["serve"], RESULTS["train_all"]
     at = RESULTS["audio_tools"]
+    i8p, i8t = RESULTS["int8"]["pipeline"], RESULTS["int8"]["totals"]
     runs, tkb = ta["runs"], ta["train_kernel_bf16"]["totals"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
@@ -2530,7 +2766,20 @@ def run(work: str) -> int:
              max_abs_err=totals["bf16_fma_max_abs_err"], ms=totals["bf16_fma_ms"],
              fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
              fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"],
-             **common, **bf16)]
+             **common, **bf16),
+        # the int8 decode's W8A8 conv: its times summed over one decode's 54
+        # convs; library_ms is cuDNN's bf16 F.conv1d on the same shapes
+        dict(name="conv1d_w8a8", route="cuda", source="rvc_maker_tpu_torch/csrc/conv1d_w8a8.cu",
+             replaces=W8A8_REPLACES,
+             launches=i8p["rmvpe_int8"]["launches"]["conv1d_w8a8"],
+             launches_per_decode=i8p["launches_per_decode"]["conv1d_w8a8"],
+             launches_yin=i8p["yin_int8"]["launches"]["conv1d_w8a8"],
+             max_abs_err=i8t["max_abs_err"], ms=i8t["ms"], plain_ms=i8t["plain_ms"],
+             bound_ms=i8t["bound_ms"], bound_by=i8t["bound_by"],
+             library_ms=i8t["library_ms"], roofline_share=i8t["bound_ms"] / i8t["ms"],
+             library="cuDNN bf16 F.conv1d at the same shapes (PyTorch has no int8 conv)",
+             tolerance="max abs vs the plain version (_int_mm) <= 1 bf16 ulp of |ref|max",
+             routes={"cpu": "plain", "cuda bf16, C in " + str([64, 128, 256]): "conv1d_w8a8"})]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,6 +9,11 @@ v1 is layer 9 through `final_proj` (256-d).
 
 Params: plain dicts of torch tensors in torch layout; `layers` is a
 list of per-layer dicts (the JAX package stacks them for lax.scan).
+
+int8: `extract_features(..., use_int8=True)` runs the six transformer
+matmuls of each layer as W8A8 products with per-token activation scales
+(`ops.int8_conv.linear_w8a8`, from the w_q / w_scale that
+`prequantize_hubert` attached), as JAX `_qlin` does.
 `params_from_fairseq_state_dict` loads a fairseq checkpoint, folding the
 positional conv's weight-norm.
 """
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..interop.pth import folded_weight
+from ..ops.int8_conv import linear_w8a8
 from ..ops.nn import conv1d, layer_norm, linear
 
 Params = Any
@@ -77,7 +83,14 @@ def conv_frontend(p: Params, source, lengths=None):
     return x.transpose(1, 2)
 
 
-def _self_attention(lp: Params, x, attn_bias):
+def _qlin(x, c, use_int8: bool):
+    """`linear`, or its W8A8 twin (JAX `_qlin`)."""
+    if use_int8:
+        return linear_w8a8(x, c["w"], c.get("b"), w_q=c.get("w_q"), w_scale=c.get("w_scale"))
+    return linear(x, c["w"], c.get("b"))
+
+
+def _self_attention(lp: Params, x, attn_bias, use_int8: bool = False):
     """fairseq self-attention, eval mode.  x: (B, T, C); attn_bias:
     (B, 1, 1, T) additive or None.  Softmax in fp32."""
     b, t, c = x.shape
@@ -86,29 +99,29 @@ def _self_attention(lp: Params, x, attn_bias):
     def heads(y):
         return y.reshape(b, t, N_HEADS, d).transpose(1, 2)
 
-    q = heads(linear(x, lp["q"]["w"], lp["q"]["b"]) * (d ** -0.5))
-    k = heads(linear(x, lp["k"]["w"], lp["k"]["b"]))
-    v = heads(linear(x, lp["v"]["w"], lp["v"]["b"]))
+    q = heads(_qlin(x, lp["q"], use_int8) * (d ** -0.5))
+    k = heads(_qlin(x, lp["k"], use_int8))
+    v = heads(_qlin(x, lp["v"], use_int8))
     scores = torch.matmul(q, k.transpose(-1, -2))
     if attn_bias is not None:
         scores = scores + attn_bias
     p_attn = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
     out = torch.matmul(p_attn, v).transpose(1, 2).reshape(b, t, c)
-    return linear(out, lp["o"]["w"], lp["o"]["b"])
+    return _qlin(out, lp["o"], use_int8)
 
 
-def _encoder_layer(lp: Params, x, attn_bias):
+def _encoder_layer(lp: Params, x, attn_bias, use_int8: bool = False):
     """Post-LN transformer layer (fairseq layer_norm_first=False)."""
-    y = _self_attention(lp["attn"], x, attn_bias)
+    y = _self_attention(lp["attn"], x, attn_bias, use_int8)
     x = layer_norm(x + y, lp["ln1"]["gamma"], lp["ln1"]["beta"])
-    y = linear(_gelu(linear(x, lp["fc1"]["w"], lp["fc1"]["b"])),
-               lp["fc2"]["w"], lp["fc2"]["b"])
+    y = _qlin(_gelu(_qlin(x, lp["fc1"], use_int8)), lp["fc2"], use_int8)
     return layer_norm(x + y, lp["ln2"]["gamma"], lp["ln2"]["beta"])
 
 
 def extract_features(params: Params, source, lengths=None, *,
-                     output_layer: int = 12):
-    """source: (B, L) 16 kHz; lengths: (B,) valid samples or None.
+                     output_layer: int = 12, use_int8: bool = False):
+    """source: (B, L) 16 kHz; lengths: (B,) valid samples or None;
+    use_int8: the transformer's matmuls in W8A8 (module docstring).
     Returns (features (B, T, 768), frame_lengths (B,))."""
     feats = conv_frontend(params["frontend"], source, lengths)
     b, t, _ = feats.shape
@@ -145,7 +158,7 @@ def extract_features(params: Params, source, lengths=None, *,
         attn_bias = attn_bias.masked_fill(key_mask, float("-inf"))[:, None, None, :]
 
     for lp in params["layers"][:output_layer]:
-        x = _encoder_layer(lp, x, attn_bias)
+        x = _encoder_layer(lp, x, attn_bias, use_int8)
     return x[:, :t], fl
 
 

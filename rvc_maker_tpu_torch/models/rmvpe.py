@@ -11,6 +11,14 @@ decoder's transposed convs hold torch's (Cin, Cout, 3, 3) weight and run
 as F.conv_transpose2d (the JAX package stores them pre-flipped for its
 input-dilated form; `interop/from_jax.py` un-flips them).  The BiGRU is
 torch.nn.GRU (gate order r, z, n, as the reference).
+
+int8: `infer(..., use_int8=True)` runs each residual-block conv that
+carries w_q (C_in >= 128, `ops.int8_conv.prequantize_rmvpe`) as a W8A8
+conv with a dynamic per-tensor scale (`conv2d_w8a8`), as JAX `_qconv2d`
+does.  In bf16 the JAX package W-folds encoder levels 0 and 2 and
+decoder levels 2-4 (its `_ENC_FOLDS`, `_DEC_FOLDS`) into a chain that
+has no int8 route, so in bf16 those levels keep their bf16 convs here
+too.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.int8_conv import conv2d_w8a8
 from ..ops.stft import rmvpe_mel
 
 Params = Any
@@ -34,28 +43,40 @@ def _bn(x, p):
     return x * p["scale"][None, :, None, None] + p["shift"][None, :, None, None]
 
 
-def _conv_block_res(p: Params, x):
+# the levels JAX folds in bf16, whose chain takes no int8 (module docstring)
+_FOLDED_ENC = (True, False, True, False, False)
+_FOLDED_DEC = (False, False, True, True, True)
+
+
+def _qconv2d(x, c, use_int8: bool):
+    """The 3x3 conv, or its W8A8 twin where w_q is attached (JAX `_qconv2d`)."""
+    if use_int8 and "w_q" in c:
+        return conv2d_w8a8(x, c["w"], w_q=c["w_q"], w_scale=c["w_scale"])
+    return F.conv2d(x, c["w"], padding=1)
+
+
+def _conv_block_res(p: Params, x, use_int8: bool = False):
     """ConvBlockRes: (conv3x3-BN-ReLU) x 2 + shortcut. RMVPE.py:11-22."""
-    y = torch.relu(_bn(F.conv2d(x, p["conv1"]["w"], padding=1), p["bn1"]))
-    y = torch.relu(_bn(F.conv2d(y, p["conv2"]["w"], padding=1), p["bn2"]))
+    y = torch.relu(_bn(_qconv2d(x, p["conv1"], use_int8), p["bn1"]))
+    y = torch.relu(_bn(_qconv2d(y, p["conv2"], use_int8), p["bn2"]))
     if "shortcut" in p:
         x = F.conv2d(x, p["shortcut"]["w"], p["shortcut"]["b"])
     return y + x
 
 
-def _block_chain(p: Params, x):
+def _block_chain(p: Params, x, use_int8: bool = False):
     for bp in p["blocks"]:
-        x = _conv_block_res(bp, x)
+        x = _conv_block_res(bp, x, use_int8)
     return x
 
 
-def _decoder_block(p: Params, x, skip):
+def _decoder_block(p: Params, x, skip, use_int8: bool = False):
     """ConvT(3x3, stride 2, pad 1, outpad 1, no bias) + BN + ReLU, concat
     the skip, then the residual blocks. RMVPE.py:88-106."""
     y = F.conv_transpose2d(x, p["convt"]["w"], stride=2, padding=1,
                            output_padding=1)
     y = torch.relu(_bn(y, p["bn"]))
-    return _block_chain(p, torch.cat([y, skip], dim=1))
+    return _block_chain(p, torch.cat([y, skip], dim=1), use_int8)
 
 
 def make_bigru(w: dict) -> torch.nn.GRU:
@@ -74,19 +95,21 @@ def make_bigru(w: dict) -> torch.nn.GRU:
     return gru.eval().requires_grad_(False)
 
 
-def e2e_apply(p: Params, mel):
+def e2e_apply(p: Params, mel, use_int8: bool = False):
     """Salience network.  mel: (B, n_mels, T), T a multiple of 32.
-    Returns (B, T, 360) sigmoid salience."""
+    use_int8: the W8A8 convs of the module docstring.  Returns (B, T,
+    360) sigmoid salience."""
     x = _bn(mel.transpose(1, 2)[:, None], p["in_bn"])      # (B, 1, T, 128)
+    folds = mel.dtype == torch.bfloat16
     skips = []
-    for lp in p["encoder"]:
-        x = _block_chain(lp, x)
+    for i, lp in enumerate(p["encoder"]):
+        x = _block_chain(lp, x, use_int8 and not (folds and _FOLDED_ENC[i]))
         skips.append(x)
         x = F.avg_pool2d(x, 2)
     for lp in p["intermediate"]:
-        x = _block_chain(lp, x)
+        x = _block_chain(lp, x, use_int8)
     for i, lp in enumerate(p["decoder"]):
-        x = _decoder_block(lp, x, skips[-1 - i])
+        x = _decoder_block(lp, x, skips[-1 - i], use_int8 and not (folds and _FOLDED_DEC[i]))
     x = F.conv2d(x, p["cnn"]["w"], p["cnn"]["b"], padding=1)  # (B, 3, T, 128)
     b, c, t, f = x.shape
     x = x.transpose(1, 2).reshape(b, t, c * f)              # (B, T, 3*128)
@@ -112,18 +135,19 @@ def decode_cents(salience, thred: float = 0.03):
 
 def infer(params: Params, audio_16k, *, thred: float = 0.03,
           f0_min: float | None = None, f0_max: float | None = None,
-          return_salience: bool = False):
+          return_salience: bool = False, use_int8: bool = False):
     """audio_16k: (B, L) -> f0 (B, L//160 + 1) Hz.  The mel is
     reflect-padded to a multiple of 32 frames and the salience cropped
     back.  With return_salience, also returns the (B, T, 360) salience.
-    The salience net runs in the params' dtype (fp32 or bf16); the mel
-    and the cents decode stay fp32, as JAX `infer`."""
+    The salience net runs in the params' dtype (fp32 or bf16), its deep
+    convs in int8 with use_int8; the mel and the cents decode stay fp32,
+    as JAX `infer`."""
     mel = rmvpe_mel(audio_16k)
     n_frames = mel.shape[-1]
     pad_to = 32 * ((n_frames - 1) // 32 + 1)
     mel = F.pad(mel, (0, pad_to - n_frames), mode="reflect")
     net_dtype = params["in_bn"]["scale"].dtype
-    hidden = e2e_apply(params, mel.to(net_dtype))[:, :n_frames].to(torch.float32)
+    hidden = e2e_apply(params, mel.to(net_dtype), use_int8)[:, :n_frames].to(torch.float32)
     f0 = decode_cents(hidden, thred=thred)
     if f0_min is not None:
         f0 = torch.where((f0 < f0_min) | (f0 > f0_max), 0.0, f0)

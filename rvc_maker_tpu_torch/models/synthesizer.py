@@ -21,6 +21,14 @@ they are given, fp32 or bf16 (the pipeline's compute_dtype, the
 JAX package's bf16 mode).  The sine sources stay fp32 and their output
 is cast to the activations' dtype, as JAX `generator_nsf` does.
 
+int8: with RVC_TPU_INT8=1 in bf16, an inference call given `use_int8`
+(a bool or an `ops.int8_conv.Int8Ctx`; `ConvertPipeline` threads it)
+runs every resblock conv of the NSF and plain decoders at C >= 64 as a
+W8A8 conv (`Int8Ctx.conv`, csrc/conv1d_w8a8.cu on the card), from the
+`w1_q` / `w2_q` that `prequantize_decode` attached; narrower stages keep
+`fused_resblock`.  MRF-HiFi-GAN and RefineGAN take no int8, and the
+training forward has no `use_int8`, as in the JAX package.
+
 Layouts: the public functions take and return (B, T, C), as the JAX
 package does.  The decoders run in (B, C, T) inside: that is the layout
 of cuDNN's convolutions, of F.conv_transpose1d and of the resblock
@@ -35,6 +43,7 @@ from typing import Any
 import torch
 
 from ..config import ModelConfig
+from ..ops.int8_conv import DECODE_MIN_C, Int8Ctx, as_ctx, int8_enabled
 from ..ops.nn import (LRELU_SLOPE, conv1d, conv_transpose1d, embedding,
                       fused_gate, layer_norm, leaky_relu, linear, linear_as_input,
                       sequence_mask, slice_segments)
@@ -270,25 +279,47 @@ def _stage_paddings(cfg: ModelConfig):
     return out
 
 
-def _resblock_group(p: Params, x, indices, cfg: ModelConfig):
-    """Average of the stage's resblocks (reference synthesizers.py:141-149)."""
+def _int8_resblock(rb: Params, x, ctx: Int8Ctx, *, dilations):
+    """One resblock through `ctx.conv`, two W8A8 convs per dilation step
+    (JAX `_resblock`'s int8 route): x = conv2(lrelu(conv1(lrelu(x)))) +
+    x, each leaky ReLU in the conv's prologue, the add in conv2's
+    epilogue."""
+    for i, d in enumerate(dilations):
+        y = ctx.conv(x, rb["w1_q"][i], rb["w1_scale"][i], rb["b1"][i], dilation=d,
+                     apply_lrelu=True)
+        x = ctx.conv(y, rb["w2_q"][i], rb["w2_scale"][i], rb["b2"][i], dilation=1,
+                     apply_lrelu=True, residual=x)
+    return x
+
+
+def _resblock_group(p: Params, x, indices, cfg: ModelConfig, ctx: Int8Ctx | None = None):
+    """Average of the stage's resblocks (reference synthesizers.py:141-149):
+    `fused_resblock`, or `_int8_resblock` when an int8 context is given,
+    the mode is on for x's dtype and the stage is at least DECODE_MIN_C
+    wide (JAX `_resblock`'s gate)."""
+    int8 = (ctx is not None and int8_enabled(x.dtype) and x.shape[1] >= DECODE_MIN_C)
     xs = None
     for idx, ks, ds in zip(indices, cfg.resblock_kernel_sizes,
                            cfg.resblock_dilation_sizes):
         rb = p["resblocks"][idx]
-        r = fused_resblock(x, rb["w1"], rb["b1"], rb["w2"], rb["b2"],
-                           kernel_size=ks, dilations=tuple(ds))
+        if int8:
+            r = _int8_resblock(rb, x, ctx, dilations=tuple(ds))
+        else:
+            r = fused_resblock(x, rb["w1"], rb["b1"], rb["w2"], rb["b2"],
+                               kernel_size=ks, dilations=tuple(ds))
         xs = r if xs is None else xs + r
     return xs / len(indices)
 
 
-def _hifigan_stack(p: Params, cfg: ModelConfig, x, g, har=None):
+def _hifigan_stack(p: Params, cfg: ModelConfig, x, g, har=None, use_int8=False):
     """The HiFi-GAN upsampling stack that the NSF, MRF and plain decoders
     share.  x: (B, T, inter); har: the harmonic source (B, 1, T*upp) or
     None.  Per stage: leaky-ReLU, the transposed conv, the source's noise
     conv when there is a source, the average of the stage's resblocks
-    (`fused_resblock`); then leaky-ReLU 0.01 (torch F.leaky_relu's
-    default, reference :161), conv_post and tanh.  Returns (B, T*upp, 1)."""
+    (`_resblock_group`, int8 by `use_int8`); then leaky-ReLU 0.01 (torch
+    F.leaky_relu's default, reference :161), conv_post and tanh.  Returns
+    (B, T*upp, 1)."""
+    ctx = as_ctx(use_int8)
     x = conv1d(x.transpose(1, 2), p["conv_pre"]["w"], p["conv_pre"]["b"],
                padding=3)                                      # (B, C, T)
     if g is not None and "cond" in p:
@@ -303,26 +334,32 @@ def _hifigan_stack(p: Params, cfg: ModelConfig, x, g, har=None):
             x = x + conv1d(har, p["noise_convs"][i]["w"], p["noise_convs"][i]["b"],
                            stride=st["noise_stride"], padding=st["noise_pad"])
         x = _resblock_group(p, x.contiguous(), [i * nk + j for j in range(nk)],
-                            cfg)
+                            cfg, ctx)
     x = leaky_relu(x, 0.01)
     x = conv1d(x, p["conv_post"]["w"], p["conv_post"].get("b"), padding=3)
     return torch.tanh(x).transpose(1, 2)
 
 
-def generator_nsf(p: Params, cfg: ModelConfig, x, f0, g, sine_noise):
+def generator_nsf(p: Params, cfg: ModelConfig, x, f0, g, sine_noise, *, use_int8=False):
     """NSF-HiFiGAN decode.  x: (B, T, inter); f0: (B, T) Hz; g: (B, 1,
-    gin) or None; sine_noise: (B, T*upp, 1).  Returns (B, T*upp, 1)."""
+    gin) or None; sine_noise: (B, T*upp, 1).  use_int8: False, True
+    (dynamic scales) or an Int8Ctx, whose sites restart here.  Returns
+    (B, T*upp, 1)."""
+    if isinstance(use_int8, Int8Ctx):
+        use_int8.reset_sites()
     har = source_module(p["source"], f0, sine_noise, upp=cfg.upp,
                         sample_rate=cfg.sr).to(x.dtype).transpose(1, 2)
-    return _hifigan_stack(p, cfg, x, g, har)
+    return _hifigan_stack(p, cfg, x, g, har, use_int8)
 
 
-def generator(p: Params, cfg: ModelConfig, x, g):
+def generator(p: Params, cfg: ModelConfig, x, g, *, use_int8=False):
     """Plain HiFi-GAN decode of f0-less models (reference
     synthesizers.py:21-67 Generator): no source, no noise convs, no bias
-    on conv_post.  x: (B, T, inter); g: (B, 1, gin) or None.  Returns
-    (B, T*upp, 1)."""
-    return _hifigan_stack(p, cfg, x, g)
+    on conv_post.  x: (B, T, inter); g: (B, 1, gin) or None; use_int8 as
+    `generator_nsf` takes it.  Returns (B, T*upp, 1)."""
+    if isinstance(use_int8, Int8Ctx):
+        use_int8.reset_sites()
+    return _hifigan_stack(p, cfg, x, g, use_int8=use_int8)
 
 
 MRF_NAMES = ("MRF HiFi-GAN", "MRF-HiFi-GAN")
@@ -391,13 +428,14 @@ def _prior(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch, sid,
 
 
 def infer(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
-          nsff0, sid, z_noise, sine_noise):
+          nsff0, sid, z_noise, sine_noise, *, use_int8=False):
     """Inference with the NSF decoder, or the plain one for an f0-less
     model (reference synthesizers.py:446-465).
 
     phone: (B, T, emb_dim); pitch: (B, T) int, None for an f0-less
     model; nsff0: (B, T) Hz; sid: (B,) int; z_noise: (B, T, inter)
-    N(0,1); sine_noise: (B, T*upp, 1), unused by an f0-less model.
+    N(0,1); sine_noise: (B, T*upp, 1), unused by an f0-less model;
+    use_int8 as `generator_nsf` takes it.
     Returns (waveform (B, T*upp, 1), x_mask, (z, z_p, m_p, logs_p))."""
     kind = decoder_kind(cfg)
     if kind not in ("nsf", "plain"):
@@ -405,40 +443,42 @@ def infer(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
     g, z, x_mask, z_p, m_p, logs_p = _prior(params, cfg, phone, phone_lengths,
                                             pitch, sid, z_noise)
     if kind == "plain":
-        o = generator(params["dec"], cfg, z * x_mask, g)
+        o = generator(params["dec"], cfg, z * x_mask, g, use_int8=use_int8)
     else:
-        o = generator_nsf(params["dec"], cfg, z * x_mask, nsff0, g, sine_noise)
+        o = generator_nsf(params["dec"], cfg, z * x_mask, nsff0, g, sine_noise,
+                          use_int8=use_int8)
     return o, x_mask, (z, z_p, m_p, logs_p)
 
 
-def decode(dec: Params, cfg: ModelConfig, z, f0, g, noise: dict):
+def decode(dec: Params, cfg: ModelConfig, z, f0, g, noise: dict, *, use_int8=False):
     """The decoder `decoder_kind(cfg)` names on z (B, T, inter), f0 (B, T)
     Hz (unused by the plain decoder) and its noise as `decoder_noise`
     lays it out (JAX `infer_any`'s and `_decode_train`'s dispatch).
-    Returns the waveform (B, T*upp, 1)."""
+    use_int8 reaches the NSF and plain decoders only.  Returns the
+    waveform (B, T*upp, 1)."""
     from . import vocoders
 
     kind = decoder_kind(cfg)
     if kind == "plain":
-        return generator(dec, cfg, z, g)
+        return generator(dec, cfg, z, g, use_int8=use_int8)
     if kind == "mrf":
         return vocoders.mrf_hifigan(dec, cfg, z, f0, g, noise["source"],
                                     noise["rand_ini"])
     if kind == "refinegan":
         return vocoders.refinegan(dec, cfg, z, f0, g, noise["source"],
                                   noise["adain"], noise["rand_ini"])
-    return generator_nsf(dec, cfg, z, f0, g, noise["sine"])
+    return generator_nsf(dec, cfg, z, f0, g, noise["sine"], use_int8=use_int8)
 
 
 def infer_any(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
-              nsff0, sid, z_noise, noise: dict):
+              nsff0, sid, z_noise, noise: dict, *, use_int8=False):
     """Inference with the decoder dispatch of the JAX package's
     `infer_any` (`decoder_kind`), on explicit noise: z_noise (B, T,
-    inter) and `noise` as `decoder_noise` lays it out.  Returns the
-    waveform (B, T*upp, 1)."""
+    inter) and `noise` as `decoder_noise` lays it out; use_int8 as
+    `decode` takes it.  Returns the waveform (B, T*upp, 1)."""
     g, z, x_mask, *_ = _prior(params, cfg, phone, phone_lengths, pitch, sid,
                               z_noise)
-    return decode(params["dec"], cfg, z * x_mask, nsff0, g, noise)
+    return decode(params["dec"], cfg, z * x_mask, nsff0, g, noise, use_int8=use_int8)
 
 
 def train_noise(cfg: ModelConfig, y, y_lengths, generator: torch.Generator | None,

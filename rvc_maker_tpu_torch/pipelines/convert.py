@@ -38,7 +38,21 @@ by default: the weights of the synthesizer, HuBERT, RMVPE and FCPE, the
 index vectors, the features stage's audio and index rate, and the noise
 are cast to bf16, while the mels, the F0 decodes, the sine sources and
 CREPE stay fp32 and the waveform comes back fp32 (JAX convert.py:83-146,
-:462-466, :508-547).  On the card bf16 resblocks run `csrc/resblock.cu`.
+:462-466, :508-547).  On the card bf16 resblocks run
+`csrc/resblock_tc_bf16.cu` (`ops/resblock.py` `_route`).
+
+int8 (JAX convert.py:118-363): in bf16 with RVC_TPU_INT8=1 the pipeline
+quantizes the stages RVC_TPU_INT8_SCOPE names (default all; `ops/int8_conv.py`):
+the decode's resblock convs at C >= 64 run the W8A8 kernel
+`csrc/conv1d_w8a8.cu` (the C < 64 stage stays on `resblock_tc_bf16`),
+HuBERT's matmuls and RMVPE's deep convs `torch._int_mm`.  The weights
+are quantized after the bf16 cast, so their fp32 scales stay fp32.  An
+NSF model calibrates one activation scale per decode conv at
+construction (`_int8_calibrate`; RVC_TPU_INT8_DYNAMIC=1 skips it,
+RVC_TPU_INT8_CALIB_WAV calibrates on a user's audio) and RVC_TPU_INT8_AUDIT=1
+audits the first real input against them (`audit_int8_scales`).  The
+CLI has no bf16 mode, so it never quantizes; the server's bf16
+pipelines do.
 
 Profiling: with RVC_TPU_PROFILE=1 `convert_batch` logs each stage's
 wall ms, fenced on the device (`utils/profiling.py`), as JAX
@@ -49,6 +63,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
+import os
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -64,10 +80,15 @@ from ..models import fcpe as fcpe_mod
 from ..models import hubert as hubert_mod
 from ..models import rmvpe as rmvpe_mod
 from ..models import synthesizer as syn
+from ..ops import int8_conv
+from ..ops.int8_conv import Int8Ctx, Int8SiteMismatch
 from ..ops.nn import cast_floats, interp_nearest_x2
 from ..retrieval.index import retrieval_blend
-from ..utils.audio import resample
+from ..utils.audio import load_audio, resample
+from ..utils.i18n import tr
 from ..utils.profiling import profiling_enabled, stage_timer
+
+logger = logging.getLogger(__name__)
 
 SAMPLE_RATE = 16000
 WINDOW = 160
@@ -91,14 +112,15 @@ def f0_members(method: str) -> list[str]:
     return [method]
 
 
-def device_f0(method: str, audio, params) -> torch.Tensor:
+def device_f0(method: str, audio, params, *, rmvpe_int8: bool = False) -> torch.Tensor:
     """A device method on (B, L) 16 kHz audio on the device -> f0 (B,
     frames) Hz at pitch 0, no autotune (JAX `_f0_raw`).  params(name,
     method) gives the network `name`'s params ("rmvpe", "fcpe") and
-    raises when they are not loaded."""
+    raises when they are not loaded; rmvpe_int8 runs RMVPE's deep convs
+    in int8."""
     if method in ("rmvpe", "rmvpe-legacy"):
         kw = {"f0_min": 50.0, "f0_max": 1100.0} if method == "rmvpe-legacy" else {}
-        return rmvpe_mod.infer(params("rmvpe", method), audio, **kw)
+        return rmvpe_mod.infer(params("rmvpe", method), audio, use_int8=rmvpe_int8, **kw)
     if method in ("fcpe", "fcpe-legacy"):
         return fcpe_mod.infer(params("fcpe", method), audio, threshold=0.03,
                               p_len=audio.shape[1] // WINDOW + 1)
@@ -117,13 +139,14 @@ def _crepe_probs(params, audio: np.ndarray, hop: int, device) -> np.ndarray:
 
 
 def host_f0_member(method: str, row: np.ndarray, *, hop_length: int, params,
-                   device) -> np.ndarray:
+                   device, rmvpe_int8: bool = False) -> np.ndarray:
     """One F0 method on one 16 kHz row (L,) -> f0 Hz at the method's own
     frame rate, NaN where pyin and mangio-crepe find no pitch (JAX
     convert.py `_host_f0`'s member loop).  The host methods run on the
     host (CREPE's network on `device`, its Viterbi on the host); a device
     method (a hybrid's member) runs on `device` on this row alone.
-    params(name, method) as `device_f0` takes it, "crepe" too."""
+    params(name, method) as `device_f0` takes it, "crepe" too; rmvpe_int8
+    as `device_f0` takes it."""
     from ..models import crepe as crepe_mod
 
     m = method
@@ -170,24 +193,25 @@ def host_f0_member(method: str, row: np.ndarray, *, hop_length: int, params,
     if m in DEVICE_F0:
         with record_function(F0_RANGES[m]):
             x = torch.as_tensor(row[None], device=device)
-            return device_f0(m, x, params)[0].cpu().numpy()
+            return device_f0(m, x, params, rmvpe_int8=rmvpe_int8)[0].cpu().numpy()
     raise ValueError(f"unknown f0 method {m!r}")
 
 
 def host_f0_row(method: str, row: np.ndarray, *, hop_length: int, params, device,
-                extract_rule: bool = False) -> np.ndarray:
+                extract_rule: bool = False, rmvpe_int8: bool = False) -> np.ndarray:
     """One row, one method or hybrid[...] -> float64 f0 Hz at len(row) //
     160 + 1 frames: each member resampled to that length (reference
     convert.py:299-300), a hybrid's members merged by their per-frame
     nanmedian, NaN set to 0 (convert.py:281), as JAX convert.py
     `_host_f0` does.  extract_rule is JAX extract.py `_host_f0_single`'s:
     each member's NaN set to 0 before the resampling and a hybrid's zeros
-    taken as NaN before the median."""
+    taken as NaN before the median.  rmvpe_int8 reaches an RMVPE member."""
     p_len = len(row) // WINDOW + 1
     stack = []
     for m in f0_members(method):
         f0 = np.asarray(host_f0_member(m, row, hop_length=hop_length, params=params,
-                                       device=device), np.float64).ravel()
+                                       device=device, rmvpe_int8=rmvpe_int8),
+                        np.float64).ravel()
         if extract_rule:
             f0 = np.nan_to_num(f0)
         stack.append(np.interp(np.linspace(0, len(f0) - 1, p_len), np.arange(len(f0)), f0))
@@ -235,7 +259,8 @@ class ConvertPipeline:
                  crepe_params: Any = None,
                  index_vectors: Optional[np.ndarray] = None,
                  max_device_batch: int = 8, device: str | torch.device = "cuda",
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None,
+                 int8_noise_fn: NoiseFn | None = None):
         """Params are the port's trees (`interop.pth`, `interop.from_jax`,
         the models' `params_from_state_dict` / loaders); they are moved to
         `device` in fp32, then cast to `compute_dtype` when it is given
@@ -247,7 +272,12 @@ class ConvertPipeline:
 
         fp32 on the card runs under the process's TF32 flags; the port's
         entry points (the server, the CLI) turn TF32 off
-        (`device.use_full_fp32`)."""
+        (`device.use_full_fp32`).
+
+        int8 (module docstring) is set up here from the environment.
+        int8_noise_fn(b, p_len) -> (z_noise, decoder noise) supplies the
+        calibration pass's noise (default: a generator on the device
+        seeded 0), as `convert_utterance`'s noise_fn does."""
         if compute_dtype not in (None, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
         self.device = resolve_device(device)
@@ -271,6 +301,116 @@ class ConvertPipeline:
         self.index_vectors = (None if index_vectors is None else
                               torch.as_tensor(np.asarray(index_vectors, np.float32),
                                               device=self.device).to(self.dtype))
+        self.int8_noise_fn = int8_noise_fn
+        self._int8_setup()
+
+    # -- int8 (JAX convert.py:118-363) ------------------------------------
+
+    def _int8_setup(self) -> None:
+        """The stage flags from RVC_TPU_INT8 / RVC_TPU_INT8_SCOPE, the
+        weights quantized after the bf16 cast (their scales stay fp32),
+        and the decode's calibration for an NSF model.  A calibration
+        that meets a divergent site (Int8SiteMismatch) falls back to
+        dynamic scales; any other error, a kernel's build or launch
+        among them, propagates."""
+        on = int8_conv.int8_enabled(self.compute_dtype)
+        scope = int8_conv.int8_scope() if on else frozenset()
+        self.use_int8 = "decode" in scope
+        self.use_int8_hubert = "hubert" in scope
+        self.use_int8_rmvpe = "rmvpe" in scope
+        if self.use_int8 and syn.decoder_kind(self.cfg) in ("nsf", "plain"):
+            self.synth_params = int8_conv.prequantize_decode(self.synth_params)
+        if self.use_int8_hubert:
+            self.hubert_params = int8_conv.prequantize_hubert(self.hubert_params)
+        if self.use_int8_rmvpe:
+            self.rmvpe_params = int8_conv.prequantize_rmvpe(self.rmvpe_params)
+        if (self.use_int8 and syn.decoder_kind(self.cfg) == "nsf"
+                and os.environ.get("RVC_TPU_INT8_DYNAMIC", "0") != "1"):
+            try:
+                self._int8_calibrate()
+            except Int8SiteMismatch as e:
+                logger.warning("%s", tr("int8_calibration_failed", e=e))
+                self.use_int8 = Int8Ctx("dynamic")
+
+    @staticmethod
+    def _calibration_audio() -> np.ndarray:
+        """(2, 1 s) of speech-like calibration audio (JAX
+        `_calibration_audio`): formant-shaped glottal pulses on a
+        120 -> 260 Hz glide with vibrato, and a chirp with noise bursts and
+        clicks at 0.95, the wideband worst case.  RVC_TPU_INT8_CALIB_WAV
+        names a user's audio instead: its two loudest 1 s windows."""
+        path = os.environ.get("RVC_TPU_INT8_CALIB_WAV", "")
+        if path:
+            return _loudest_windows(np.asarray(load_audio(path, SAMPLE_RATE), np.float32))
+        tt = np.arange(SAMPLE_RATE) / SAMPLE_RATE
+        rng = np.random.default_rng(0)
+        f0 = 120.0 * (260.0 / 120.0) ** tt * (1 + 0.03 * np.sin(2 * np.pi * 5 * tt))
+        phase = np.cumsum(f0) / SAMPLE_RATE
+        voiced = np.zeros(SAMPLE_RATE, np.float32)
+        voiced[np.nonzero(np.diff(np.floor(phase)) > 0)[0]] = 1.0
+        for fc, bw in ((700.0, 130.0), (1800.0, 160.0)):
+            r = np.exp(-np.pi * bw / SAMPLE_RATE)
+            a = [1.0, -2 * r * np.cos(2 * np.pi * fc / SAMPLE_RATE), r * r]
+            voiced = sp_signal.lfilter([1.0], a, voiced)
+        voiced = 0.9 * voiced / max(np.abs(voiced).max(), 1e-6)
+        chirp = sp_signal.chirp(tt, 80.0, 1.0, 6000.0).astype(np.float32)
+        burst_env = (np.sin(2 * np.pi * 4 * tt) > 0.6).astype(np.float32)
+        noise = rng.standard_normal(SAMPLE_RATE).astype(np.float32)
+        wide = 0.5 * chirp + 0.5 * burst_env * noise
+        wide[::2000] += 1.0
+        wide = 0.95 * wide / max(np.abs(wide).max(), 1e-6)
+        return np.stack([voiced, wide]).astype(np.float32)
+
+    def _int8_scale_pass(self, audio: np.ndarray):
+        """(per-site scales with the margin, signatures) of one
+        calibrate-mode pass over (B, L) audio through the real path: yin
+        F0, features at index rate 0, the synthesizer at protect 0.5,
+        noise from `int8_noise_fn` (JAX `_int8_scale_pass`).  The scales
+        come to the host in one copy."""
+        ctx = Int8Ctx("calibrate")
+        with torch.inference_mode():
+            a = torch.as_tensor(audio, device=self.device, dtype=torch.float32)
+            lengths = torch.full((a.shape[0],), a.shape[1], dtype=torch.int64,
+                                 device=self.device)
+            settings = ConvertSettings(f0_method="yin", index_rate=0.0, protect=0.5)
+            f0 = self._f0(a, settings)
+            feats, feats0 = self._features(a, lengths, settings)
+            p_len = min(a.shape[1] // WINDOW, feats.shape[1])
+            if self.int8_noise_fn is not None:
+                z, noise = self.int8_noise_fn(a.shape[0], p_len)
+                z = torch.as_tensor(z, device=self.device).to(self.dtype)
+                noise = self._noise_to_device(noise)
+            else:
+                z, noise = self.draw_noise(a.shape[0], p_len,
+                                           torch.Generator(device=self.device).manual_seed(0))
+            sid = torch.zeros(a.shape[0], dtype=torch.int64, device=self.device)
+            self._synth(feats[:, :p_len], feats0[:, :p_len], f0[:, :p_len], lengths, sid,
+                        settings.protect, z, noise, use_int8=ctx)
+        return int8_conv.calibration_scales(ctx.collected, ctx.collected_sigs)
+
+    def _int8_calibrate(self) -> None:
+        """Record the decode's per-site scales on the calibration audio,
+        then play them back: self.use_int8 becomes a static Int8Ctx."""
+        scales, sigs = self._int8_scale_pass(self._calibration_audio())
+        self.use_int8 = Int8Ctx("static", torch.as_tensor(scales, device=self.device), sigs)
+
+    def audit_int8_scales(self, audio: np.ndarray) -> np.ndarray:
+        """Each site's amax on real audio (its two loudest 1 s windows)
+        over the calibrated scale; a warning when any exceeds 1 (int8
+        clips there).  Returns the per-site ratios (JAX
+        `audit_int8_scales`).  RVC_TPU_INT8_AUDIT=1 runs it on the first
+        `convert_utterance` input."""
+        baked = self.use_int8
+        if not isinstance(baked, Int8Ctx) or baked.mode != "static":
+            raise ValueError("audit requires a calibrated static Int8Ctx")
+        observed, _ = self._int8_scale_pass(_loudest_windows(np.asarray(audio, np.float32)))
+        ratio = observed / np.maximum(baked.scales.cpu().numpy(), 1e-12)
+        hot = np.nonzero(ratio > 1.0)[0]
+        if hot.size:
+            logger.warning("%s", tr("int8_audit_hot", hot=int(hot.size), total=int(ratio.size),
+                                    ratio=f"{float(ratio.max()):.2f}",
+                                    site=int(ratio.argmax())))
+        return ratio
 
     @property
     def dtype(self) -> torch.dtype:
@@ -291,7 +431,8 @@ class ConvertPipeline:
         m = settings.f0_method
         if m in DEVICE_F0:
             with record_function(F0_RANGES[m]):
-                f0 = shift_f0(device_f0(m, audio, self._params), settings.pitch)
+                f0 = shift_f0(device_f0(m, audio, self._params,
+                                        rmvpe_int8=self.use_int8_rmvpe), settings.pitch)
                 if settings.f0_autotune and settings.f0_autotune_strength > 0:
                     f0 = autotune_f0(f0, settings.f0_autotune_strength)
                 return f0
@@ -307,7 +448,8 @@ class ConvertPipeline:
         for line as JAX `_host_f0`.  Returns (B, L // 160 + 1) float32 Hz,
         shifted and autotuned on the host."""
         out = np.stack([host_f0_row(method, row, hop_length=settings.hop_length,
-                                    params=self._params, device=self.device)
+                                    params=self._params, device=self.device,
+                                    rmvpe_int8=self.use_int8_rmvpe)
                         for row in audio_batch]).astype(np.float32)
         out = out * (2.0 ** (settings.pitch / 12.0))
         if settings.f0_autotune:
@@ -322,7 +464,7 @@ class ConvertPipeline:
         index_rate = float(torch.tensor(settings.index_rate, dtype=self.dtype))
         feats, _ = hubert_mod.extract_features(
             self.hubert_params, audio, lengths,
-            output_layer=12 if self.version == "v2" else 9)
+            output_layer=12 if self.version == "v2" else 9, use_int8=self.use_int8_hubert)
         if self.version == "v1":
             feats = hubert_mod.final_proj(self.hubert_params, feats)
         feats0 = feats
@@ -330,7 +472,10 @@ class ConvertPipeline:
             feats = retrieval_blend(feats, self.index_vectors, index_rate)
         return interp_nearest_x2(feats), interp_nearest_x2(feats0)
 
-    def _synth(self, feats, feats0, f0, lengths, sid, protect, z_noise, noise):
+    def _synth(self, feats, feats0, f0, lengths, sid, protect, z_noise, noise,
+               use_int8=None):
+        """The synthesizer on the features; use_int8 (default the
+        pipeline's own) reaches the decode."""
         p_len = feats.shape[1]
         pitchf = f0[:, :p_len]
         pitch = coarse_f0(pitchf) if self.cfg.use_f0 else None
@@ -343,7 +488,8 @@ class ConvertPipeline:
         frame_lengths = torch.clamp(
             torch.div(lengths, WINDOW, rounding_mode="floor"), max=p_len)
         wav = syn.infer_any(self.synth_params, self.cfg, feats, frame_lengths,
-                            pitch, pitchf, sid, z_noise, noise)
+                            pitch, pitchf, sid, z_noise, noise,
+                            use_int8=self.use_int8 if use_int8 is None else use_int8)
         return wav[:, :, 0].to(torch.float32), pitchf
 
     def draw_noise(self, b: int, p_len: int, generator: torch.Generator):
@@ -451,8 +597,16 @@ class ConvertPipeline:
 
         noise_fn(b, p_len) -> (z_noise, decoder noise), when given, supplies
         each chunk's noise; otherwise every chunk draws from a generator
-        seeded 0, as the JAX pipeline draws every chunk from PRNGKey(0)."""
+        seeded 0, as the JAX pipeline draws every chunk from PRNGKey(0).
+        With RVC_TPU_INT8_AUDIT=1 the first input that is not silence is
+        audited against the calibrated scales first (`audit_int8_scales`)."""
         s = settings
+        if (os.environ.get("RVC_TPU_INT8_AUDIT", "0") == "1"
+                and not getattr(self, "_int8_audited", False)
+                and getattr(self.use_int8, "mode", None) == "static"
+                and np.abs(audio16k).max() > 1e-6):
+            self._int8_audited = True
+            self.audit_int8_scales(audio16k)
         tgt_sr = self.cfg.sr
         t_pad = SAMPLE_RATE * s.x_pad
         t_pad_tgt = tgt_sr * s.x_pad
@@ -507,6 +661,17 @@ class ConvertPipeline:
         if s.resample_sr not in (0, tgt_sr) and s.resample_sr >= SAMPLE_RATE:
             out = resample(out, tgt_sr, s.resample_sr)
         return out.astype(np.float32)
+
+
+def _loudest_windows(audio: np.ndarray) -> np.ndarray:
+    """The two loudest 1 s windows (2, 16000) of 16 kHz audio, zero-padded
+    to 2 s first (JAX `_calibration_audio`, `audit_int8_scales`)."""
+    audio = audio.reshape(-1)
+    if audio.size < 2 * SAMPLE_RATE:
+        audio = np.pad(audio, (0, 2 * SAMPLE_RATE - audio.size))
+    win = audio[:audio.size - audio.size % SAMPLE_RATE].reshape(-1, SAMPLE_RATE)
+    order = np.argsort((win ** 2).sum(axis=1))[::-1]
+    return np.ascontiguousarray(win[order[:2]])
 
 
 SPLIT_DB_THRESH = -60

@@ -15,6 +15,7 @@ import torch
 
 from rvc_maker_tpu_torch.config import ModelConfig
 from rvc_maker_tpu_torch.interop import from_jax
+from rvc_maker_tpu_torch.ops import int8_conv as tq
 from rvc_maker_tpu_torch.ops import resblock as trb
 from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
 from torch_port_util import (BF16_ULPS, assert_grads_close, bf16_ulp, n, packed_resblock,
@@ -568,3 +569,64 @@ def test_server_set_device_turns_tf32_off_on_card(cuda):
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+W8A8_TT = {256: 64, 128: 128, 64: 256}     # csrc/conv1d_w8a8.cu time columns per block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", tq.SUPPORTED_C)
+@pytest.mark.parametrize("k,dil", [(3, 1), (7, 3), (11, 5)])
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "lrelu+residual"])
+def test_w8a8_kernel_matches_plain_on_card(cuda, C, k, dil, fused):
+    """csrc/conv1d_w8a8.cu against its plain version on the card, T ragged
+    against the block: the int32 accumulation is exact, so the bf16 output
+    is within one bf16 ulp of |ref|max (in practice equal); one launch."""
+    rs = np.random.RandomState(C + k)
+    T = 2 * W8A8_TT[C] + 37
+    x = torch.as_tensor(rs.randn(3, C, T) * 0.5, dtype=torch.float32).to(cuda).bfloat16()
+    res = torch.as_tensor(rs.randn(3, C, T) * 0.3, dtype=torch.float32).to(cuda).bfloat16()
+    w_q, w_s = tq.quantize_weight(torch.as_tensor(rs.randn(k, C, C) * 0.05, dtype=torch.float32))
+    w_q, w_s = w_q.permute(0, 2, 1).contiguous().to(cuda), w_s.to(cuda)
+    b = torch.as_tensor(rs.randn(C) * 0.1, dtype=torch.float32).to(cuda).bfloat16()
+    a_s = tq.activation_scale(tq.lrelu(x) if fused else x).reshape(1)
+    kw = dict(dilation=dil, apply_lrelu=fused, residual=res if fused else None)
+    ref = tq._conv1d_w8a8_plain(x, w_q, w_s, b, a_s, **kw).float()
+    before = tq.conv1d_w8a8_launches
+    got = tq.conv1d_w8a8(x, w_q, w_s, b, a_scale=a_s, **kw).float()
+    torch.cuda.synchronize()
+    assert tq.conv1d_w8a8_launches == before + 1
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= bf16_ulp(ref.abs().max().item()), err
+
+
+@pytest.mark.gpu
+def test_int8_pipeline_launches_w8a8_kernel_on_card(cuda, monkeypatch):
+    """With RVC_TPU_INT8=1 a bf16 decode runs its C >= 64 stages on
+    conv1d_w8a8 (2 stages x 3 resblocks x 3 dilations x 2 convs = 36
+    launches) and its C = 32, 16 stages on resblock_tc_bf16 (18), and
+    stays within JAX's int8 gate of the bf16 decode (corr > 0.98, relative
+    L2 < 0.2)."""
+    cfg = _narrow_cfg()
+    kw = dict(synth_params=_loud_synth(cfg), model_cfg=cfg, device="cuda",
+              compute_dtype=torch.bfloat16,
+              hubert_params=from_jax.hubert_from_jax(from_jax.random_hubert_tree(1, n_layers=2)))
+    audio = (0.3 * np.sin(2 * np.pi * 200 * np.arange(32000) / 16000)).astype(np.float32)[None]
+    settings = ConvertSettings(f0_method="yin", deterministic=True)
+    wavs = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("RVC_TPU_INT8", flag)
+        pipe = ConvertPipeline(**kw)
+        assert (getattr(pipe.use_int8, "mode", None) == "static") == (flag == "1")
+        before, before_q = _counts(), tq.conv1d_w8a8_launches
+        wav, _ = pipe.convert_batch(audio, [32000], 0, settings)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(_counts(), before))
+        assert launched == ((18, 0, 18) if flag == "1" else (36, 0, 36)), launched
+        assert tq.conv1d_w8a8_launches - before_q == (36 if flag == "1" else 0)
+        wavs[flag] = n(wav)[0]
+    a, b = wavs["1"], wavs["0"]
+    corr = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    print(f"int8 vs bf16 on the card: corr {corr:.6f}, rel {rel:.4f}")
+    assert np.isfinite(a).all() and corr > 0.98 and rel < 0.2, (corr, rel)
