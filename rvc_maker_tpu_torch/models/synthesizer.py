@@ -24,7 +24,7 @@ is cast to the activations' dtype, as JAX `generator_nsf` does.
 int8: with RVC_TPU_INT8=1 in bf16, an inference call given `use_int8`
 (a bool or an `ops.int8_conv.Int8Ctx`; `ConvertPipeline` threads it)
 runs every resblock conv of the NSF and plain decoders at C >= 64 as a
-W8A8 conv (`Int8Ctx.conv`, csrc/conv1d_w8a8.cu on the card), from the
+W8A8 conv (`Int8Ctx.conv`, csrc/conv1d_w8a8_ws.cu on the card), from the
 `w1_q` / `w2_q` that `prequantize_decode` attached; narrower stages keep
 `fused_resblock`.  MRF-HiFi-GAN and RefineGAN take no int8, and the
 training forward has no `use_int8`, as in the JAX package.

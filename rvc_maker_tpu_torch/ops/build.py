@@ -26,7 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {"resblock": "resblock.cu", "resblock_tc": "resblock_tc.cu",
-           "resblock_tc_bf16": "resblock_tc_bf16.cu", "conv1d_w8a8": "conv1d_w8a8.cu"}
+           "resblock_tc_bf16": "resblock_tc_bf16.cu", "conv1d_w8a8": "conv1d_w8a8.cu",
+           "conv1d_w8a8_ws": "conv1d_w8a8_ws.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,9 +19,12 @@ rounding has zero gradient, so no training path takes it.
     float(acc) * (a_scale * w_scale) + b, in that order.
 
 The decode's W8A8 dilated conv (`conv1d_w8a8`) is a hand-written kernel
-on the card, `csrc/conv1d_w8a8.cu` (int8 `mma.sync.m16n8k32`), with the
-resblock's leaky ReLU fused into its prologue and the residual add into
-its epilogue.  The JAX package computes it in XLA
+on the card, `csrc/conv1d_w8a8_ws.cu` (int8 `mma.sync.m16n8k32` on
+`ldmatrix` fragments, weight-stationary persistent blocks, asynchronous
+input windows), with the resblock's leaky ReLU fused into its prologue
+and the residual add into its epilogue.  Its first version,
+`csrc/conv1d_w8a8.cu`, computes the same function on no route;
+`conv1d_w8a8_kernel` launches either by name, for timing.  The JAX package computes it in XLA
 (`lax.conv_general_dilated` with an int32 result): it is not a Pallas
 kernel, but PyTorch has no int8 convolution on CUDA.  A CPU tensor takes
 `_conv1d_w8a8_plain` (an im2col and `torch._int_mm`); a CUDA tensor
@@ -52,15 +55,30 @@ from . import build
 logger = logging.getLogger(__name__)
 
 LRELU_SLOPE = 0.1
-SUPPORTED_C = (64, 128, 256)      # widths csrc/conv1d_w8a8.cu takes
+SUPPORTED_C = (64, 128, 256)      # widths the W8A8 kernels take
 SUPPORTED_K = (3, 7, 11)
 MAX_DILATION = 5
 DECODE_MIN_C = 64                  # the decode's int8 gate (JAX `_resblock`)
 RMVPE_INT8_MIN_CIN = 128
 CALIBRATION_MARGIN = 1.05
 
-# kernel launches since the last reset
+# kernel launches since the last reset: the route's kernel and the first
+# version, on no route
+conv1d_w8a8_ws_launches = 0
 conv1d_w8a8_launches = 0
+
+ROUTE_KERNEL = "conv1d_w8a8_ws"
+KERNELS = ("conv1d_w8a8_ws", "conv1d_w8a8")
+
+# csrc/conv1d_w8a8_ws.cu's tiles per (C, K): (MB output channels per block,
+# TN time columns per tile, NB bf16 window buffers, CL: 0 for warps split
+# into a quantize group and an MMA group, 1 for all warps on each phase,
+# C / MB for a cluster of blocks sharing one int8 window); its `dispatch`
+# table
+WS_TILES = {**{(64, k): (64, 256, 2, 0) for k in SUPPORTED_K},
+            (128, 3): (128, 128, 2, 1), (128, 7): (128, 64, 2, 0), (128, 11): (64, 128, 1, 0),
+            (256, 3): (64, 128, 2, 4), (256, 7): (64, 64, 2, 4), (256, 11): (32, 128, 2, 8)}
+MAX_SMEM = 232448                  # bytes a block may use on sm_90
 
 
 def int8_enabled(dtype) -> bool:
@@ -192,9 +210,36 @@ def _check_conv(x, w_q, w_scale, b, a_scale, dilation, residual):
         raise ValueError("empty input")
 
 
-def _library():
-    lib = build.load("conv1d_w8a8")
-    fn, smem = lib.rvc_conv1d_w8a8, lib.rvc_conv1d_w8a8_smem_bytes
+def ws_layout(channels: int, kernel_size: int, dilation: int) -> dict:
+    """csrc/conv1d_w8a8_ws.cu's shared memory (`layout`) at (C, K, dil)
+    and the table's tiles (MB, TN, NB, CL): byte offsets of the int8
+    window `x8`, the bf16 windows `xb`, the output tile `ot` and the
+    copies' mbarriers `bar` after the weights ([K][MB][C] int8), the
+    `total`, and the window's rows `r8`, 16-byte chunks `nch` and chunk
+    pitch `nchp` (1 mod 8)."""
+    mb, tn, nb, cl = WS_TILES[(channels, kernel_size)]
+    r8 = (tn + (kernel_size - 1) * dilation + 7 + 7) & ~7
+    nch = r8 // 8
+    nchp = nch + ((1 - nch) & 7)
+    x8 = mb * channels * kernel_size
+    xb = x8 + (2 if cl != 1 else 1) * r8 * channels
+    ot = xb + nb * (channels // cl if cl > 1 else channels) * nchp * 16
+    bar = ot + mb * (tn + 8) * 2
+    return dict(x8=x8, xb=xb, ot=ot, bar=bar, total=bar + 8 * (nb + 1), r8=r8, nch=nch,
+                nchp=nchp)
+
+
+def ws_smem_bytes(channels: int, kernel_size: int, dilation: int) -> int:
+    """Dynamic shared memory of one conv1d_w8a8_ws launch (the mirror of
+    the kernel's `layout`)."""
+    return ws_layout(channels, kernel_size, dilation)["total"]
+
+
+def _library(kernel: str = ROUTE_KERNEL):
+    """(library, launch, smem query) of one of `KERNELS`, built on first use."""
+    lib = build.load(kernel)
+    fn = getattr(lib, "rvc_" + kernel)
+    smem = getattr(lib, f"rvc_{kernel}_smem_bytes")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -203,29 +248,48 @@ def _library():
     return lib, fn, smem
 
 
-def smem_bytes(channels: int, kernel_size: int, dilation: int) -> int:
-    """Dynamic shared memory of one launch (0: shape not taken)."""
-    return int(_library()[2](channels, kernel_size, dilation))
+def smem_bytes(channels: int, kernel_size: int, dilation: int,
+               kernel: str = ROUTE_KERNEL) -> int:
+    """Dynamic shared memory of one launch, as the kernel's library
+    reports it (0: shape not taken)."""
+    return int(_library(kernel)[2](channels, kernel_size, dilation))
 
 
-def _launch(x, w_q, w_scale, b, a_scale, *, dilation: int, apply_lrelu: bool, residual):
-    global conv1d_w8a8_launches
+def _launch(x, w_q, w_scale, b, a_scale, *, dilation: int, apply_lrelu: bool, residual,
+            kernel: str = ROUTE_KERNEL):
+    global conv1d_w8a8_launches, conv1d_w8a8_ws_launches
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown W8A8 kernel {kernel!r} (known: {KERNELS})")
     _check_conv(x, w_q, w_scale, b, a_scale, dilation, residual)
-    lib, fn, _ = _library()
+    lib, fn, _ = _library(kernel)
     bsz, c, t = x.shape
     out = torch.empty_like(x)
     # an op-scope range (as Inductor wraps its Triton launches), so that the
     # profiler ties the ctypes launch to the caller's ranges
-    with torch.cuda.device(x.device), _RecordFunctionFast("conv1d_w8a8"):
+    with torch.cuda.device(x.device), _RecordFunctionFast(kernel):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), b.data_ptr(),
                 a_scale.data_ptr(), 0 if residual is None else residual.data_ptr(),
                 bsz, c, t, w_q.shape[0], int(dilation), int(apply_lrelu), stream)
     if rc != 0:
-        raise RuntimeError(f"conv1d_w8a8 kernel launch failed: {build.error_string(lib, rc)} "
+        raise RuntimeError(f"{kernel} kernel launch failed: {build.error_string(lib, rc)} "
                            f"(code {rc})")
-    conv1d_w8a8_launches += 1
+    if kernel == "conv1d_w8a8_ws":
+        conv1d_w8a8_ws_launches += 1
+    else:
+        conv1d_w8a8_launches += 1
     return out
+
+
+def conv1d_w8a8_kernel(x, w_q, w_scale, b, a_scale, *, dilation: int, apply_lrelu: bool,
+                       residual=None, kernel: str = ROUTE_KERNEL):
+    """One launch of the W8A8 kernel `kernel` (one of `KERNELS`) on CUDA
+    tensors.  For timing the kernels side by side; the route is
+    `conv1d_w8a8`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on a CUDA tensor, got {x.device}")
+    return _launch(x, w_q, w_scale, b, a_scale.reshape(1), dilation=dilation,
+                   apply_lrelu=apply_lrelu, residual=residual, kernel=kernel)
 
 
 def _on_card(x) -> bool:
@@ -245,7 +309,7 @@ def conv1d_w8a8(x, w_q, w_scale, b=None, *, a_scale=None, dilation: int = 1,
     (`activation_scale`, after the leaky ReLU).  apply_lrelu quantizes
     `lrelu(x)` instead of x; residual, (B, C_out, T), is added to the
     output in its dtype.  Returns x's dtype.  A CPU tensor takes the
-    plain version; a CUDA tensor launches csrc/conv1d_w8a8.cu (bf16,
+    plain version; a CUDA tensor launches csrc/conv1d_w8a8_ws.cu (bf16,
     C = C_in = C_out in SUPPORTED_C) or raises."""
     if a_scale is None:
         a_scale = activation_scale(lrelu(x) if apply_lrelu else x)

@@ -16,7 +16,7 @@ dtype and the width alone:
 A failed build or launch raises; no route is taken because another
 failed.  In the int8 mode (RVC_TPU_INT8=1, bf16) the decode sends its
 stages of C >= 64 to the W8A8 conv instead (`models/synthesizer.py`
-`_int8_resblock`, csrc/conv1d_w8a8.cu), so only its narrower stages
+`_int8_resblock`, csrc/conv1d_w8a8_ws.cu), so only its narrower stages
 reach this module's bf16 route.  csrc/resblock.cu (fp32 FMA on the CUDA cores, either dtype) is
 on no route; `_fma_resblock` times it beside the tensor-core kernels.
 They replace the Pallas TPU kernel `rvc_maker_tpu/ops/pallas_resblock.py`

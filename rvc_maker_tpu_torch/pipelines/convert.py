@@ -44,7 +44,7 @@ CREPE stay fp32 and the waveform comes back fp32 (JAX convert.py:83-146,
 int8 (JAX convert.py:118-363): in bf16 with RVC_TPU_INT8=1 the pipeline
 quantizes the stages RVC_TPU_INT8_SCOPE names (default all; `ops/int8_conv.py`):
 the decode's resblock convs at C >= 64 run the W8A8 kernel
-`csrc/conv1d_w8a8.cu` (the C < 64 stage stays on `resblock_tc_bf16`),
+`csrc/conv1d_w8a8_ws.cu` (the C < 64 stage stays on `resblock_tc_bf16`),
 HuBERT's matmuls and RMVPE's deep convs `torch._int_mm`.  The weights
 are quantized after the bf16 cast, so their fp32 scales stay fp32.  An
 NSF model calibrates one activation scale per decode conv at

@@ -574,37 +574,137 @@ def test_server_set_device_turns_tf32_off_on_card(cuda):
 W8A8_TT = {256: 64, 128: 128, 64: 256}     # csrc/conv1d_w8a8.cu time columns per block
 
 
+def _w8a8_case(cuda, C, k, T, b=3, seed=None, fused=True):
+    """bf16 input, residual and bias, int8 weights in the kernels' (k,
+    C_out, C_in) layout, and x's own activation scale (after the leaky
+    ReLU when fused)."""
+    rs = np.random.RandomState(C + k + T if seed is None else seed)
+    x = torch.as_tensor(rs.randn(b, C, T) * 0.5, dtype=torch.float32).to(cuda).bfloat16()
+    res = torch.as_tensor(rs.randn(b, C, T) * 0.3, dtype=torch.float32).to(cuda).bfloat16()
+    w_q, w_s = tq.quantize_weight(torch.as_tensor(rs.randn(k, C, C) * 0.05, dtype=torch.float32))
+    w_q, w_s = w_q.permute(0, 2, 1).contiguous().to(cuda), w_s.to(cuda)
+    bias = torch.as_tensor(rs.randn(C) * 0.1, dtype=torch.float32).to(cuda).bfloat16()
+    a_s = tq.activation_scale(tq.lrelu(x) if fused else x).reshape(1)
+    return x, res, w_q, w_s, bias, a_s
+
+
+def _launches():
+    return {name: getattr(tq, name + "_launches") for name in tq.KERNELS}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", tq.KERNELS)
 @pytest.mark.parametrize("C", tq.SUPPORTED_C)
 @pytest.mark.parametrize("k,dil", [(3, 1), (7, 3), (11, 5)])
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "lrelu+residual"])
-def test_w8a8_kernel_matches_plain_on_card(cuda, C, k, dil, fused):
-    """csrc/conv1d_w8a8.cu against its plain version on the card, T ragged
-    against the block: the int32 accumulation is exact, so the bf16 output
-    is within one bf16 ulp of |ref|max (in practice equal); one launch."""
-    rs = np.random.RandomState(C + k)
+def test_w8a8_kernel_matches_plain_on_card(cuda, kernel, C, k, dil, fused):
+    """Each W8A8 kernel (csrc/conv1d_w8a8_ws.cu, the route, and
+    csrc/conv1d_w8a8.cu, its first version) against the plain version on
+    the card, T ragged against the blocks: the int32 accumulation is
+    exact and the epilogue rounds as the plain version, so 0 elements
+    differ; one launch of that kernel."""
     T = 2 * W8A8_TT[C] + 37
-    x = torch.as_tensor(rs.randn(3, C, T) * 0.5, dtype=torch.float32).to(cuda).bfloat16()
-    res = torch.as_tensor(rs.randn(3, C, T) * 0.3, dtype=torch.float32).to(cuda).bfloat16()
-    w_q, w_s = tq.quantize_weight(torch.as_tensor(rs.randn(k, C, C) * 0.05, dtype=torch.float32))
-    w_q, w_s = w_q.permute(0, 2, 1).contiguous().to(cuda), w_s.to(cuda)
-    b = torch.as_tensor(rs.randn(C) * 0.1, dtype=torch.float32).to(cuda).bfloat16()
-    a_s = tq.activation_scale(tq.lrelu(x) if fused else x).reshape(1)
+    x, res, w_q, w_s, b, a_s = _w8a8_case(cuda, C, k, T, seed=C + k, fused=fused)
     kw = dict(dilation=dil, apply_lrelu=fused, residual=res if fused else None)
-    ref = tq._conv1d_w8a8_plain(x, w_q, w_s, b, a_s, **kw).float()
-    before = tq.conv1d_w8a8_launches
-    got = tq.conv1d_w8a8(x, w_q, w_s, b, a_scale=a_s, **kw).float()
+    ref = tq._conv1d_w8a8_plain(x, w_q, w_s, b, a_s, **kw)
+    before = _launches()
+    got = tq.conv1d_w8a8_kernel(x, w_q, w_s, b, a_s, kernel=kernel, **kw)
     torch.cuda.synchronize()
-    assert tq.conv1d_w8a8_launches == before + 1
-    err = (got - ref).abs().max().item()
-    assert torch.isfinite(got).all() and err <= bf16_ulp(ref.abs().max().item()), err
+    after = _launches()
+    assert {n: after[n] - before[n] for n in tq.KERNELS} == {
+        n: int(n == kernel) for n in tq.KERNELS}
+    assert torch.isfinite(got.float()).all()
+    assert int((got != ref).sum().item()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", tq.SUPPORTED_C)
+@pytest.mark.parametrize("k", tq.SUPPORTED_K)
+@pytest.mark.parametrize("dil", range(1, tq.MAX_DILATION + 1))
+def test_w8a8_ws_every_shape_on_card(cuda, C, k, dil):
+    """csrc/conv1d_w8a8_ws.cu, the route of a CUDA tensor, at every (C, K,
+    dil) it takes: T of 1, below the taps' span, ragged against its tile,
+    and a multiple of 8 over several tiles (its aligned path); B = 1 and
+    3; the leaky ReLU and the residual on and off.  0 elements differ
+    from the plain version, and each call is one launch of it."""
+    tn = tq.WS_TILES[(C, k)][1]
+    span = (k - 1) * dil
+    for i, (b, T, fused) in enumerate([(1, 1, True), (3, max(1, span - 1), False),
+                                       (1, tn + 13, False), (3, 2 * tn + 37, True),
+                                       (3, 3 * tn + 8, True), (1, 2 * tn, False)]):
+        x, res, w_q, w_s, bias, a_s = _w8a8_case(cuda, C, k, T, b=b, seed=C * 100 + k + i,
+                                                 fused=fused)
+        kw = dict(dilation=dil, apply_lrelu=fused, residual=res if fused else None)
+        ref = tq._conv1d_w8a8_plain(x, w_q, w_s, bias, a_s, **kw)
+        before = _launches()
+        got = tq.conv1d_w8a8(x, w_q, w_s, bias, a_scale=a_s, **kw)
+        torch.cuda.synchronize()
+        after = _launches()
+        assert (after["conv1d_w8a8_ws"] - before["conv1d_w8a8_ws"],
+                after["conv1d_w8a8"] - before["conv1d_w8a8"]) == (1, 0)
+        diff = int((got != ref).sum().item())
+        assert diff == 0, (b, T, fused, diff)
+
+
+@pytest.mark.gpu
+def test_w8a8_ws_on_every_device_on_card(cuda):
+    """csrc/conv1d_w8a8_ws.cu on each card in turn, the last first: its
+    shared-memory attribute and occupancy are kept per device (a function
+    attribute is per context), so a card launched on after another one
+    still takes every width's tiles (each above 48 KB).  0 elements
+    differ from the plain version on each card."""
+    for dev in reversed(range(torch.cuda.device_count())):
+        d = torch.device("cuda", dev)
+        for C in tq.SUPPORTED_C:
+            x, res, w_q, w_s, b, a_s = _w8a8_case(d, C, 11, 3 * tq.WS_TILES[(C, 11)][1] + 8)
+            kw = dict(dilation=5, apply_lrelu=True, residual=res)
+            ref = tq._conv1d_w8a8_plain(x, w_q, w_s, b, a_s, **kw)
+            got = tq.conv1d_w8a8(x, w_q, w_s, b, a_scale=a_s, **kw)
+            torch.cuda.synchronize(d)
+            assert got.device == d and int((got != ref).sum().item()) == 0, (dev, C)
+
+
+@pytest.mark.gpu
+def test_w8a8_ws_smem_matches_mirror_on_card(cuda):
+    """The library's shared memory at every (C, K, dil) is the Python
+    mirror's (`ws_smem_bytes`), within a block's 232,448 bytes."""
+    for c in tq.SUPPORTED_C:
+        for k in tq.SUPPORTED_K:
+            for d in range(1, tq.MAX_DILATION + 1):
+                got = tq.smem_bytes(c, k, d)
+                assert got == tq.ws_smem_bytes(c, k, d) <= tq.MAX_SMEM, (c, k, d, got)
+
+
+@pytest.mark.gpu
+def test_w8a8_ws_rejects_what_it_does_not_take_on_card(cuda):
+    """A CUDA tensor of a shape the kernel does not take raises, with no
+    fallback to the plain version: a width, a kernel size, a dilation, a
+    dtype; and the library reports no shared memory for a shape it does
+    not take."""
+    x, res, w_q, w_s, b, a_s = _w8a8_case(cuda, 64, 3, 40)
+    before = _launches()
+    with pytest.raises(ValueError, match="C in"):
+        tq.conv1d_w8a8(x[:, :32].contiguous(), w_q[:, :32, :32].contiguous(), w_s[:32],
+                       b[:32], a_scale=a_s)
+    with pytest.raises(ValueError, match="C in"):
+        tq.conv1d_w8a8(x, torch.zeros((5, 64, 64), dtype=torch.int8, device=cuda), w_s, b,
+                       a_scale=a_s)
+    with pytest.raises(ValueError, match="dilations"):
+        tq.conv1d_w8a8(x, w_q, w_s, b, a_scale=a_s, dilation=tq.MAX_DILATION + 1)
+    with pytest.raises(ValueError, match="bf16"):
+        tq.conv1d_w8a8(x.float(), w_q, w_s, b, a_scale=a_s)
+    assert (tq.smem_bytes(32, 3, 1), tq.smem_bytes(64, 5, 1),
+            tq.smem_bytes(64, 3, tq.MAX_DILATION + 1)) == (0, 0, 0)
+    torch.cuda.synchronize()
+    assert _launches() == before
 
 
 @pytest.mark.gpu
 def test_int8_pipeline_launches_w8a8_kernel_on_card(cuda, monkeypatch):
     """With RVC_TPU_INT8=1 a bf16 decode runs its C >= 64 stages on
-    conv1d_w8a8 (2 stages x 3 resblocks x 3 dilations x 2 convs = 36
-    launches) and its C = 32, 16 stages on resblock_tc_bf16 (18), and
+    conv1d_w8a8_ws (2 stages x 3 resblocks x 3 dilations x 2 convs = 36
+    launches; conv1d_w8a8, the first version, none) and its C = 32, 16
+    stages on resblock_tc_bf16 (18), and
     stays within JAX's int8 gate of the bf16 decode (corr > 0.98, relative
     L2 < 0.2)."""
     cfg = _narrow_cfg()
@@ -618,12 +718,15 @@ def test_int8_pipeline_launches_w8a8_kernel_on_card(cuda, monkeypatch):
         monkeypatch.setenv("RVC_TPU_INT8", flag)
         pipe = ConvertPipeline(**kw)
         assert (getattr(pipe.use_int8, "mode", None) == "static") == (flag == "1")
-        before, before_q = _counts(), tq.conv1d_w8a8_launches
+        before, before_q = _counts(), _launches()
         wav, _ = pipe.convert_batch(audio, [32000], 0, settings)
         torch.cuda.synchronize()
         launched = tuple(a - b for a, b in zip(_counts(), before))
         assert launched == ((18, 0, 18) if flag == "1" else (36, 0, 36)), launched
-        assert tq.conv1d_w8a8_launches - before_q == (36 if flag == "1" else 0)
+        after_q = _launches()
+        assert (after_q["conv1d_w8a8_ws"] - before_q["conv1d_w8a8_ws"],
+                after_q["conv1d_w8a8"] - before_q["conv1d_w8a8"]) == (
+                    (36, 0) if flag == "1" else (0, 0))
         wavs[flag] = n(wav)[0]
     a, b = wavs["1"], wavs["0"]
     corr = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))

@@ -9,15 +9,17 @@ gate (corr > 0.98, relative L2 < 0.2, `tests/test_int8_decode.py`), the
 calibrated scales (2e-2 relative), HuBERT's int8 features (corr > 0.995),
 RMVPE's int8 salience and `convert_batch` with RVC_TPU_INT8=1 (corr >
 0.98).  Then the gates, the scope, the fallbacks, the audit, the served
-500, and a numpy model of csrc/conv1d_w8a8.cu's index arithmetic held
-bitwise against the kernel's plain version (the kernel itself runs on
-the card: tests/test_torch_gpu.py, chip_smoke.py phase 14).  Distances
-are printed (-s).
+500, and numpy models of the index arithmetic of csrc/conv1d_w8a8.cu and
+csrc/conv1d_w8a8_ws.cu (the route) held bitwise against the kernels'
+plain version, with the latter's division and shared-memory layout (the
+kernels themselves run on the card: tests/test_torch_gpu.py,
+chip_smoke.py phase 14).  Distances are printed (-s).
 """
 
 import dataclasses
 import inspect
 import logging
+import types
 
 import jax
 import jax.numpy as jnp
@@ -299,6 +301,458 @@ def test_kernel_model_matches_plain(C, K, dil, T, lrelu, res):
     got = w8a8_kernel_model(x, n(wq_t), n(w_s), bias, float(a_s), K=K, dil=dil, lrelu=lrelu,
                             residual=r if res else None)
     np.testing.assert_array_equal(got, _f32(ref))
+
+
+# ---------------------------------------------------------------------------
+# a numpy model of csrc/conv1d_w8a8_ws.cu
+# ---------------------------------------------------------------------------
+
+WS_THREADS = 256
+LR, LMID, LHI = LANE & 7, (LANE >> 3) & 1, LANE >> 4   # ldmatrix: row, which matrix
+
+
+def ws_row_key(C, row):
+    row = np.asarray(row)
+    return (row & 7) if C >= 128 else ((row >> 1) & 3)
+
+
+def ws_i8_off(C, row, chunk):
+    """Byte offset of 16-byte chunk `chunk` of row `row` in an int8 image
+    (weights, window) with rows of C bytes: the XOR swizzle."""
+    return np.asarray(row) * C + 16 * (np.asarray(chunk) ^ ws_row_key(C, row))
+
+
+def ws_xb_key(c):
+    return (np.asarray(c) >> 2) & 7
+
+
+def fma32(a, b, c):
+    """RN_f32(a * b + c), exactly: the product is exact in float64, the
+    float64 sum's own error comes from TwoSum, and a float64 sum on a
+    float32 midpoint is rounded by that error's sign."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    p = a * b
+    sm = p + c
+    bb = sm - p
+    err = (p - (sm - bb)) + (c - bb)
+    r = sm.astype(np.float32)
+    other = np.nextafter(r, np.where(sm > r, np.float32(np.inf), np.float32(-np.inf)))
+    mid = (r.astype(np.float64) + other.astype(np.float64)) / 2
+    tie = (sm == mid) & (sm != r) & (err != 0)
+    up = np.maximum(r, other)
+    down = np.minimum(r, other)
+    return np.where(tie, np.where(err > 0, up, down), r).astype(np.float32)
+
+
+def ws_div(v, s):
+    """The kernel's `div_rn`: v / s from RN(1/s) and two corrections."""
+    v, s = np.asarray(v, np.float32), np.float32(s)
+    r = np.float32(1) / s
+    q0 = (v * r).astype(np.float32)
+    q1 = fma32(fma32(-s, q0, v), r, q0)
+    return fma32(fma32(-s, q1, v), r, q1)
+
+
+def ws_quantize(v, s):
+    """The kernel's `quantize`: +-127 where |v| >= 128 s, else the rounded
+    quotient (NaN: 0, as __float2int_rn), clipped."""
+    v, s = np.asarray(v, np.float32), np.float32(s)
+    big = np.abs(v) >= np.float32(128) * s
+    with np.errstate(over="ignore", invalid="ignore"):
+        q = np.where(big, np.copysign(np.float32(127), v), ws_div(np.where(big, 0, v), s))
+    return np.clip(np.nan_to_num(np.rint(q), nan=0.0), -127, 127).astype(np.int64)
+
+
+def _warp_rows(addr, active=None):
+    """A block-stride loop's per-unit addresses (unit i on thread i % 256
+    in round i // 256) as one row of 32 lanes per warp instruction; -1
+    for a lane with no unit or an inactive one."""
+    addr = np.asarray(addr, np.int64)
+    if active is not None:
+        addr = np.where(active, addr, -1)
+    full = np.full(-(-len(addr) // WS_THREADS) * WS_THREADS, -1, np.int64)
+    full[:len(addr)] = addr
+    return full.reshape(-1, 32)
+
+
+def assert_quarters_distinct(rows):
+    """16-byte shared accesses (ld/st.v4, one ldmatrix matrix per 8
+    lanes): each group of 8 lanes on distinct 16-byte bank groups."""
+    rows = np.asarray(rows, np.int64).reshape(-1, 32)
+    act = rows >= 0
+    assert (rows[act] % 16 == 0).all()
+    units = np.where(act, (rows // 16) % 8, -1 - np.arange(32))
+    units = np.sort(units.reshape(-1, 4, 8), axis=-1)
+    assert (np.diff(units, axis=-1) != 0).all(), rows
+
+
+def assert_words_distinct(rows):
+    """32-bit shared accesses of one warp instruction: 32 lanes on 32
+    distinct banks (inactive lanes -1)."""
+    rows = np.asarray(rows, np.int64).reshape(-1, 32)
+    act = rows >= 0
+    assert (rows[act] % 4 == 0).all()
+    banks = np.sort(np.where(act, (rows // 4) % 32, -1 - np.arange(32)), axis=-1)
+    assert (np.diff(banks, axis=-1) != 0).all(), rows
+
+
+def _ldmatrix_x4(image, addr):
+    """ldmatrix.x4 .b16: lane l gives the row address of matrix l >> 3,
+    row l & 7; register m of lane L holds bytes 4(L & 3)..+3 of row L >> 2
+    of matrix m.  addr (..., 32) -> (..., 32 lanes, 4 regs, 4 bytes)."""
+    rows = addr[..., 8 * np.arange(4)[None, :] + (LANE >> 2)[:, None]]      # (..., 32, 4)
+    idx = rows[..., None] + (4 * (LANE & 3))[:, None, None] + np.arange(4)
+    return image[idx]
+
+
+class _WsBlock:
+    """One block's shared memory and copies in flight in `ws_kernel_model`."""
+
+    def __init__(self, model, rank, m0):
+        self.m, self.rank, self.m0 = model, rank, m0
+        m = model
+        self.pending = {"w"}
+        self.xb = [np.full(m.CC * m.nchp * 8, np.nan, np.float32) for _ in range(m.NB)]
+        self.xb_tag = [None] * m.NB
+        self.ot = np.full(m.MB * m.OTP, np.nan, np.float32)
+        self.ot_tag = np.full(m.MB * m.OTP, -1)
+        # the weights, all taps, once: chunk c of row r at c ^ key(r)
+        C, K, MB = m.C, m.K, m.MB
+        self.W = np.full(K * MB * C, UNWRITTEN, np.int64)
+        i = np.arange(K * MB * C // 16)
+        chunk, row, j = i % (C // 16), (i // (C // 16)) % MB, i // (C // 16 * MB)
+        dst = j * MB * C + ws_i8_off(C, row, chunk)
+        assert len(np.unique(dst)) == len(dst)
+        for byte in range(16):
+            self.W[dst + byte] = m.wq[j, m0 + row, 16 * chunk + byte]
+
+    def issue(self, name):
+        """cp.async into `name`, tracked by its mbarrier; the weights, issued
+        first, complete before any later copy's barrier phase."""
+        assert name not in self.pending, name
+        self.pending.add(name)
+
+    def wait(self, name):
+        self.pending.discard(name)
+        self.pending.discard("w")
+
+    def ready(self, name):
+        assert name not in self.pending, name
+
+    def load_window(self, k, buf):
+        m = self.m
+        b, t0 = m.tile(k)
+        wst = (t0 - m.pad) & ~7
+        cb = self.rank * m.CC                 # the window channels this block copies
+        if m.aligned:       # 16-byte chunks inside [0, T), along each channel row
+            u0 = (max(wst, 0) - wst) // 8
+            nu = (min(wst + m.r8, m.T) - wst) // 8 - u0
+            i = np.arange(m.CC * nu)
+            c, u = i // nu, u0 + i % nu
+            d = (c * m.nchp + u) * 8
+            for e in range(8):
+                self.xb[buf][d + e] = m.x[b, cb + c, wst + 8 * u + e]
+            self.issue(f"xb{buf}")
+        else:
+            i = np.arange(m.CC * m.r8)
+            c, r = i // m.r8, i % m.r8
+            t = wst + r
+            ok = (t >= 0) & (t < m.T)
+            self.xb[buf][(c * m.nchp + (r >> 3)) * 8 + (r & 7)] = np.where(
+                ok, m.x[b, cb + c, np.clip(t, 0, m.T - 1)], 0)
+        self.xb_tag[buf] = k
+
+    def load_residual(self, k):
+        m = self.m
+        b, t0 = m.tile(k)
+        n = min(m.TN, m.T - t0)
+        for row in range(m.MB):
+            self.ot[row * m.OTP:row * m.OTP + n] = m.residual[b, self.m0 + row, t0:t0 + n]
+            self.ot_tag[row * m.OTP:row * m.OTP + n] = k
+        if m.aligned:
+            self.issue("ot")
+
+
+def ws_kernel_model(x, w_q, w_scale, bias, a_scale, *, K, dil, lrelu, residual, nblk=3):
+    """csrc/conv1d_w8a8_ws.cu on (B, C, T) bf16 values (fp32 numpy): the
+    C / MB blocks of a time tile, in clusters of CL that share one int8
+    window (each block copying and quantizing C / CL channels of it and
+    writing its codes into every window of the cluster; two windows in
+    turn), or (CL = 0) with split warps (two windows in turn, four MMA
+    warps; run here one phase after the other, which the kernel's
+    barriers allow), each with its weights' swizzled image; `nblk` persistent
+    clusters, each walking tiles tau = x, x + nblk, ..., with the window
+    ring and the residual copied as the kernel issues them (T % 8 == 0:
+    16-byte cp.async, each buffer's on its mbarrier, so that a buffer is
+    read only once waited for, is not copied into while a copy is in
+    flight, and holds the tile it should; otherwise element by element);
+    the quantize pass;
+    ldmatrix fragments lane by lane at the kernel's swizzled addresses,
+    rebuilt into m16n8k32 s8 matrices; the epilogue through the output
+    tile, and its stores.  Every 16-byte and 32-bit shared access is
+    checked for bank conflicts, every read for bytes the tile never
+    wrote, every window byte for one write per tile; each output element
+    is written once."""
+    m = types.SimpleNamespace(x=x, residual=residual, K=K, wq=np.asarray(w_q, np.int64))
+    B, C, T = x.shape
+    MB, TN, NB, CL = tq.WS_TILES[(C, K)]
+    NW = 4 if CL == 0 else 8           # MMA warps: four with split warps
+    MT, NT, OTP, CC = MB // 32, TN // (4 * NW), TN + 8, C // CL if CL > 1 else C
+    CLN = max(CL, 1)                    # blocks sharing one int8 window
+    lay = tq.ws_layout(C, K, dil)
+    r8, nch, nchp = lay["r8"], lay["nch"], lay["nchp"]
+    assert lay["total"] <= tq.MAX_SMEM and nchp % 8 == 1
+    assert CL <= 1 or (CL == C // MB and CL <= 8 and CC // 4 % 8 == 0)
+    pad = (K - 1) * dil // 2
+    ntt = -(-T // TN)
+    ntiles = B * ntt
+    nblk = min(nblk, ntiles)
+    m.__dict__.update(C=C, T=T, MB=MB, TN=TN, NB=NB, CC=CC, OTP=OTP, r8=r8, nchp=nchp, pad=pad,
+                      aligned=T % 8 == 0)
+    s = np.float32(a_scale)
+    out = np.full(x.shape, np.nan, np.float32)
+    n_written = np.zeros(x.shape, np.int64)
+    warp = np.arange(NW)[:, None, None]
+    wm, wn = warp % 2, warp // 2
+    for cy in range(C // MB // CLN):
+        for bx in range(nblk):
+            m.tile = lambda k, bx=bx: (divmod(bx + k * nblk, ntt)[0],
+                                       divmod(bx + k * nblk, ntt)[1] * TN)
+            my = (ntiles - 1 - bx) // nblk + 1
+            blocks = [_WsBlock(m, r, (cy * CLN + r) * MB) for r in range(CLN)]
+            x8s = [None, None]
+            for blk in blocks:
+                for i in range(min(NB, my)):
+                    blk.load_window(i, i)
+                if residual is not None and my > 0:
+                    blk.load_residual(0)
+                if not m.aligned or CL == 0:    # the weights waited in the prologue
+                    blk.wait("w")
+            for k in range(my):
+                b, t0 = m.tile(k)
+                wst = (t0 - pad) & ~7
+                off0 = (t0 - pad) - wst
+                # ---- quantize: each block's buffer k % NB -> the int8 window,
+                # in units of 4 channels x 8 times, chunks outside [0, T) as zeros
+                x8 = np.full(r8 * C, UNWRITTEN, np.int64)
+                x8_writes = np.zeros(r8 * C, np.int64)
+                for blk in blocks:
+                    if m.aligned:
+                        blk.wait(f"xb{k % NB}")
+                    blk.ready(f"xb{k % NB}")
+                    assert blk.xb_tag[k % NB] == k
+                    src = blk.xb[k % NB]
+                    i = np.arange(CC // 4 * nch)
+                    g4, u = i % (CC // 4), i // (CC // 4)
+                    gg = blk.rank * CC // 4 + g4
+                    t = wst + 8 * u
+                    live = (t >= 0) & (t < T) if m.aligned else np.ones_like(u, bool)
+                    vals = np.zeros((len(i), 4, 8), np.float32)
+                    for kk in range(4):
+                        pos = (kk + (g4 >> 1)) & 3
+                        a16 = (4 * g4 + pos) * nchp + u
+                        assert_quarters_distinct(_warp_rows(a16 * 16, live))
+                        vals[np.arange(len(i))[live], pos[live]] = src[a16[live, None] * 8
+                                                                        + np.arange(8)]
+                    assert not np.isnan(vals).any()
+                    if lrelu:
+                        vals = bf16(np.maximum(vals, vals * K_SLOPE))
+                    qv = ws_quantize(vals, s)
+                    rows_per_warp = max(1, 32 // (CC // 4))
+                    flip = (u & 1) if C == 64 else (u % rows_per_warp) * (8 // rows_per_warp)
+                    for e in range(8):
+                        ee = e ^ flip
+                        d = ws_i8_off(C, 8 * u + ee, gg >> 2) + 4 * (gg & 3)
+                        assert_words_distinct(_warp_rows(d))
+                        for kk in range(4):
+                            x8[d + kk] = qv[np.arange(len(i)), kk, ee]
+                            x8_writes[d + kk] += 1
+                assert (x8_writes <= 1).all()
+                if CL != 1:        # two windows in turn: tile k - 2's MMAs are done
+                    assert x8s[k % 2] is None or x8s[k % 2][1] <= k - 2
+                    x8s[k % 2] = (x8, k)
+                # ---- cluster barrier; then each block's MMAs over all taps and C_in
+                for blk in blocks:
+                    if k + NB < my:
+                        blk.load_window(k + NB, k % NB)
+                    blk.ready("w")
+                    im = np.arange(MT)[None, :, None]
+                    ra = (wm * MT + im) * 16 + LR + 8 * LMID                   # (8, MT, 32)
+                    a_x = LHI ^ ws_row_key(C, ra)
+                    acc = np.zeros((NW, MT, NT, 16, 8), np.int64)
+                    for j in range(K):
+                        pp = np.arange(NT // 2)[None, :, None]
+                        rb = wn * NT * 8 + pp * 16 + 8 * LHI + LR + off0 + j * dil
+                        assert rb.max() < r8
+                        b_x = LMID ^ ws_row_key(C, rb)
+                        for kc in range(C // 32):
+                            a_addr = j * MB * C + ra * C + 16 * ((2 * kc) ^ a_x)
+                            b_addr = rb * C + 16 * ((2 * kc) ^ b_x)
+                            assert (a_addr == j * MB * C + ws_i8_off(C, ra, 2 * kc + LHI)).all()
+                            assert (b_addr == ws_i8_off(C, rb, 2 * kc + LMID)).all()
+                            assert_quarters_distinct(a_addr)
+                            assert_quarters_distinct(b_addr)
+                            fa = _ldmatrix_x4(blk.W, a_addr)                   # (8, MT, 32, 4, 4)
+                            fb = _ldmatrix_x4(x8, b_addr)                      # (8, NT/2, 32, 4, 4)
+                            assert (fa != UNWRITTEN).all() and (fb != UNWRITTEN).all()
+                            A = np.zeros((NW, MT, 16, 32), np.int64)
+                            Bm = np.zeros((NW, NT, 32, 8), np.int64)
+                            for mm in range(4):  # a_m: rows g + 8(m & 1), bytes 16(m >> 1) + 4q
+                                for byte in range(4):
+                                    A[:, :, G + 8 * (mm & 1), 16 * (mm >> 1) + 4 * Q + byte] = \
+                                        fa[:, :, :, mm, byte]
+                            for mm in range(4):  # n-tile 2pp + (m >> 1): b0 (m even) or b1
+                                for byte in range(4):
+                                    Bm[:, (mm >> 1)::2, 16 * (mm & 1) + 4 * Q + byte, G] = \
+                                        fb[:, :, :, mm, byte]
+                            acc += np.einsum("wmik,wnkj->wmnij", A, Bm)
+                    # ---- epilogue: c0..c3 -> the output tile, residual added there
+                    if residual is not None and m.aligned:
+                        blk.wait("ot")
+                    blk.ready("ot")
+                    ot, ot_tag, m0 = blk.ot, blk.ot_tag, blk.m0
+                    sc = (s * np.asarray(w_scale, np.float32)[m0:m0 + MB]).astype(np.float32)
+                    bc = np.asarray(bias, np.float32)[m0:m0 + MB]
+                    for im_ in range(MT):
+                        for h in range(2):
+                            row = (wm[:, 0] * MT + im_) * 16 + G + 8 * h           # (8, 32)
+                            for in_ in range(NT):
+                                n0 = (wn[:, 0] * NT + in_) * 8 + 2 * Q
+                                assert_words_distinct((row * OTP + n0) * 2)
+                                for e in range(2):
+                                    c_reg = acc[:, im_, in_, G + 8 * h, 2 * Q + e]  # reg 2h + e
+                                    yv = bf16(c_reg.astype(np.float32) * sc[row] + bc[row])
+                                    d = row * OTP + n0 + e
+                                    if residual is not None:
+                                        live_n = t0 + n0 + e < T
+                                        assert (ot_tag[d][live_n] == k).all()
+                                        yv = bf16(yv + ot[d])
+                                    ot[d] = yv
+                                    ot_tag[d] = k
+                    # ---- the tile leaves: 16-byte stores along T (or elements)
+                    n = min(TN, T - t0)
+                    if m.aligned:
+                        i = np.arange(MB * (TN // 8))
+                        row, v = i // (TN // 8), i % (TN // 8)
+                        assert_quarters_distinct(_warp_rows((row * OTP + 8 * v) * 2, 8 * v < n))
+                    for row in range(MB):
+                        d = slice(row * OTP, row * OTP + n)
+                        assert (ot_tag[d] == k).all()
+                        out[b, m0 + row, t0:t0 + n] = ot[d]
+                        n_written[b, m0 + row, t0:t0 + n] += 1
+                    if residual is not None and k + 1 < my:
+                        blk.load_residual(k + 1)
+    assert (n_written == 1).all()
+    return out
+
+
+WS_CASES = [
+    # C, K, dil, B, T, lrelu, residual: every width and tap count, T ragged
+    # against the tile, below one tile, below the taps' span and 1, the
+    # aligned (T % 8 == 0) and the element-wise paths
+    (64, 3, 1, 3, 600, True, True),
+    (64, 7, 3, 1, 100, False, True),
+    (64, 11, 5, 3, 37, True, False),
+    (64, 11, 1, 1, 520, False, False),
+    (64, 7, 3, 3, 400, True, True),
+    (64, 3, 5, 3, 300, True, False),
+    (128, 3, 5, 3, 264, True, True),
+    (128, 7, 1, 1, 5, True, True),
+    (128, 11, 3, 3, 301, False, True),
+    (128, 7, 5, 3, 136, True, False),
+    (128, 11, 5, 1, 48, True, True),
+    (128, 11, 3, 3, 300, True, True),
+    (128, 3, 1, 1, 200, False, True),
+    (256, 3, 3, 1, 130, True, True),
+    (256, 7, 5, 3, 72, True, True),
+    (256, 11, 1, 1, 200, False, False),
+    (256, 11, 5, 3, 9, True, True),
+    (256, 3, 1, 3, 1, True, True),
+]
+
+
+@pytest.mark.parametrize("C,K,dil,B,T,lrelu,res", WS_CASES)
+def test_ws_kernel_model_matches_plain(C, K, dil, B, T, lrelu, res):
+    """csrc/conv1d_w8a8_ws.cu's layouts, lane maps, tile walk, window
+    ring, quantize pass and staged epilogue (`ws_kernel_model`), bitwise
+    against `_conv1d_w8a8_plain` on bf16 inputs."""
+    rs = np.random.RandomState(C * 7 + K * 3 + dil + T)
+    x = bf16(rs.randn(B, C, T) * 0.5)
+    r = bf16(rs.randn(B, C, T) * 0.3)
+    w_q, w_s = tq.quantize_weight(torch.as_tensor(rs.randn(K, C, C) * 0.05, dtype=torch.float32))
+    wq_t = w_q.permute(0, 2, 1).contiguous()
+    bias = bf16(rs.randn(C) * 0.1)
+    xt, rt = torch.as_tensor(x).bfloat16(), torch.as_tensor(r).bfloat16()
+    a_s = tq.activation_scale(tq.lrelu(xt) if lrelu else xt).reshape(1)
+    ref = tq._conv1d_w8a8_plain(xt, wq_t, w_s, torch.as_tensor(bias).bfloat16(), a_s,
+                                dilation=dil, apply_lrelu=lrelu, residual=rt if res else None)
+    got = ws_kernel_model(x, n(wq_t), n(w_s), bias, float(a_s), K=K, dil=dil, lrelu=lrelu,
+                          residual=r if res else None)
+    np.testing.assert_array_equal(got, _f32(ref))
+
+
+def test_ws_division_is_correctly_rounded():
+    """The kernel's branch-free division (`div_rn`, with its FMAs
+    emulated exactly) is IEEE v / s bit for bit, and its quantizer the
+    plain version's clip(round(v / s)), on bf16 inputs over many scales:
+    random, powers of two, all-ones significands, the calibration floor
+    1e-8 / 127; and quotients at and a few ulps around every half-integer
+    up to 127.5, where a wrong last bit would move the code."""
+    rs = np.random.RandomState(5)
+    scales = np.concatenate([
+        np.float32(10.0) ** rs.uniform(-6, 1, 40), np.float32(2.0) ** np.arange(-12, 4),
+        np.float32([1.9999999, 1.5 - 2 ** -23, 0.99999994, 1e-8 / 127, 3.0 / 127]),
+    ]).astype(np.float32)
+    half = (np.arange(-128, 128) + 0.5).astype(np.float32)
+    for sc in scales:
+        v = bf16(np.concatenate([rs.randn(3000) * 60 * sc, rs.uniform(-130, 130, 3000) * sc,
+                                 half * sc]))
+        ulps = np.arange(-3, 4)[:, None].astype(np.int32)
+        near = (half * sc).astype(np.float32).view(np.int32)[None, :] + ulps
+        v = np.concatenate([v, near.ravel().view(np.float32), [0.0, -0.0]]).astype(np.float32)
+        ok = np.abs(v) < 128 * sc
+        # equal values (a zero's sign aside, which the rounding drops)
+        np.testing.assert_array_equal(ws_div(v[ok], sc), (v[ok] / sc).astype(np.float32))
+        ref = torch.clamp(torch.round(torch.as_tensor(v) / torch.tensor(sc)), -127, 127)
+        np.testing.assert_array_equal(ws_quantize(v, sc), ref.numpy().astype(np.int64))
+    # beyond the clip, infinities and NaN as __float2int_rn: +-127, 0
+    v = np.float32([1e30, -1e30, np.inf, -np.inf, np.nan, 3e38])
+    np.testing.assert_array_equal(ws_quantize(v, np.float32(1e-6)), [127, -127, 127, -127, 0, 127])
+
+
+def _decode_sites(cfg):
+    """(C, K, dil) of every int8 decode conv of a config: the stages at C
+    >= DECODE_MIN_C, conv1 at each dilation, conv2 at 1."""
+    out, c = set(), cfg.upsample_initial_channel
+    for _ in cfg.upsample_rates:
+        c //= 2
+        if c >= tq.DECODE_MIN_C:
+            for k, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+                out |= {(c, k, d) for d in dils} | {(c, k, 1)}
+    return out
+
+
+@pytest.mark.parametrize("version,sr", [("v2", 48000), ("v2", 40000), ("v1", 32000)])
+def test_ws_smem_fits_every_decode_conv(version, sr):
+    """The mirror of csrc/conv1d_w8a8_ws.cu's shared-memory layout, at
+    every (C, K, dil) the preset's int8 decode runs, is within a block's
+    232,448 bytes, and its parts do not overlap."""
+    from rvc_maker_tpu_torch.config import preset
+
+    sites = _decode_sites(preset(version, sr).model)
+    assert {c for c, _, _ in sites} == set(tq.SUPPORTED_C)
+    for c, k, d in sorted(sites):
+        lay = tq.ws_layout(c, k, d)
+        mb, tn, nb, cl = tq.WS_TILES[(c, k)]
+        assert cl in (0, 1, c // mb)
+        assert lay["x8"] == mb * c * k
+        assert lay["xb"] == lay["x8"] + (2 if cl != 1 else 1) * lay["r8"] * c
+        assert lay["ot"] == lay["xb"] + nb * c // max(cl, 1) * lay["nchp"] * 16
+        assert lay["bar"] == lay["ot"] + mb * (tn + 8) * 2
+        assert lay["total"] == lay["bar"] + 8 * (nb + 1)
+        assert lay["r8"] >= tn + (k - 1) * d + 7 and lay["nchp"] % 8 == 1
+        assert lay["nchp"] >= lay["nch"] == lay["r8"] // 8
+        assert tq.ws_smem_bytes(c, k, d) == lay["total"] <= tq.MAX_SMEM == 232448, (c, k, d)
 
 
 # ---------------------------------------------------------------------------
