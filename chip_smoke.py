@@ -185,6 +185,25 @@ Phases, each printed as it runs; any failure exits non-zero:
               profiled; and audit_int8_scales on a 10 s voice (54 finite
               ratios > 0).
 
+ 15. parallel two spawned ranks (`rvc_maker_tpu_torch/parallel/`, the
+              environment contract on a 127.0.0.1 TCP store; gloo when they
+              share the card, NCCL with a card each), each on its card, at
+              v2-48k: (a) train() on phase 7's segments, global B = 8 (4
+              rows per rank, 4 steps): 36 resblock_tc launches per step on
+              each rank, only rank 0 writes, the parameters bitwise equal
+              on both ranks; (b) the sharded step from a fresh state against
+              one process's step on the global batch (losses rtol 2e-4,
+              each gradient leaf 1e-3 x its max |g|), bitwise equal across
+              ranks after 3 steps, each rank's step wall ms, the gradient
+              all-reduce's ms (CUDA events) and busy share beside one
+              process's step; (c) sharded convert_batch of 2 x 10 s (one row
+              per rank, 36 launches each) against one process (waveform <=
+              1e-3), wall s each; (d) the sharded blend on 250,000 x 768 rows
+              against retrieval_blend (rtol 1e-4 / atol 1e-5); (e) 12-layer
+              tensor-parallel HuBERT (6 heads per rank) against
+              extract_features (rtol 2e-3 / atol 2e-4).  Rank 0 runs every
+              one-process reference; any rank that fails fails the script.
+
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
 The line before the last holds the kernels' JSON summary, the line before
@@ -2710,6 +2729,344 @@ def int8_phase(cfg, model, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: two ranks (rvc_maker_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_WORLD = 2
+
+
+def _params_sha(state) -> str:
+    import hashlib
+
+    from rvc_maker_tpu_torch.pipelines import train as tr
+
+    h = hashlib.sha256()
+    for t in tr.tree_leaves(state.params_g) + tr.tree_leaves(state.params_d):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _max_grad_err(got, ref) -> dict:
+    """The largest |got - ref| over max |ref| of a gradient leaf (with the
+    leaf's index and shape), over the leaves above 1e-6 of the tree's
+    largest gradient (exact zeros hold rounding noise on both sides:
+    there both must stay under that floor)."""
+    floor = 1e-6 * max(g.abs().max().item() for g in ref)
+    worst = dict(rel=0.0, leaf=None, shape=None)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        r_max = r.abs().max().item()
+        if r_max < floor:
+            if not a.abs().max().item() < floor:
+                raise AssertionError(f"gradient leaf {i}: {a.abs().max().item()} where the "
+                                     "one-process step is at rounding level")
+            continue
+        rel = (a - r).abs().max().item() / r_max
+        if rel > worst["rel"]:
+            worst = dict(rel=rel, leaf=i, shape=list(r.shape))
+    return worst
+
+
+def _global_batch(dataset, rank_batches):
+    """The one-process batch: the ranks' rows in rank order."""
+    from rvc_maker_tpu_torch.pipelines import train as tr
+
+    return tr.Batch(**{f: np.concatenate([getattr(b, f) for b in rank_batches])
+                       for f in ("phone", "phone_lengths", "pitch", "pitchf", "spec",
+                                 "spec_lengths", "wave", "sid")})
+
+
+def _wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def parallel_rank(rank: int, world: int, address: str, work: str) -> None:
+    """One rank of phase 15, spawned: the environment contract, then (a)
+    train() on phase 7's segments, (b) the sharded step against the
+    one-process step, timed, (c) sharded conversion, (d) the sharded blend,
+    (e) tensor-parallel HuBERT.  Rank 0 runs each one-process reference.
+    Results go to work/rank{rank}.json."""
+    import dataclasses
+    import shutil as _shutil
+
+    os.environ.update(RVC_COORDINATOR_ADDRESS=address, RVC_NUM_PROCESSES=str(world),
+                      RVC_PROCESS_ID=str(rank))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.device import tree_to
+    from rvc_maker_tpu_torch.models import hubert as hubert_mod
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.parallel import distributed as dist_mod
+    from rvc_maker_tpu_torch.parallel.retrieval import shard_index_rows, sharded_retrieval_blend
+    from rvc_maker_tpu_torch.parallel.tensor import shard_hubert_tp, tp_extract_features
+    from rvc_maker_tpu_torch.pipelines import data as data_mod
+    from rvc_maker_tpu_torch.pipelines import train as tr
+    from rvc_maker_tpu_torch.pipelines import train_loop
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+    from rvc_maker_tpu_torch.retrieval.index import retrieval_blend
+
+    dist_mod.ensure_initialized("cuda")
+    dev = dist_mod.rank_device("cuda")
+    res = dict(rank=rank, device=str(dev), backend=torch.distributed.get_backend())
+    primary = rank == 0
+    cfg = preset("v2", 48000)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_interval=1))
+
+    # (a) train() across the ranks: 4 rows each of every global batch of 8
+    exp = os.path.join(work, "voice_2r")
+    if primary:
+        os.makedirs(exp)
+        _shutil.copy(os.path.join(work, "voice", "filelist.txt"), exp)
+    dist_mod.sync_global("exp dir")
+    stamps = []
+    reset_counts(rb)
+    t0 = time.perf_counter()
+    state = train_loop.train(exp, cfg, total_epochs=1, batch_size=4, save_every_epoch=1,
+                             device="cuda", log_writer=lambda s, m: stamps.append(
+                                 (time.perf_counter(), m)))
+    torch.cuda.synchronize()
+    if primary:
+        log(f"  rank 0: (a) train() in {time.perf_counter() - t0:.1f} s")
+    res["train"] = dict(
+        steps=state.step, s=time.perf_counter() - t0, launches=rb.resblock_launches,
+        tc_launches=rb.resblock_tc_launches, first_step_s=stamps[0][0] - t0,
+        warm_step_s=float(np.mean(np.diff([s for s, _ in stamps]))),
+        losses=[{k: v for k, v in m.items() if k.startswith("loss")} for _, m in stamps],
+        params_sha=_params_sha(state), max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+        files=sorted(os.listdir(exp)) if primary else None)
+    del state
+    torch.cuda.empty_cache()
+
+    # (b) the sharded step from a fresh state against one process's step
+    dataset = data_mod.TrainingDataset(os.path.join(exp, "filelist.txt"), cfg)
+    rank_batches = [next(data_mod.batches_for_epoch(dataset, batch_size=8, epoch=2,
+                                                    seed=cfg.train.seed, rank=r,
+                                                    num_replicas=world))
+                    for r in range(world)]
+    batch = rank_batches[rank].to(dev)
+    step = tr.make_sharded_train_step(cfg)
+    state = tr.init_state(cfg, device=dev)
+    # the parity step on deterministic cuDNN algorithms, so that its
+    # distance from one process repeats from run to run
+    torch.backends.cudnn.deterministic = True
+    reset_counts(rb)
+    m = step(state, batch, keep_grads=True)
+    torch.cuda.synchronize()
+    step_launches = rb.resblock_tc_launches
+    parity = None
+    if primary:
+        ref_state = tr.init_state(cfg, device=dev)
+        gbatch = _global_batch(dataset, rank_batches).to(dev)
+        ref = tr.make_train_step(cfg)(ref_state, gbatch, keep_grads=True)
+        loss_rel = {k: abs(float(m[k]) - float(ref[k])) / abs(float(ref[k]))
+                    for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv")}
+        parity = dict(loss_rel=loss_rel, grad_rel_g=_max_grad_err(m["grads_g"], ref["grads_g"]),
+                      grad_rel_d=_max_grad_err(m["grads_d"], ref["grads_d"]),
+                      mask_frames=[int(b.spec_lengths.sum()) for b in rank_batches])
+        del ref
+    del m
+    torch.backends.cudnn.deterministic = False
+    dist_mod.sync_global("parity")
+    # two more sharded steps, the last by range (CUDA events), then one
+    # under the profiler; rank 0 times one process's step on the global
+    # batch while rank 1 waits at a barrier
+    _, wall1 = _wall(lambda: step(state, batch))
+    timer = tr.RangeTimer()
+    _, wall2 = _wall(lambda: step(state, batch, timer=timer))
+    ranges, _ = timer.ms()
+    res["params_sha_after_steps"] = _params_sha(state)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_prof = _wall(lambda: step(state, batch))
+    device_ms = sum(e.device_time_total / 1e3 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+    res["step"] = dict(frames=int(batch.spec.shape[1]), rows=int(batch.spec.shape[0]),
+                       tc_launches=step_launches, wall_ms=[1e3 * wall1, 1e3 * wall2],
+                       ranges_ms=ranges, all_reduce_ms=ranges.get("train.all_reduce"),
+                       device_ms=device_ms or None,
+                       busy_share=device_ms / (1e3 * wall_prof) if device_ms else None,
+                       parity=parity)
+    if primary:
+        tr.make_train_step(cfg)(ref_state, gbatch)       # warm
+        timer1 = tr.RangeTimer()
+        _, one_wall = _wall(lambda: tr.make_train_step(cfg)(ref_state, gbatch, timer=timer1))
+        res["step"]["one_process"] = dict(rows=int(gbatch.spec.shape[0]),
+                                          wall_ms=1e3 * one_wall, ranges_ms=timer1.ms()[0])
+        del ref_state, gbatch
+    dist_mod.sync_global("one-process step")
+    if primary:
+        log("  rank 0: (b) the sharded step against one process, timed")
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # (c) sharded conversion of 2 x 10 s: one row per rank
+    cfg_m, model = random_model()
+    audio = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
+    lengths = np.full(2, 16000 * 10)
+    settings = ConvertSettings(index_rate=0.5)
+    pipe = ConvertPipeline(model["synth_params"], cfg_m, model["hubert_params"], version="v2",
+                           rmvpe_params=model["rmvpe_params"],
+                           index_vectors=model["index_vectors"], device="cuda", sharded=True)
+    pipe.convert_batch(audio, lengths, 0, settings)          # warm
+    reset_counts(rb)
+    (wav, _), conv_s = _wall(lambda: pipe.convert_batch(audio, lengths, 0, settings))
+    res["convert"] = dict(wall_s=conv_s, tc_launches=rb.resblock_tc_launches,
+                          launches=rb.resblock_launches)
+    wav = wav.cpu().numpy()
+    del pipe
+    if primary:
+        one = ConvertPipeline(model["synth_params"], cfg_m, model["hubert_params"],
+                              version="v2", rmvpe_params=model["rmvpe_params"],
+                              index_vectors=model["index_vectors"], device="cuda")
+        one.convert_batch(audio, lengths, 0, settings)
+        (wav1, _), one_s = _wall(lambda: one.convert_batch(audio, lengths, 0, settings))
+        wav1 = wav1.cpu().numpy()
+        res["convert"].update(one_process_wall_s=one_s, max_abs_err=float(
+            np.abs(wav - wav1).max()), absmax=float(np.abs(wav1).max()),
+            finite=bool(np.isfinite(wav).all()), shape=list(wav.shape))
+        del one
+    dist_mod.sync_global("one-process conversion")
+    if primary:
+        log("  rank 0: (c) sharded conversion")
+    torch.cuda.empty_cache()
+
+    # (d) the blend on 250,000 x 768 rows, 125,000 per rank
+    gen = torch.Generator(dev).manual_seed(41)
+    vectors = torch.randn(INDEX_ROWS, INDEX_DIM, generator=gen, device=dev)
+    feats = torch.randn(2, 499, INDEX_DIM, generator=gen, device=dev)
+    shard = shard_index_rows(vectors)
+    sharded_retrieval_blend(feats, shard, 0.5)
+    out, blend_s = _wall(lambda: sharded_retrieval_blend(feats, shard, 0.5))
+    res["blend"] = dict(rows=INDEX_ROWS, rows_per_rank=int(shard.shape[0]), wall_ms=1e3 * blend_s)
+    del shard
+    if primary:
+        retrieval_blend(feats, vectors, 0.5)
+        ref, one_s = _wall(lambda: retrieval_blend(feats, vectors, 0.5))
+        res["blend"].update(one_process_wall_ms=1e3 * one_s, max_abs_err=float(
+            (out - ref).abs().max()), tol_ok=bool(torch.allclose(out, ref, rtol=1e-4,
+                                                                  atol=1e-5)))
+        del ref
+    del vectors, feats, out
+    dist_mod.sync_global("one-process blend")
+    torch.cuda.empty_cache()
+
+    # (e) tensor-parallel 12-layer HuBERT on the 2 x 10 s
+    hubert = tree_to(model["hubert_params"], dev)
+    tp_params = shard_hubert_tp(hubert)
+    x = torch.as_tensor(audio, device=dev)
+    ln = torch.as_tensor(lengths, device=dev)
+    with torch.inference_mode():
+        tp_extract_features(tp_params, x, ln)
+        tp_out, tp_s = _wall(lambda: tp_extract_features(tp_params, x, ln))
+        res["tp"] = dict(layers=len(hubert["layers"]), wall_ms=1e3 * tp_s,
+                         heads_per_rank=tp_params["layers"][0]["attn"]["q"]["w"].shape[0] // 64)
+        if primary:
+            hubert_mod.extract_features(hubert, x, ln)
+            (ref, _), one_s = _wall(lambda: hubert_mod.extract_features(hubert, x, ln))
+            res["tp"].update(one_process_wall_ms=1e3 * one_s,
+                             max_abs_err=float((tp_out - ref).abs().max()),
+                             tol_ok=bool(torch.allclose(tp_out, ref, rtol=2e-3, atol=2e-4)))
+    dist_mod.shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def parallel_phase(work: str, card: str) -> dict:
+    """Phase 15: `parallel_rank` in PARALLEL_WORLD spawned processes on
+    127.0.0.1 (the backend by rule: gloo when they share a card, NCCL
+    with a card each); any rank that fails fails the phase.  The ranks'
+    results are checked here."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from rvc_maker_tpu_torch.parallel import distributed as dist_mod
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    backend = dist_mod.backend_for("cuda", PARALLEL_WORLD)
+    log(f"  {PARALLEL_WORLD} ranks on {torch.cuda.device_count()} card(s): {backend}, "
+        f"store at tcp://{address}")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(parallel_rank, args=(PARALLEL_WORLD, address, work),
+                             nprocs=PARALLEL_WORLD, join=False, start_method="spawn")
+    while not ctx.join(5.0):          # raises when a rank failed
+        if time.perf_counter() - t0 > 600:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError("phase 15: ranks still running after 600 s")
+    ranks = []
+    for r in range(PARALLEL_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    res = dict(backend=backend, ranks=ranks, spawn_s=time.perf_counter() - t0)
+    r0 = ranks[0]
+    per_step = 36
+    for r in ranks:
+        tr_ = r["train"]
+        if not (tr_["steps"] == 4 and tr_["tc_launches"] == tr_["launches"] == per_step * 4):
+            raise AssertionError(f"rank {r['rank']} train(): {tr_['steps']} steps, "
+                                 f"{tr_['tc_launches']} resblock_tc of {tr_['launches']}")
+        if r["step"]["tc_launches"] != per_step or r["convert"]["tc_launches"] != per_step:
+            raise AssertionError(f"rank {r['rank']}: {r['step']['tc_launches']} launches per "
+                                 f"step, {r['convert']['tc_launches']} per decode")
+    for key in ("train", "after_steps"):
+        shas = {r["train"]["params_sha"] if key == "train" else r["params_sha_after_steps"]
+                for r in ranks}
+        if len(shas) != 1:
+            raise AssertionError(f"parameters differ across ranks ({key})")
+    want = sorted(["filelist.txt", "ckpt_latest.pt", "training_data.json", "voice_2r_1e_4s.pth"])
+    if r0["train"]["files"] != want:
+        raise AssertionError(f"rank 0 wrote {r0['train']['files']}")
+    par = r0["step"]["parity"]
+    if not (max(par["loss_rel"].values()) <= 2e-4 and par["grad_rel_g"]["rel"] <= 1e-3
+            and par["grad_rel_d"]["rel"] <= 1e-3):
+        raise AssertionError(f"sharded step against one process: {par}")
+    conv = r0["convert"]
+    if not (conv["finite"] and conv["max_abs_err"] <= 1e-3):
+        raise AssertionError(f"sharded conversion against one process: {conv}")
+    if not (r0["blend"]["tol_ok"] and r0["tp"]["tol_ok"]):
+        raise AssertionError(f"blend {r0['blend']}, tensor-parallel HuBERT {r0['tp']}")
+    step = [r["step"] for r in ranks]
+    log(f"  train(): {r0['train']['steps']} steps at 2 x 4 rows, {per_step} resblock_tc "
+        f"launches per step on each rank; rank 0 wrote {r0['train']['files']}, the parameters "
+        f"are bitwise equal on both ranks; warm step "
+        + " / ".join(f"{r['train']['warm_step_s']:.4f}" for r in ranks) + " s per rank")
+    log(f"  sharded step against one process on the global batch of 8 (mask frames per rank "
+        f"{par['mask_frames']}): losses max rel {max(par['loss_rel'].values()):.3e} (tol 2e-4), "
+        f"gradient leaves max err / max|g| G {par['grad_rel_g']['rel']:.3e} (leaf "
+        f"{par['grad_rel_g']['leaf']} {par['grad_rel_g']['shape']}) D "
+        f"{par['grad_rel_d']['rel']:.3e} (tol 1e-3; deterministic cuDNN); bitwise equal "
+        f"across ranks after 3 steps")
+    log("  step wall ms per rank (4 rows each): " + "; ".join(
+        f"rank {r['rank']} {s['wall_ms'][0]:.3f} / {s['wall_ms'][1]:.3f}, gradient all-reduce "
+        f"{s['all_reduce_ms']:.3f} ms (CUDA events, waits included), profiler device "
+        f"{s['device_ms'] or 0:.3f} ms (busy share {s['busy_share'] or 0:.3f})"
+        for r, s in zip(ranks, step))
+        + f"; one process, 8 rows: {step[0]['one_process']['wall_ms']:.3f} ms")
+    log(f"  sharded convert_batch 2 x 10 s: {conv['wall_s']:.3f} / "
+        f"{ranks[1]['convert']['wall_s']:.3f} s wall per rank, one process "
+        f"{conv['one_process_wall_s']:.3f} s; waveform {conv['max_abs_err']:.3e} from one "
+        f"process (tol 1e-3, |out|max {conv['absmax']:.3f})")
+    blend = r0["blend"]
+    log(f"  sharded blend {INDEX_ROWS:,} x {INDEX_DIM} ({blend['rows_per_rank']} rows per "
+        f"rank): {blend['wall_ms']:.3f} ms, one process {blend['one_process_wall_ms']:.3f} "
+        f"ms, max abs {blend['max_abs_err']:.3e}; tensor-parallel HuBERT "
+        f"({r0['tp']['layers']} layers, {r0['tp']['heads_per_rank']} heads per rank): "
+        f"{r0['tp']['wall_ms']:.3f} ms, one process {r0['tp']['one_process_wall_ms']:.3f} ms, "
+        f"max abs {r0['tp']['max_abs_err']:.3e}; on {card}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -2837,6 +3194,14 @@ def run(work: str) -> int:
     RESULTS["int8"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 14 in {RESULTS['int8']['phase_s']:.1f} s")
     del model
+    torch.cuda.empty_cache()
+
+    log(f"[15 parallel] {PARALLEL_WORLD} ranks: train(), the sharded step, sharded conversion, "
+        f"the sharded blend, tensor-parallel HuBERT ({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["parallel"] = parallel_phase(work, smi)
+    RESULTS["parallel"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 15 in {RESULTS['parallel']['phase_s']:.1f} s")
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -2849,6 +3214,7 @@ def run(work: str) -> int:
     at = RESULTS["audio_tools"]
     i8p, i8t = RESULTS["int8"]["pipeline"], RESULTS["int8"]["totals"]
     runs, tkb = ta["runs"], ta["train_kernel_bf16"]["totals"]
+    par_ranks = RESULTS["parallel"]["ranks"]
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
     common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
@@ -2887,6 +3253,11 @@ def run(work: str) -> int:
              launches_cli_convert=at["convert"]["launches"][1],
              launches_cli_tts=at["cli_tts_launches"][1],
              launches_serve_tts=at["serve_tts_launches"][1],
+             # phase 15, each rank's own count
+             launches_parallel_train_per_rank=[r["train"]["tc_launches"] for r in par_ranks],
+             launches_parallel_step_per_rank=[r["step"]["tc_launches"] for r in par_ranks],
+             launches_parallel_convert_per_rank=[r["convert"]["tc_launches"]
+                                                 for r in par_ranks],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),

@@ -50,6 +50,12 @@ extract, train, index, convert and tts --model run on the card unless
 `--device cpu` is passed; effects, fuse and info are host work.  tts
 needs the network (the Edge read-aloud service, or Google's with
 --google; RVC_TPU_EDGE_TTS_URL names another Edge endpoint).
+
+train runs on several ranks when the environment says so (one process
+per rank, `parallel/distributed.py`): RVC_COORDINATOR_ADDRESS=host:port
+of rank 0, RVC_NUM_PROCESSES, RVC_PROCESS_ID.  Each rank trains on its
+card (cuda:rank mod cards, gloo when ranks share a card, NCCL with a card
+each) or on the CPU with --device cpu; --batch-size is each rank's rows.
 """
 
 from __future__ import annotations
@@ -136,6 +142,7 @@ def cmd_train(args) -> int:
     import dataclasses
 
     from .config import preset
+    from .parallel import distributed as dist_mod
     from .pipelines.train_loop import train
 
     cfg = preset(args.version, args.sample_rate, vocoder=args.vocoder,
@@ -150,6 +157,7 @@ def cmd_train(args) -> int:
           overtraining_threshold=args.overtraining_threshold,
           save_every_weights=not args.no_save_every_weights,
           cache_data=args.cache_data, cleanup=args.cleanup, device=args.device)
+    dist_mod.shutdown()
     print(f"train: done, weights in {args.exp_dir}")
     return 0
 
@@ -430,7 +438,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--version", default="v2", choices=["v1", "v2"])
     t.add_argument("--sample-rate", type=int, default=48000)
     t.add_argument("--epochs", type=int, default=200)
-    t.add_argument("--batch-size", type=int, default=8)
+    t.add_argument("--batch-size", type=int, default=8,
+                   help="rows per rank (the global batch is this x the ranks)")
     t.add_argument("--save-every-epoch", type=int, default=5)
     t.add_argument("--save-all", action="store_true",
                    help="keep a checkpoint per save epoch, not only the latest")

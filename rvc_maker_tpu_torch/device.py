@@ -64,3 +64,24 @@ def tree_to(tree, device: torch.device, dtype: torch.dtype | None = None):
             return tree.to(device=device, dtype=dtype)
         return tree.to(device=device)
     return tree
+
+
+def tree_rows(tree, rows):
+    """Rows `rows` (a slice or an index tensor) of every array of a nested
+    dict/list/tuple tree (numpy arrays become tensors)."""
+    if isinstance(tree, dict):
+        return {k: tree_rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_rows(v, rows) for v in tree)
+    return torch.as_tensor(tree)[rows]
+
+
+def tree_cat(trees: list):
+    """The trees' arrays concatenated along rows, leaf by leaf (trees of
+    one layout)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_cat([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_cat(list(v)) for v in zip(*trees))
+    return torch.cat([torch.as_tensor(t) for t in trees])

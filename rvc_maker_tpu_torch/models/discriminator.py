@@ -151,9 +151,11 @@ def generator_loss(disc_outputs):
     return loss, gen_losses
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, mask_sum=None):
     """KL(q || p) between the flowed posterior and the prior (train.py:
-    317-325).  All (B, T, C) except z_mask (B, T, 1)."""
+    317-325).  All (B, T, C) except z_mask (B, T, 1).  mask_sum: the
+    denominator, sum(z_mask) unless given (a rank of a sharded step gives
+    the global batch's, so that the ranks' terms sum to the global KL)."""
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * torch.square(z_p - m_p) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if mask_sum is None else mask_sum)

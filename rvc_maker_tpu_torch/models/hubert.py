@@ -90,14 +90,25 @@ def _qlin(x, c, use_int8: bool):
     return linear(x, c["w"], c.get("b"))
 
 
-def _self_attention(lp: Params, x, attn_bias, use_int8: bool = False):
+def _row_parallel(x, c, reduce):
+    """A linear layer whose input features are split over ranks: the
+    partial product summed over them by `reduce`, the bias added once,
+    after it (JAX `parallel/tensor.py`: the psum at the o / fc2 boundary)."""
+    y = linear(x, c["w"])
+    reduce(y)
+    return y + c["b"]
+
+
+def _self_attention(lp: Params, x, attn_bias, use_int8: bool = False, reduce=None):
     """fairseq self-attention, eval mode.  x: (B, T, C); attn_bias:
-    (B, 1, 1, T) additive or None.  Softmax in fp32."""
+    (B, 1, 1, T) additive or None.  Softmax in fp32.  Under tensor
+    parallelism (`reduce` given) q, k and v hold this rank's heads."""
     b, t, c = x.shape
     d = c // N_HEADS
+    h = lp["q"]["w"].shape[0] // d
 
     def heads(y):
-        return y.reshape(b, t, N_HEADS, d).transpose(1, 2)
+        return y.reshape(b, t, h, d).transpose(1, 2)
 
     q = heads(_qlin(x, lp["q"], use_int8) * (d ** -0.5))
     k = heads(_qlin(x, lp["k"], use_int8))
@@ -106,23 +117,29 @@ def _self_attention(lp: Params, x, attn_bias, use_int8: bool = False):
     if attn_bias is not None:
         scores = scores + attn_bias
     p_attn = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
-    out = torch.matmul(p_attn, v).transpose(1, 2).reshape(b, t, c)
+    out = torch.matmul(p_attn, v).transpose(1, 2).reshape(b, t, h * d)
+    if reduce is not None:
+        return _row_parallel(out, lp["o"], reduce)
     return _qlin(out, lp["o"], use_int8)
 
 
-def _encoder_layer(lp: Params, x, attn_bias, use_int8: bool = False):
+def _encoder_layer(lp: Params, x, attn_bias, use_int8: bool = False, reduce=None):
     """Post-LN transformer layer (fairseq layer_norm_first=False)."""
-    y = _self_attention(lp["attn"], x, attn_bias, use_int8)
+    y = _self_attention(lp["attn"], x, attn_bias, use_int8, reduce)
     x = layer_norm(x + y, lp["ln1"]["gamma"], lp["ln1"]["beta"])
-    y = _qlin(_gelu(_qlin(x, lp["fc1"], use_int8)), lp["fc2"], use_int8)
+    hidden = _gelu(_qlin(x, lp["fc1"], use_int8))
+    y = (_qlin(hidden, lp["fc2"], use_int8) if reduce is None
+         else _row_parallel(hidden, lp["fc2"], reduce))
     return layer_norm(x + y, lp["ln2"]["gamma"], lp["ln2"]["beta"])
 
 
 def extract_features(params: Params, source, lengths=None, *,
-                     output_layer: int = 12, use_int8: bool = False):
+                     output_layer: int = 12, use_int8: bool = False, reduce=None):
     """source: (B, L) 16 kHz; lengths: (B,) valid samples or None;
-    use_int8: the transformer's matmuls in W8A8 (module docstring).
-    Returns (features (B, T, 768), frame_lengths (B,))."""
+    use_int8: the transformer's matmuls in W8A8 (module docstring);
+    reduce: the in-place sum over ranks of tensor-parallel params
+    (`parallel/tensor.py`).  Returns (features (B, T, 768), frame_lengths
+    (B,))."""
     feats = conv_frontend(params["frontend"], source, lengths)
     b, t, _ = feats.shape
     if lengths is not None:
@@ -158,7 +175,7 @@ def extract_features(params: Params, source, lengths=None, *,
         attn_bias = attn_bias.masked_fill(key_mask, float("-inf"))[:, None, None, :]
 
     for lp in params["layers"][:output_layer]:
-        x = _encoder_layer(lp, x, attn_bias, use_int8)
+        x = _encoder_layer(lp, x, attn_bias, use_int8, reduce)
     return x[:, :t], fl
 
 

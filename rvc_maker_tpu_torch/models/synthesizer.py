@@ -43,6 +43,7 @@ from typing import Any
 import torch
 
 from ..config import ModelConfig
+from ..device import tree_rows
 from ..ops.int8_conv import DECODE_MIN_C, Int8Ctx, as_ctx, int8_enabled
 from ..ops.nn import (LRELU_SLOPE, conv1d, conv_transpose1d, embedding,
                       fused_gate, layer_norm, leaky_relu, linear, linear_as_input,
@@ -483,26 +484,39 @@ def infer_any(params: Params, cfg: ModelConfig, phone, phone_lengths, pitch,
 
 def train_noise(cfg: ModelConfig, y, y_lengths, generator: torch.Generator | None,
                 *, dtype: torch.dtype | None = None, post_noise=None, ids_slice=None,
-                dec_noise=None) -> dict:
+                dec_noise=None, rows: slice | None = None, n_rows: int | None = None) -> dict:
     """The training forward's random inputs: the posterior noise (B,
     T_spec, inter) in `dtype` (default y's), the slice starts (B,)
     int(u * (length - segment_size + 1)) with u ~ U[0, 1) (reference
     commons.py:27-33), and the decoder's noise for one segment (a dict as
     `decoder_noise` lays it out, its normals in `dtype`).  Those given
-    are kept; the rest are drawn from `generator` in that order."""
+    are kept; the rest are drawn from `generator` in that order.
+
+    rows / n_rows: y holds rows `rows` of a global batch of n_rows (one
+    rank of a sharded step).  The draws are then the global batch's, as
+    one process would draw them, given noise covers the global batch too,
+    and both are cut to `rows`."""
     b, t = y.shape[:2]
+    n = b if rows is None else n_rows
     seg = cfg.segment_size
     dtype = dtype or y.dtype
+
+    def mine(tree):
+        return tree if rows is None else tree_rows(tree, rows)
+
     if post_noise is None:
-        post_noise = torch.randn((b, t, cfg.inter_channels), generator=generator,
+        post_noise = torch.randn((n, t, cfg.inter_channels), generator=generator,
                                  device=y.device, dtype=dtype)
+    post_noise = mine(post_noise)
     if ids_slice is None:
-        u = torch.rand(b, generator=generator, device=y.device)
+        u = mine(torch.rand(n, generator=generator, device=y.device))
         ids_slice = (u * (y_lengths - seg + 1)).to(torch.int32)
+    else:
+        ids_slice = mine(ids_slice)
     if dec_noise is None:
-        dec_noise = decoder_noise(cfg, b, seg, generator, y.device, dtype)
+        dec_noise = decoder_noise(cfg, n, seg, generator, y.device, dtype)
     return {"post_noise": post_noise, "ids_slice": torch.as_tensor(ids_slice, device=y.device),
-            "dec_noise": dec_noise}
+            "dec_noise": mine(dec_noise)}
 
 
 def train_forward(params: Params, cfg: ModelConfig, phone, phone_lengths,

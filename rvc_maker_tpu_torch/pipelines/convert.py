@@ -57,6 +57,15 @@ pipelines do.
 Profiling: with RVC_TPU_PROFILE=1 `convert_batch` logs each stage's
 wall ms, fenced on the device (`utils/profiling.py`), as JAX
 convert.py:874-927 does.
+
+Sharded (`ConvertPipeline(sharded=True)`, JAX `mesh=`, convert.py:91-160,
+:836-870): the rows of `convert_batch` split over the ranks of the
+process group.  Every rank passes the same global batch; an uneven one
+is padded by repeating its last row; each rank converts its rows on its
+own card through the hand kernels (the JAX mesh path turns its Pallas
+kernel off; the port has no reason to); the results are gathered on every
+rank and the padding rows trimmed.  The noise is what one process would
+draw for the whole batch, so the rows equal a single process's.
 """
 
 from __future__ import annotations
@@ -73,7 +82,7 @@ from scipy import signal as sp_signal
 from torch.profiler import record_function
 
 from ..config import ModelConfig
-from ..device import resolve_device, tree_to
+from ..device import resolve_device, tree_cat, tree_rows, tree_to
 from ..f0.common import NOTE_FREQS, autotune_f0, coarse_f0, shift_f0
 from ..f0.yin import yin
 from ..models import fcpe as fcpe_mod
@@ -83,6 +92,8 @@ from ..models import synthesizer as syn
 from ..ops import int8_conv
 from ..ops.int8_conv import Int8Ctx, Int8SiteMismatch
 from ..ops.nn import cast_floats, interp_nearest_x2
+from ..parallel import distributed as dist_mod
+from ..parallel import mesh
 from ..retrieval.index import retrieval_blend
 from ..utils.audio import load_audio, resample
 from ..utils.i18n import tr
@@ -260,7 +271,7 @@ class ConvertPipeline:
                  index_vectors: Optional[np.ndarray] = None,
                  max_device_batch: int = 8, device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype | None = None,
-                 int8_noise_fn: NoiseFn | None = None):
+                 int8_noise_fn: NoiseFn | None = None, sharded: bool = False):
         """Params are the port's trees (`interop.pth`, `interop.from_jax`,
         the models' `params_from_state_dict` / loaders); they are moved to
         `device` in fp32, then cast to `compute_dtype` when it is given
@@ -277,10 +288,19 @@ class ConvertPipeline:
         int8 (module docstring) is set up here from the environment.
         int8_noise_fn(b, p_len) -> (z_noise, decoder noise) supplies the
         calibration pass's noise (default: a generator on the device
-        seeded 0), as `convert_utterance`'s noise_fn does."""
+        seeded 0), as `convert_utterance`'s noise_fn does.
+
+        sharded: `convert_batch` splits its rows over the ranks of the
+        process group that the environment describes (module docstring);
+        "cuda" is then this rank's card (`rank_device`)."""
         if compute_dtype not in (None, torch.bfloat16):
             raise ValueError(f"compute_dtype must be None or torch.bfloat16, got {compute_dtype}")
-        self.device = resolve_device(device)
+        self.sharded = sharded
+        if sharded:
+            dist_mod.ensure_initialized(device)
+            self.device = dist_mod.rank_device(device)
+        else:
+            self.device = resolve_device(device)
         self.cfg = model_cfg
         self.version = version
         self.max_device_batch = max_device_batch
@@ -535,7 +555,49 @@ class ConvertPipeline:
         settings.deterministic: a fresh one seeded 0), z before the
         decoder's noise as in `draw_noise`.  Given noise is cast to the
         compute dtype.  settings.f0_file overwrites the f0 after the F0
-        stage (`_apply_f0_file`).  The waveform is fp32 in both modes."""
+        stage (`_apply_f0_file`).  The waveform is fp32 in both modes.
+        A sharded pipeline converts its rank's rows (module docstring)."""
+        if generator is None or settings.deterministic:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if self.sharded and dist_mod.process_count() > 1:
+            return self._convert_sharded(audio_batch, lengths, sid, settings, z_noise,
+                                         noise, generator)
+        return self._convert_rows(audio_batch, lengths, sid, settings, z_noise, noise,
+                                  generator)
+
+    def _convert_sharded(self, audio_batch, lengths, sid, settings, z_noise, noise,
+                         generator):
+        """This rank's rows of the batch padded to a multiple of the ranks,
+        on the noise one process draws for the whole batch (microbatch by
+        microbatch, z first), then every rank's results gathered through
+        an all-reduce of a zero-filled buffer (gloo has no CUDA
+        all_gather) and the padding rows trimmed."""
+        audio = np.asarray(audio_batch.cpu() if isinstance(audio_batch, torch.Tensor)
+                           else audio_batch, np.float32)
+        lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
+        b, L = audio.shape
+        p_len = self.frames(L)
+        zs, dns = [], []
+        for lo in range(0, b, self.max_device_batch):
+            n = min(self.max_device_batch, b - lo)
+            if z_noise is None:
+                zs.append(self._draw_z(n, p_len, generator))
+            if noise is None:
+                dns.append(syn.decoder_noise(self.cfg, n, p_len, generator, generator.device,
+                                             self.dtype))
+        z_noise = torch.cat(zs) if z_noise is None else z_noise
+        noise = tree_cat(dns) if noise is None else noise
+        world = dist_mod.process_count()
+        order = mesh.pad_rows(np.arange(b), world)
+        mine = torch.as_tensor(order[mesh.rows_of(len(order))])
+        wav, pitchf = self._convert_rows(
+            audio[mine.numpy()], lengths[mine.numpy()], sid, settings,
+            tree_rows(z_noise, mine), tree_rows(noise, mine), generator)
+        return (mesh.all_gather_rows(wav, len(order))[:b],
+                mesh.all_gather_rows(pitchf, len(order))[:b])
+
+    def _convert_rows(self, audio_batch, lengths, sid, settings, z_noise, noise, generator):
+        """`convert_batch` on this device, microbatched."""
         audio = torch.as_tensor(np.asarray(audio_batch, np.float32)
                                 if not isinstance(audio_batch, torch.Tensor)
                                 else audio_batch, device=self.device,
@@ -543,8 +605,6 @@ class ConvertPipeline:
         lengths = torch.as_tensor(np.asarray(lengths) if not isinstance(
             lengths, torch.Tensor) else lengths, device=self.device,
             dtype=torch.int64)
-        if generator is None or settings.deterministic:
-            generator = torch.Generator(device=self.device).manual_seed(0)
         b_total = audio.shape[0]
         mdb = self.max_device_batch
         prof = profiling_enabled()
@@ -576,7 +636,7 @@ class ConvertPipeline:
                 dn = self._noise_to_device(syn.decoder_noise(
                     self.cfg, hi - lo, p_len, generator, generator.device, self.dtype))
             else:
-                dn = self._noise_to_device(_rows(noise, lo, hi))
+                dn = self._noise_to_device(tree_rows(noise, slice(lo, hi)))
             sid_t = torch.full((hi - lo,), sid, dtype=torch.int64,
                                device=self.device)
             with timed("synth"), record_function("convert.synthesizer"):
@@ -713,15 +773,6 @@ def convert_split(pipe: ConvertPipeline, audio16k: np.ndarray, sid: int,
         out = pipe.convert_utterance(chunk, sid, settings, noise_fn=noise_fn)
         converted.append((int(start * scale), int(start * scale) + len(out), out))
     return restore_positions(converted, int(len(audio16k) * scale))
-
-
-def _rows(tree, lo: int, hi: int):
-    """Rows lo:hi of every tensor of a nested dict/list/tuple tree."""
-    if isinstance(tree, dict):
-        return {k: _rows(v, lo, hi) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rows(v, lo, hi) for v in tree)
-    return torch.as_tensor(tree)[lo:hi]
 
 
 def _frame_rms(x: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:

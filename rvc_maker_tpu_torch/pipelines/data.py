@@ -2,14 +2,15 @@
 
 Counterpart of `rvc_maker_tpu/pipelines/data.py` (reference train.py
 TextAudioLoaderMultiNSFsid :327-400, DistributedBucketSampler
-:541-606), for one process:
+:541-606):
   * filelist rows `wav|feature.npy|f0|f0nsf|sid`
   * features repeated x2 in time, capped at 900 frames; spec, wave and
     f0 truncated to the common length
   * the linear spectrogram (`ops.stft.spectrogram`, on the host's CPU)
     cached beside the wav as .spec.npy
   * length buckets (boundaries 100..900 frames), an epoch-seeded
-    shuffle, each batch padded to the longest item of its bucket
+    shuffle, each batch padded to the longest item of its bucket (to the
+    bucket bound when it is sharded over ranks)
 """
 
 from __future__ import annotations
@@ -91,10 +92,19 @@ def _bucket_of(length: int) -> int:
 
 
 def batches_for_epoch(dataset: TrainingDataset, *, batch_size: int, epoch: int,
-                      seed: int = 1234):
+                      seed: int = 1234, rank: int = 0, num_replicas: int = 1):
     """Yield numpy Batches: an epoch-seeded shuffle, grouped by length
     bucket, full batches only.  Deterministic given (epoch, seed), so a
-    resumed run sees the same batches."""
+    resumed run sees the same batches.
+
+    batch_size is the global batch.  With num_replicas > 1 (one per rank)
+    every rank walks the same job list and yields its rows of each global
+    batch, items rank, rank + num_replicas, ...; the time axis is pinned
+    to the bucket bound, so every rank's rows have the same shape (JAX
+    data.py:104; the reference's DistributedBucketSampler, train.py:585).
+    The global batch is the ranks' rows in rank order."""
+    if batch_size % num_replicas:
+        raise ValueError(f"batch {batch_size} does not split over {num_replicas} replicas")
     rs = np.random.RandomState(seed + epoch)
     order = rs.permutation(len(dataset))
 
@@ -112,8 +122,9 @@ def batches_for_epoch(dataset: TrainingDataset, *, batch_size: int, epoch: int,
     emb = dataset.emb_dim
     spec_ch = dataset.cfg.model.spec_channels
     for bound, idxs in jobs:
-        items = [dataset.load_item(i) for i in idxs]
-        t = min(bound, max(it["length"] for it in items))
+        items = [dataset.load_item(i) for i in idxs[rank::num_replicas]]
+        # with several ranks t must not depend on this rank's items
+        t = bound if num_replicas > 1 else min(bound, max(it["length"] for it in items))
         t = max(t, dataset.cfg.model.segment_size + 1)
         B = len(items)
         phone = np.zeros((B, t, emb), np.float32)

@@ -41,6 +41,8 @@ from ..models import discriminator as disc
 from ..models import synthesizer as syn
 from ..ops.nn import cast_floats, slice_segments
 from ..ops.stft import mel_spectrogram, spec_to_mel
+from ..parallel import distributed as dist_mod
+from ..parallel.mesh import all_reduce_, replicate, rows_of
 
 def tree_leaves(tree) -> list:
     """Tensors of a nested dict/list tree, in a fixed order."""
@@ -201,7 +203,7 @@ def _checkpointed(fn):
     return run
 
 
-def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
+def make_train_step(cfg: RVCConfig, disc_width_div: int = 1, *, sharded: bool = False):
     """Returns train_step(state, batch, *, noise=None, timer=None,
     keep_grads=False) -> metrics, which updates `state` in place.
 
@@ -220,8 +222,16 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
     the batch's floats are cast to bf16 inside the differentiated
     functions, so the gradients land in fp32; the posterior noise and the
     decoder's normals are drawn in bf16; the mel and KL losses compute in
-    fp32, the sine phases stay fp32; no loss scaling."""
+    fp32, the sine phases stay fp32; no loss scaling.
+
+    sharded: each rank of the process group holds its rows of the global
+    batch (`make_sharded_train_step`)."""
     mcfg, dcfg, tcfg = cfg.model, cfg.data, cfg.train
+    rank, world = ((dist_mod.process_index(), dist_mod.process_count()) if sharded
+                   else (0, 1))
+    # the sum over the ranks (a one-process step sums nothing, even in a
+    # process that is one rank of a group)
+    reduce = all_reduce_ if world > 1 else list
     half = torch.bfloat16 if tcfg.bf16 else None
     seg_frames = tcfg.segment_size // dcfg.hop_length
     periods = disc.periods_for(cfg.version)
@@ -253,9 +263,13 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
         leaves_g = tree_leaves(state.params_g)
         leaves_d = tree_leaves(state.params_d)
         noise = noise or {}
+        n_rows = batch.spec.shape[0] * world
+        # this rank's share of each row mean over the global batch
+        share = 1.0 / world
         with _range("train.g_forward", timer):
             noise = syn.train_noise(mcfg, batch.spec, batch.spec_lengths, state.generator,
-                                    dtype=half, **noise)
+                                    dtype=half, rows=rows_of(n_rows, rank, world),
+                                    n_rows=n_rows, **noise)
             y_hat, y_mask, latents = forward_g(state.params_g, batch, noise)
             ids_slice = noise["ids_slice"]
             wave_slice = slice_segments(batch.wave, ids_slice * dcfg.hop_length,
@@ -263,8 +277,10 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
 
         with _range("train.d_step", timer):
             y_d_r, y_d_g, _, _ = mpd(state.params_d, wave_slice, y_hat.detach())
-            loss_d, _, _ = disc.discriminator_loss(y_d_r, y_d_g)
+            loss_d = disc.discriminator_loss(y_d_r, y_d_g)[0] * share
             grads_d = torch.autograd.grad(loss_d, leaves_d)
+            with _range("train.all_reduce", timer):
+                grads_d = reduce(grads_d)
             _apply(state.opt_d, leaves_d, grads_d, state.lr)
 
         with _range("train.g_loss", timer):
@@ -279,29 +295,79 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1):
                 hop_length=dcfg.hop_length, win_length=dcfg.win_length,
                 fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
             _, y_d_g, fmap_r, fmap_g = mpd(state.params_d, wave_slice, y_hat)
-            loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * tcfg.c_mel
-            loss_kl = disc.kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * tcfg.c_kl
-            loss_fm = disc.feature_loss(fmap_r, fmap_g)
-            loss_adv, _ = disc.generator_loss(y_d_g)
+            loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * tcfg.c_mel * share
+            # KL divides by the mask's sum over the global batch
+            mask_sum = reduce([y_mask.detach().sum()])[0]
+            loss_kl = disc.kl_loss(z_p, logs_q, m_p, logs_p, y_mask, mask_sum) * tcfg.c_kl
+            loss_fm = disc.feature_loss(fmap_r, fmap_g) * share
+            loss_adv = disc.generator_loss(y_d_g)[0] * share
             loss_g = loss_adv + loss_fm + loss_mel + loss_kl
 
         with _range("train.g_backward", timer):
             grads_g = torch.autograd.grad(loss_g, leaves_g)
+        with _range("train.all_reduce", timer):
+            grads_g = reduce(grads_g)
 
         with _range("train.optim", timer):
             _apply(state.opt_g, leaves_g, grads_g, state.lr)
-            metrics = dict(
-                loss_g=loss_g.detach(), loss_d=loss_d.detach(),
-                loss_mel=loss_mel.detach(), loss_kl=loss_kl.detach(),
-                loss_fm=loss_fm.detach(), loss_adv=loss_adv.detach(),
-                grad_norm_g=_global_norm(grads_g), grad_norm_d=_global_norm(grads_d),
-                lr=state.lr)
+            # every rank returns the global batch's values
+            losses = reduce([torch.stack([v.detach().float() for v in (
+                loss_g, loss_d, loss_mel, loss_kl, loss_fm, loss_adv)])])[0]
+            metrics = dict(zip(("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm",
+                                "loss_adv"), losses.unbind()),
+                           grad_norm_g=_global_norm(grads_g),
+                           grad_norm_d=_global_norm(grads_d), lr=state.lr)
         state.step += 1
         if keep_grads:
             metrics.update(grads_g=list(grads_g), grads_d=list(grads_d))
         return metrics
 
     return train_step
+
+
+def make_sharded_train_step(cfg: RVCConfig, disc_width_div: int = 1):
+    """The train step of one rank of the process group (JAX
+    `make_sharded_train_step`, whose batch XLA shards over a mesh): the
+    batch holds this rank's rows of the global batch (`data.
+    batches_for_epoch(rank=, num_replicas=)`), the parameters and
+    optimizer state are the same on every rank (`replicate_state`), and
+    the step equals one process's step on the global batch:
+
+      * the noise is the global batch's, drawn from the state's generator
+        (the same on every rank) or given for the global batch, and each
+        rank keeps its rows;
+      * every row-mean loss term is weighted by this rank's share of the
+        rows, and KL divides by the mask's sum over all ranks, so the
+        ranks' terms sum to the global losses;
+      * the gradients are summed over the ranks (one all-reduce per dtype
+        for D, one for G), then the norms and AdamW read the sums, so the
+        parameters stay equal on every rank;
+      * the returned losses are the global batch's.
+
+    The step takes gradients with torch.autograd.grad, which
+    DistributedDataParallel's hooks would not see; the reduction is the
+    explicit counterpart of XLA's psum.  In a single process it is
+    `make_train_step`."""
+    return make_train_step(cfg, disc_width_div, sharded=True)
+
+
+def replicate_state(state: TrainState) -> None:
+    """Every rank takes rank 0's state (JAX `replicate`): parameters,
+    AdamW moments and step counters, the step, the learning rate and the
+    noise generator's state."""
+    if dist_mod.process_count() == 1:
+        return
+    tensors = tree_leaves(state.params_g) + tree_leaves(state.params_d)
+    for opt in (state.opt_g, state.opt_d):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                tensors += [v for v in opt.state.get(p, {}).values()
+                            if isinstance(v, torch.Tensor)]
+    gen = state.generator.get_state()
+    scalars = torch.tensor([state.step, state.lr], dtype=torch.float64)
+    replicate(tensors + [gen, scalars])
+    state.generator.set_state(gen)
+    state.step, state.lr = int(scalars[0]), float(scalars[1])
 
 
 @contextlib.contextmanager

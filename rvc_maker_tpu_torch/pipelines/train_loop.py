@@ -1,10 +1,12 @@
 """Epoch loop, checkpoint / exact resume, and inference-weight export.
 
 Counterpart of `rvc_maker_tpu/pipelines/train_loop.py` (reference
-train.py run / train_and_evaluate), on one device, for every decoder and
-in fp32 or bf16, with or without checkpointed forwards (cfg.train.bf16 /
-remat): per-epoch learning rate decay, a `ckpt_latest.pt` checkpoint (and
-`ckpt_e{N}.pt` unless save_only_latest), the interchange `.pth` exported
+train.py run / train_and_evaluate), for every decoder and in fp32 or
+bf16, with or without checkpointed forwards (cfg.train.bf16 / remat), on
+one device or on every rank of the process group that the environment
+describes (`parallel/distributed.py`): per-epoch learning rate decay, a
+`ckpt_latest.pt` checkpoint (and `ckpt_e{N}.pt` unless
+save_only_latest), the interchange `.pth` exported
 at save epochs, the overtraining detector on EMA-smoothed losses with its
 JSON, metrics logged every `log_interval` steps (to TensorBoard under
 `tb/` unless the caller gives a log_writer, with a generated sample and
@@ -13,6 +15,15 @@ its mel image at save epochs).  SIGTERM saves and stops.
 The checkpoint holds G, D, both AdamW states, the step, the learning
 rate and the state of the generator that draws the step noise, so a
 resumed run continues exactly where the saved one stopped.
+
+Across ranks each rank trains on its device (`rank_device`) on its rows
+of every global batch with the sharded step, which keeps the parameters
+equal on every rank; every rank starts from rank 0's state (after the
+init, a pretrained load or a resume) and resumes from the same
+checkpoint; only rank 0 writes (cleanup, TensorBoard, checkpoints, the
+`.pth`, the overtraining detector's JSON), between barriers; the step's
+losses are the global batch's, so every rank takes the same overtraining
+decision.
 """
 
 from __future__ import annotations
@@ -29,10 +40,10 @@ from typing import Callable, Optional
 import torch
 
 from ..config import RVCConfig
-from ..device import resolve_device
 from ..interop.pth import export_synthesizer_pth, load_pretrained_d, load_pretrained_g
 from ..models import synthesizer as syn
 from ..ops.stft import mel_spectrogram
+from ..parallel import distributed as dist_mod
 from . import data as data_mod
 from . import train as train_mod
 
@@ -147,20 +158,30 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
     cfg.train.seed.  author / model_name go into the exported weights;
     save_every_weights=False exports them only at the end.
     log_writer(step, metrics) is called every cfg.train.log_interval
-    steps.  device="cuda" raises without a card."""
-    dev = resolve_device(device)
-    if cleanup:
+    steps.  device="cuda" raises without a card.
+
+    Under the environment contract of `parallel/distributed.py` this
+    process is one rank: batch_size is its rows (the global batch is
+    batch_size x ranks, as JAX's is batch_size x devices) and "cuda"
+    means this rank's card (`rank_device`)."""
+    dist_mod.ensure_initialized(device)
+    rank, world = dist_mod.process_index(), dist_mod.process_count()
+    primary = rank == 0
+    dev = dist_mod.rank_device(device)
+    if cleanup and primary:
         shutil.rmtree(os.path.join(exp_dir, "tb"), ignore_errors=True)
         for f in os.listdir(exp_dir) if os.path.isdir(exp_dir) else []:
             if f.startswith("ckpt_") or f.endswith("s.pth"):
                 os.remove(os.path.join(exp_dir, f))
+    dist_mod.sync_global("cleanup")    # no rank looks for a checkpoint before it
 
     dataset = data_mod.TrainingDataset(os.path.join(exp_dir, "filelist.txt"), cfg,
                                        cache_in_memory=cache_data)
-    logger.info("dataset: %d rows; device %s", len(dataset), dev)
+    logger.info("dataset: %d rows; device %s; rank %d of %d", len(dataset), dev, rank,
+                world)
 
     tb = None
-    if log_writer is None:
+    if log_writer is None and primary:
         from .tb_logging import TensorBoardLogger
 
         tb = TensorBoardLogger(os.path.join(exp_dir, "tb"))
@@ -183,8 +204,9 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
         start_epoch = load_checkpoint(latest, state) + 1
         logger.info("resumed from %s at step %d (epoch %d)", latest, state.step,
                     start_epoch - 1)
+    train_mod.replicate_state(state)
 
-    step_fn = train_mod.make_train_step(cfg, disc_width_div)
+    step_fn = train_mod.make_sharded_train_step(cfg, disc_width_div)
     detector = OvertrainingDetector(threshold_g=overtraining_threshold)
     training_json = os.path.join(exp_dir, "training_data.json")
     detector.load_json(training_json)
@@ -205,8 +227,9 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
             t0 = time.time()
             n_batches = 0
             metrics = None
-            for batch in data_mod.batches_for_epoch(dataset, batch_size=batch_size,
-                                                    epoch=epoch, seed=cfg.train.seed):
+            for batch in data_mod.batches_for_epoch(
+                    dataset, batch_size=batch_size * world, epoch=epoch,
+                    seed=cfg.train.seed, rank=rank, num_replicas=world):
                 batch = batch.to(dev, half)
                 metrics = step_fn(state, batch)
                 n_batches += 1
@@ -226,16 +249,20 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                                "loss_d %.3f): saving and stopping", epoch,
                                detector.smoothed_gen[-1], detector.smoothed_disc[-1])
                 stop["now"] = True
-            if overtraining_detector:
+            if overtraining_detector and primary:
                 detector.save_json(training_json)
             logger.info("epoch %d done (%d batches, %.1f s) loss_g %.4f loss_d %.4f",
                         epoch, n_batches, time.time() - t0, loss_g, loss_d)
             if epoch % save_every_epoch == 0 or stop["now"] or epoch == total_epochs:
-                save_checkpoint(state, latest, epoch=epoch)
-                if not save_only_latest:
+                # the parameters are the same on every rank: rank 0 writes,
+                # and no rank goes on before it has
+                dist_mod.sync_global("pre-save")
+                if primary:
+                    save_checkpoint(state, latest, epoch=epoch)
+                if primary and not save_only_latest:
                     save_checkpoint(state, os.path.join(exp_dir, f"ckpt_e{epoch}.pt"),
                                     epoch=epoch)
-                if save_every_weights or epoch == total_epochs or stop["now"]:
+                if primary and (save_every_weights or epoch == total_epochs or stop["now"]):
                     name = model_name or os.path.basename(os.path.normpath(exp_dir))
                     export_synthesizer_pth(
                         state.params_g, cfg,
@@ -243,6 +270,7 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                         epoch=epoch, step=state.step, author=author)
                 if tb is not None and n_batches:
                     _log_eval_sample(tb, state, cfg, batch, state.step)
+                dist_mod.sync_global("post-save")
             if stop["now"]:
                 break
     finally:

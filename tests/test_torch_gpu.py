@@ -733,3 +733,103 @@ def test_int8_pipeline_launches_w8a8_kernel_on_card(cuda, monkeypatch):
     rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
     print(f"int8 vs bf16 on the card: corr {corr:.6f}, rel {rel:.4f}")
     assert np.isfinite(a).all() and corr > 0.98 and rel < 0.2, (corr, rel)
+
+
+# -- two ranks on the card (rvc_maker_tpu_torch/parallel/) --------------------
+
+def _narrow_rvc_config(text_dim=96):
+    """A narrow model whose decode runs resblock_tc at every stage (C = 128
+    .. 16, k = 3 / 7 / 11, dilations 1 / 3 / 5: 36 launches per decode)."""
+    from rvc_maker_tpu_torch.config import DataConfig, RVCConfig, TrainConfig
+
+    return RVCConfig(
+        version="v2", train=TrainConfig(segment_size=8 * 64),
+        data=DataConfig(sample_rate=6400, filter_length=256, hop_length=64, win_length=256,
+                        n_mel_channels=32),
+        model=ModelConfig(spec_channels=129, segment_size=8, inter_channels=32,
+                          hidden_channels=32, filter_channels=64, n_heads=2, n_layers=1,
+                          kernel_size=3, upsample_rates=(4, 4, 2, 2),
+                          upsample_initial_channel=256, upsample_kernel_sizes=(8, 8, 4, 4),
+                          spk_embed_dim=4, gin_channels=16, sr=6400,
+                          text_enc_hidden_dim=text_dim))
+
+
+@pytest.mark.gpu
+def test_two_ranks_train_and_convert_on_card(cuda, tmp_path):
+    """Two spawned ranks on the card (gloo when they share one card, NCCL
+    with one card each): the sharded train step against the one-process
+    step on the global batch (losses rtol 2e-4, each gradient leaf 1e-3 x
+    its max |g|, the ranks' parameters bitwise equal), sharded conversion
+    of 3 rows (one padding row) against one process's convert_batch
+    (waveform <= 1e-3), 36 resblock_tc launches per rank per step and
+    per decode."""
+    from rvc_maker_tpu_torch.ops import build
+    from rvc_maker_tpu_torch.parallel import distributed as dist_mod
+    from rvc_maker_tpu_torch.pipelines import train as tr
+    from torch_parallel_worker import join_ranks, start_ranks
+
+    cfg = _narrow_rvc_config()
+    b, t, seg = 4, 24, cfg.model.segment_size
+    rs = np.random.RandomState(0)
+    lengths = np.array([t, t, seg + 2, t - 5], np.int32)
+    batch = dict(phone=rs.randn(b, t, 96).astype(np.float32), phone_lengths=lengths,
+                 pitch=rs.randint(1, 256, (b, t)),
+                 pitchf=(rs.rand(b, t) * 200 + 80).astype(np.float32),
+                 spec=np.abs(rs.randn(b, t, 129)).astype(np.float32), spec_lengths=lengths,
+                 wave=(rs.randn(b, t * 64, 1) * 0.1).astype(np.float32),
+                 sid=rs.randint(0, 4, b))
+    params_g = from_jax.synthesizer_from_jax(from_jax.random_synthesizer_tree(cfg.model, 4),
+                                             cfg.model, train=True)
+    params_d = from_jax.discriminator_from_jax(from_jax.random_discriminator_tree("v2", 16, 5))
+    ccfg = _narrow_rvc_config(768).model
+    tt = np.arange(16000) / 16000
+    audio = np.stack([0.3 * np.sin(2 * np.pi * (150 + 20 * i) * tt)
+                      for i in range(3)]).astype(np.float32)
+    convert = dict(synth=_loud_synth(ccfg), cfg=ccfg,
+                   hubert=from_jax.hubert_from_jax(from_jax.random_hubert_tree(1, n_layers=2)),
+                   index=rs.randn(128, 768).astype(np.float32), max_device_batch=8,
+                   settings=dict(f0_method="yin", index_rate=0.5, deterministic=True),
+                   cases=[dict(name="odd", audio=audio, lengths=np.array([16000, 16000, 12000]))])
+    torch.save(dict(device="cuda", convert=convert, step=dict(
+        params_g=params_g, params_d=params_d, div=16,
+        cases=[dict(name="drawn", cfg=cfg, batch=batch, noise=None)])), tmp_path / "inputs.pt")
+    build.build_all(["resblock_tc"])        # once, before the ranks load it
+    outs = join_ranks(start_ranks(str(tmp_path), 2), str(tmp_path))
+    print(f"backend by rule: {dist_mod.backend_for('cuda', 2)} "
+          f"({torch.cuda.device_count()} card(s))")
+
+    state = tr.init_state(cfg, params_g, params_d, device=cuda, disc_width_div=16)
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+    try:
+        m = tr.make_train_step(cfg, 16)(state, tr.Batch(**batch).to(cuda), keep_grads=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    r0, r1 = (o["step"]["drawn"] for o in outs)
+    for k in ("loss_g", "loss_d", "loss_mel", "loss_kl", "loss_fm", "loss_adv"):
+        np.testing.assert_allclose(r0["metrics"][k], float(m[k]), rtol=2e-4, err_msg=k)
+    assert_grads_close(r0["grads_g"], m["grads_g"], "G")
+    assert_grads_close(r0["grads_d"], m["grads_d"], "D")
+    np.testing.assert_array_equal(r0["params"], r1["params"])
+    assert r0["resblock_tc_launches"] == r1["resblock_tc_launches"] == 36
+
+    pipe = ConvertPipeline(convert["synth"], ccfg, convert["hubert"], version="v2",
+                           index_vectors=convert["index"], device=cuda)
+    wav, _ = pipe.convert_batch(audio, convert["cases"][0]["lengths"], 0,
+                                ConvertSettings(**convert["settings"]))
+    for out in outs:
+        got, _, launches = out["convert"]["odd"]
+        err = np.abs(got - n(wav)).max()
+        assert got.shape == tuple(wav.shape) and err <= 1e-3, err
+        assert launches == 36          # each rank decodes its rows in one microbatch
+
+
+@pytest.mark.gpu
+def test_rank_without_its_card_raises_on_card(cuda):
+    """A rank whose card is named but absent raises; "cuda" shares the cards
+    round-robin."""
+    from rvc_maker_tpu_torch.parallel import distributed as dist_mod
+
+    n_cards = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"cuda:{n_cards}"):
+        dist_mod.rank_device(f"cuda:{n_cards}", rank=1)
+    assert dist_mod.rank_device("cuda", rank=n_cards + 1) == torch.device("cuda", 1 % n_cards)
