@@ -80,7 +80,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               mels, 512 wide, 6 conv-only layers), FCPE legacy (512 wide,
               12 layers of FAVOR+ attention, 8 heads of 64, a 266 x 64
               projection), CREPE full.  Each method: convert_batch on 2 x
-              10 s (pyin and harvest, host F0 on one thread: 2 x 2 s)
+              10 s (pyin, harvest and the hybrid with harvest, host F0
+              on one thread: 2 x 2 s)
               after a warm-up, wall time, the F0 stage's device and
               host ms (its profiler range; CREPE's network in its own),
               device time and busy share, peak memory, 36 resblock_tc
@@ -89,8 +90,9 @@ Phases, each printed as it runs; any failure exits non-zero:
               (voicing equal, <= 1e-2 Hz where both voiced; CREPE's
               probabilities <= 1e-4 and its Viterbi path equal on >= 99 %
               of frames) and the waveform of the card's pipeline given the
-              CPU's f0 <= 1e-3; each host method's f0 identical and the
-              waveform <= 1e-3.  The WORLD library's g++ build (phase 2)
+              CPU's f0 <= 1e-3; each host method's f0 identical (its
+              decode is the device methods').  The WORLD library's g++
+              build (phase 2)
               is timed beside nvcc.
  11. serve    the port's HTTP server (`app/server.py`, in a thread on
               127.0.0.1, device cuda) on phase 4's model written as the
@@ -203,6 +205,20 @@ Phases, each printed as it runs; any failure exits non-zero:
               tensor-parallel HuBERT (6 heads per rank) against
               extract_features (rtol 2e-3 / atol 2e-4).  Rank 0 runs every
               one-process reference; any rank that fails fails the script.
+ 16. onnx     ONNX interop at phase 4's width, fp32: (a) phase 4's model
+              as a .pth through `cli export-onnx` (dynamic frame axis),
+              then ConvertPipeline on the card with the .onnx
+              (`interop/onnx_run.py` runs the graph, its convs on cuDNN: 0
+              resblock launches) against the same .pth, same noise, 2 x 10
+              s: waveform <= 1e-3; (b) phase 4's 12-layer HuBERT exported,
+              statically for 10 s rows, `OnnxEmbedder.features` against
+              extract_features (rtol 1e-3 / atol 1e-4); (c) phase 4's RMVPE
+              exported statically for 2 x 1,024 mel frames (its BiGRU one
+              ONNX GRU node), the --f0-onnx route's f0 (`device_f0` on the
+              graph) against native RMVPE within 1e-2 Hz; (d) each export's
+              wall s and node count, and each route's wall s and profiler
+              device ms beside the native one's.  The three exports run
+              together, each in a process of its own on the host CPU.
 
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
@@ -1185,7 +1201,8 @@ def vocoders_phase(model, card: str):
 
 F0_TIMED = ("yin", "fcpe", "fcpe-legacy", "crepe-full", "mangio-crepe-full", "pyin",
             "harvest", "dio", "swipe", "pm", "hybrid[rmvpe+fcpe+harvest]")
-F0_SHORT = ("pyin", "harvest")     # one host thread: timed on 2 x 2 s, not 2 x 10 s
+# one host thread: timed on 2 x 2 s, not 2 x 10 s (the hybrid for its harvest)
+F0_SHORT = ("pyin", "harvest", "hybrid[rmvpe+fcpe+harvest]")
 F0_DEVICE_CHECKED = ("yin", "fcpe", "fcpe-legacy", "crepe-full")
 F0_HOST_CHECKED = ("pyin", "harvest", "dio", "swipe", "pm")
 
@@ -1346,8 +1363,10 @@ def f0_card_vs_cpu(cfg, model, nets):
             use_fcpe(pipe, nets, m)
             with torch.inference_mode():
                 f0[dev] = pipe._f0(torch.as_tensor(audio, device=pipe.device), settings).cpu()
-        # the CPU's waveform, and the card's on the CPU's f0
-        for dev in ("cpu", "cuda"):
+        # the CPU's waveform, and the card's on the CPU's f0; a host method's
+        # f0 is the same on both sides (checked below), so its decode adds
+        # nothing to the device methods' and is not run again
+        for dev in ("cpu", "cuda") if m in F0_DEVICE_CHECKED else ():
             pipe = pipes[dev]
             pipe._f0 = lambda a, s, d=pipe.device: f0["cpu"].to(d)
             before = rb.resblock_tc_launches
@@ -1367,15 +1386,15 @@ def f0_card_vs_cpu(cfg, model, nets):
         voicing_equal = bool(((a > 0) == (b > 0))[mask].all())
         both = mask & (a > 0) & (b > 0)
         f0_err = float(np.abs(a - b)[both].max()) if both.any() else 0.0
-        err = float(np.abs(wav["cpu"] - wav["cuda"]).max())
+        err = float(np.abs(wav["cpu"] - wav["cuda"]).max()) if wav else 0.0
         r.update(f0_max_abs_err_hz=f0_err, voicing_equal=voicing_equal,
                  f0_identical=bool(np.array_equal(a, b)), f0_frames_held=int(mask.sum()),
-                 voiced_frames=int(both.sum()), wave_max_abs_err=err,
-                 wav_absmax=float(np.abs(wav["cpu"]).max()))
+                 voiced_frames=int(both.sum()), wave_max_abs_err=err if wav else None,
+                 wav_absmax=float(np.abs(wav["cpu"]).max()) if wav else None)
         log(f"  {m} card vs CPU, 2 s: f0 {f0_err:.3e} Hz on {int(both.sum())} voiced of "
             f"{int(mask.sum())} frames held, voicing equal {voicing_equal}, identical "
-            f"{r['f0_identical']}; waveform on the CPU's f0 {err:.3e} (|wav|max "
-            f"{r['wav_absmax']:.3f})")
+            f"{r['f0_identical']}" + (f"; waveform on the CPU's f0 {err:.3e} (|wav|max "
+                                      f"{r['wav_absmax']:.3f})" if wav else ""))
         if m in F0_HOST_CHECKED and not r["f0_identical"]:
             raise AssertionError(f"{m}: the host f0 differs between the two runs")
         if not (voicing_equal and f0_err <= F0_TOL_HZ):
@@ -2730,6 +2749,202 @@ def int8_phase(cfg, model, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: ONNX interop (rvc_maker_tpu_torch/interop/onnx_*.py)
+# ---------------------------------------------------------------------------
+
+ONNX_WAVE_TOL = 1e-3            # the .onnx route against the .pth route on the card
+ONNX_F0_TOL = 1e-2              # Hz, the --f0-onnx route against native RMVPE
+
+
+# the embedder and RMVPE exports, each in a process of its own (sys.argv:
+# the params tree's file, the .onnx to write); they print their seconds.
+# Both are static, at the shapes (b) and (c) run (10 s rows, 2 x 1,024
+# mel frames): a dynamic trace costs 3-4x the host time, and the CPU
+# tests hold the dynamic exports of both
+_EXPORT_EMBEDDER = """
+import sys, time, torch
+from rvc_maker_tpu_torch.interop.onnx_embedder import export_embedder
+p = torch.load(sys.argv[1], weights_only=False)
+t0 = time.perf_counter()
+export_embedder(p, sys.argv[2], max_samples=160000, dynamic=False)
+print("EXPORT_S", time.perf_counter() - t0)
+"""
+_EXPORT_RMVPE = """
+import sys, time, torch
+from rvc_maker_tpu_torch.interop import onnx_proto
+from rvc_maker_tpu_torch.interop.onnx_export import export_onnx
+from rvc_maker_tpu_torch.models.rmvpe import e2e_apply
+p = torch.load(sys.argv[1], weights_only=False)
+t0 = time.perf_counter()
+m = export_onnx(e2e_apply, (torch.zeros(2, 128, 1024),), params=p, input_names=["mel"],
+                output_names=["hidden"])
+onnx_proto.save_model(m, sys.argv[2])
+print("EXPORT_S", time.perf_counter() - t0)
+"""
+
+
+def onnx_exports(d: str, cfg, model) -> dict:
+    """The three exports of phase 16, run together, each in its own
+    process on the host CPU: `cli export-onnx` of phase 4's model as a
+    .pth, export_embedder of its HuBERT, export_onnx of its RMVPE.
+    Returns the paths and each one's export s (inside its process; the
+    CLI's is its whole process, start-up included)."""
+    import subprocess
+
+    from rvc_maker_tpu_torch.config import RVCConfig
+    from rvc_maker_tpu_torch.interop.pth import export_synthesizer_pth
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pth = os.path.join(d, "voice.pth")
+    export_synthesizer_pth(model["synth_params"], RVCConfig(version="v2", model=cfg), pth)
+    trees = {}
+    for name in ("hubert", "rmvpe"):
+        trees[name] = os.path.join(d, f"{name}_tree.pt")
+        torch.save(model[f"{name}_params"], trees[name])
+    out = dict(pth=pth, voice=os.path.join(d, "voice.onnx"),
+               embedder=os.path.join(d, "hubert.onnx"), rmvpe=os.path.join(d, "rmvpe.onnx"))
+    cmds = {"voice": [sys.executable, "-m", "rvc_maker_tpu_torch.cli", "export-onnx",
+                      "--model", pth, "--output", out["voice"]],
+            "embedder": [sys.executable, "-c", _EXPORT_EMBEDDER, trees["hubert"],
+                         out["embedder"]],
+            "rmvpe": [sys.executable, "-c", _EXPORT_RMVPE, trees["rmvpe"], out["rmvpe"]]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, c in cmds.items()}
+    try:
+        for k, proc in procs.items():        # the voice's first: its time is its process's
+            text, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"the {k} export failed:\n{text[-3000:]}")
+            secs = [float(line.split()[1]) for line in text.splitlines()
+                    if line.startswith("EXPORT_S")]
+            out[f"{k}_export_s"] = secs[0] if secs else time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["exports_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def onnx_phase(cfg, model, work: str) -> dict:
+    """Phase 16 (module docstring): phase 4's model through `cli
+    export-onnx` and ConvertPipeline on the card against the `.pth`
+    route, phase 4's HuBERT and RMVPE exported and run against their
+    native routes, each route's wall s and profiler device ms."""
+    from rvc_maker_tpu_torch.interop.onnx_embedder import OnnxEmbedder
+    from rvc_maker_tpu_torch.interop.onnx_run import OnnxGraph
+    from rvc_maker_tpu_torch.interop.onnx_voice import OnnxVoiceModel
+    from rvc_maker_tpu_torch.interop.pth import load_synthesizer_pth
+    from rvc_maker_tpu_torch.models import hubert as hubert_mod
+    from rvc_maker_tpu_torch.models import rmvpe as rmvpe_mod
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings, device_f0
+
+    d = os.path.join(work, "onnx")
+    os.makedirs(d, exist_ok=True)
+    files = onnx_exports(d, cfg, model)
+    res = {k: v for k, v in files.items() if k.endswith("_s")}
+    log(f"  the three exports together, each in its own process: {res['exports_wall_s']:.1f} s "
+        f"wall (voice {res['voice_export_s']:.1f} s, process start-up included; embedder "
+        f"{res['embedder_export_s']:.1f} s; RMVPE {res['rmvpe_export_s']:.1f} s)")
+    # (a) the voice model from cli export-onnx (dynamic), both routes on
+    # the same noise
+    vm = OnnxVoiceModel(files["voice"], device="cuda")
+    res["voice_nodes"] = vm.graph.node_count
+    res["voice_bytes"] = os.path.getsize(files["voice"])
+    params, pcfg, _ = load_synthesizer_pth(files["pth"])
+    rest = dict(version="v2", rmvpe_params=model["rmvpe_params"],
+                index_vectors=model["index_vectors"], device="cuda")
+    pipes = {"pth": ConvertPipeline(params, pcfg, model["hubert_params"], **rest),
+             "onnx": ConvertPipeline(vm, vm.cfg, model["hubert_params"], **rest)}
+    settings = ConvertSettings(index_rate=0.5)
+    L = 16000 * 10
+    batch = np.stack([voice(10.0, 150.0, 1), voice(10.0, 230.0, 2)])
+    lengths = np.array([L, L])
+    p_len = ConvertPipeline.frames(L)
+    z, noise = pipes["pth"].draw_noise(2, p_len, torch.Generator("cuda").manual_seed(16))
+    wavs, walls, launches = {}, {}, {}
+    for route, pipe in pipes.items():
+        pipe.convert_batch(batch, lengths, 0, settings, z_noise=z, noise=noise)  # warm-up
+        torch.cuda.synchronize()
+        saved = reset_counts(rb)
+        t0 = time.perf_counter()
+        wav, _ = pipe.convert_batch(batch, lengths, 0, settings, z_noise=z, noise=noise)
+        torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        launches[route] = rb.resblock_launches
+        reset_counts(rb, saved)
+        wavs[route] = wav.cpu().numpy()
+    err = float(np.abs(wavs["onnx"] - wavs["pth"]).max())
+    res.update(voice_wave_max_abs_err=err, wav_absmax=float(np.abs(wavs["pth"]).max()),
+               wall_s=walls, resblock_launches=launches)
+    log(f"  (a) the v2-48k voice from cli export-onnx: {res['voice_nodes']} nodes, "
+        f"{res['voice_bytes'] / 2**20:.1f} MiB; convert_batch 2 x 10 s: .onnx "
+        f"{walls['onnx']:.3f} s wall, .pth {walls['pth']:.3f} s; waveform max abs err "
+        f"{err:.3e} (|wav|max {res['wav_absmax']:.3f}); resblock launches .onnx "
+        f"{launches['onnx']}, .pth {launches['pth']}")
+    if not err <= ONNX_WAVE_TOL or not np.isfinite(wavs["onnx"]).all():
+        raise AssertionError(f".onnx vs .pth waveform err {err}")
+    if launches["onnx"] != 0 or launches["pth"] == 0:
+        raise AssertionError(f"resblock launches {launches}: the .onnx route runs cuDNN")
+    res["profile"] = {route: profile_call(
+        f"convert_batch 2 x 10 s, the .{route} route",
+        lambda p=pipe: p.convert_batch(batch, lengths, 0, settings, z_noise=z, noise=noise),
+        walls[route]) for route, pipe in pipes.items()}
+    del pipes, vm
+    # (b) the 12-layer HuBERT
+    emb = OnnxEmbedder(files["embedder"], device="cuda")
+    res["embedder_nodes"] = emb.graph.node_count
+    audio = torch.as_tensor(batch, device="cuda")
+    ln = torch.as_tensor(np.array([L, L - 16000]), device="cuda")
+    hp = tree_cuda(model["hubert_params"])
+    with torch.inference_mode():
+        ref = hubert_mod.extract_features(hp, audio, ln)[0]
+        got = emb.features(audio, ln)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = emb.features(audio, ln)
+        torch.cuda.synchronize()
+        res["embedder_wall_s"] = time.perf_counter() - t0
+    excess = float(((got - ref).abs() - 1e-3 * ref.abs()).max())
+    res["embedder_max_abs_err"] = float((got - ref).abs().max())
+    log(f"  (b) 12-layer HuBERT: {res['embedder_nodes']} nodes; features of 2 x 10 s "
+        f"{tuple(got.shape)} in {res['embedder_wall_s']:.3f} s, max abs err "
+        f"{res['embedder_max_abs_err']:.3e}")
+    if tuple(got.shape) != tuple(ref.shape) or not excess <= 1e-4:
+        raise AssertionError(f"embedder: beyond rtol 1e-3 / atol 1e-4 by {excess}")
+    del emb, hp
+    # (c) RMVPE through the --f0-onnx route (the pipeline's device_f0 on a graph)
+    graph = OnnxGraph(files["rmvpe"], device="cuda")
+    rp = tree_cuda(model["rmvpe_params"])
+    with torch.inference_mode():
+        ref = rmvpe_mod.infer(rp, audio)
+        got = device_f0("rmvpe", audio, lambda name, m: graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = device_f0("rmvpe", audio, lambda name, m: graph)
+        torch.cuda.synchronize()
+        res["rmvpe_wall_s"] = time.perf_counter() - t0
+    f0_err = float((got - ref).abs().max())
+    res.update(rmvpe_nodes=graph.node_count, rmvpe_f0_max_abs_err_hz=f0_err)
+    log(f"  (c) RMVPE: {graph.node_count} nodes; the --f0-onnx route's f0 of 2 x 10 s in "
+        f"{res['rmvpe_wall_s']:.3f} s, max abs err {f0_err:.3e} Hz against native RMVPE")
+    if not f0_err <= ONNX_F0_TOL:
+        raise AssertionError(f"--f0-onnx f0 err {f0_err} Hz")
+    del graph, rp
+    torch.cuda.empty_cache()
+    return res
+
+
+def tree_cuda(tree):
+    from rvc_maker_tpu_torch.device import tree_to
+
+    return tree_to(tree, torch.device("cuda"), torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # phase 15: two ranks (rvc_maker_tpu_torch/parallel/)
 # ---------------------------------------------------------------------------
 
@@ -3193,7 +3408,6 @@ def run(work: str) -> int:
                            pipeline=int8_phase(model_cfg, model, smi))
     RESULTS["int8"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 14 in {RESULTS['int8']['phase_s']:.1f} s")
-    del model
     torch.cuda.empty_cache()
 
     log(f"[15 parallel] {PARALLEL_WORLD} ranks: train(), the sharded step, sharded conversion, "
@@ -3202,6 +3416,14 @@ def run(work: str) -> int:
     RESULTS["parallel"] = parallel_phase(work, smi)
     RESULTS["parallel"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 15 in {RESULTS['parallel']['phase_s']:.1f} s")
+
+    log(f"[16 onnx] cli export-onnx and the .onnx voice model, embedder and RMVPE on the "
+        f"card against their native routes ({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["onnx"] = onnx_phase(model_cfg, model, work)
+    RESULTS["onnx"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 16 in {RESULTS['onnx']['phase_s']:.1f} s")
+    del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -3258,6 +3480,8 @@ def run(work: str) -> int:
              launches_parallel_step_per_rank=[r["step"]["tc_launches"] for r in par_ranks],
              launches_parallel_convert_per_rank=[r["convert"]["tc_launches"]
                                                  for r in par_ranks],
+             # phase 16: the .onnx voice model runs its convs on cuDNN
+             launches_onnx=RESULTS["onnx"]["resblock_launches"]["onnx"],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),

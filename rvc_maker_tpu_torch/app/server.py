@@ -12,10 +12,13 @@ RVC_TPU_BATCH_SERVE=1; 503 and a retry while a train job runs, unless
 RVC_TPU_SERVE_DURING_TRAIN=1), `/api/f0_extract` (yin, pyin, swipe, pm,
 dio, harvest), `/api/job_start` and `/api/job_status` (preprocess,
 extract, train), `/api/settings`, `/api/effects`, `/api/model_info`,
-`/api/fuse` (host work, in the handler thread) and `/api/tts` (its
-conversion on the device thread).  The routes whose modules are not yet
-ported (`UNPORTED_ROUTES`), the `create_dataset` job and `.onnx` voice
-or embedder paths answer 501 with a message that names what is missing.
+`/api/fuse`, `/api/export_onnx` (host work, in the handler thread: the
+export traces on the CPU) and `/api/tts` (its conversion on the device
+thread).  `.onnx` voice models and embedders convert and extract like
+`.pth` and `.pt` files, their graphs run on the server's device
+(`interop/onnx_run.py`).  The routes whose modules are not yet ported
+(`UNPORTED_ROUTES`) and the `create_dataset` job answer 501 with a
+message that names what is missing.
 A malformed request answers 400; a fault in the library answers 500.
 
 Every request runs under torch.inference_mode (grad mode is
@@ -76,7 +79,6 @@ _JOB_COUNTER = itertools.count()
 # each with what it needs (ROADMAP queue 1)
 UNPORTED_ROUTES = {
     "/api/separate": "source separation (pipelines/separate.py, pipelines/mdx.py)",
-    "/api/export_onnx": "ONNX export (interop/onnx_voice.py)",
     "/api/download": "model download (utils/scrapers.py)",
     "/api/audio_edit": "audio editing (edit/pipeline.py)",
     "/api/convert_whisper": "diarized conversion (speaker/diarize.py)",
@@ -579,9 +581,10 @@ def set_device(device) -> torch.device:
 
 
 def _load_hubert(path: str):
-    """An embedder path: a transformers directory or a fairseq .pt; none
-    gives random weights from seed 0 (as the JAX server's
-    `init_params(PRNGKey(0))`, though not the same draws)."""
+    """An embedder path: a transformers directory, a fairseq .pt or a
+    `.onnx` embedder (on the server's device); none gives random weights
+    from seed 0 (as the JAX server's `init_params(PRNGKey(0))`, though
+    not the same draws)."""
     from ..models.hubert import load_hubert_pt, load_transformers_dir
 
     if not path:
@@ -589,7 +592,9 @@ def _load_hubert(path: str):
 
         return from_jax.hubert_from_jax(from_jax.random_hubert_tree(seed=0))
     if path.endswith(".onnx"):
-        raise NotPorted("ONNX embedders (interop/onnx_embedder.py)")
+        from ..interop.onnx_embedder import OnnxEmbedder
+
+        return OnnxEmbedder(path, device=_STATE["device"])
     return load_transformers_dir(path) if os.path.isdir(path) else load_hubert_pt(path)
 
 
@@ -602,14 +607,13 @@ def _get_pipeline(model: str, index: str, rmvpe: str, embedder: str):
     with _LOCK:
         if _STATE["pipeline_key"] == key:
             return _STATE["pipeline"]
-    from ..interop.pth import load_synthesizer_pth
+    from ..interop.onnx_voice import load_voice_model
     from ..models.rmvpe import load_rmvpe_pt
     from ..pipelines.convert import ConvertPipeline
     from ..retrieval.index import load_index
 
-    if model.endswith(".onnx"):
-        raise NotPorted("ONNX voice models (interop/onnx_voice.py)")
-    synth_params, cfg, meta = load_synthesizer_pth(model)
+    # a .pth gives a params tree, a .onnx an OnnxVoiceModel on the device
+    synth_params, cfg, meta = load_voice_model(model, device=device)
     pipe = ConvertPipeline(
         synth_params, cfg, _load_hubert(embedder), version=meta.get("version", "v2"),
         rmvpe_params=load_rmvpe_pt(rmvpe) if rmvpe else None,
@@ -684,6 +688,7 @@ class Handler(BaseHTTPRequestHandler):
                   "/api/effects": self._api_effects,
                   "/api/model_info": self._api_model_info,
                   "/api/fuse": self._api_fuse,
+                  "/api/export_onnx": self._api_export_onnx,
                   "/api/tts": self._api_tts}
         try:
             n = int(self.headers.get("Content-Length", "0"))
@@ -791,6 +796,16 @@ class Handler(BaseHTTPRequestHandler):
         self._json({"output": fuse_models(req["a"], req["b"], req["out"],
                                           ratio=float(req.get("ratio", 0.5)))})
 
+    def _api_export_onnx(self, req):
+        from ..interop.onnx_voice import export_voice_model
+
+        model, output = req["model"], req["output"]
+        if not os.path.isfile(model):
+            raise ValueError(f"no such model file {model!r}")
+        out = export_voice_model(model, output, max_frames=_int_field(req, "max_frames", 800),
+                                 dynamic=not req.get("static", False))
+        self._json({"output": out})
+
     def _api_tts(self, req):
         """Synthesize (the Edge read-aloud protocol, or Google's with
         "google"), and with "model" convert the speech as /api/convert
@@ -892,8 +907,6 @@ def _start_job(req: dict) -> dict:
         num_workers = _int_field(req, "num_workers", 2)
     elif kind == "extract":
         embedder = req.get("embedder", "")
-        if embedder.endswith(".onnx"):
-            raise NotPorted("ONNX embedders (interop/onnx_embedder.py)")
     else:
         vocoder = req.get("vocoder", "Default")
         if vocoder not in ("Default", "MRF HiFi-GAN", "MRF-HiFi-GAN", "RefineGAN"):

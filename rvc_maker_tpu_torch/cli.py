@@ -17,7 +17,8 @@
         --hubert-path hubert_base.pt [--index added.index --index-rate 0.5]
         [--pitch 0 --protect 0.33 --sid 0] [--f0-method fcpe
         --fcpe-path fcpe.pt | crepe-full --crepe-path crepe_full.pth |
-        harvest | hybrid[rmvpe+fcpe] ...] [--embedder-path hf_hubert_dir/]
+        harvest | hybrid[rmvpe+fcpe] ...] [--embedder-path hf_hubert_dir/
+        | hubert.onnx] [--f0-onnx --rmvpe-path rmvpe.onnx]
         [--f0-file f0.txt] [--split-audio] [--preset preset.json]
         [--formant-shifting --formant-qfrency 0.8 --formant-timbre 0.8]
         [--clean-audio --clean-strength 0.7] [--export-format flac]
@@ -30,13 +31,21 @@
     python -m rvc_maker_tpu_torch.cli fuse --model-a a.pth --model-b b.pth \
         --output fused.pth [--ratio 0.5]
     python -m rvc_maker_tpu_torch.cli info --model model.pth
+    python -m rvc_maker_tpu_torch.cli export-onnx --model model.pth \
+        --output model.onnx [--static --max-frames 800]
 
 Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
-f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN) and every F0
-method of the JAX package but its ONNX predictors; each F0 network's
-weights are needed only by the methods that run it.  extract runs every
-F0 method of the JAX package's extract; without --rmvpe-path an rmvpe
+f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN) or a `.onnx`
+voice model, a `.onnx` embedder, and every F0 method of the JAX package;
+each F0 network's weights are needed only by the methods that run it,
+and an rmvpe / fcpe / crepe weight file that ends in `.onnx` runs as an
+ONNX predictor (`--f0-onnx` insists on it).  The ONNX graphs run on
+--device through `interop/onnx_run.py`.  export-onnx writes a `.pth`
+as a `.onnx` voice model (dynamic frame axis unless --static), traced on
+the CPU.  extract runs every
+F0 method of the JAX package's extract (`.onnx` predictor and embedder
+files too); without --rmvpe-path an rmvpe
 method falls back to yin, and without --embedder-path the features come
 from a random HuBERT (debug only), each with a warning.  train writes
 every decoder, in fp32 or bf16, with or without checkpointing; it
@@ -87,7 +96,12 @@ def cmd_extract(args) -> int:
     if args.embedder_path:
         if not os.path.isfile(args.embedder_path):
             raise FileNotFoundError(f"--embedder-path: no such file {args.embedder_path!r}")
-        hubert = load_hubert_pt(args.embedder_path)
+        if args.embedder_path.endswith(".onnx"):
+            from .interop.onnx_embedder import OnnxEmbedder
+
+            hubert = OnnxEmbedder(args.embedder_path, device=args.device)
+        else:
+            hubert = load_hubert_pt(args.embedder_path)
     else:
         from .interop import from_jax
 
@@ -100,7 +114,7 @@ def cmd_extract(args) -> int:
         if args.rmvpe_path:
             from .models.rmvpe import load_rmvpe_pt
 
-            rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt)
+            rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt, args)
         elif method.startswith("rmvpe"):
             logging.warning(tr("fallback_yin"))
             method = "yin"
@@ -174,15 +188,22 @@ def cmd_tensorboard(args) -> int:
         time.sleep(60)
 
 
-def _f0_weights(method: str, flag: str, path: str, loader):
-    """`loader(path)`, for the F0 weights that `method` needs.  An absent
-    flag, a missing file or an ONNX predictor raises."""
-    if path.endswith(".onnx"):
-        raise ValueError(f"{flag} {path!r}: ONNX F0 predictors are not ported")
+def _f0_weights(method: str, flag: str, path: str, loader, args):
+    """`loader(path)`, for the F0 weights that `method` needs; a `.onnx`
+    file is an ONNX predictor, an `interop.onnx_run.OnnxGraph` on
+    args.device.  An absent flag or a missing file raises, and so does a
+    file that is not `.onnx` under --f0-onnx."""
     if not path:
         raise ValueError(f"--f0-method {method} needs {flag}")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"{flag}: no such file {path!r}")
+    onnx = path.endswith(".onnx")
+    if getattr(args, "f0_onnx", False) and not onnx:
+        raise ValueError(f"--f0-onnx: {flag} {path!r} is not a .onnx predictor")
+    if onnx:
+        from .interop.onnx_run import OnnxGraph
+
+        return OnnxGraph(path, device=args.device)
     return loader(path)
 
 
@@ -196,28 +217,31 @@ def _fcpe_crepe(args, method: str, members: list):
     fcpe = crepe = None
     if any(m.startswith("fcpe") for m in members):
         fcpe = _f0_weights(method, "--fcpe-path", args.fcpe_path,
-                           lambda p: load_fcpe_ckpt(p)[0])
+                           lambda p: load_fcpe_ckpt(p)[0], args)
     crepe_methods = [m for m in members if "crepe" in m]
     if crepe_methods:
         capacity = crepe_methods[0].split("-")[-1]
         if capacity not in CAPACITIES:
             capacity = "full"
         crepe = _f0_weights(method, "--crepe-path", args.crepe_path,
-                            lambda p: load_crepe_pth(p, capacity))
+                            lambda p: load_crepe_pth(p, capacity), args)
     return fcpe, crepe
 
 
 def _load_embedder(args):
     """--embedder-path: a transformers HuBERT directory or weights file
-    (.safetensors / .bin), or a fairseq .pt; else --hubert-path (fairseq)."""
+    (.safetensors / .bin), a fairseq .pt, or a `.onnx` embedder (on
+    args.device); else --hubert-path (fairseq)."""
     from .models.hubert import load_hubert_pt, load_transformers_dir
 
     if args.embedder_path:
         path = args.embedder_path
-        if path.endswith(".onnx"):
-            raise ValueError(f"--embedder-path {path!r}: ONNX embedders are not ported")
         if not os.path.exists(path):
             raise FileNotFoundError(f"--embedder-path: no such file or directory {path!r}")
+        if path.endswith(".onnx"):
+            from .interop.onnx_embedder import OnnxEmbedder
+
+            return OnnxEmbedder(path, device=args.device)
         return load_hubert_pt(path) if path.endswith(".pt") else load_transformers_dir(path)
     if not args.hubert_path:
         raise ValueError("convert needs --hubert-path (fairseq .pt) or --embedder-path")
@@ -230,7 +254,7 @@ def _build_convert_pipeline(args):
     """The conversion pipeline and settings of the conversion flags, shared
     by `convert` and `tts --model` (JAX cli.py:169): every weight file
     given explicitly, on args.device."""
-    from .interop.pth import load_synthesizer_pth
+    from .interop.onnx_voice import load_voice_model
     from .models.rmvpe import load_rmvpe_pt
     from .pipelines.convert import ConvertPipeline, ConvertSettings, f0_members
     from .retrieval.index import load_index
@@ -241,9 +265,10 @@ def _build_convert_pipeline(args):
     members = f0_members(method)
     rmvpe = None
     if any(m.startswith("rmvpe") for m in members):
-        rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt)
+        rmvpe = _f0_weights(method, "--rmvpe-path", args.rmvpe_path, load_rmvpe_pt, args)
     fcpe, crepe = _fcpe_crepe(args, method, members)
-    synth_params, cfg, meta = load_synthesizer_pth(args.model)
+    # a .pth gives a params tree, a .onnx an OnnxVoiceModel on args.device
+    synth_params, cfg, meta = load_voice_model(args.model, device=args.device)
     index_vectors = None
     if args.index and args.index_rate > 0:
         index_vectors = load_index(args.index).vectors
@@ -368,20 +393,35 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_export_onnx(args) -> int:
+    from .interop.onnx_voice import export_voice_model
+
+    if not os.path.isfile(args.model):
+        raise FileNotFoundError(f"--model: no such file {args.model!r}")
+    out = export_voice_model(args.model, args.output, max_frames=args.max_frames,
+                             dynamic=not args.static)
+    print(f"export-onnx: wrote {out}")
+    return 0
+
+
 def _conversion_flags(c) -> None:
     """The flags of `_build_convert_pipeline`, shared by convert and tts."""
     c.add_argument("--rmvpe-path", default="",
                    help="reference rmvpe.pt; needed by the rmvpe methods")
     c.add_argument("--hubert-path", default="", help="fairseq HuBERT/ContentVec .pt")
     c.add_argument("--embedder-path", default="",
-                   help="transformers HuBERT directory or weights file (in place "
-                        "of --hubert-path)")
+                   help="transformers HuBERT directory or weights file, or a .onnx "
+                        "embedder (in place of --hubert-path)")
     c.add_argument("--f0-method", default="rmvpe",
                    help="rmvpe | rmvpe-legacy | yin | pyin | fcpe | fcpe-legacy | dio | "
                         "harvest | swipe | pm | crepe-{tiny,small,medium,large,full} | "
                         "mangio-crepe-{...} | hybrid[a+b]")
     c.add_argument("--fcpe-path", default="", help="reference fcpe.pt / fcpe_legacy.pt")
     c.add_argument("--crepe-path", default="", help="reference crepe_<capacity>.pth")
+    c.add_argument("--f0-onnx", action="store_true",
+                   help="the F0 networks run as .onnx predictors: --rmvpe-path / "
+                        "--fcpe-path / --crepe-path must name .onnx files (a .onnx "
+                        "file there runs as one without the flag too)")
     c.add_argument("--f0-file", default="", help='external "time,f0" contour')
     c.add_argument("--hop-length", type=int, default=160,
                    help="frame hop of mangio-crepe and pyin")
@@ -538,6 +578,17 @@ def build_parser() -> argparse.ArgumentParser:
     n = sub.add_parser("info", help="a voice model's metadata, as JSON")
     n.add_argument("--model", required=True)
     n.set_defaults(func=cmd_info)
+
+    o = sub.add_parser("export-onnx", help="export a .pth voice model to .onnx")
+    o.add_argument("--model", required=True, help="reference-format .pth")
+    o.add_argument("--output", required=True, help="the .onnx to write")
+    o.add_argument("--static", action="store_true",
+                   help="a graph of --max-frames capacity instead of the default "
+                        "dynamic frame axis")
+    o.add_argument("--max-frames", type=int, default=800,
+                   help="frame capacity of a --static graph (a dynamic one serves any "
+                        "length >= 21 frames)")
+    o.set_defaults(func=cmd_export_onnx)
     return ap
 
 

@@ -161,16 +161,16 @@ def extract_features(params: Params, source, lengths=None, *,
     x = x + _gelu(pos.transpose(1, 2))
     x = layer_norm(x, params["ln_pre"]["gamma"], params["ln_pre"]["beta"])
 
-    # pad T to a multiple of 2 (fairseq required_seq_len_multiple)
+    # pad T to a multiple of 2 (fairseq required_seq_len_multiple); the
+    # pads are unconditional (a pad of 0 is a copy), so that a symbolic t
+    # (torch.export of a dynamic length) takes no branch on its parity
     pad_t = t % 2
-    if pad_t:
-        x = F.pad(x, (0, 0, 0, pad_t))
+    x = F.pad(x, (0, 0, 0, pad_t))
     attn_bias = None
     if frame_mask is not None or pad_t:
         key_mask = (~frame_mask if frame_mask is not None
                     else torch.zeros((b, t), dtype=torch.bool, device=x.device))
-        if pad_t:
-            key_mask = F.pad(key_mask, (0, pad_t), value=True)
+        key_mask = F.pad(key_mask, (0, pad_t), value=True)
         attn_bias = torch.zeros(key_mask.shape, dtype=x.dtype, device=x.device)
         attn_bias = attn_bias.masked_fill(key_mask, float("-inf"))[:, None, None, :]
 

@@ -69,9 +69,11 @@ def _get_relative_embeddings(emb, t: int, window_size: int):
 def _relative_to_absolute(x):
     """(B, H, T, 2T-1) -> (B, H, T, T). Reference synthesizers.py:271-274."""
     b, h, t, _ = x.shape
-    x = torch.nn.functional.pad(x, (0, 1))
-    x = x.reshape(b, h, t * 2 * t)
-    x = torch.nn.functional.pad(x, (0, t - 1))
+    # pad a zero column and a zero row, flatten, keep (t+1)(2t-1) values:
+    # the reference's flat pad of t-1 zeros, in a form whose length a
+    # symbolic t factors (torch.export of a dynamic frame axis)
+    x = torch.nn.functional.pad(x, (0, 1, 0, 1))
+    x = x.reshape(b, h, (t + 1) * 2 * t)[:, :, : (t + 1) * (2 * t - 1)]
     x = x.reshape(b, h, t + 1, 2 * t - 1)
     return x[:, :, :t, t - 1 :]
 

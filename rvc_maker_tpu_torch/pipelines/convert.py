@@ -16,7 +16,7 @@ decoder of f0-less models, MRF-HiFi-GAN and RefineGAN
 as in the JAX package, it still runs F0, whose f0 sets `protect`'s
 unvoiced frames (the reference toolkit skips both for such models).
 
-F0 methods: every one the JAX package runs outside ONNX.  On the device
+F0 methods: every one the JAX package runs.  On the device
 (`device_f0`): rmvpe, rmvpe-legacy, yin, fcpe, fcpe-legacy.  On the host
 (`host_f0_member`, JAX convert.py:652-751): dio (+ stonemask), harvest, swipe,
 pm, pyin, crepe-<capacity> and mangio-crepe-<capacity> (CREPE's network
@@ -24,6 +24,14 @@ on the device, its Viterbi on the host), and hybrid[a+b+...], the
 per-frame nanmedian of its members.  `f0_file` overwrites the contour
 with an external one; `convert_split` converts the voiced pieces of a
 silence-split utterance.
+
+ONNX (JAX convert.py:142, :190, :379-402, :464-475, :509-534, :696): an
+`interop.onnx_voice.OnnxVoiceModel` takes the synthesizer's place, an
+`interop.onnx_embedder.OnnxEmbedder` HuBERT's, and an
+`interop.onnx_run.OnnxGraph` RMVPE's, FCPE's or CREPE's (the reference's
+--f0_onnx, `f0/onnx_predictor.py`).  Each graph runs on the pipeline's
+device, fp32 whatever the compute dtype, and never in int8; a graph
+loaded for another device raises.
 
 Noise: the step takes the prior noise `z_noise` (B, p_len, inter) and
 the decoder's noise, a dict laid out as `synthesizer.decoder_noise`
@@ -83,8 +91,12 @@ from torch.profiler import record_function
 
 from ..config import ModelConfig
 from ..device import resolve_device, tree_cat, tree_rows, tree_to
+from ..f0 import onnx_predictor
 from ..f0.common import NOTE_FREQS, autotune_f0, coarse_f0, shift_f0
 from ..f0.yin import yin
+from ..interop.onnx_embedder import OnnxEmbedder
+from ..interop.onnx_run import OnnxGraph
+from ..interop.onnx_voice import OnnxVoiceModel
 from ..models import fcpe as fcpe_mod
 from ..models import hubert as hubert_mod
 from ..models import rmvpe as rmvpe_mod
@@ -131,10 +143,14 @@ def device_f0(method: str, audio, params, *, rmvpe_int8: bool = False) -> torch.
     in int8."""
     if method in ("rmvpe", "rmvpe-legacy"):
         kw = {"f0_min": 50.0, "f0_max": 1100.0} if method == "rmvpe-legacy" else {}
-        return rmvpe_mod.infer(params("rmvpe", method), audio, use_int8=rmvpe_int8, **kw)
+        p = params("rmvpe", method)
+        if isinstance(p, OnnxGraph):
+            return onnx_predictor.rmvpe_onnx_infer(p, audio, **kw)
+        return rmvpe_mod.infer(p, audio, use_int8=rmvpe_int8, **kw)
     if method in ("fcpe", "fcpe-legacy"):
-        return fcpe_mod.infer(params("fcpe", method), audio, threshold=0.03,
-                              p_len=audio.shape[1] // WINDOW + 1)
+        p = params("fcpe", method)
+        infer = onnx_predictor.fcpe_onnx_infer if isinstance(p, OnnxGraph) else fcpe_mod.infer
+        return infer(p, audio, threshold=0.03, p_len=audio.shape[1] // WINDOW + 1)
     if method == "yin":
         return yin(audio, sr=SAMPLE_RATE, fmin=50.0, fmax=1100.0, hop_length=WINDOW)
     raise ValueError(f"unknown f0 method {method!r}")
@@ -146,6 +162,8 @@ def _crepe_probs(params, audio: np.ndarray, hop: int, device) -> np.ndarray:
 
     with record_function(CREPE_RANGE):
         x = torch.as_tensor(audio, device=device)
+        if isinstance(params, OnnxGraph):
+            return onnx_predictor.crepe_probs(params, x, hop).cpu().numpy()
         return crepe_mod.predict_probs(params, x, hop_length=hop).cpu().numpy()
 
 
@@ -308,6 +326,13 @@ class ConvertPipeline:
         f32 = torch.float32
 
         def prep(tree):
+            if isinstance(tree, (OnnxGraph, OnnxVoiceModel, OnnxEmbedder)):
+                if tree.device.type != self.device.type or (
+                        None not in (tree.device.index, self.device.index)
+                        and tree.device.index != self.device.index):
+                    raise ValueError(f"an ONNX graph loaded for {tree.device} given to a "
+                                     f"pipeline on {self.device}")
+                return tree
             tree = tree_to(tree, self.device, f32)
             return tree if compute_dtype is None else cast_floats(tree, compute_dtype)
 
@@ -315,9 +340,11 @@ class ConvertPipeline:
         self.hubert_params = prep(hubert_params)
         self.rmvpe_params = prep(rmvpe_params)
         self.fcpe_params = prep(fcpe_params)
-        if fcpe_params is not None:          # a decode table, not a weight
+        if fcpe_params is not None and not isinstance(fcpe_params, OnnxGraph):
+            # a decode table, not a weight
             self.fcpe_params["cent_table"] = tree_to(fcpe_params["cent_table"], self.device, f32)
-        self.crepe_params = tree_to(crepe_params, self.device, f32)
+        self.crepe_params = (prep(crepe_params) if isinstance(crepe_params, OnnxGraph)
+                             else tree_to(crepe_params, self.device, f32))
         self.index_vectors = (None if index_vectors is None else
                               torch.as_tensor(np.asarray(index_vectors, np.float32),
                                               device=self.device).to(self.dtype))
@@ -335,9 +362,11 @@ class ConvertPipeline:
         among them, propagates."""
         on = int8_conv.int8_enabled(self.compute_dtype)
         scope = int8_conv.int8_scope() if on else frozenset()
-        self.use_int8 = "decode" in scope
-        self.use_int8_hubert = "hubert" in scope
-        self.use_int8_rmvpe = "rmvpe" in scope
+        # an ONNX graph runs as it was exported, never in int8
+        self.use_int8 = "decode" in scope and not isinstance(self.synth_params, OnnxVoiceModel)
+        self.use_int8_hubert = ("hubert" in scope
+                                and not isinstance(self.hubert_params, OnnxEmbedder))
+        self.use_int8_rmvpe = "rmvpe" in scope and not isinstance(self.rmvpe_params, OnnxGraph)
         if self.use_int8 and syn.decoder_kind(self.cfg) in ("nsf", "plain"):
             self.synth_params = int8_conv.prequantize_decode(self.synth_params)
         if self.use_int8_hubert:
@@ -482,11 +511,16 @@ class ConvertPipeline:
         # convert.py:462-466); the F0 stage has read the fp32 audio
         audio = audio.to(self.dtype)
         index_rate = float(torch.tensor(settings.index_rate, dtype=self.dtype))
-        feats, _ = hubert_mod.extract_features(
-            self.hubert_params, audio, lengths,
-            output_layer=12 if self.version == "v2" else 9, use_int8=self.use_int8_hubert)
-        if self.version == "v1":
-            feats = hubert_mod.final_proj(self.hubert_params, feats)
+        if isinstance(self.hubert_params, OnnxEmbedder):
+            # the graph holds the v1 projection; it runs in fp32
+            feats = self.hubert_params.features(audio.to(torch.float32),
+                                                lengths).to(self.dtype)
+        else:
+            feats, _ = hubert_mod.extract_features(
+                self.hubert_params, audio, lengths,
+                output_layer=12 if self.version == "v2" else 9, use_int8=self.use_int8_hubert)
+            if self.version == "v1":
+                feats = hubert_mod.final_proj(self.hubert_params, feats)
         feats0 = feats
         if self.index_vectors is not None and settings.index_rate > 0:
             feats = retrieval_blend(feats, self.index_vectors, index_rate)
@@ -507,6 +541,14 @@ class ConvertPipeline:
                      + feats0 * (1.0 - pitchff).to(feats.dtype))
         frame_lengths = torch.clamp(
             torch.div(lengths, WINDOW, rounding_mode="floor"), max=p_len)
+        if isinstance(self.synth_params, OnnxVoiceModel):
+            # the graph on the same noise as the params would take, in fp32
+            f32 = torch.float32
+            sine = noise.get("sine")
+            wav = self.synth_params.synth(
+                feats.to(f32), frame_lengths, pitch, pitchf, sid, z_noise.to(f32),
+                None if sine is None else sine.to(f32))
+            return wav.to(f32), pitchf
         wav = syn.infer_any(self.synth_params, self.cfg, feats, frame_lengths,
                             pitch, pitchf, sid, z_noise, noise,
                             use_int8=self.use_int8 if use_int8 is None else use_int8)

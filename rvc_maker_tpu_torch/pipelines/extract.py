@@ -17,7 +17,8 @@ extract:
 Segments are bucketed by length (whole seconds) and run through the
 models in batches on `device` (the card unless the caller asks for the
 CPU).  Params are the port's trees (`models.rmvpe`, `models.hubert`
-loaders or `interop.from_jax`).
+loaders or `interop.from_jax`); the features may also come from an
+`.onnx` embedder (`interop.onnx_embedder.OnnxEmbedder`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from ..config import RVCConfig
 from ..device import resolve_device, tree_to
 from ..f0.common import coarse_f0
+from ..interop.onnx_embedder import OnnxEmbedder
 from ..models import hubert as hubert_mod
 from ..utils.audio import load_audio, save_wav
 from .convert import DEVICE_F0, device_f0, host_f0_row
@@ -114,6 +116,13 @@ def extract_f0(exp_dir: str, rmvpe_params=None, *, method: str = "rmvpe",
 
 
 def _features(params, audio, lengths, version: str):
+    """HuBERT's features and frame lengths; an `.onnx` embedder
+    (`interop.onnx_embedder.OnnxEmbedder`, its v1 projection inside the
+    graph) runs on its own device."""
+    if isinstance(params, OnnxEmbedder):
+        if lengths is None:
+            lengths = torch.full((audio.shape[0],), audio.shape[1], device=audio.device)
+        return params.features(audio, lengths), hubert_mod.frame_lengths(lengths)
     feats, fl = hubert_mod.extract_features(params, audio, lengths,
                                             output_layer=12 if version == "v2" else 9)
     if version == "v1":

@@ -578,16 +578,17 @@ def test_train_job_endpoint(servers, tmp_path, monkeypatch):
     ({"kind": "preprocess"}, 400),
     ({"kind": "create_dataset", "inputs": ["https://example.invalid/a"]}, 501),
     ({"kind": "extract", "exp_dir": "/x"}, 200),
-    ({"kind": "extract", "exp_dir": "/x", "rmvpe": "r.pt", "embedder": "e.onnx"}, 501),
+    ({"kind": "extract", "exp_dir": "/x", "embedder": "e.onnx"}, 200),
     ({"kind": "train", "exp_dir": "/x", "vocoder": "RefineGAN"}, 200),
     ({"kind": "train", "exp_dir": "/x", "pitch_guidance": False}, 200),
 ], ids=["unknown-kind", "bad-epochs", "no-dataset", "create-dataset", "extract-yin",
         "extract-onnx", "train-refinegan", "train-no-pitch"])
 def test_job_start_refusals(servers, req, code, tmp_path):
     """Malformed jobs answer 400, unported ones 501.  The extract job
-    without an rmvpe path (yin) and the train jobs of another vocoder or
-    without pitch are ported: they start, and on an experiment dir with
-    nothing in it they finish with an error."""
+    without an rmvpe path (yin), with a `.onnx` embedder, and the train
+    jobs of another vocoder or without pitch are ported: they start, and
+    on an experiment dir with nothing in it (or a missing embedder file)
+    they finish with an error."""
     if code == 200:
         req = dict(req, exp_dir=str(tmp_path / "empty"))
     status, body = _call(servers[0], "/api/job_start", req)
@@ -631,6 +632,36 @@ def test_extract_job_without_rmvpe_runs_yin(servers, tmp_path):
                                       np.load(ref / "f0_voiced" / n))
 
 
+def test_extract_job_with_onnx_embedder(servers, files, onnx_files, tmp_path):
+    """An extract job with a `.onnx` embedder writes the features that
+    the `.pt` it was exported from gives, within 1e-4, and the mute row."""
+    from rvc_maker_tpu_torch.models.hubert import load_hubert_pt
+    from rvc_maker_tpu_torch.pipelines import extract as ex
+    from rvc_maker_tpu_torch.pipelines.preprocess import preprocess_dataset
+    from rvc_maker_tpu_torch.utils.audio import save_wav
+
+    data = tmp_path / "data"
+    data.mkdir()
+    sr = 32000
+    save_wav(str(data / "a.wav"), _voice(2.0, 180.0, 2), 16000)
+    exp = tmp_path / "exp"
+    assert preprocess_dataset(str(data), str(exp), sr, per=1.5, num_workers=1) > 0
+    job = _ok(servers[0], "/api/job_start", {"kind": "extract", "exp_dir": str(exp), "sr": sr,
+                                              "embedder": onnx_files["embedder"]})["job_id"]
+    st = _wait_job(servers[0], job)
+    assert not st["error"] and "extract: done" in st["log"], st
+    ref = tmp_path / "ref"
+    shutil.copytree(exp / "sliced_audios_16k", ref / "sliced_audios_16k")
+    ex.extract_embeddings(str(ref), load_hubert_pt(files["embedder"]), device="cpu")
+    names = sorted(os.listdir(ref / "v2_extracted"))
+    assert names and sorted(os.listdir(exp / "v2_extracted")) == names
+    for name in names:
+        got, want = np.load(exp / "v2_extracted" / name), np.load(ref / "v2_extracted" / name)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    assert os.path.isfile(exp / "mute" / "v2_extracted" / "mute.npy")
+
+
 @pytest.mark.parametrize("vocoder,pitch", [("MRF HiFi-GAN", True), ("RefineGAN", True),
                                            ("Default", False)])
 def test_train_job_takes_vocoder_and_pitch_guidance(servers, tmp_path, monkeypatch,
@@ -665,7 +696,7 @@ def _jax_post_routes():
 def test_every_jax_route_is_served_or_answers_501():
     served = {"/api/convert", "/api/f0_extract", "/api/job_start", "/api/job_status",
               "/api/settings", "/api/i18n", "/api/effects", "/api/model_info", "/api/fuse",
-              "/api/tts"}
+              "/api/tts", "/api/export_onnx"}
     assert served | set(srv.UNPORTED_ROUTES) == _jax_post_routes()
     assert not served & set(srv.UNPORTED_ROUTES)
 
@@ -747,11 +778,66 @@ def test_tts_matches_jax_server(servers, files, monkeypatch):
     assert threads == ["rvc-device_0"]
 
 
+@pytest.fixture(scope="module")
+def onnx_files(servers, files, tmp_path_factory):
+    """The voice exported by the port's /api/export_onnx, and the HuBERT
+    of `files` exported by the port's `export_embedder`."""
+    from rvc_maker_tpu_torch.interop.onnx_embedder import export_embedder
+    from rvc_maker_tpu_torch.models.hubert import load_hubert_pt
+
+    d = tmp_path_factory.mktemp("onnx")
+    out = {"model": str(d / "voice.onnx"), "embedder": str(d / "hubert.onnx")}
+    assert _ok(servers[0], "/api/export_onnx", {"model": files["model"],
+                                                "output": out["model"]}) == {
+        "output": out["model"]}
+    export_embedder(load_hubert_pt(files["embedder"]), out["embedder"])
+    return out
+
+
+def test_export_onnx_route_matches_jax_server(servers, files, onnx_files, tmp_path):
+    """/api/export_onnx on both servers from one .pth: the port's file
+    loads in the JAX package's OnnxVoiceModel with the config and
+    metadata of the JAX server's file (its creation date aside); a
+    missing model answers 400."""
+    from rvc_maker_tpu.interop import onnx_proto as jproto
+    from rvc_maker_tpu.interop.onnx_voice import OnnxVoiceModel as JaxVoiceModel
+
+    ref_path = str(tmp_path / "jax.onnx")
+    assert _ok(servers[1], "/api/export_onnx", {"model": files["model"],
+                                                "output": ref_path}) == {"output": ref_path}
+    got, ref = JaxVoiceModel(onnx_files["model"]), JaxVoiceModel(ref_path)
+    assert got.cfg == ref.cfg and got.dynamic and got.min_frames == ref.min_frames == 21
+    md = [{e.key: e.value for e in jproto.load_model(p).metadata_props}
+          for p in (onnx_files["model"], ref_path)]
+    infos = [json.loads(m.pop("model_info")) for m in md]
+    for i in infos:
+        i.pop("creation_date")
+    assert md[0] == md[1] and infos[0] == infos[1]
+    assert _call(servers[0], "/api/export_onnx", {"model": "/no/such.pth",
+                                                  "output": str(tmp_path / "x.onnx")})[0] == 400
+
+
 @pytest.mark.parametrize("field", ["model", "embedder"])
-def test_onnx_files_answer_501(servers, files, field):
-    req = _convert_req(dict(files, **{field: "/models/x.onnx"}), _voice(0.3))
-    code, body = _call(servers[0], "/api/convert", req)
-    assert code == 501 and "ONNX" in body["error"]
+def test_onnx_files_convert_like_jax_server(servers, files, onnx_files, field, monkeypatch):
+    """/api/convert with the `.onnx` voice model or embedder on the port's
+    server against the JAX server with the `.pth` / `.pt` they came from,
+    fp32: within 1e-3 plus one int16 step, and on the device thread."""
+    _set_precision(servers, "fp32")
+    port_files = dict(files, **{field: onnx_files[field]})
+    pipe = srv._get_pipeline(port_files["model"], port_files["index"], port_files["rmvpe"],
+                             port_files["embedder"])
+    kind = {"model": "synth_params", "embedder": "hubert_params"}[field]
+    assert type(getattr(pipe, kind)).__name__ == {"model": "OnnxVoiceModel",
+                                                  "embedder": "OnnxEmbedder"}[field]
+    _with_jax_noise(pipe, monkeypatch)
+    audio = _voice(1.0, 190.0, 1)
+    got = _ok(servers[0], "/api/convert", _convert_req(port_files, audio))
+    ref = _ok(servers[1], "/api/convert", _convert_req(files, audio))
+    (sr_p, wav_p), (sr_j, wav_j) = (_decode(o["audio_b64"]) for o in (got, ref))
+    err = float(np.abs(wav_p - wav_j).max())
+    print(f"\n.onnx {field} /api/convert vs the JAX server's .pth: max abs {err:.3e}")
+    assert sr_p == sr_j == JCFG.sr and wav_p.shape == wav_j.shape
+    assert np.abs(wav_j).max() > 0.1 and err <= FP32_ATOL, err
 
 
 def test_warm_runs_the_serving_shapes(servers, files):

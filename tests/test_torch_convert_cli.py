@@ -1,7 +1,7 @@
 """The port's loaders and CLI on this slice's files: a transformers
 HuBERT directory against the JAX loader (tree exact, features <= 1e-4),
 `cli convert --device cpu` with the new F0 flags against the pipeline on
-the same files, and the CLI's missing-weight and ONNX errors.  The narrow
+the same files, and the CLI's missing-weight and --f0-onnx errors.  The narrow
 model is test_torch_convert_f0.py's."""
 
 import jax
@@ -138,8 +138,8 @@ def _cli(d, *flags):
     (["--f0-method", "fcpe"], ValueError, "needs --fcpe-path"),
     (["--f0-method", "rmvpe"], ValueError, "needs --rmvpe-path"),
     (["--f0-method", "hybrid[pm+crepe-tiny]"], ValueError, "needs --crepe-path"),
-    (["--f0-method", "fcpe", "--fcpe-path", "fcpe.onnx"], ValueError,
-     "ONNX F0 predictors are not ported"),
+    (["--f0-method", "rmvpe", "--rmvpe-path", "rmvpe.pt", "--f0-onnx"], ValueError,
+     "is not a .onnx predictor"),
     (["--f0-method", "rmvpe", "--rmvpe-path", "missing.pt"], FileNotFoundError, "--rmvpe-path"),
     (["--f0-method", "hybrid[pm+crepe-full]", "--crepe-path", "crepe_tiny.pth"], ValueError,
      "not capacity 'full'"),
