@@ -219,6 +219,24 @@ Phases, each printed as it runs; any failure exits non-zero:
               wall s and node count, and each route's wall s and profiler
               device ms beside the native one's.  The three exports run
               together, each in a process of its own on the host CPU.
+ 17. separate  vocal and music separation, fp32: (a) a full-width HTDemucs
+              (the demucs v4 constructor's channels 48, growth 2, nfft
+              4096, depth 4, 5 transformer layers of 8 heads, 4 sources,
+              44.1 kHz, segment 10 s; random weights from a seed) written
+              as a reference .th, `cli separate` on a 20 s stereo song (3
+              windows, 1 shift), then `separate_vocals` on it timed and
+              under torch.profiler; (b) one 10 s window of it, card
+              against CPU <= 1e-3, and a small HDemucs (BLSTM + LocalState)
+              and a cac=False HDemucs (Wiener EM), each one 4 s window card
+              against CPU <= 1e-3; (c) a stand-in MDX-Net graph at the UVR
+              "Inst HQ" I/O ((1, 4, 3072, 256), n_fft 6144, hop 1024)
+              exported by `interop/onnx_export.py`, `cli separate` with it,
+              `mdx_separate` timed and profiled, `mdx_demix` on 8 s card
+              against CPU <= 1e-4 x max(1, |ref|max); (d) `/api/separate`
+              with the .th and the .onnx, both 200; (e) `cli separate-music
+              --backing --reverb` with the stand-in graph for every pass.
+              Each driven call runs with the resblock counts zeroed just
+              before and read just after: 0, the path runs no hand kernel.
 
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
@@ -3282,6 +3300,295 @@ def parallel_phase(work: str, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: vocal and music separation (models/demucs.py, pipelines/
+# separate.py, pipelines/mdx.py, pipelines/separate_music.py)
+# ---------------------------------------------------------------------------
+
+SEP_SR = 44100
+SEP_SECONDS = 20.0                # the song: 3 HTDemucs windows of 10 s at overlap 0.25
+SEP_TOL = 1e-3                    # Demucs stems, card against CPU (TF32 off)
+MDX_CARD_TOL = 1e-4               # mdx_demix, card against CPU, x max(1, |ref|max)
+# the demucs v4 HTDemucs constructor's widths: channels 48 (growth 2), nfft 4096,
+# depth 4, 5 transformer layers of 8 heads, 4 sources at 44.1 kHz, segment 10 s
+HTDEMUCS_WIDTHS = dict(channels=48, t_layers=5)
+# UVR MDX-Net "Inst HQ" graphs' I/O: (1, 4, dim_f 3072, dim_t 256), n_fft 6144, hop 1024
+MDX_IO = (1, 4, 3072, 256)
+MDX_CPU_SECONDS = 8.0             # the part of the song mdx_demix runs on both devices
+
+
+def separation_song(seconds: float, sr: int = SEP_SR, seed: int = 17) -> np.ndarray:
+    """(L, 2) float32: a sung line (harmonics with vibrato) panned left of
+    centre over a bass line and noise bursts on the beat, from `seed`."""
+    rs = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 220.0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t)) * 2 ** (np.floor(t) % 3 / 12)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(0.25 / h * np.sin(h * phase) for h in (1, 2, 3, 4))
+    bass = 0.2 * np.sin(2 * np.pi * 55 * t)
+    drums = 0.3 * rs.randn(len(t)) * np.exp(-20 * (t % 0.5))
+    left, right = 0.7 * voice + bass + drums, 0.4 * voice + bass + 0.8 * drums
+    return (0.5 * np.stack([left, right], axis=1)).astype(np.float32)
+
+
+def write_wav_file(path: str, audio: np.ndarray, sr: int) -> str:
+    from scipy.io import wavfile
+
+    wavfile.write(path, sr, (np.clip(audio, -1, 1) * 32767).astype(np.int16))
+    return path
+
+
+def write_demucs_th(path: str, sd: dict, cfg, arch: str, **kwargs) -> str:
+    """The reference demucs package {klass, args, kwargs, state}, its klass
+    the port's marker pickled under demucs.<module>.<arch>."""
+    from rvc_maker_tpu_torch.interop import demucs_load
+
+    demucs_load.install_demucs_shims()
+    kwargs = dict(sources=list(cfg.sources), audio_channels=cfg.audio_channels, nfft=cfg.nfft,
+                  depth=cfg.depth, samplerate=cfg.samplerate, segment=cfg.segment,
+                  cac=cfg.cac, wiener_iters=cfg.wiener_iters,
+                  wiener_residual=cfg.wiener_residual, **kwargs)
+    torch.save({"klass": demucs_load.marker_class("demucs", arch.lower(), arch), "args": (),
+                "kwargs": kwargs, "state": sd}, path)
+    return path
+
+
+def mdx_stand_in(p, spek):
+    """A stand-in for an MDX-Net U-Net, (B, 4, F, T) -> (B, 4, F, T): a
+    3x3 conv, one level down (stride 2) and up (2x2 transposed), a skip,
+    a 1x1 conv out."""
+    F = torch.nn.functional
+    h1 = torch.relu(F.conv2d(spek, p["c1"]["w"], p["c1"]["b"], padding=1))
+    h2 = torch.relu(F.conv2d(h1, p["c2"]["w"], p["c2"]["b"], stride=2, padding=1))
+    up = torch.relu(F.conv_transpose2d(h2, p["up"]["w"], p["up"]["b"], stride=2))
+    return F.conv2d(up + h1, p["out"]["w"], p["out"]["b"])
+
+
+def mdx_stand_in_params(width: int = 32, seed: int = 17) -> dict:
+    rs = np.random.RandomState(seed)
+
+    def conv(cout, cin, k, transposed=False):
+        shape = (cin, cout, k, k) if transposed else (cout, cin, k, k)
+        return {"w": torch.as_tensor(rs.randn(*shape).astype(np.float32) / math.sqrt(cin * k * k)),
+                "b": torch.as_tensor(rs.randn(cout).astype(np.float32) * 0.02)}
+
+    return {"c1": conv(width, 4, 3), "c2": conv(2 * width, width, 3),
+            "up": conv(width, 2 * width, 2, transposed=True), "out": conv(4, width, 1)}
+
+
+def demucs_card_vs_cpu(cfg, sd, seconds: float, device: str, seed: int) -> dict:
+    """apply_model_single on one window of `seconds`, on `device` and on
+    the CPU, TF32 off: max abs of the stems."""
+    from rvc_maker_tpu_torch.device import full_fp32, tree_to
+    from rvc_maker_tpu_torch.models import demucs as demucs_mod
+
+    params = demucs_mod.params_from_state_dict(sd, cfg)
+    mix = torch.as_tensor(separation_song(seconds, cfg.samplerate, seed).T[None].copy())
+    dev = torch.device(device)
+    with torch.inference_mode(), full_fp32(dev):
+        t0 = time.perf_counter()
+        ref = demucs_mod.apply_model_single(params, cfg, mix).numpy()
+        cpu_s = time.perf_counter() - t0
+        got = demucs_mod.apply_model_single(tree_to(params, dev), cfg, mix.to(dev)).cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    if not (np.isfinite(got).all() and got.shape == ref.shape == (1, len(cfg.sources),
+                                                                      cfg.audio_channels,
+                                                                      mix.shape[-1])):
+        raise AssertionError(f"demucs stems: shape {got.shape}, finite {np.isfinite(got).all()}")
+    if err > SEP_TOL:
+        raise AssertionError(f"demucs stems card against CPU: max abs {err} > {SEP_TOL}")
+    return dict(max_abs_err=err, stems_std=float(ref.std()), cpu_s=cpu_s)
+
+
+def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
+                   small=dict(channels=16), mdx_io=MDX_IO, mdx_hop: int = 1024) -> dict:
+    """Phase 17 (module docstring).  `device` and the sizes are arguments
+    for a rehearsal on the CPU at small widths."""
+    import dataclasses
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.app import server as srv
+    from rvc_maker_tpu_torch.interop import onnx_proto
+    from rvc_maker_tpu_torch.interop.demucs_load import load_demucs_th
+    from rvc_maker_tpu_torch.interop.from_jax import random_demucs_state_dict
+    from rvc_maker_tpu_torch.interop.onnx_export import export_onnx
+    from rvc_maker_tpu_torch.interop.onnx_run import OnnxGraph
+    from rvc_maker_tpu_torch.models.demucs import DemucsConfig
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines import mdx as mdx_mod
+    from rvc_maker_tpu_torch.pipelines.separate import separate_vocals
+    from scipy.io import wavfile
+
+    d = os.path.join(work, "separate")
+    os.makedirs(d, exist_ok=True)
+    dev_flag = [] if device == "cuda" else ["--device", device]
+    res: dict = {"launches": {}}
+    song = separation_song(SEP_SECONDS)
+    song_path = write_wav_file(os.path.join(d, "song.wav"), song, SEP_SR)
+
+    def driven(label, fn):
+        """fn() with the resblock launch counts zeroed just before and read
+        just after (separation runs no resblock: 0), its wall s and the
+        device's peak GiB."""
+        old = reset_counts(rb)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            counts = reset_counts(rb, old)
+        wall = time.perf_counter() - t0
+        res["launches"][label] = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"), counts))
+        if any(counts):
+            raise AssertionError(f"{label}: resblock launches {counts} on the separation path")
+        res[f"{label}_wall_s"] = wall
+        res[f"{label}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {label}: {wall:.3f} s wall, peak {res[f'{label}_peak_gib']:.2f} GiB, "
+            f"resblock launches {sum(counts)}")
+        return out
+
+    def read_stem(path, frames):
+        sr, x = wavfile.read(path)
+        x = x.astype(np.float64) / 32768.0
+        if sr != SEP_SR or x.shape != (frames, 2) or not np.isfinite(x).all() or x.std() < 1e-3:
+            raise AssertionError(f"{path}: sr {sr}, shape {x.shape}, std {x.std()}")
+        return x
+
+    # (a) full-width HTDemucs as a .th through `cli separate`, 3 windows, 1 shift
+    cfg = DemucsConfig(nfft=4096, depth=4, segment=10.0, samplerate=SEP_SR, t_heads=8)
+    t0 = time.perf_counter()
+    sd = random_demucs_state_dict(cfg, seed=17, **htdemucs)
+    th = write_demucs_th(os.path.join(d, "htdemucs.th"), sd, cfg, "HTDemucs",
+                         t_layers=htdemucs["t_layers"], channels=htdemucs["channels"])
+    res["htdemucs"] = dict(parameters=int(sum(v.numel() for v in sd.values())),
+                           write_s=time.perf_counter() - t0)
+    log(f"  HTDemucs {htdemucs}: {res['htdemucs']['parameters']:,} parameters, "
+        f"written in {res['htdemucs']['write_s']:.1f} s")
+    v_path, i_path = os.path.join(d, "v.wav"), os.path.join(d, "i.wav")
+    driven("cli_separate_th", lambda: cli.main(
+        ["separate", "--model", th, "--input", song_path, "--output-vocals", v_path,
+         "--output-instrumental", i_path, "--shifts", "1", *dev_flag]))
+    vocals = read_stem(v_path, len(song))
+    inst = read_stem(i_path, len(song))
+    res["htdemucs"]["stems_std"] = [float(vocals.std()), float(inst.std())]
+    # the same separation in process, once for its wall time and once profiled
+    params, _ = load_demucs_th(th, device=device)
+    driven("separate_vocals", lambda: separate_vocals(params, cfg, song, SEP_SR, shifts=1))
+    if device == "cuda":
+        res["htdemucs"]["profile"] = profile_call(
+            "separate_vocals, 20 s, 3 windows, 1 shift",
+            lambda: separate_vocals(params, cfg, song, SEP_SR, shifts=1),
+            res["separate_vocals_wall_s"])
+    del params
+    # (b) card against CPU: one 10 s window of the full-width model, then a
+    # small HDemucs (BLSTM + LocalState) and a cac=False HDemucs (Wiener EM)
+    res["htdemucs"]["card_vs_cpu"] = demucs_card_vs_cpu(cfg, sd, 10.0, device, 18)
+    log(f"  HTDemucs one 10 s window card against CPU: max abs "
+        f"{res['htdemucs']['card_vs_cpu']['max_abs_err']:.3e} (stems std "
+        f"{res['htdemucs']['card_vs_cpu']['stems_std']:.3e}; CPU "
+        f"{res['htdemucs']['card_vs_cpu']['cpu_s']:.1f} s)")
+    del sd
+    hd = DemucsConfig(nfft=4096, depth=6, has_transformer=False, segment=4.0,
+                      use_train_segment=False)
+    for name, c in (("hdemucs", hd), ("hdemucs_wiener", dataclasses.replace(
+            hd, cac=False, wiener_iters=1, wiener_residual=True))):
+        res[name] = demucs_card_vs_cpu(c, random_demucs_state_dict(c, seed=19, **small), 4.0,
+                                       device, 20)
+        log(f"  {name} {small} one 4 s window card against CPU: max abs "
+            f"{res[name]['max_abs_err']:.3e} (stems std {res[name]['stems_std']:.3e})")
+
+    # (c) a stand-in MDX-Net graph at the Inst HQ I/O, exported by the port
+    t0 = time.perf_counter()
+    onnx_path = os.path.join(d, "mdx_inst_hq.onnx")
+    model = export_onnx(mdx_stand_in, (torch.zeros(mdx_io),), params=mdx_stand_in_params(),
+                        input_names=["input"], output_names=["output"])
+    onnx_proto.save_model(model, onnx_path)
+    res["mdx"] = dict(export_s=time.perf_counter() - t0, io=list(mdx_io))
+    n_fft = 2 * mdx_io[2]                # dim_f 3072 of n_fft 6144's 3073 bins
+    mdx_flags = ["--mdx-n-fft", str(n_fft), "--mdx-hop", str(mdx_hop)]
+    mv, mi = os.path.join(d, "mv.wav"), os.path.join(d, "mi.wav")
+    driven("cli_separate_onnx", lambda: cli.main(
+        ["separate", "--model", onnx_path, "--input", song_path, "--output-vocals", mv,
+         "--output-instrumental", mi, *mdx_flags, *dev_flag]))
+    read_stem(mv, len(song))
+    read_stem(mi, len(song))
+    graph = OnnxGraph(onnx_path, device=device)
+    p = mdx_mod.params_from_graph(graph, n_fft=n_fft, hop_length=mdx_hop, compensate=1.035)
+    mix = song.T.copy()
+    driven("mdx_separate", lambda: mdx_mod.mdx_separate(graph, mix, p))
+    if device == "cuda":
+        res["mdx"]["profile"] = profile_call(
+            "mdx_separate, 20 s", lambda: mdx_mod.mdx_separate(graph, mix, p),
+            res["mdx_separate_wall_s"])
+    part = mix[:, :int(MDX_CPU_SECONDS * SEP_SR)]
+    got = mdx_mod.mdx_demix(graph, part, p)
+    t0 = time.perf_counter()
+    ref = mdx_mod.mdx_demix(OnnxGraph(onnx_path, device="cpu"), part, p)
+    res["mdx"]["cpu_s"] = time.perf_counter() - t0
+    err = float(np.abs(got - ref).max())
+    res["mdx"]["card_vs_cpu_max_abs_err"] = err
+    bound = MDX_CARD_TOL * max(1.0, float(np.abs(ref).max()))
+    log(f"  MDX stand-in {mdx_io}: exported in {res['mdx']['export_s']:.1f} s; mdx_demix on "
+        f"{MDX_CPU_SECONDS:.0f} s card against CPU max abs {err:.3e} (bound {bound:.3e}; CPU "
+        f"{res['mdx']['cpu_s']:.1f} s)")
+    if not np.isfinite(got).all() or err > bound:
+        raise AssertionError(f"mdx_demix card against CPU: max abs {err} > {bound}")
+    del graph
+
+    # (d) /api/separate with the .th and with the .onnx
+    srv.SETTINGS_PATH = os.path.join(d, "settings.json")
+    srv.set_device(device)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        import base64
+        import io
+
+        buf = io.BytesIO()
+        wavfile.write(buf, SEP_SR, (song[:5 * SEP_SR].mean(axis=1) * 32767).astype(np.int16))
+        audio_b64 = base64.b64encode(buf.getvalue()).decode()
+        for kind, model_path in (("th", th), ("onnx", onnx_path)):
+            req = {"audio_b64": audio_b64, "model": model_path, "mdx_n_fft": n_fft,
+                   "mdx_hop": mdx_hop}
+            code, body = driven(f"api_separate_{kind}",
+                                lambda r=req: post(httpd.server_address[1], "/api/separate", r))
+            if code != 200:
+                raise AssertionError(f"/api/separate ({kind}) answered {code}: {body.get('error')}")
+            stems = [decode_wav(body[k]) for k in ("vocals_b64", "instrumental_b64")]
+            if body["sr"] != SEP_SR or any(s.shape != (5 * SEP_SR,) for s in stems):
+                raise AssertionError(f"/api/separate ({kind}): sr {body['sr']}, "
+                                     f"shapes {[s.shape for s in stems]}")
+            res[f"api_separate_{kind}_code"] = code
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
+
+    # (e) `cli separate-music` with the karaoke split and dereverb, every
+    # pass the stand-in graph
+    out_dir = os.path.join(d, "stems")
+    driven("cli_separate_music", lambda: cli.main(
+        ["separate-music", "--input", song_path, "--output", out_dir, "--model-name", onnx_path,
+         "--kara-model", onnx_path, "--reverb-model", onnx_path, "--backing", "--reverb",
+         *mdx_flags, *dev_flag]))
+    stems = sorted(os.listdir(os.path.join(out_dir, "song")))
+    want = sorted(f"{s}.wav" for s in ("Original_Vocals", "Instruments", "Main_Vocals",
+                                       "Backing_Vocals", "Original_Vocals_No_Reverb",
+                                       "Main_Vocals_No_Reverb"))
+    if stems != want:
+        raise AssertionError(f"separate-music wrote {stems}, not {want}")
+    for stem in stems:
+        read_stem(os.path.join(out_dir, "song", stem), len(song))
+    res["separate_music_stems"] = stems
+    res["resblock_launches"] = sum(sum(c.values()) for c in res["launches"].values())
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -3424,6 +3731,14 @@ def run(work: str) -> int:
     RESULTS["onnx"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 16 in {RESULTS['onnx']['phase_s']:.1f} s")
     del model
+
+    log(f"[17 separate] HTDemucs at full width and a stand-in MDX-Net graph through cli "
+        f"separate, /api/separate and cli separate-music ({time.perf_counter() - t_start:.1f} "
+        "s in)")
+    t0 = time.perf_counter()
+    RESULTS["separate"] = separate_phase(work)
+    RESULTS["separate"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 17 in {RESULTS['separate']['phase_s']:.1f} s")
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -3437,6 +3752,11 @@ def run(work: str) -> int:
     i8p, i8t = RESULTS["int8"]["pipeline"], RESULTS["int8"]["totals"]
     runs, tkb = ta["runs"], ta["train_kernel_bf16"]["totals"]
     par_ranks = RESULTS["parallel"]["ranks"]
+
+    def sep_launches(kernel: str) -> int:
+        """Phase 17's launches of a resblock kernel over its driven calls."""
+        return sum(c[kernel] for c in RESULTS["separate"]["launches"].values())
+
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
     common = dict(route="cuda", replaces="rvc_maker_tpu/ops/pallas_resblock.py:147",
@@ -3482,6 +3802,8 @@ def run(work: str) -> int:
                                                  for r in par_ranks],
              # phase 16: the .onnx voice model runs its convs on cuDNN
              launches_onnx=RESULTS["onnx"]["resblock_launches"]["onnx"],
+             # phase 17: separation runs no resblock (Demucs, MDX-Net)
+             launches_separate=sep_launches("resblock_tc"),
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),
@@ -3492,6 +3814,7 @@ def run(work: str) -> int:
              launches_serve_bf16=serve["bf16"]["resblock_tc_bf16_launches"],
              launches_train_bf16=runs["nsf_bf16"]["launches_tc_bf16"],
              launches_train_bf16_checkpointing=runs["nsf_bf16_ckpt"]["launches_tc_bf16"],
+             launches_separate=sep_launches("resblock_tc_bf16"),
              train_fwd_ms=tkb["fwd_ms"], train_fwd_bound_ms=tkb["bound_ms"],
              train_fwd_library_ms=tkb["library_fwd_ms"], train_fwd_plain_ms=tkb["plain_fwd_ms"],
              max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
@@ -3504,6 +3827,8 @@ def run(work: str) -> int:
              + serve["bf16"]["resblock_fma_launches"],
              launches_serve_bf16=serve["bf16"]["resblock_fma_launches"],
              launches_main_fma=main["resblock_launches"] - main["resblock_tc_launches"],
+             launches_separate=sep_launches("resblock") - sep_launches("resblock_tc")
+             - sep_launches("resblock_tc_bf16"),
              max_abs_err=totals["bf16_fma_max_abs_err"], ms=totals["bf16_fma_ms"],
              fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
              fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"],

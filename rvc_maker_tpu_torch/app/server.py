@@ -13,13 +13,17 @@ RVC_TPU_SERVE_DURING_TRAIN=1), `/api/f0_extract` (yin, pyin, swipe, pm,
 dio, harvest), `/api/job_start` and `/api/job_status` (preprocess,
 extract, train), `/api/settings`, `/api/effects`, `/api/model_info`,
 `/api/fuse`, `/api/export_onnx` (host work, in the handler thread: the
-export traces on the CPU) and `/api/tts` (its conversion on the device
+export traces on the CPU), `/api/tts` (its conversion on the device
+thread) and `/api/separate` (Demucs `.th` or MDX `.onnx`, on the device
 thread).  `.onnx` voice models and embedders convert and extract like
 `.pth` and `.pt` files, their graphs run on the server's device
 (`interop/onnx_run.py`).  The routes whose modules are not yet ported
 (`UNPORTED_ROUTES`) and the `create_dataset` job answer 501 with a
 message that names what is missing.
-A malformed request answers 400; a fault in the library answers 500.
+A malformed request answers 400, and so does a caller's mistake that
+the library's validation finds (`errors.BadRequest`: files that cannot
+be combined, an unreadable model); any other fault in the library
+answers 500.
 
 Every request runs under torch.inference_mode (grad mode is
 thread-local, and each request has its own handler thread).  Conversion
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, use_full_fp32
+from ..errors import BadRequest
 from ..utils.audio import peak_normalize, resample
 from ..utils.i18n import (available_languages, catalog, current_language,
                           set_language, tr)
@@ -78,7 +83,6 @@ _JOB_COUNTER = itertools.count()
 # the JAX server's routes whose modules the port has not ported yet,
 # each with what it needs (ROADMAP queue 1)
 UNPORTED_ROUTES = {
-    "/api/separate": "source separation (pipelines/separate.py, pipelines/mdx.py)",
     "/api/download": "model download (utils/scrapers.py)",
     "/api/audio_edit": "audio editing (edit/pipeline.py)",
     "/api/convert_whisper": "diarized conversion (speaker/diarize.py)",
@@ -689,7 +693,8 @@ class Handler(BaseHTTPRequestHandler):
                   "/api/model_info": self._api_model_info,
                   "/api/fuse": self._api_fuse,
                   "/api/export_onnx": self._api_export_onnx,
-                  "/api/tts": self._api_tts}
+                  "/api/tts": self._api_tts,
+                  "/api/separate": self._api_separate}
         try:
             n = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(n) or b"{}")
@@ -713,10 +718,11 @@ class Handler(BaseHTTPRequestHandler):
         elif isinstance(e, BatcherOverloaded):
             # backpressure: the client retries, the server keeps serving
             self._json({"error": str(e), "retry": True}, 503)
-        elif (isinstance(e, (KeyError, ValueError, TypeError, binascii.Error,
-                             json.JSONDecodeError))
-              and not _raised_in_library(e)):
-            # a malformed request, raised while app/ parses it
+        elif isinstance(e, BadRequest) or (
+                isinstance(e, (KeyError, ValueError, TypeError, binascii.Error,
+                               json.JSONDecodeError)) and not _raised_in_library(e)):
+            # a malformed request, raised while app/ parses it, or a
+            # mistake the library's validation found
             logger.warning("%s", tr("bad_request", path=self.path, error=repr(e)))
             self._json({"error": tr("bad_request", path=self.path, error=str(e))}, 400)
         else:
@@ -832,6 +838,41 @@ class Handler(BaseHTTPRequestHandler):
             resp.update(converted_b64=_audio_to_wav_b64(out, pipe.cfg.sr),
                         converted_sr=pipe.cfg.sr)
         self._json(resp)
+
+    def _api_separate(self, req):
+        """Vocals and instrumental of the request's WAV (made stereo), each
+        averaged back to mono in the response, with a Demucs `.th` at its
+        own rate or an MDX `.onnx` at the input's, on the device thread
+        (JAX server.py:693-718)."""
+        wav, sr = _wav_bytes_to_audio(base64.b64decode(req["audio_b64"]))
+        if wav.size == 0:
+            raise ValueError("the request's audio is empty")
+        model = req["model"]
+        if not os.path.isfile(model):
+            raise ValueError(f"no such model file {model!r}")
+        n_fft, hop = _int_field(req, "mdx_n_fft", 6144), _int_field(req, "mdx_hop", 1024)
+        device = _STATE["device"]
+
+        def run():
+            if model.endswith(".onnx"):
+                from ..interop.onnx_run import OnnxGraph
+                from ..pipelines import mdx as mdx_mod
+
+                graph = OnnxGraph(model, device=device)
+                p = mdx_mod.params_from_graph(graph, n_fft=n_fft, hop_length=hop)
+                vocals, inst = mdx_mod.mdx_separate(graph, np.stack([wav, wav]), p)
+                return vocals, inst, sr
+            from ..interop.demucs_load import load_demucs_th
+            from ..pipelines.separate import separate_vocals
+
+            params, cfg = load_demucs_th(model, device=device)
+            vocals, inst = separate_vocals(params, cfg, wav, sr)      # each (L, 2)
+            return vocals.T, inst.T, cfg.samplerate
+
+        vocals, inst, out_sr = _on_device_thread(run)
+        self._json({"vocals_b64": _audio_to_wav_b64(vocals.mean(0), out_sr),
+                    "instrumental_b64": _audio_to_wav_b64(inst.mean(0), out_sr),
+                    "sr": out_sr})
 
     def _api_job_status(self, req):
         with _JOBS_LOCK:

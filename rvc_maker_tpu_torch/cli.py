@@ -33,6 +33,13 @@
     python -m rvc_maker_tpu_torch.cli info --model model.pth
     python -m rvc_maker_tpu_torch.cli export-onnx --model model.pth \
         --output model.onnx [--static --max-frames 800]
+    python -m rvc_maker_tpu_torch.cli separate --model htdemucs.th | bag.yaml \
+        | mdx.onnx --input song.wav --output-vocals v.wav \
+        [--output-instrumental i.wav --shifts 1 --invert-using-spec]
+        [--mdx-n-fft 6144 --mdx-hop 1024 --mdx-denoise]
+    python -m rvc_maker_tpu_torch.cli separate-music --input song.wav \
+        --output stems/ --model-name htdemucs.yaml [--backing --kara-model
+        kara.onnx] [--reverb --reverb-model reverb.onnx] [--clean-audio]
 
 Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
@@ -55,7 +62,12 @@ JAX package's command line and changes nothing).  index writes the
 and writes WAV and FLAC (other export formats through ffmpeg), applies
 a preset JSON first, shifts the input's formants before the conversion
 and spectral-gates its output (`utils/noisereduce.py`, on the device).
-extract, train, index, convert and tts --model run on the card unless
+separate runs a Demucs `.th`, a `.yaml` bag of them or an MDX-Net `.onnx`;
+separate-music chains it with a karaoke split, a dereverb pass and the
+noise gate, its registry names resolved only to files already in
+$RVC_TPU_ASSETS/models/uvr5 (default assets/).
+extract, train, index, convert, separate, separate-music and tts
+--model run on the card unless
 `--device cpu` is passed; effects, fuse and info are host work.  tts
 needs the network (the Edge read-aloud service, or Google's with
 --google; RVC_TPU_EDGE_TTS_URL names another Edge endpoint).
@@ -404,6 +416,79 @@ def cmd_export_onnx(args) -> int:
     return 0
 
 
+def cmd_separate(args) -> int:
+    """Vocals / instrumental from a Demucs `.th`, a `.yaml` bag of them or
+    an MDX `.onnx`, on args.device (JAX cli.py:343-402)."""
+    import numpy as np
+
+    from .utils.audio import read_wav, save_wav
+    from .utils.i18n import tr
+
+    if not os.path.isfile(args.input):
+        raise FileNotFoundError(f"--input: no such file {args.input!r}")
+    audio, sr = read_wav(args.input)
+    if args.model.endswith(".onnx"):
+        from .interop.onnx_run import OnnxGraph
+        from .pipelines import mdx as mdx_mod
+
+        graph = OnnxGraph(args.model, device=args.device)
+        p = mdx_mod.params_from_graph(graph, n_fft=args.mdx_n_fft, hop_length=args.mdx_hop,
+                                      compensate=args.mdx_compensate, overlap=args.mdx_overlap,
+                                      enable_denoise=args.mdx_denoise)
+        if audio.ndim == 1:
+            audio = np.stack([audio, audio], axis=1)
+        vocals, inst = mdx_mod.mdx_separate(graph, audio.T.astype(np.float32), p,
+                                            invert_using_spec=args.invert_using_spec)
+        # the primary stem is the vocals for Kim_Vocal-style models
+        vocals, inst, out_sr = vocals.T, inst.T, sr
+    elif args.model.endswith((".yaml", ".yml")):
+        from .interop.demucs_load import load_demucs_bag
+        from .pipelines.separate import apply_bag
+
+        bag = load_demucs_bag(args.model, device=args.device)
+        if audio.ndim == 1:
+            audio = np.stack([audio, audio], axis=1)
+        out = apply_bag(bag, audio.T[None].astype(np.float32), shifts=args.shifts)
+        cfg = bag[0][1]
+        v_idx = cfg.sources.index("vocals")
+        vocals = out[0, v_idx].T
+        inst = sum(out[0, k] for k in range(len(cfg.sources)) if k != v_idx).T
+        out_sr = cfg.samplerate
+    else:
+        from .interop.demucs_load import load_demucs_th
+        from .pipelines.separate import separate_vocals
+
+        params, cfg = load_demucs_th(args.model, device=args.device)
+        vocals, inst = separate_vocals(params, cfg, audio, sr, shifts=args.shifts,
+                                       invert_using_spec=args.invert_using_spec)
+        out_sr = cfg.samplerate
+    save_wav(args.output_vocals, vocals, out_sr)
+    if args.output_instrumental:
+        save_wav(args.output_instrumental, inst, out_sr)
+    print(tr("separator_success_3") + f" {args.output_vocals}"
+          + (f" and {args.output_instrumental}" if args.output_instrumental else ""))
+    return 0
+
+
+def cmd_separate_music(args) -> int:
+    """The whole stem chain (JAX cli.py:405-418); model names resolve only
+    to files already in the settings' model_dir."""
+    from .pipelines.separate_music import SeparationSettings, separate_music
+    from .utils.i18n import tr
+
+    s = SeparationSettings(
+        model_name=args.model_name, kara_model=args.kara_model,
+        reverb_model=args.reverb_model, backing=args.backing, reverb=args.reverb,
+        backing_reverb=args.backing_reverb, clean_audio=args.clean_audio,
+        clean_strength=args.clean_strength, shifts=args.shifts,
+        sample_rate=args.sample_rate, export_format=args.export_format,
+        mdx_denoise=args.mdx_denoise, mdx_overlap=args.mdx_overlap, mdx_hop=args.mdx_hop,
+        mdx_n_fft=args.mdx_n_fft, device=args.device)
+    written = separate_music(args.input, args.output, s)
+    print(tr("separator_success_3") + " " + ", ".join(f"{k}: {v}" for k, v in written.items()))
+    return 0
+
+
 def _conversion_flags(c) -> None:
     """The flags of `_build_convert_pipeline`, shared by convert and tts."""
     c.add_argument("--rmvpe-path", default="",
@@ -589,6 +674,46 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frame capacity of a --static graph (a dynamic one serves any "
                         "length >= 21 frames)")
     o.set_defaults(func=cmd_export_onnx)
+
+    ss = sub.add_parser("separate", help="vocals / instrumental with Demucs or MDX-Net")
+    ss.add_argument("--model", required=True, help="demucs .th checkpoint, .yaml bag, or MDX .onnx")
+    ss.add_argument("--input", required=True)
+    ss.add_argument("--output-vocals", required=True)
+    ss.add_argument("--output-instrumental", default="")
+    ss.add_argument("--shifts", type=int, default=0)
+    ss.add_argument("--invert-using-spec", action="store_true")
+    ss.add_argument("--mdx-n-fft", type=int, default=6144,
+                    help="MDX model FFT size (from the model registry)")
+    ss.add_argument("--mdx-hop", type=int, default=1024)
+    ss.add_argument("--mdx-compensate", type=float, default=1.035)
+    ss.add_argument("--mdx-overlap", type=float, default=0.25)
+    ss.add_argument("--mdx-denoise", action="store_true")
+    ss.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ss.set_defaults(func=cmd_separate)
+
+    sm = sub.add_parser("separate-music", help="full stem chain: separation + karaoke split "
+                                               "+ dereverb (reference separator_music.py)")
+    sm.add_argument("--input", required=True)
+    sm.add_argument("--output", default="./audios")
+    sm.add_argument("--model-name", default="HT-Normal",
+                    help="registry name (HT-Normal, Kim_Vocal_1, ...) whose file is in "
+                         "$RVC_TPU_ASSETS/models/uvr5, or a model path (.th/.yaml/.onnx)")
+    sm.add_argument("--kara-model", default="Version-1")
+    sm.add_argument("--reverb-model", default="Reverb_HQ")
+    sm.add_argument("--backing", action="store_true")
+    sm.add_argument("--reverb", action="store_true")
+    sm.add_argument("--backing-reverb", action="store_true")
+    sm.add_argument("--clean-audio", action="store_true")
+    sm.add_argument("--clean-strength", type=float, default=0.7)
+    sm.add_argument("--shifts", type=int, default=2)
+    sm.add_argument("--sample-rate", type=int, default=44100)
+    sm.add_argument("--export-format", default="wav")
+    sm.add_argument("--mdx-denoise", action="store_true")
+    sm.add_argument("--mdx-overlap", type=float, default=0.25)
+    sm.add_argument("--mdx-hop", type=int, default=1024)
+    sm.add_argument("--mdx-n-fft", type=int, default=6144)
+    sm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sm.set_defaults(func=cmd_separate_music)
     return ap
 
 

@@ -633,3 +633,258 @@ def hubert_state_dict(tree):
         ln(f"{p}.final_layer_norm", st["ln2"], i)
     lin("final_proj", tree["final_proj"])
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Demucs (HTDemucs / HDemucs): the JAX tree, and a reference state dict
+# ---------------------------------------------------------------------------
+
+def _dm_conv(p) -> dict:
+    """conv1d (K, Cin, Cout) -> (Cout, Cin, K); conv2d HWIO -> OIHW."""
+    w = np.asarray(p["w"])
+    w = np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else np.transpose(w, (2, 1, 0))
+    out = {"w": _t(np.ascontiguousarray(w))}
+    if p.get("b") is not None:
+        out["b"] = _t(p["b"])
+    return out
+
+
+def _dm_convt(p) -> dict:
+    """convT1d (K, Cin, Cout) -> (Cin, Cout, K); convT2d, stored
+    pre-flipped HWIO in JAX, -> un-flipped (Cin, Cout, Kh, Kw)."""
+    w = np.asarray(p["w"])
+    if w.ndim == 4:
+        w = np.transpose(np.flip(w, axis=(0, 1)), (2, 3, 0, 1))
+    else:
+        w = np.transpose(w, (1, 2, 0))
+    out = {"w": _t(np.ascontiguousarray(w))}
+    if p.get("b") is not None:
+        out["b"] = _t(p["b"])
+    return out
+
+
+def _dm_norm(p):
+    if p is None:
+        return None
+    return {"gamma": _t(p["gamma"]), "beta": _t(p["beta"]), "groups": int(p.get("groups", 1))}
+
+
+def _dm_dconv(p) -> dict:
+    from ..models.demucs import make_blstm
+
+    layers = []
+    for lp in p["layers"]:
+        layer = {"conv1": _dm_conv(lp["conv1"]), "norm1": _dm_norm(lp.get("norm1")),
+                 "kernel": int(lp["kernel"]), "dilation": int(lp["dilation"]),
+                 "conv2": _dm_conv(lp["conv2"]), "norm2": _dm_norm(lp.get("norm2")),
+                 "scale": _t(lp["scale"])}
+        if "lstm" in lp:
+            names = {"w_ih": "weight_ih_l{}", "w_hh": "weight_hh_l{}", "b_ih": "bias_ih_l{}",
+                     "b_hh": "bias_hh_l{}"}
+            weights = {}
+            for i, ll in enumerate(lp["lstm"]["layers"]):
+                for key, name in names.items():
+                    weights[name.format(i)] = ll[key]
+                    weights[name.format(i) + "_reverse"] = ll[key + "_r"]
+            layer["lstm"] = {"lstm": make_blstm(weights), "linear": _lin(lp["lstm"]["linear"])}
+        if "attn" in lp:
+            # LocalState's 1x1 convs: JAX linear (Cin, Cout) -> (Cout, Cin, 1)
+            layer["attn"] = {k: {"w": _t(np.asarray(v["w"]).T[:, :, None]), "b": _t(v["b"])}
+                             for k, v in lp["attn"].items()}
+        layers.append(layer)
+    return {"layers": layers}
+
+
+def _dm_layer(p) -> dict:
+    out = {k: (bool(p[k]) if k in ("freq", "empty", "last") else int(p[k]))
+           for k in ("freq", "stride", "pad", "last", "chin", "empty") if k in p}
+    if "conv" in p:
+        out["conv"] = _dm_conv(p["conv"])
+    if "conv_tr" in p:
+        out["conv_tr"] = _dm_convt(p["conv_tr"])
+    for name in ("norm1", "norm2"):
+        if name in p:
+            out[name] = _dm_norm(p[name])
+    if "rewrite" in p:
+        out["rewrite"] = _dm_conv(p["rewrite"])
+    if "dconv" in p:
+        out["dconv"] = _dm_dconv(p["dconv"])
+    return out
+
+
+def _dm_t_layer(p) -> dict:
+    out = {"attn": {"in_w": _t(p["attn"]["in_w"]), "in_b": _t(p["attn"]["in_b"]),
+                    "out": _lin(p["attn"]["out"])},
+           "fc1": _lin(p["fc1"]), "fc2": _lin(p["fc2"]),
+           "gamma1": _t(p["gamma1"]), "gamma2": _t(p["gamma2"])}
+    for name in ("norm1", "norm2", "norm2k"):
+        if name in p:
+            out[name] = _ln(p[name])
+    if "norm_out" in p:
+        out["norm_out"] = _dm_norm(p["norm_out"])
+    return out
+
+
+def demucs_from_jax(tree, cfg) -> dict:
+    """The JAX package's Demucs tree (`htdemucs_params_from_state_dict`:
+    numpy arrays in its layouts, Python structure flags) -> the port's
+    (`models/demucs.py` `params_from_state_dict`'s), on the CPU."""
+    if len(tree["encoder"]) != cfg.depth:
+        raise ValueError(f"the tree has {len(tree['encoder'])} encoders, the config "
+                         f"depth {cfg.depth}")
+    out = {k: [_dm_layer(p) for p in tree[k]]
+           for k in ("encoder", "decoder", "tencoder", "tdecoder")}
+    if "freq_emb" in tree:
+        out["freq_emb"] = _t(tree["freq_emb"])
+    if "transformer" in tree:
+        tp = tree["transformer"]
+        out["transformer"] = {"norm_in": _ln(tp["norm_in"]), "norm_in_t": _ln(tp["norm_in_t"]),
+                              "layers": [{"z": _dm_t_layer(lp["z"]), "t": _dm_t_layer(lp["t"])}
+                                         for lp in tp["layers"]]}
+    return out
+
+
+def random_demucs_state_dict(cfg, channels: int = 48, *, t_layers: int = 5,
+                             seed: int = 0) -> dict:
+    """A state dict with the reference modules' names and shapes (the
+    demucs v4 `HTDemucs` constructor when cfg.has_transformer, else
+    `HDemucs`; growth 2, dconv_mode 1, DConv depth 2, rewrite with context
+    1 (decoders) and 0 (encoders), GroupNorm(4) from layer 4, transformer
+    feed-forward 4x), drawn from `seed`: convolutions normal(0, 1.4 /
+    sqrt(fan_in)), which keeps the stems near the mix's scale, norms near
+    1, LayerScales 0.05-0.15 (the reference starts them at 1e-3 / 1e-4;
+    larger ones make the DConv branches and the transformer count in a
+    comparison).  HTDemucs compresses its DConv 8x with no BLSTM or
+    LocalState; HDemucs 4x, with both from layer 4."""
+    rs = np.random.RandomState(seed)
+    ht = cfg.has_transformer
+    growth, gain, norm_starts, norm_groups, context, context_enc = 2, 1.4, 4, 4, 1, 0
+    dconv_comp, dconv_depth = (8 if ht else 4), 2
+    dconv_lstm = dconv_attn = cfg.depth + 1 if ht else 4          # the first layer with them
+    heads, ndecay = 4, 4
+    sd: dict = {}
+
+    def conv(name, cout, cin, *kernel):
+        sd[f"{name}.weight"] = rs.randn(cout, cin, *kernel) * (
+            gain / math.sqrt(cin * int(np.prod(kernel))))
+        sd[f"{name}.bias"] = rs.randn(cout) * 0.05
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = 1.0 + 0.1 * rs.randn(c)
+        sd[f"{name}.bias"] = 0.1 * rs.randn(c)
+
+    def lin(name, cout, cin):
+        conv(name, cout, cin)
+
+    def dconv(prefix, ch, index):
+        hidden = int(ch / dconv_comp)
+        for d in range(dconv_depth):
+            lp = f"{prefix}.layers.{d}"
+            conv(f"{lp}.0", hidden, ch, 3)
+            norm(f"{lp}.1", hidden)
+            idx = 3
+            if index >= dconv_lstm:
+                bound = 1.0 / math.sqrt(hidden)
+                for layer in range(2):
+                    n_in = hidden if layer == 0 else 2 * hidden
+                    for sfx in ("", "_reverse"):
+                        for name, shape in (("weight_ih", (4 * hidden, n_in)),
+                                            ("weight_hh", (4 * hidden, hidden)),
+                                            ("bias_ih", (4 * hidden,)), ("bias_hh", (4 * hidden,))):
+                            sd[f"{lp}.{idx}.lstm.{name}_l{layer}{sfx}"] = rs.uniform(
+                                -bound, bound, shape)
+                lin(f"{lp}.{idx}.linear", hidden, 2 * hidden)
+                idx += 1
+            if index >= dconv_attn:
+                for name, cout in (("content", hidden), ("query", hidden), ("key", hidden),
+                                   ("query_decay", heads * ndecay), ("proj", hidden)):
+                    conv(f"{lp}.{idx}.{name}", cout, hidden, 1)
+                idx += 1
+            conv(f"{lp}.{idx}", 2 * ch, hidden, 1)
+            norm(f"{lp}.{idx + 1}", 2 * ch)
+            sd[f"{lp}.{idx + 3}.scale"] = rs.uniform(0.05, 0.15, ch)
+
+    def encoder(prefix, cin, cout, ker, freq, use_norm, index, empty=False):
+        conv(f"{prefix}.conv", cout, cin, *((ker, 1) if freq else (ker,)))
+        if empty:
+            return
+        if use_norm:
+            norm(f"{prefix}.norm1", cout)
+        k = 1 + 2 * context_enc
+        conv(f"{prefix}.rewrite", 2 * cout, cout, *((k, k) if freq else (k,)))
+        if use_norm:
+            norm(f"{prefix}.norm2", 2 * cout)
+        dconv(f"{prefix}.dconv", cout, index)
+
+    def decoder(prefix, cin, cout, ker, stri, freq, use_norm, empty=False):
+        # ConvTranspose (Cin, Cout, K): each output sums cin * ker / stride terms
+        sd[f"{prefix}.conv_tr.weight"] = rs.randn(cin, cout, *((ker, 1) if freq else (ker,))) * (
+            gain / math.sqrt(max(cin * ker // stri, 1)))
+        sd[f"{prefix}.conv_tr.bias"] = rs.randn(cout) * 0.05
+        if use_norm:
+            norm(f"{prefix}.norm2", cout)
+        if empty:
+            return
+        k = 1 + 2 * context
+        conv(f"{prefix}.rewrite", 2 * cin, cin, *((k, k) if freq else (k,)))
+        if use_norm:
+            norm(f"{prefix}.norm1", 2 * cin)
+
+    chin = cfg.audio_channels
+    chin_z = chin * 2 if cfg.cac else chin
+    chout = chout_z = channels
+    freqs = cfg.nfft // 2
+    decs, tdecs = [], []
+    for index in range(cfg.depth):
+        use_norm = index >= norm_starts
+        freq = freqs > 1
+        stri, ker = cfg.stride, cfg.kernel_size
+        if not freq:
+            ker, stri = cfg.time_stride * 2, cfg.time_stride
+        last_freq = freq and freqs <= cfg.kernel_size
+        if last_freq:
+            ker = freqs
+            chout_z = chout = max(chout, chout_z)
+        encoder(f"encoder.{index}", chin_z, chout_z, ker, freq, use_norm, index)
+        if freq:
+            encoder(f"tencoder.{index}", chin, chout, cfg.kernel_size, False, use_norm, index,
+                    empty=last_freq)
+        if index == 0:
+            chin = cfg.audio_channels * len(cfg.sources)
+            chin_z = chin * 2 if cfg.cac else chin
+        decs.append((chout_z, chin_z, ker, stri, freq, use_norm, False))
+        if freq:
+            tdecs.append((chout, chin, cfg.kernel_size, cfg.stride, False, use_norm, last_freq))
+        chin, chin_z = chout, chout_z
+        chout, chout_z = int(growth * chout), int(growth * chout_z)
+        if freq:
+            freqs = 1 if freqs <= cfg.kernel_size else freqs // cfg.stride
+        if index == 0 and cfg.freq_emb_scale:
+            # ScaledEmbedding(freqs, chin_z), read back x emb_scale (10)
+            sd["freq_emb.embedding.weight"] = rs.randn(freqs, chin_z) * 0.05
+    # the decoder lists run deepest first (reference insert(0, ...))
+    for i, args in enumerate(reversed(decs)):
+        decoder(f"decoder.{i}", *args)
+    for i, args in enumerate(reversed(tdecs)):
+        decoder(f"tdecoder.{i}", *args)
+    if ht and t_layers:
+        dim = channels * growth ** (cfg.depth - 1)
+        hidden = 4 * dim
+        norm("crosstransformer.norm_in", dim)
+        norm("crosstransformer.norm_in_t", dim)
+        for i in range(t_layers):
+            cross = i % 2 == 1
+            for branch in ("layers", "layers_t"):
+                p = f"crosstransformer.{branch}.{i}"
+                attn = "cross_attn" if cross else "self_attn"
+                sd[f"{p}.{attn}.in_proj_weight"] = rs.randn(3 * dim, dim) / math.sqrt(dim)
+                sd[f"{p}.{attn}.in_proj_bias"] = rs.randn(3 * dim) * 0.05
+                lin(f"{p}.{attn}.out_proj", dim, dim)
+                lin(f"{p}.linear1", hidden, dim)
+                lin(f"{p}.linear2", dim, hidden)
+                for name in ("norm1", "norm2") + (("norm3",) if cross else ()):
+                    norm(f"{p}.{name}", dim)
+                norm(f"{p}.norm_out", dim)
+                sd[f"{p}.gamma_1.scale"] = rs.uniform(0.05, 0.15, dim)
+                sd[f"{p}.gamma_2.scale"] = rs.uniform(0.05, 0.15, dim)
+    return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}

@@ -119,9 +119,16 @@ def istft(spec, *, n_fft: int, hop_length: int, win_length: int, window,
     spec: (B, T, n_fft//2 + 1) complex of a centered STFT -> (B, length):
     n_fft//2 trimmed at the start, then zero-padded or cut to `length`.
     The overlap-add is F.fold, which sums each output sample's frames in
-    one thread on the card (no atomics), so a run repeats bit for bit."""
+    one thread on the card (no atomics), so a run repeats bit for bit.
+    The spectrum is read as Hermitian: the imaginary parts of its DC and
+    Nyquist bins are dropped, as the CPU's irfft drops them (cuFFT's
+    inverse would read them, and a model's output spectrum has them)."""
     win = _padded_window(window, win_length, n_fft, spec)
-    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * win            # (B, T, n_fft)
+    ri = torch.view_as_real(spec).clone()
+    ri[..., 0, 1] = 0.0
+    if n_fft % 2 == 0 and spec.shape[-1] > n_fft // 2:
+        ri[..., n_fft // 2, 1] = 0.0
+    frames = torch.fft.irfft(torch.view_as_complex(ri), n=n_fft, dim=-1) * win   # (B, T, n_fft)
     t = frames.shape[1]
     total = (t - 1) * hop_length + n_fft
 

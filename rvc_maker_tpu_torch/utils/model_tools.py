@@ -16,6 +16,8 @@ import os
 from collections import OrderedDict
 from typing import Any
 
+from ..errors import BadRequest
+
 
 def _strip_training_ckpt(ckpt) -> dict:
     """G_*.pth training checkpoints hold {'model': sd}; inference weights
@@ -29,19 +31,20 @@ def fuse_models(pth_1: str, pth_2: str, out_path: str, ratio: float = 0.5,
     """Blend two same-architecture checkpoints: out = r*a + (1-r)*b.
 
     Speaker embedding tables of different sizes are blended over the
-    common prefix (reference app.py:607-610). Returns out_path.
+    common prefix (reference app.py:607-610). Returns out_path.  Models
+    of different rates or architectures are a BadRequest.
     """
     import torch
 
     ckpt1 = torch.load(pth_1, map_location="cpu", weights_only=False)
     ckpt2 = torch.load(pth_2, map_location="cpu", weights_only=False)
     if ckpt1["sr"] != ckpt2["sr"]:
-        raise ValueError(f"sample rates differ: {ckpt1['sr']} vs {ckpt2['sr']}")
+        raise BadRequest(f"sample rates differ: {ckpt1['sr']} vs {ckpt2['sr']}")
 
     sd1 = _strip_training_ckpt(ckpt1)
     sd2 = _strip_training_ckpt(ckpt2)
     if sorted(sd1) != sorted(sd2):
-        raise ValueError("architectures differ (key sets not equal)")
+        raise BadRequest("architectures differ (key sets not equal)")
 
     out: dict = {"weight": OrderedDict()}
     for key in sd1:
