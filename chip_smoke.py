@@ -237,6 +237,30 @@ Phases, each printed as it runs; any failure exits non-zero:
               --backing --reverb` with the stand-in graph for every pass.
               Each driven call runs with the resblock counts zeroed just
               before and read just after: 0, the path runs no hand kernel.
+ 18. speaker  Whisper, ECAPA-TDNN and diarized conversion, fp32: (a)
+              Whisper base (the JAX package's default dims, ~74 M
+              parameters, random weights from a seed shaped to write
+              timestamped text: `from_jax.random_whisper_tree(transcript=
+              True)`) as a reference .pt and a synthetic multilingual
+              .tiktoken of the released size (50,257 ranks), `cli
+              transcribe --word-timestamps` on a 39 s voice (two windows),
+              then with --beam-size 5, each with its wall s and decode steps
+              per second, and one window's transcription under
+              torch.profiler (device ms, busy share); (b) card against CPU
+              on one window: log_mel <= 1e-4, encoder features <= 1e-3 x
+              max|ref|, a fixed 32-token sequence's teacher-forced logits
+              <= 1e-3 x max|ref|, the cached steps against the full pass
+              <= 1e-4 x max|ref| on each device, greedy tokens equal up to
+              the first step whose CPU top-2 margin is under 1e-3; (c)
+              ECAPA-TDNN in speechbrain's state-dict names, in a directory
+              with a hyperparams.yaml that the port's parser reads,
+              embeddings card against CPU <= 1e-4 x max|ref|; (d) `cli
+              diarize-convert` on a 20 s two-speaker signal (two f0 ranges
+              in turn, with gaps) with phase 4's model and a second one
+              from another seed, by the energy VAD and by --whisper: 36
+              resblock_tc launches per converted segment, the cluster labels
+              equal to the CPU's on the same segments, wall s; (e)
+              `/api/convert_whisper` answers 200.
 
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
@@ -3589,6 +3613,342 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the speaker stack (models/whisper.py, models/ecapa_tdnn.py,
+# speaker/)
+# ---------------------------------------------------------------------------
+
+WHISPER_TOL = 1e-3          # encoder features and logits, card against CPU, x max|ref|
+CACHED_TOL = 1e-4           # cached decode steps against the full pass, x max|ref|
+MARGIN = 1e-3               # greedy tokens compared up to a CPU top-2 margin under this
+SPEAKER_SR = 16000
+
+
+def two_speaker_signal(seconds: float, seed: int = 18) -> np.ndarray:
+    """Voiced stretches of two f0 ranges in turn (130 and 260 Hz, 1.4 s
+    each) with 0.55 s gaps, at 16 kHz."""
+    parts, i = [], 0
+    while sum(len(p) for p in parts) < seconds * SPEAKER_SR:
+        parts += [voice(1.4, (130.0, 260.0)[i % 2], seed + i),
+                  np.zeros(int(0.55 * SPEAKER_SR), np.float32)]
+        i += 1
+    return np.concatenate(parts)[: int(seconds * SPEAKER_SR)]
+
+
+def top2_margins(logits: np.ndarray, tokens: list, timestamp_begin: int) -> list:
+    """Each greedy step's top-2 logit margin, the timestamp mask applied
+    as the decoding applies it."""
+    out = []
+    for j in range(len(tokens)):
+        lg = logits[j].astype(np.float64).copy()
+        last = [t for t in tokens[:j] if t >= timestamp_begin]
+        if last:
+            lg[timestamp_begin: last[-1]] = -np.inf
+        a, b = np.sort(lg)[-2:]
+        out.append(float(b - a))
+    return out
+
+
+def whisper_card_vs_cpu(model_card, model_cpu, tok, audio16: np.ndarray,
+                        device: str = "cuda") -> dict:
+    """Phase 18 (b): one window's front end, encoder, decoder, cached
+    steps and greedy tokens on both devices (`device` the card's)."""
+    from rvc_maker_tpu_torch.models import whisper as wm
+
+    res = {}
+    padded = np.zeros(wm.N_SAMPLES, np.float32)
+    padded[: min(len(audio16), wm.N_SAMPLES)] = audio16[: wm.N_SAMPLES]
+    x = torch.from_numpy(padded[None])
+    with torch.inference_mode():
+        mel = {"cuda": wm.log_mel(x.to(device)), "cpu": wm.log_mel(x)}
+        res["log_mel_max_abs_err"] = float((mel["cuda"].cpu() - mel["cpu"]).abs().max())
+        t0 = time.perf_counter()
+        feats = {"cpu": model_cpu.encoder(mel["cpu"])}
+        res["cpu_encoder_s"] = time.perf_counter() - t0
+        feats["cuda"] = model_card.encoder(mel["cuda"])
+        ref = feats["cpu"]
+        res["encoder_rel_err"] = float((feats["cuda"].cpu() - ref).abs().max() / ref.abs().max())
+        seq = tok.sot_sequence() + [int(t) for t in
+                                    np.random.RandomState(18).randint(0, tok.eot, 29)]
+        logits, cached = {}, {}
+        for d, m in (("cuda", model_card), ("cpu", model_cpu)):
+            tokens = torch.tensor([seq], device=device if d == "cuda" else "cpu")
+            logits[d] = m.decoder(tokens, feats[d])[0].cpu()
+            cache = wm.init_cache(m.decoder, feats[d])
+            steps = torch.stack([wm.decode_step(m.decoder, tokens[:, i], cache)[0]
+                                 for i in range(len(seq))]).cpu()
+            cached[d] = float((steps - logits[d]).abs().max() / logits[d].abs().max())
+        res["logits_rel_err"] = float((logits["cuda"] - logits["cpu"]).abs().max()
+                                      / logits["cpu"].abs().max())
+        res["cached_vs_full_rel_err"] = cached
+    kw = dict(eot=tok.eot, timestamp_begin=tok.timestamp_begin)
+    greedy = {d: wm.greedy_decode(m.decoder, feats[d], tok.sot_sequence(), **kw)
+              for d, m in (("cuda", model_card), ("cpu", model_cpu))}
+    with torch.inference_mode():
+        full = model_cpu.decoder(torch.tensor([tok.sot_sequence() + greedy["cpu"]]),
+                                 feats["cpu"])[0].numpy()
+    margins = top2_margins(full[len(tok.sot_sequence()) - 1:], greedy["cpu"] + [tok.eot],
+                           tok.timestamp_begin)
+    first_low = next((j for j, mg in enumerate(margins) if mg < MARGIN), None)
+    upto = len(margins) if first_low is None else first_low
+    res.update(greedy_tokens=len(greedy["cpu"]), first_low_margin_step=first_low,
+               min_margin=min(margins), greedy_compared=upto,
+               greedy_equal=(greedy["cuda"] + [tok.eot])[:upto]
+               == (greedy["cpu"] + [tok.eot])[:upto])
+    log(f"  (b) one window card against CPU: log_mel max abs {res['log_mel_max_abs_err']:.3e} "
+        f"(bound 1e-4); encoder {res['encoder_rel_err']:.3e} x max|ref| (bound {WHISPER_TOL}; "
+        f"CPU {res['cpu_encoder_s']:.2f} s); 32-token logits {res['logits_rel_err']:.3e} x "
+        f"max|ref| (bound {WHISPER_TOL}); cached vs full card {cached['cuda']:.3e}, CPU "
+        f"{cached['cpu']:.3e} (bound {CACHED_TOL}); greedy {res['greedy_tokens']} tokens, equal "
+        f"over the first {upto} ({'no step' if first_low is None else f'step {first_low}'} "
+        f"with a CPU top-2 margin under {MARGIN}; smallest margin {res['min_margin']:.3e})")
+    bad = [k for k, v, b in (("log_mel", res["log_mel_max_abs_err"], 1e-4),
+                             ("encoder", res["encoder_rel_err"], WHISPER_TOL),
+                             ("logits", res["logits_rel_err"], WHISPER_TOL),
+                             ("cached card", cached["cuda"], CACHED_TOL),
+                             ("cached cpu", cached["cpu"], CACHED_TOL)) if not v <= b]
+    if bad or not res["greedy_equal"]:
+        raise AssertionError(f"Whisper card against CPU: {bad or 'greedy tokens differ'}")
+    return res
+
+
+def write_ecapa_dir(d: str, seed: int = 18) -> str:
+    """A speechbrain spkrec-ecapa-style directory: hyperparams.yaml and
+    embedding_model.ckpt (the reference's state-dict names, weights from
+    a seed)."""
+    from rvc_maker_tpu_torch.interop import from_jax
+
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "hyperparams.yaml"), "w") as f:
+        f.write("# ECAPA big for speaker verification (speechbrain spkrec-ecapa-voxceleb)\n"
+                "n_mels: 80\npretrained_path: speechbrain/spkrec-ecapa-voxceleb\n"
+                "compute_features: !new:speechbrain.lobes.features.Fbank\n"
+                "    n_mels: !ref <n_mels>\n"
+                "embedding_model: !new:speechbrain.lobes.models.ECAPA_TDNN.ECAPA_TDNN\n"
+                "    input_size: !ref <n_mels>\n"
+                "    channels: [512, 512, 512, 512, 1536]\n"
+                "    kernel_sizes: [5, 3, 3, 3, 1]\n    dilations: [1, 2, 3, 4, 1]\n"
+                "    attention_channels: 128\n    lin_neurons: 192\n"
+                "modules:\n    embedding_model: !ref <embedding_model>\n"
+                "pretrainer: !new:speechbrain.utils.parameter_transfer.Pretrainer\n"
+                "    paths:\n        embedding_model: !ref <pretrained_path>/"
+                "embedding_model.ckpt\n")
+    torch.save(from_jax.ecapa_state_dict(from_jax.random_ecapa_tree(seed),
+                                         np.random.RandomState(seed + 1)),
+               os.path.join(d, "embedding_model.ckpt"))
+    return d
+
+
+def speaker_phase(work: str, cfg, model, device: str = "cuda", whisper_dims=None,
+                  per_segment: int = 36) -> dict:
+    """Phase 18 (module docstring).  `device`, `whisper_dims` and
+    `per_segment` (the resblock_tc launches of one converted segment) are
+    arguments for a rehearsal on the CPU at small widths."""
+    import dataclasses
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.app import server as srv
+    from rvc_maker_tpu_torch.config import RVCConfig
+    from rvc_maker_tpu_torch.interop import from_jax
+    from rvc_maker_tpu_torch.interop.pth import export_synthesizer_pth
+    from rvc_maker_tpu_torch.models import ecapa_tdnn as ec
+    from rvc_maker_tpu_torch.models import whisper as wm
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.speaker import diarize as di
+    from rvc_maker_tpu_torch.speaker import transcribe as tr
+    from rvc_maker_tpu_torch.speaker.hyperyaml import load_speechbrain_ecapa
+    from rvc_maker_tpu_torch.speaker.whisper_tokenizer import WhisperTokenizer
+    from rvc_maker_tpu_torch.utils.audio import read_wav
+
+    d = os.path.join(work, "speaker")
+    os.makedirs(d, exist_ok=True)
+    dev_flag = [] if device == "cuda" else ["--device", device]
+    res: dict = {"launches": {}}
+
+    # (a) Whisper base as a reference .pt, a synthetic vocabulary
+    dims = whisper_dims or wm.WhisperDims()
+    t0 = time.perf_counter()
+    tree = from_jax.random_whisper_tree(dims, seed=18, transcript=True)
+    w_path = from_jax.write_whisper_pt(os.path.join(d, "whisper.pt"), tree, dims)
+    vocab = from_jax.write_tiktoken_vocab(os.path.join(d, "multilingual.tiktoken"))
+    res["whisper"] = dict(dims=dataclasses.asdict(dims), write_s=time.perf_counter() - t0,
+                          parameters=int(sum(v.numel() for v in
+                                             from_jax.whisper_state_dict(tree).values())))
+    del tree
+    log(f"  Whisper {dims.n_audio_state} wide, {dims.n_audio_layer} + {dims.n_text_layer} "
+        f"layers: {res['whisper']['parameters']:,} parameters; .pt and vocabulary written in "
+        f"{res['whisper']['write_s']:.1f} s")
+    speech = two_speaker_signal(39.0, seed=40)
+    speech_path = write_wav_file(os.path.join(d, "speech.wav"), speech, SPEAKER_SR)
+    steps, windows = [], []
+    orig_step, orig_mel = wm.decode_step, wm.log_mel
+
+    def counted_step(*a, **kw):
+        steps.append(1)
+        return orig_step(*a, **kw)
+
+    def counted_mel(*a, **kw):
+        windows.append(1)
+        return orig_mel(*a, **kw)
+
+    wm.decode_step, wm.log_mel = counted_step, counted_mel
+    try:
+        for label, flags in (("words", ["--word-timestamps"]), ("beam5", ["--beam-size", "5"])):
+            out_json = os.path.join(d, f"segments_{label}.json")
+            steps.clear()
+            windows.clear()
+            t0 = time.perf_counter()
+            cli.main(["transcribe", "--model", w_path, "--vocab", vocab, "--input",
+                      speech_path, "--output", out_json, *flags, *dev_flag])
+            wall = time.perf_counter() - t0
+            with open(out_json, encoding="utf-8") as f:
+                segs = json.load(f)
+            n_words = sum(len(s.get("words", [])) for s in segs)
+            res[f"transcribe_{label}"] = dict(wall_s=wall, decode_steps=len(steps),
+                                              steps_per_s=len(steps) / wall,
+                                              windows=len(windows),
+                                              segments=len(segs), words=n_words,
+                                              last_end_s=segs[-1]["end"] if segs else None)
+            log(f"  (a) cli transcribe {' '.join(flags)} on {len(speech) / SPEAKER_SR:.0f} s: "
+                f"{wall:.3f} s wall (model load included), {len(windows)} windows, "
+                f"{len(steps)} decode steps ({len(steps) / wall:.1f} per s of wall), "
+                f"{len(segs)} segments, {n_words} words")
+            if len(segs) < 10 or (label == "words" and not n_words):
+                raise AssertionError(f"cli transcribe {flags}: {len(segs)} segments, "
+                                     f"{n_words} words")
+    finally:
+        wm.decode_step, wm.log_mel = orig_step, orig_mel
+    whisper_card = wm.load_whisper_pt(w_path, device=device)
+    whisper_cpu = wm.load_whisper_pt(w_path, device="cpu")
+    tok = WhisperTokenizer(vocab)
+    window = speech[: 20 * SPEAKER_SR]
+    t0 = time.perf_counter()
+    tr.transcribe(whisper_card, tok, window, max_windows=1)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr.transcribe(whisper_card, tok, window, max_windows=1)
+    wall = min(wall, time.perf_counter() - t0)
+    res["window_wall_s"] = wall
+    if device == "cuda":
+        res["window_profile"] = profile_call(
+            "one window's transcribe (20 s, greedy)",
+            lambda: tr.transcribe(whisper_card, tok, window, max_windows=1), wall)
+
+    # (b) card against CPU on one window
+    res["card_vs_cpu"] = whisper_card_vs_cpu(whisper_card, whisper_cpu, tok, window, device)
+    del whisper_card, whisper_cpu
+
+    # (c) ECAPA-TDNN from a speechbrain-style directory
+    ecapa_dir = write_ecapa_dir(os.path.join(d, "spkrec-ecapa"))
+    ecapa_card, info = load_speechbrain_ecapa(ecapa_dir, device=device)
+    ecapa_cpu, _ = load_speechbrain_ecapa(ecapa_dir, device="cpu")
+    feats = torch.stack([di.fbank(speech[i * 48000:(i + 1) * 48000]) for i in range(2)])
+    got = ec.embed(ecapa_card, feats.to(device)).cpu()
+    ref = ec.embed(ecapa_cpu, feats)
+    res["ecapa"] = dict(info=info, rel_err=float((got - ref).abs().max() / ref.abs().max()))
+    log(f"  (c) ECAPA-TDNN from {os.path.basename(ecapa_dir)}/ (hyperparams.yaml: "
+        f"{info}), 2 x 3 s embeddings card against CPU {res['ecapa']['rel_err']:.3e} x "
+        "max|ref| (bound 1e-4)")
+    if not res["ecapa"]["rel_err"] <= 1e-4:
+        raise AssertionError(f"ECAPA card against CPU: {res['ecapa']['rel_err']}")
+
+    # (d) cli diarize-convert with phase 4's model and another, VAD and Whisper
+    files = write_serve_files(d, cfg, model)
+    tree_b = from_jax.random_synthesizer_tree(cfg, seed=18)
+    for u in tree_b["dec"]["ups"]:
+        u["w"] *= 5.0
+    tree_b["dec"]["conv_post"]["w"] *= 5.0
+    model_b = os.path.join(d, "voice_b.pth")
+    export_synthesizer_pth(from_jax.synthesizer_from_jax(tree_b, cfg),
+                           RVCConfig(version="v2", model=cfg), model_b)
+    del tree_b
+    talk = two_speaker_signal(19.5, seed=60)
+    talk_path = write_wav_file(os.path.join(d, "talk.wav"), talk, SPEAKER_SR)
+    talk16, _ = read_wav(talk_path)
+    orig_cluster = di.cluster_speakers
+
+    def driven(label, fn, labels=None):
+        """fn() with the resblock counts zeroed just before and read just
+        after, its wall s; `labels` receives the diarization's segments and
+        labels."""
+        def capturing(audio, segments, *a, **kw):
+            out = orig_cluster(audio, segments, *a, **kw)
+            labels.extend(zip(segments, out.tolist()))
+            return out
+
+        if labels is not None:
+            di.cluster_speakers = capturing
+        old = reset_counts(rb)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            counts = reset_counts(rb, old)
+            di.cluster_speakers = orig_cluster
+        res["launches"][label] = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"),
+                                          counts))
+        res[f"{label}_wall_s"] = time.perf_counter() - t0
+        return out
+
+    for label, flags in (("diarize_vad", []),
+                         ("diarize_whisper", ["--whisper", w_path, "--vocab", vocab])):
+        labels: list = []
+        out_wav = os.path.join(d, f"{label}.wav")
+        driven(label, lambda: cli.main(
+            ["diarize-convert", "--input", talk_path, "--output", out_wav,
+             "--model", files["model"], "--model-b", model_b, "--ecapa", ecapa_dir,
+             "--hubert-path", files["embedder"], "--rmvpe-path", files["rmvpe"], *flags,
+             *dev_flag]), labels)
+        out, out_sr = read_wav(out_wav)
+        segs = [s for s, _ in labels]
+        card_labels = [lab for _, lab in labels]
+        cpu_labels = di.cluster_speakers(talk16, segs, ecapa_cpu, num_speakers=2).tolist()
+        tc = res["launches"][label]["resblock_tc"]
+        res[label] = dict(segments=len(segs), labels=card_labels, cpu_labels=cpu_labels,
+                          resblock_tc_launches=tc, out_s=len(out) / out_sr,
+                          out_peak=float(np.abs(out).max()))
+        log(f"  (d) cli diarize-convert {label[8:]}: {res[f'{label}_wall_s']:.3f} s wall, "
+            f"{len(segs)} segments, labels {card_labels} (CPU {cpu_labels}), resblock_tc "
+            f"launches {tc} ({per_segment} x {len(segs)} expected), output "
+            f"{len(out) / out_sr:.2f} s at {out_sr} Hz, peak {res[label]['out_peak']:.3f}")
+        if (card_labels != cpu_labels or tc != per_segment * len(segs) or len(segs) < 4
+                or len(set(card_labels)) != 2 or not np.isfinite(out).all()
+                or abs(len(out) / out_sr - len(talk16) / SPEAKER_SR) > 0.01):
+            raise AssertionError(f"cli diarize-convert {label}: {res[label]}")
+
+    # (e) /api/convert_whisper on the card
+    srv.SETTINGS_PATH = os.path.join(d, "settings.json")
+    srv.set_device(device)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = {"audio_b64": wav_b64(talk[: 8 * SPEAKER_SR]), "model_a": files["model"],
+               "model_b": model_b, "ecapa": ecapa_dir, "embedder": files["embedder"],
+               "rmvpe": files["rmvpe"], "f0_method": "rmvpe", "index_rate": 0.0}
+        code, body = driven("api_convert_whisper", lambda: post(
+            httpd.server_address[1], "/api/convert_whisper", req))
+        if code != 200:
+            raise AssertionError(f"/api/convert_whisper answered {code}: {body.get('error')}")
+        wav = decode_wav(body["audio_b64"])
+        res["api_convert_whisper"] = dict(code=code, sr=body["sr"], samples=int(len(wav)),
+                                          launches=res["launches"]["api_convert_whisper"])
+        log(f"  (e) /api/convert_whisper: {code}, {len(wav) / body['sr']:.2f} s at "
+            f"{body['sr']} Hz, {res['api_convert_whisper_wall_s']:.3f} s wall, resblock_tc "
+            f"launches {res['launches']['api_convert_whisper']['resblock_tc']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -3730,7 +4090,6 @@ def run(work: str) -> int:
     RESULTS["onnx"] = onnx_phase(model_cfg, model, work)
     RESULTS["onnx"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 16 in {RESULTS['onnx']['phase_s']:.1f} s")
-    del model
 
     log(f"[17 separate] HTDemucs at full width and a stand-in MDX-Net graph through cli "
         f"separate, /api/separate and cli separate-music ({time.perf_counter() - t_start:.1f} "
@@ -3739,6 +4098,14 @@ def run(work: str) -> int:
     RESULTS["separate"] = separate_phase(work)
     RESULTS["separate"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 17 in {RESULTS['separate']['phase_s']:.1f} s")
+
+    log(f"[18 speaker] Whisper transcription, ECAPA-TDNN, cli diarize-convert and "
+        f"/api/convert_whisper ({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["speaker"] = speaker_phase(work, model_cfg, model)
+    RESULTS["speaker"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 18 in {RESULTS['speaker']['phase_s']:.1f} s")
+    del model
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -3804,6 +4171,12 @@ def run(work: str) -> int:
              launches_onnx=RESULTS["onnx"]["resblock_launches"]["onnx"],
              # phase 17: separation runs no resblock (Demucs, MDX-Net)
              launches_separate=sep_launches("resblock_tc"),
+             # phase 18: 36 per diarized segment (fp32)
+             launches_diarize_vad=RESULTS["speaker"]["launches"]["diarize_vad"]["resblock_tc"],
+             launches_diarize_whisper=RESULTS["speaker"]["launches"]["diarize_whisper"][
+                 "resblock_tc"],
+             launches_api_convert_whisper=RESULTS["speaker"]["launches"][
+                 "api_convert_whisper"]["resblock_tc"],
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),

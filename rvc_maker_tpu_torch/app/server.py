@@ -14,8 +14,9 @@ dio, harvest), `/api/job_start` and `/api/job_status` (preprocess,
 extract, train), `/api/settings`, `/api/effects`, `/api/model_info`,
 `/api/fuse`, `/api/export_onnx` (host work, in the handler thread: the
 export traces on the CPU), `/api/tts` (its conversion on the device
-thread) and `/api/separate` (Demucs `.th` or MDX `.onnx`, on the device
-thread).  `.onnx` voice models and embedders convert and extract like
+thread), `/api/separate` (Demucs `.th` or MDX `.onnx`, on the device
+thread) and `/api/convert_whisper` (diarized conversion with two voice
+models alive at once, on the device thread).  `.onnx` voice models and embedders convert and extract like
 `.pth` and `.pt` files, their graphs run on the server's device
 (`interop/onnx_run.py`).  The routes whose modules are not yet ported
 (`UNPORTED_ROUTES`) and the `create_dataset` job answer 501 with a
@@ -85,7 +86,6 @@ _JOB_COUNTER = itertools.count()
 UNPORTED_ROUTES = {
     "/api/download": "model download (utils/scrapers.py)",
     "/api/audio_edit": "audio editing (edit/pipeline.py)",
-    "/api/convert_whisper": "diarized conversion (speaker/diarize.py)",
     "/api/search_models": "model search (network)",
     "/api/report_bug": "bug report (network)",
 }
@@ -602,27 +602,34 @@ def _load_hubert(path: str):
     return load_transformers_dir(path) if os.path.isdir(path) else load_hubert_pt(path)
 
 
-def _get_pipeline(model: str, index: str, rmvpe: str, embedder: str):
-    """The resident pipeline of these files, in the settings' precision
-    on the server's device; one slot, keyed by all of them."""
-    precision = _SETTINGS.get("precision", "bf16")
-    device = _STATE["device"]
-    key = (model, index, rmvpe, embedder, precision, str(device))
-    with _LOCK:
-        if _STATE["pipeline_key"] == key:
-            return _STATE["pipeline"]
+def _build_pipeline(model: str, index: str, rmvpe: str, embedder: str,
+                    precision: str = "fp32"):
+    """A pipeline of these files on the server's device, outside the
+    resident slot."""
     from ..interop.onnx_voice import load_voice_model
     from ..models.rmvpe import load_rmvpe_pt
     from ..pipelines.convert import ConvertPipeline
     from ..retrieval.index import load_index
 
+    device = _STATE["device"]
     # a .pth gives a params tree, a .onnx an OnnxVoiceModel on the device
     synth_params, cfg, meta = load_voice_model(model, device=device)
-    pipe = ConvertPipeline(
+    return ConvertPipeline(
         synth_params, cfg, _load_hubert(embedder), version=meta.get("version", "v2"),
         rmvpe_params=load_rmvpe_pt(rmvpe) if rmvpe else None,
         index_vectors=load_index(index).vectors if index else None, device=device,
         compute_dtype=torch.bfloat16 if precision == "bf16" else None)
+
+
+def _get_pipeline(model: str, index: str, rmvpe: str, embedder: str):
+    """The resident pipeline of these files, in the settings' precision
+    on the server's device; one slot, keyed by all of them."""
+    precision = _SETTINGS.get("precision", "bf16")
+    key = (model, index, rmvpe, embedder, precision, str(_STATE["device"]))
+    with _LOCK:
+        if _STATE["pipeline_key"] == key:
+            return _STATE["pipeline"]
+    pipe = _build_pipeline(model, index, rmvpe, embedder, precision)
     with _LOCK:
         _STATE["pipeline"] = pipe
         _STATE["pipeline_key"] = key
@@ -694,7 +701,8 @@ class Handler(BaseHTTPRequestHandler):
                   "/api/fuse": self._api_fuse,
                   "/api/export_onnx": self._api_export_onnx,
                   "/api/tts": self._api_tts,
-                  "/api/separate": self._api_separate}
+                  "/api/separate": self._api_separate,
+                  "/api/convert_whisper": self._api_convert_whisper}
         try:
             n = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(n) or b"{}")
@@ -873,6 +881,50 @@ class Handler(BaseHTTPRequestHandler):
         self._json({"vocals_b64": _audio_to_wav_b64(vocals.mean(0), out_sr),
                     "instrumental_b64": _audio_to_wav_b64(inst.mean(0), out_sr),
                     "sr": out_sr})
+
+    def _api_convert_whisper(self, req):
+        """Diarized two-model conversion (JAX server.py:836-872): Whisper
+        segments (with "whisper" and "vocab") or an energy VAD, the
+        segments' ECAPA embeddings clustered, each converted by its
+        cluster's voice model.  Both pipelines are built for the request
+        in fp32, as the JAX server builds them, and everything runs on the
+        device thread."""
+        from ..pipelines.convert import ConvertSettings
+
+        audio16 = _request_audio(req)
+        settings = ConvertSettings(pitch=_int_field(req, "pitch", 0),
+                                   index_rate=float(req.get("index_rate", 0.5)),
+                                   protect=float(req.get("protect", 0.33)),
+                                   f0_method=_f0_method(req))
+        models = [m for m in (req.get("model_a"), req.get("model_b")) if m]
+        if not models:
+            raise ValueError("need at least model_a")
+        files = [*models, req["ecapa"]] + (
+            [req["whisper"], req.get("vocab", "")] if req.get("whisper") else [])
+        for path in files:
+            if not isinstance(path, str) or not os.path.exists(path):
+                raise ValueError(f"no such file {path!r}")
+
+        def run():
+            from ..speaker.diarize import convert_with_diarization
+            from ..speaker.hyperyaml import load_ecapa
+
+            device = _STATE["device"]
+            pipes = [_build_pipeline(m, req.get("index", ""), req.get("rmvpe", ""),
+                                     req.get("embedder", "")) for m in models]
+            whisper = None
+            if req.get("whisper"):
+                from ..models.whisper import load_whisper_pt
+                from ..speaker.whisper_tokenizer import WhisperTokenizer
+
+                whisper = (load_whisper_pt(req["whisper"], device=device),
+                           WhisperTokenizer(req["vocab"], multilingual=True))
+            out = convert_with_diarization(audio16, pipes, [settings] * len(pipes),
+                                           load_ecapa(req["ecapa"], device), whisper=whisper)
+            return out, pipes[0].cfg.sr
+
+        out, sr = _on_device_thread(run)
+        self._json({"audio_b64": _audio_to_wav_b64(out, sr), "sr": sr})
 
     def _api_job_status(self, req):
         with _JOBS_LOCK:

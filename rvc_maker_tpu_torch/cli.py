@@ -40,6 +40,13 @@
     python -m rvc_maker_tpu_torch.cli separate-music --input song.wav \
         --output stems/ --model-name htdemucs.yaml [--backing --kara-model
         kara.onnx] [--reverb --reverb-model reverb.onnx] [--clean-audio]
+    python -m rvc_maker_tpu_torch.cli transcribe --model whisper.pt \
+        --vocab multilingual.tiktoken --input speech.wav --output segs.json
+        [--language en --word-timestamps --beam-size 5 --patience 1.0 --best-of 5]
+    python -m rvc_maker_tpu_torch.cli diarize-convert --input talk.wav \
+        --output out.wav --model a.pth --model-b b.pth --ecapa ecapa_dir/ \
+        --hubert-path hubert_base.pt [--whisper whisper.pt --vocab
+        multilingual.tiktoken] and the conversion flags of convert
 
 Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
@@ -66,8 +73,12 @@ separate runs a Demucs `.th`, a `.yaml` bag of them or an MDX-Net `.onnx`;
 separate-music chains it with a karaoke split, a dereverb pass and the
 noise gate, its registry names resolved only to files already in
 $RVC_TPU_ASSETS/models/uvr5 (default assets/).
-extract, train, index, convert, separate, separate-music and tts
---model run on the card unless
+transcribe cuts 30 s windows, decodes each with the temperature fallback
+(beam search at temperature 0 with --beam-size) and aligns words by
+cross-attention DTW with --word-timestamps.  diarize-convert clusters
+the segments' ECAPA embeddings into one speaker per voice model.
+extract, train, index, convert, separate, separate-music, transcribe,
+diarize-convert and tts --model run on the card unless
 `--device cpu` is passed; effects, fuse and info are host work.  tts
 needs the network (the Edge read-aloud service, or Google's with
 --google; RVC_TPU_EDGE_TTS_URL names another Edge endpoint).
@@ -489,6 +500,71 @@ def cmd_separate_music(args) -> int:
     return 0
 
 
+def cmd_transcribe(args) -> int:
+    """Whisper transcription to a JSON list of segments, with word
+    timestamps on request (JAX cli.py:449-470)."""
+    import json
+
+    from .models.whisper import load_whisper_pt
+    from .speaker.transcribe import transcribe
+    from .speaker.whisper_tokenizer import WhisperTokenizer
+    from .utils.audio import load_audio
+    from .utils.i18n import tr
+
+    for flag, path in (("--input", args.input), ("--model", args.model), ("--vocab", args.vocab)):
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"{flag}: no such file {path!r}")
+    model = load_whisper_pt(args.model, device=args.device)
+    tok = WhisperTokenizer(args.vocab, multilingual=True, language=args.language)
+    segs = transcribe(model, tok, load_audio(args.input, 16000),
+                      word_timestamps=args.word_timestamps, beam_size=args.beam_size,
+                      patience=args.patience, best_of=args.best_of)
+    out = [{k: v for k, v in s.items() if k != "tokens"} for s in segs]
+    with open(args.output, "w") as f:
+        json.dump(out, f, indent=2, ensure_ascii=False)
+    print(tr("whisper_done") + " " + tr("segments_to", n=len(out), path=args.output))
+    return 0
+
+
+def cmd_diarize_convert(args) -> int:
+    """Diarized two-model conversion: segment (Whisper with --whisper,
+    else an energy VAD), cluster the segments' ECAPA embeddings, convert
+    each with its cluster's voice model (JAX cli.py:531-563).  --ecapa is
+    an ECAPA checkpoint or a speechbrain directory holding one."""
+    import copy
+
+    from .speaker.diarize import convert_with_diarization
+    from .speaker.hyperyaml import load_ecapa
+    from .utils.audio import load_audio, save_wav
+
+    if not os.path.isfile(args.input):
+        raise FileNotFoundError(f"--input: no such file {args.input!r}")
+    if not os.path.exists(args.ecapa):
+        raise FileNotFoundError(f"--ecapa: no such file or directory {args.ecapa!r}")
+    audio16 = load_audio(args.input, 16000)
+    pipes, settings_list = [], []
+    for model in (args.model, args.model_b or args.model):
+        a = copy.copy(args)
+        a.model = model
+        pipe, settings = _build_convert_pipeline(a)
+        pipes.append(pipe)
+        settings_list.append(settings)
+    whisper = None
+    if args.whisper:
+        from .models.whisper import load_whisper_pt
+        from .speaker.whisper_tokenizer import WhisperTokenizer
+
+        if not os.path.isfile(args.vocab):
+            raise FileNotFoundError(f"--whisper needs --vocab, a .tiktoken file: {args.vocab!r}")
+        whisper = (load_whisper_pt(args.whisper, device=args.device),
+                   WhisperTokenizer(args.vocab, multilingual=True))
+    out = convert_with_diarization(audio16, pipes, settings_list,
+                                   load_ecapa(args.ecapa, args.device), whisper=whisper)
+    save_wav(args.output, out, pipes[0].cfg.sr)
+    print(f"wrote {args.output} ({len(out) / pipes[0].cfg.sr:.2f}s @ {pipes[0].cfg.sr} Hz)")
+    return 0
+
+
 def _conversion_flags(c) -> None:
     """The flags of `_build_convert_pipeline`, shared by convert and tts."""
     c.add_argument("--rmvpe-path", default="",
@@ -714,6 +790,36 @@ def build_parser() -> argparse.ArgumentParser:
     sm.add_argument("--mdx-n-fft", type=int, default=6144)
     sm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sm.set_defaults(func=cmd_separate_music)
+
+    w = sub.add_parser("transcribe", help="Whisper speech recognition to JSON segments")
+    w.add_argument("--model", required=True, help="whisper .pt")
+    w.add_argument("--vocab", required=True, help="multilingual.tiktoken vocabulary file")
+    w.add_argument("--input", required=True)
+    w.add_argument("--output", required=True)
+    w.add_argument("--language", default="en")
+    w.add_argument("--word-timestamps", action="store_true")
+    w.add_argument("--beam-size", type=int, default=None,
+                   help="beam search width at temperature 0")
+    w.add_argument("--patience", type=float, default=None, help="beam patience multiplier")
+    w.add_argument("--best-of", type=int, default=None,
+                   help="independent samples kept at temperature > 0")
+    w.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    w.set_defaults(func=cmd_transcribe)
+
+    dz = sub.add_parser("diarize-convert", help="multi-speaker conversion: diarize, then "
+                                                "alternate two voice models per speaker")
+    dz.add_argument("--input", required=True)
+    dz.add_argument("--output", required=True)
+    dz.add_argument("--model", required=True, help="voice model A")
+    dz.add_argument("--model-b", default="", help="voice model B")
+    dz.add_argument("--ecapa", required=True,
+                    help="ECAPA-TDNN checkpoint, or a speechbrain directory with "
+                         "hyperparams.yaml and embedding_model.ckpt")
+    dz.add_argument("--whisper", default="",
+                    help="whisper .pt for the segment boundaries (default: energy VAD)")
+    dz.add_argument("--vocab", default="", help="tiktoken vocabulary (with --whisper)")
+    _conversion_flags(dz)
+    dz.set_defaults(func=cmd_diarize_convert)
     return ap
 
 

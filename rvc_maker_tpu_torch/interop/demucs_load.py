@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import re
 import sys
 import types
 from typing import Any
@@ -31,6 +30,7 @@ from typing import Any
 from ..device import resolve_device, tree_to
 from ..errors import BadRequest
 from ..models.demucs import DemucsConfig, params_from_state_dict
+from ..utils import yaml_lite
 
 ARCH_MODULES = {"htdemucs": ("HTDemucs",), "hdemucs": ("HDemucs",), "demucs": ("Demucs",)}
 SHIM_ROOTS = ("demucs", "main.library.uvr5_separator.demucs")
@@ -129,125 +129,14 @@ def load_demucs_th(path_or_package, *, device="cuda") -> tuple[Any, DemucsConfig
 # the bag file
 # ---------------------------------------------------------------------------
 
-_INTS = ((re.compile(r"[-+]?0b[01_]+$"), 2), (re.compile(r"[-+]?0x[0-9a-fA-F_]+$"), 16),
-         (re.compile(r"[-+]?0[0-7_]+$"), 8), (re.compile(r"[-+]?(0|[1-9][0-9_]*)$"), 10))
-_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
-
-
-def _scalar(text: str):
-    """A plain or quoted YAML scalar, resolved as PyYAML's safe loader
-    (YAML 1.1) resolves it: null, booleans, binary / hex / octal /
-    decimal ints, floats (which need their dot), else a string."""
-    t = text.strip()
-    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
-        return t[1:-1]
-    if t in ("", "~", "null", "Null", "NULL"):
-        return None
-    if t in ("true", "True", "TRUE"):
-        return True
-    if t in ("false", "False", "FALSE"):
-        return False
-    for pattern, base in _INTS:
-        if pattern.match(t):
-            digits = t.replace("_", "")
-            sign = -1 if digits[0] == "-" else 1
-            digits = digits.lstrip("+-")
-            return sign * int(digits[2:] if base in (2, 16) else digits, base)
-    if _FLOAT.match(t) and t not in (".", "+.", "-."):
-        return float(t.replace("_", ""))
-    return t
-
-
-def _flow(text: str):
-    """A flow list ('[a, [1., 0.], b]') -> a Python list."""
-    pos = 0
-
-    def value():
-        nonlocal pos
-        while pos < len(text) and text[pos].isspace():
-            pos += 1
-        if pos < len(text) and text[pos] == "[":
-            pos += 1
-            items = []
-            while True:
-                while pos < len(text) and text[pos].isspace():
-                    pos += 1
-                if pos >= len(text):
-                    raise BadRequest(f"unterminated list in bag: {text!r}")
-                if text[pos] == "]":
-                    pos += 1
-                    return items
-                items.append(value())
-                while pos < len(text) and text[pos].isspace():
-                    pos += 1
-                if pos < len(text) and text[pos] == ",":
-                    pos += 1
-        start = pos
-        quote = text[pos] if pos < len(text) and text[pos] in "'\"" else None
-        if quote:
-            end = text.index(quote, pos + 1)
-            pos = end + 1
-            return text[start + 1:end]
-        while pos < len(text) and text[pos] not in ",]":
-            pos += 1
-        return _scalar(text[start:pos])
-
-    out = value()
-    if text[pos:].strip():
-        raise BadRequest(f"unexpected text after a list in bag: {text[pos:]!r}")
-    return out
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            if ch == quote:
-                quote = None
-        elif ch in "'\"":
-            quote = ch
-        elif ch == "#" and (i == 0 or line[i - 1].isspace()):
-            return line[:i]
-    return line
-
-
 def parse_bag(text: str) -> dict:
     """The demucs bag format: top-level `key: value` lines whose values are
     scalars, flow lists (which may span lines) or block lists of such
-    items."""
-    lines = [_strip_comment(raw).rstrip() for raw in text.splitlines()]
-    out: dict = {}
-    key = None
-    i = 0
-    while i < len(lines):
-        line = lines[i]
-        i += 1
-        if not line.strip() or line.strip() == "---":
-            continue
-        stripped = line.strip()
-        if stripped.startswith("- "):
-            if key is None or not isinstance(out[key], list):
-                raise BadRequest(f"a list item outside a list in bag: {line!r}")
-            item = stripped[2:].strip()
-            while item.startswith("[") and item.count("[") > item.count("]") and i < len(lines):
-                item += " " + lines[i].strip()
-                i += 1
-            out[key].append(_flow(item) if item.startswith("[") else _scalar(item))
-            continue
-        if line[0].isspace():
-            raise BadRequest(f"unsupported nesting in bag: {line!r}")
-        m = re.match(r"([A-Za-z_][A-Za-z0-9_]*)\s*:(.*)$", line)
-        if not m:
-            raise BadRequest(f"unsupported line in bag: {line!r}")
-        key, rest = m.group(1), m.group(2).strip()
-        if not rest:
-            out[key] = []               # a block list follows (or nothing)
-            continue
-        while rest.startswith("[") and rest.count("[") > rest.count("]") and i < len(lines):
-            rest += " " + lines[i].strip()
-            i += 1
-        out[key] = _flow(rest) if rest.startswith("[") else _scalar(rest)
-    return out
+    items (`utils/yaml_lite.py`)."""
+    bag = yaml_lite.load(text, source="the bag")
+    if not isinstance(bag, dict):
+        raise BadRequest("the bag's top level is not a mapping")
+    return bag
 
 
 def load_demucs_bag(yaml_path: str, repo_dir: str | None = None, *, device="cuda"):

@@ -888,3 +888,276 @@ def random_demucs_state_dict(cfg, channels: int = 48, *, t_layers: int = 5,
                 sd[f"{p}.gamma_1.scale"] = rs.uniform(0.05, 0.15, dim)
                 sd[f"{p}.gamma_2.scale"] = rs.uniform(0.05, 0.15, dim)
     return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32)) for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
+# Whisper and ECAPA-TDNN (models/whisper.py, models/ecapa_tdnn.py)
+# ---------------------------------------------------------------------------
+
+TRANSCRIPT_FREQS = 6              # planes of the timestamp code
+TRANSCRIPT_TS_PER_POSITION = 25   # 0.5 s of timestamp per decoder position
+TRANSCRIPT_EOT_POSITION = 41      # the last timestamp near 20 s, then the end of text
+
+
+def random_whisper_tree(dims, seed: int = 0, *, transcript: bool = False) -> dict:
+    """Whisper params drawn from `seed` in the JAX layouts (linear (Cin,
+    Cout), conv (K, Cin, Cout)), as JAX `params_from_state_dict` lays them
+    out: linears and convs uniform(+-1 / sqrt(fan_in)) as torch's default
+    init, layer norms near 1, the token embedding normal(0, 1) as
+    nn.Embedding's, the decoder positions normal(0, 0.02).
+
+    transcript=True shapes the draws so that greedy decoding of the
+    multilingual layout writes timestamped text, as a trained model does,
+    instead of repeating one token: the timestamp tokens' embeddings turn
+    at six rates in six planes (a code whose dot products peak where two
+    timestamps meet) and share a direction w; the decoder positions are
+    made to dominate the residual stream, each even position p pointing
+    at timestamp 25 p's code (0.5 s more per position), each odd one away
+    from w and at a random direction (a varied text token), and from
+    position 41 on at the end-of-text token's embedding, which is set
+    apart from all of these directions.  A window so decodes
+    <|t|> text pairs up to about 20 s, then ends."""
+    from ..models.whisper import sinusoids
+
+    rs = np.random.RandomState(seed)
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    def lin(cin, cout, bias=True):
+        bound = 1.0 / math.sqrt(cin)
+        out = {"w": f32(rs.uniform(-bound, bound, (cin, cout)))}
+        if bias:
+            out["b"] = f32(rs.uniform(-bound, bound, cout))
+        return out
+
+    def ln(c):
+        return {"gamma": f32(1.0 + 0.1 * rs.randn(c)), "beta": f32(0.1 * rs.randn(c))}
+
+    def conv(k, cin, cout):
+        bound = 1.0 / math.sqrt(k * cin)
+        return {"w": f32(rs.uniform(-bound, bound, (k, cin, cout))),
+                "b": f32(rs.uniform(-bound, bound, cout))}
+
+    def attn(c):
+        return {"q": lin(c, c), "k": lin(c, c, bias=False), "v": lin(c, c), "o": lin(c, c)}
+
+    def block(c, cross):
+        b = {"attn": attn(c), "attn_ln": ln(c), "fc1": lin(c, 4 * c), "fc2": lin(4 * c, c),
+             "mlp_ln": ln(c)}
+        if cross:
+            b["cross_attn"], b["cross_ln"] = attn(c), ln(c)
+        return b
+
+    ca, ct = dims.n_audio_state, dims.n_text_state
+    enc = {"conv1": conv(3, dims.n_mels, ca), "conv2": conv(3, ca, ca),
+           "pos": sinusoids(dims.n_audio_ctx, ca),
+           "blocks": [block(ca, False) for _ in range(dims.n_audio_layer)],
+           "ln_post": ln(ca)}
+    dec = {"tok_emb": f32(rs.randn(dims.n_vocab, ct)),
+           "pos_emb": f32(0.02 * rs.randn(dims.n_text_ctx, ct)),
+           "blocks": [block(ct, True) for _ in range(dims.n_text_layer)], "ln": ln(ct)}
+    if transcript:
+        emb, pos = dec["tok_emb"], dec["pos_emb"]
+        basis = np.linalg.qr(rs.randn(ct, 2 * TRANSCRIPT_FREQS + 2))[0].T * math.sqrt(ct)
+        w, end, planes = basis[-2], basis[-1], basis[:-2].reshape(TRANSCRIPT_FREQS, 2, ct)
+        theta = math.pi / 1700 * 2.0 ** np.arange(TRANSCRIPT_FREQS)
+
+        def turn(angles):                  # (n,) -> (n, ct): a point on every plane
+            a = angles[:, None, None] * theta[None, :, None]
+            return (np.cos(a) * planes[None, :, 0] + np.sin(a) * planes[None, :, 1]).sum(1) \
+                / math.sqrt(TRANSCRIPT_FREQS)
+
+        ts0, eot = dims.n_vocab - 1501, dims.n_vocab - 1608
+        emb[ts0:] += 3.0 * turn(np.arange(1501.0)) + 3.0 * w
+        p = np.arange(dims.n_text_ctx)
+        odd = rs.randn(dims.n_text_ctx, ct)
+        odd -= np.outer(odd @ end, end) / ct
+        odd *= math.sqrt(ct) / np.linalg.norm(odd, axis=1, keepdims=True)
+        pos += np.where((p % 2 == 0)[:, None], 20.0 * turn(TRANSCRIPT_TS_PER_POSITION * p),
+                        20.0 * 0.7 * (odd - w)).astype(np.float32)
+        emb[eot] = 1.5 * end
+        pos[TRANSCRIPT_EOT_POSITION:] = 60.0 * end
+    return {"encoder": enc, "decoder": dec}
+
+
+def whisper_state_dict(tree) -> dict:
+    """A JAX-layout Whisper tree -> the reference Whisper's state dict
+    (`model_state_dict` of a `.pt`), fp32 tensors."""
+    sd: dict = {}
+
+    def lin(name, p):
+        sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+        if p.get("b") is not None:
+            sd[f"{name}.bias"] = _t(p["b"])
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = _t(p["gamma"]), _t(p["beta"])
+
+    def blocks(prefix, bl):
+        for i, b in enumerate(bl):
+            bp = f"{prefix}.blocks.{i}"
+            for key, name in (("attn", "attn"), ("cross_attn", "cross_attn")):
+                if key in b:
+                    for k, m in (("q", "query"), ("k", "key"), ("v", "value"), ("o", "out")):
+                        lin(f"{bp}.{name}.{m}", b[key][k])
+            ln(f"{bp}.attn_ln", b["attn_ln"])
+            if "cross_ln" in b:
+                ln(f"{bp}.cross_attn_ln", b["cross_ln"])
+            lin(f"{bp}.mlp.0", b["fc1"])
+            lin(f"{bp}.mlp.2", b["fc2"])
+            ln(f"{bp}.mlp_ln", b["mlp_ln"])
+
+    enc, dec = tree["encoder"], tree["decoder"]
+    for name in ("conv1", "conv2"):
+        sd[f"encoder.{name}.weight"] = _conv(enc[name])["w"]
+        sd[f"encoder.{name}.bias"] = _t(enc[name]["b"])
+    sd["encoder.positional_embedding"] = _t(enc["pos"])
+    blocks("encoder", enc["blocks"])
+    ln("encoder.ln_post", enc["ln_post"])
+    sd["decoder.token_embedding.weight"] = _t(dec["tok_emb"])
+    sd["decoder.positional_embedding"] = _t(dec["pos_emb"])
+    blocks("decoder", dec["blocks"])
+    ln("decoder.ln", dec["ln"])
+    return sd
+
+
+def whisper_from_jax(tree, dims):
+    """A JAX-layout Whisper tree -> the port's `models.whisper.Whisper` on
+    the CPU."""
+    from ..models.whisper import params_from_state_dict
+
+    return params_from_state_dict(whisper_state_dict(tree), dims)
+
+
+def write_whisper_pt(path: str, tree, dims) -> str:
+    """A reference-layout Whisper checkpoint, {"dims", "model_state_dict"},
+    of a JAX-layout tree."""
+    import dataclasses
+
+    torch.save({"dims": dataclasses.asdict(dims), "model_state_dict": whisper_state_dict(tree)},
+               path)
+    return path
+
+
+def random_ecapa_tree(seed: int = 0) -> dict:
+    """ECAPA-TDNN params at its only width (models/ecapa_tdnn.py) drawn
+    from `seed` in the JAX layout: convs (K, Cin, Cout) normal(0,
+    1 / sqrt(fan_in)), biases 0.05 x normal, each BatchNorm folded into a
+    scale near 1 and a small shift."""
+    from ..models import ecapa_tdnn as ec
+
+    rs = np.random.RandomState(seed)
+
+    def conv(k, cin, cout, bias=True):
+        out = {"w": (rs.randn(k, cin, cout) / math.sqrt(k * cin)).astype(np.float32)}
+        if bias:
+            out["b"] = (0.05 * rs.randn(cout)).astype(np.float32)
+        return out
+
+    def bn(c):
+        return {"scale": (1.0 + 0.1 * rs.randn(c)).astype(np.float32),
+                "shift": (0.1 * rs.randn(c)).astype(np.float32)}
+
+    def tdnn(k, cin, cout):
+        return {"conv": conv(k, cin, cout), "bn": bn(cout)}
+
+    ch, ks = ec.CHANNELS, ec.KERNELS
+    sub = ch[1] // ec.RES2NET_SCALE
+    blocks = [tdnn(ks[0], 80, ch[0])]                 # 80 mel bands in
+    for i in range(1, len(ch) - 1):
+        blocks.append({"tdnn1": tdnn(1, ch[i - 1], ch[i]),
+                       "res2net": {"blocks": [tdnn(ks[i], sub, sub)
+                                              for _ in range(ec.RES2NET_SCALE - 1)]},
+                       "tdnn2": tdnn(1, ch[i], ch[i]),
+                       "se": {"conv1": conv(1, ch[i], 128), "conv2": conv(1, 128, ch[i])}})
+    mfa = ch[-1]
+    return {"blocks": blocks, "mfa": tdnn(1, 3 * ch[1], mfa),
+            "asp": {"tdnn": tdnn(1, 3 * mfa, 128), "conv": conv(1, 128, mfa)},
+            "asp_bn": bn(2 * mfa), "fc": conv(1, 2 * mfa, 192)}
+
+
+def ecapa_from_jax(tree) -> dict:
+    """A JAX-layout ECAPA tree -> the port's tree (conv weights (Cout,
+    Cin, K))."""
+    if isinstance(tree, dict):
+        if "w" in tree and np.ndim(tree["w"]) == 3:
+            return _conv(tree)
+        return {k: ecapa_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [ecapa_from_jax(v) for v in tree]
+    return _t(tree)
+
+
+def ecapa_state_dict(tree, rs, eps: float = 1e-5) -> dict:
+    """The reference ECAPA_TDNN's state dict of a JAX-layout tree: each
+    folded BatchNorm unfolded over random running statistics from `rs`
+    (var in [0.5, 2], mean 0.1 x normal), so that folding it again gives
+    the tree's scale and shift back."""
+    sd: dict = {}
+
+    def conv(prefix, p):
+        sd[f"{prefix}.conv.weight"] = _conv(p)["w"]
+        if p.get("b") is not None:
+            sd[f"{prefix}.conv.bias"] = _t(p["b"])
+
+    def bn(prefix, p):
+        scale, shift = np.asarray(p["scale"], np.float64), np.asarray(p["shift"], np.float64)
+        var = rs.uniform(0.5, 2.0, scale.shape)
+        mean = 0.1 * rs.randn(*scale.shape)
+        sd[f"{prefix}.norm.weight"] = _t(scale * np.sqrt(var + eps))
+        sd[f"{prefix}.norm.bias"] = _t(shift + mean * scale)
+        sd[f"{prefix}.norm.running_mean"] = _t(mean)
+        sd[f"{prefix}.norm.running_var"] = _t(var)
+        sd[f"{prefix}.norm.num_batches_tracked"] = torch.tensor(0)
+
+    def tdnn(prefix, p):
+        conv(f"{prefix}.conv", p["conv"])
+        bn(f"{prefix}.norm", p["bn"])
+
+    tdnn("blocks.0", tree["blocks"][0])
+    for i, b in enumerate(tree["blocks"][1:], start=1):
+        bp = f"blocks.{i}"
+        tdnn(f"{bp}.tdnn1", b["tdnn1"])
+        for j, r in enumerate(b["res2net"]["blocks"]):
+            tdnn(f"{bp}.res2net_block.blocks.{j}", r)
+        tdnn(f"{bp}.tdnn2", b["tdnn2"])
+        conv(f"{bp}.se_block.conv1", b["se"]["conv1"])
+        conv(f"{bp}.se_block.conv2", b["se"]["conv2"])
+        if "shortcut" in b:
+            conv(f"{bp}.shortcut", b["shortcut"])
+    tdnn("mfa", tree["mfa"])
+    tdnn("asp.tdnn", tree["asp"]["tdnn"])
+    conv("asp.conv", tree["asp"]["conv"])
+    bn("asp_bn", tree["asp_bn"])
+    conv("fc", tree["fc"])
+    return sd
+
+
+def write_tiktoken_vocab(path: str) -> str:
+    """A `.tiktoken` vocabulary ("base64(bytes) rank" lines) of the
+    released file's format and size (50,257 ranks: with Whisper's 1,608
+    specials, 51,865 tokens): the 256 single bytes, then deterministic
+    merges, each an earlier token of at most 8 bytes followed by one of
+    lower-case letters, space and ".,'" (one merge in ten by any single
+    byte), so that text decodes to words."""
+    import base64
+
+    rs = np.random.RandomState(0)
+    tokens = [bytes([i]) for i in range(256)]
+    seen = set(tokens)
+    text = [bytes([b]) for b in b"abcdefghijklmnopqrstuvwxyz .,'"]
+    heads = list(text)
+    while len(tokens) < 50257:
+        tail = text if rs.rand() < 0.9 else tokens[:256]
+        tok = heads[rs.randint(len(heads))] + tail[rs.randint(len(tail))]
+        if tok in seen:
+            continue
+        seen.add(tok)
+        tokens.append(tok)
+        if len(tok) < 8:
+            heads.append(tok)
+    with open(path, "wb") as f:
+        for rank, tok in enumerate(tokens):
+            f.write(base64.b64encode(tok) + b" " + str(rank).encode() + b"\n")
+    return path

@@ -138,6 +138,19 @@ def sync_global(name: str = "sync") -> None:
         dist.barrier()
 
 
+def any_rank(flag: bool) -> bool:
+    """True on every rank when `flag` is True on any: a MAX all-reduce of
+    one int (on this rank's card under NCCL, else on the CPU).  One
+    process returns `flag`."""
+    if process_count() == 1:
+        return bool(flag)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def shutdown() -> None:
     """Leave the process group, if this process joined one."""
     if dist.is_initialized():

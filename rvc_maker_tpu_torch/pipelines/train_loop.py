@@ -10,7 +10,10 @@ save_only_latest), the interchange `.pth` exported
 at save epochs, the overtraining detector on EMA-smoothed losses with its
 JSON, metrics logged every `log_interval` steps (to TensorBoard under
 `tb/` unless the caller gives a log_writer, with a generated sample and
-its mel image at save epochs).  SIGTERM saves and stops.
+its mel image at save epochs).  SIGTERM saves and stops; across ranks a
+MAX all-reduce of the stop flag after every step (and before the save
+decision) takes all of them out at the same step, wherever the signal
+landed (the JAX loop stops only the signalled process).
 
 The checkpoint holds G, D, both AdamW states, the step, the learning
 rate and the state of the generator that draws the step noise, so a
@@ -239,6 +242,9 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                                 {k: round(v, 4) for k, v in m.items()})
                     if log_writer is not None:
                         log_writer(state.step, m)
+                if world > 1:
+                    # a SIGTERM reaches one rank: every rank leaves at this step
+                    stop["now"] = dist_mod.any_rank(stop["now"])
                 if stop["now"]:
                     break
             train_mod.decay_lr(state, cfg)
@@ -253,7 +259,10 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                 detector.save_json(training_json)
             logger.info("epoch %d done (%d batches, %.1f s) loss_g %.4f loss_d %.4f",
                         epoch, n_batches, time.time() - t0, loss_g, loss_d)
-            if epoch % save_every_epoch == 0 or stop["now"] or epoch == total_epochs:
+            # the ranks agree on stopping before they choose to save; a
+            # signal after this point counts at the next step
+            stopping = dist_mod.any_rank(stop["now"]) if world > 1 else stop["now"]
+            if epoch % save_every_epoch == 0 or stopping or epoch == total_epochs:
                 # the parameters are the same on every rank: rank 0 writes,
                 # and no rank goes on before it has
                 dist_mod.sync_global("pre-save")
@@ -262,7 +271,7 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                 if primary and not save_only_latest:
                     save_checkpoint(state, os.path.join(exp_dir, f"ckpt_e{epoch}.pt"),
                                     epoch=epoch)
-                if primary and (save_every_weights or epoch == total_epochs or stop["now"]):
+                if primary and (save_every_weights or epoch == total_epochs or stopping):
                     name = model_name or os.path.basename(os.path.normpath(exp_dir))
                     export_synthesizer_pth(
                         state.params_g, cfg,
@@ -271,7 +280,7 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
                 if tb is not None and n_batches:
                     _log_eval_sample(tb, state, cfg, batch, state.step)
                 dist_mod.sync_global("post-save")
-            if stop["now"]:
+            if stopping:
                 break
     finally:
         if on_main:

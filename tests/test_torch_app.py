@@ -696,7 +696,7 @@ def _jax_post_routes():
 def test_every_jax_route_is_served_or_answers_501():
     served = {"/api/convert", "/api/f0_extract", "/api/job_start", "/api/job_status",
               "/api/settings", "/api/i18n", "/api/effects", "/api/model_info", "/api/fuse",
-              "/api/tts", "/api/export_onnx", "/api/separate"}
+              "/api/tts", "/api/export_onnx", "/api/separate", "/api/convert_whisper"}
     assert served | set(srv.UNPORTED_ROUTES) == _jax_post_routes()
     assert not served & set(srv.UNPORTED_ROUTES)
 
