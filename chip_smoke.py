@@ -261,6 +261,33 @@ Phases, each printed as it runs; any failure exits non-zero:
               resblock_tc launches per converted segment, the cluster labels
               equal to the CPU's on the same segments, wall s; (e)
               `/api/convert_whisper` answers 200.
+ 19. edit     AudioLDM2 editing, fp32: (a) the stack at the published
+              cvssp/audioldm2 widths (`edit/stack.py` `published_dims`:
+              CLAP text RoBERTa-base, the flan-T5-large encoder, GPT2 with
+              8 new tokens, the UNet (128, 256, 384, 640) with slots (None,
+              768, 1024), the VAE (128, 256, 512), the SpeechT5 HiFi-GAN
+              at 1,024 channels; ~1 B parameters, random weights drawn on
+              the card from a seed, the byte tokenizer) edits a 10 s 44.1
+              kHz stereo song at the reference's defaults (50 steps,
+              t_start 45: 144 UNet calls) into a 44.1 kHz stereo WAV: wall
+              s, peak GiB, the resblock counts zeroed before and read after
+              (36 resblock_tc: the vocoder's C = 256 / 128 / 64 / 32 stages;
+              its C = 512 stage runs the plain chain); then the edit cut to
+              10 steps, its wall, and under torch.profiler by stage
+              (edit.text, edit.inversion, edit.reverse, edit.vae,
+              edit.vocoder) with the busy share.  (b) Card against CPU at
+              full width on 2 s: the log-mel, VAE encode and decode, CLAP,
+              T5, GPT2 generation, one UNet step and the vocoder, each on
+              the CPU's inputs within 1e-4 x max(1, |ref|max); the 10-step
+              edit with the same explicit noise, waveform within 1e-3.  (c)
+              Each kernel resblock of the vocoder at its stage shape (B = 1,
+              T = 20,080 / 40,160 / 80,320 / 160,640) with the stack's
+              weights: resblock_tc against the plain chain within 1e-4 x
+              max(1, |ref|max), timed
+              beside the plain chain and a cuDNN F.conv1d chain, with the
+              bound; the C = 512 stage's plain chain timed.  (d) `cli edit
+              --toy-stack` and `/api/audio_edit` with toy_stack answer 0 /
+              200.
 
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
@@ -560,6 +587,76 @@ def profile_call(label, fn, wall_s):
     for name, ms in top:
         log(f"    {ms:9.3f} ms  {name[:110]}")
     log("  host self time: " + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top_host))
+    return res
+
+
+def device_by_range(events, prefix: str):
+    """(device ms by kernel, device ms by range `prefix`*, host ms by CUDA
+    runtime call) from the profiler's raw Kineto events: a kernel counts
+    in the range that encloses the start of the CPU op that launched it
+    (its linked correlation id); the ranges do not nest."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    cpu_start, ranges, runtime = {}, [], {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU:
+            cpu_start[e.correlation_id()] = e.start_ns()
+            if e.name().startswith(prefix):
+                ranges.append((e.start_ns(), e.end_ns(), e.name()))
+            elif e.name().startswith("cuda"):
+                runtime[e.name()] = runtime.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    by_kernel, stages = {}, {}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        ms = e.duration_ns() / 1e6
+        by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + ms
+        t = cpu_start.get(e.linked_correlation_id())
+        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            stages[ranges[i][2]] = stages.get(ranges[i][2], 0.0) + ms
+    return by_kernel, stages, runtime
+
+
+def profile_by_range(label, fn, wall_s, prefix: str) -> dict:
+    """`profile_call` for a call of tens of thousands of launches: the
+    same device figures read from the raw Kineto events (`device_by_range`),
+    since building the profiler's Python event tree for the tens of
+    thousands of launches of a 10-step edit took 84.7 s (on the host of
+    an NVIDIA H100 80GB HBM3, 700 W); the host side is the CUDA
+    runtime's calls by total ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_kernel, stages, runtime = device_by_range(prof.profiler.kineto_results.events(), prefix)
+    device_ms = sum(by_kernel.values())
+    if device_ms == 0:
+        log("  profile: device time not measured (the profiler saw no kernels)")
+        return dict(device_ms=None)
+    resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    res = dict(device_ms=device_ms, wall_ms=1e3 * wall_s, busy_share=device_ms / (1e3 * wall_s),
+               stages_ms=stages, unattributed_ms=device_ms - sum(stages.values()),
+               resblock_ms=resblock_ms, resblock_share=resblock_ms / device_ms,
+               top_kernels_ms=dict(top),
+               cuda_runtime_host_ms=dict(sorted(runtime.items(), key=lambda kv: -kv[1])[:4]),
+               read_s=time.perf_counter() - t0)
+    log(f"  profile of {label}: device {device_ms:.3f} ms of {1e3 * wall_s:.3f} ms wall (busy "
+        f"share {res['busy_share']:.3f}); resblock kernel {resblock_ms:.3f} ms "
+        f"({res['resblock_share']:.3f} of device time); events read in {res['read_s']:.1f} s")
+    log("  by stage: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+        + f", outside the stages {res['unattributed_ms']:.3f} ms")
+    for name, ms in top:
+        log(f"    {ms:9.3f} ms  {name[:110]}")
+    log("  host, CUDA runtime: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in res["cuda_runtime_host_ms"].items()))
     return res
 
 
@@ -3949,6 +4046,343 @@ def speaker_phase(work: str, cfg, model, device: str = "cuda", whisper_dims=None
     return res
 
 
+EDIT_SR = 44100
+EDIT_SECONDS = 10.0               # the edited song; 1,004 mel frames, a 251 x 16 latent
+EDIT_STEPS, EDIT_T_START = 50, 45   # the reference's defaults: 2 x (50 + 22) = 144 UNet calls
+EDIT_PROFILE_STEPS = 10           # the profiled edit, cut to 10 steps
+EDIT_CPU_SECONDS = 2.0            # card against CPU at full width
+EDIT_TOL = 1e-4                   # modules, card against CPU, x max(1, |ref|max)
+EDIT_WAVE_TOL = 1e-3              # the edited waveform, card against CPU
+EDIT_PROMPTS = ("a solo piano melody", "a solo violin melody")
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _time_ms(fn, iters: int, device) -> float:
+    """cuda_ms on the card; the host clock's mean elsewhere (a rehearsal)."""
+    if torch.device(device).type == "cuda":
+        return cuda_ms(fn, iters)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"shape {tuple(got.shape)} vs {tuple(ref.shape)}, or not finite")
+    return (got - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+
+def edit_vocoder_kernels(stack, frames: int, device, card: str) -> dict:
+    """(c) of phase 19: each resblock of the vocoder's stages at C in
+    SUPPORTED_C (the stack's own weights, B = 1, T of a `frames`-frame
+    mel), through `fused_resblock` (resblock_tc on the card) against the
+    plain chain, <= 1e-4 x max(1, |ref|max); timed beside the plain chain
+    and a cuDNN F.conv1d chain, with the bound.  The C = 512 stage, which
+    runs the plain chain, is timed too."""
+    from rvc_maker_tpu_torch.models import audioldm2 as am
+    from rvc_maker_tpu_torch.ops import resblock as rb
+
+    cfg, p = stack.voc_cfg, stack.params["vocoder"]
+    gen = torch.Generator(device=device).manual_seed(19)
+    rows, worst = [], 0.0
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0, c512_plain_ms=0.0,
+               c512_library_ms=0.0)
+    saved = reset_counts(rb)
+    t, c = frames, cfg.upsample_initial_channel
+    n_k = len(cfg.resblock_kernel_sizes)
+    for i, rate in enumerate(cfg.upsample_rates):
+        t, c = t * rate, c // 2
+        for j, (k, dils) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
+            dils, rbp = tuple(dils), p["resblocks"][i * n_k + j]
+            x = torch.randn(1, c, t, generator=gen, device=device) * 0.3
+            args = (x, rbp["w1"], rbp["b1"], rbp["w2"], rbp["b2"])
+            wt1 = rbp["w1"].permute(0, 3, 2, 1).contiguous()
+            wt2 = rbp["w2"].permute(0, 3, 2, 1).contiguous()
+            kw = dict(kernel_size=k, dilations=dils)
+            if not am._on_kernel(c, k, dils, cfg.leaky_slope):
+                tot["c512_plain_ms"] += _time_ms(lambda: rb._resblock(
+                    *args, slope=cfg.leaky_slope, **kw), 3, device)
+                tot["c512_library_ms"] += _time_ms(lambda: library_resblock(
+                    x, wt1, rbp["b1"], wt2, rbp["b2"], k, dils), 3, device)
+                continue
+            ref = rb._resblock(*args, **kw)
+            reset_counts(rb)
+            got = rb.fused_resblock(*args, **kw)
+            _sync(device)
+            if torch.device(device).type == "cuda" and rb.resblock_tc_launches != len(dils):
+                raise AssertionError(f"vocoder C={c} k={k} did not take resblock_tc")
+            err = (got - ref).abs().max().item()
+            tol = EDIT_TOL * max(1.0, ref.abs().max().item())
+            ms = _time_ms(lambda: rb.fused_resblock(*args, **kw), 10, device)
+            plain_ms = _time_ms(lambda: rb._resblock(*args, **kw), 10, device)
+            lib_ms = _time_ms(lambda: library_resblock(x, wt1, rbp["b1"], wt2, rbp["b2"], k, dils),
+                              10, device)
+            flops = rb.resblock_flops(1, t, c, k, len(dils))
+            nbytes = 4 * (2 * c * t + sum(v.numel() for v in args[1:]))
+            _, bound_ms, bound_by = bounds_ms(flops, nbytes)
+            rows.append(dict(C=c, T=t, k=k, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
+                             bound_by=bound_by))
+            log(f"  vocoder resblock C={c} T={t} k={k}: err {err:.3e} (tol {tol:.1e}) | "
+                f"resblock_tc {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms, "
+                f"bound {bound_ms:.3f} ms ({bound_by})")
+            if not err <= tol:
+                raise AssertionError(f"vocoder resblock C={c} k={k}: err {err} > {tol}")
+            worst = max(worst, err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                           ("flops", flops), ("bytes", nbytes)):
+                tot[key] += v
+            del x, args, wt1, wt2, ref, got
+    reset_counts(rb, saved)            # comparison launches do not count
+    fp32_bound, bound, bound_by = bounds_ms(tot["flops"], tot["bytes"])
+    tot.update(max_abs_err=worst, bound_ms=bound, bound_by=bound_by, fp32_bound_ms=fp32_bound,
+               launches_per_call=3 * len(rows), rows=rows)
+    log(f"  one vocoder call's {len(rows)} kernel resblocks ({tot['flops'] / 1e9:.1f} GFLOP, "
+        f"{tot['bytes'] / 1e6:.1f} MB): resblock_tc {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, cuDNN {tot['library_ms']:.3f} ms, bound 3xTF32 "
+        f"{bound:.3f} ms ({bound_by}) / fp32 {fp32_bound:.3f} ms, roofline share "
+        f"{bound / tot['ms']:.3f}; the C = 512 stage on the plain chain "
+        f"{tot['c512_plain_ms']:.3f} ms (cuDNN {tot['c512_library_ms']:.3f} ms); on {card}")
+    return tot
+
+
+def edit_phase(work: str, card: str, device: str = "cuda", dims: dict | None = None,
+               per_call: int = 36, compare: bool | None = None) -> dict:
+    """Phase 19 (module docstring).  `device`, `dims` (the stack's sizes,
+    `edit/stack.py` `published_dims()` by default), `per_call` (the
+    resblock_tc launches of one vocoder call) and `compare` (run (b),
+    by default on the card) are arguments for a rehearsal on the CPU at
+    small widths."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.app import server as srv
+    from rvc_maker_tpu_torch.device import tree_to
+    from rvc_maker_tpu_torch.edit import pipeline as ep
+    from rvc_maker_tpu_torch.edit import stack as st
+    from rvc_maker_tpu_torch.interop.from_jax import random_audioldm2_stack
+    from rvc_maker_tpu_torch.models import audioldm2 as am
+    from rvc_maker_tpu_torch.models import audioldm2_text as at
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.utils.audio import read_wav, resample
+
+    d = os.path.join(work, "edit")
+    os.makedirs(d, exist_ok=True)
+    on_card = torch.device(device).type == "cuda"
+    res: dict = {"launches": {}, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        res["part_s"][name] = now - t_part
+        t_part = now
+
+    # (a) the full-width stack from a seed, a 10 s edit at the reference's defaults
+    t0 = time.perf_counter()
+    stack = random_audioldm2_stack(19, device, dims)
+    _sync(device)
+    leaves = []
+
+    def collect(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                collect(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                collect(v)
+        elif isinstance(tree, torch.Tensor):
+            leaves.append(tree.numel())
+
+    for name in ("vae", "unet", "vocoder", "clap", "t5", "gpt2", "proj"):
+        leaves.clear()
+        collect(stack.params[name])
+        res.setdefault("parameters", {})[name] = int(sum(leaves))
+    res["build_s"] = time.perf_counter() - t0
+    log(f"  stack from a seed on {device} in {res['build_s']:.1f} s: "
+        + ", ".join(f"{k} {v / 1e6:.1f} M" for k, v in res["parameters"].items())
+        + f" ({sum(res['parameters'].values()) / 1e9:.3f} B parameters)")
+    song = separation_song(EDIT_SECONDS, EDIT_SR, seed=19)
+    src = write_wav_file(os.path.join(d, "song.wav"), song, EDIT_SR)
+    unet_calls = []
+    orig_unet = am.unet_forward
+
+    def counted_unet(*a, **kw):
+        unet_calls.append(1)
+        return orig_unet(*a, **kw)
+
+    def run_edit(steps, out_name, stack_=stack, dev=device, **kw):
+        return ep.edit(src, os.path.join(d, out_name), stack=stack_, source_prompt=EDIT_PROMPTS[0],
+                       target_prompt=EDIT_PROMPTS[1], steps=steps, t_start=EDIT_T_START,
+                       sr=EDIT_SR, device=dev, **kw)
+
+    am.unet_forward = counted_unet
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(rb)
+        t0 = time.perf_counter()
+        out = run_edit(EDIT_STEPS, "edited.wav")
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = reset_counts(rb)
+    finally:
+        am.unet_forward = orig_unet
+    res["launches"]["edit"] = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"), counts))
+    res["unet_calls"] = len(unet_calls)
+    want_calls = 2 * (EDIT_STEPS + int(EDIT_T_START / 100 * EDIT_STEPS))
+    wav, sr = read_wav(out)
+    res["edit"] = dict(wall_s=wall, steps=EDIT_STEPS, t_start=EDIT_T_START, seconds=EDIT_SECONDS,
+                       out_shape=list(wav.shape), out_sr=sr, out_rms=float(np.sqrt(np.mean(wav ** 2))),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None)
+    log(f"  edit {EDIT_SECONDS:.0f} s, {EDIT_STEPS} steps, t_start {EDIT_T_START}: "
+        f"{wall:.3f} s wall, {len(unet_calls)} UNet calls, launches {res['launches']['edit']}, "
+        f"out {wav.shape} at {sr} Hz (rms {res['edit']['out_rms']:.4f}), peak "
+        f"{res['edit']['peak_gib'] if res['edit']['peak_gib'] is None else round(res['edit']['peak_gib'], 2)} GiB")
+    if len(unet_calls) != want_calls:
+        raise AssertionError(f"{len(unet_calls)} UNet calls, not {want_calls}")
+    if counts[1] != per_call or counts[0] != per_call or counts[2] != 0:
+        raise AssertionError(f"edit launches {counts}, not {per_call} resblock_tc")
+    if (sr != EDIT_SR or wav.ndim != 2 or wav.shape[1] != 2 or not np.isfinite(wav).all()
+            or abs(wav.shape[0] / EDIT_SR - EDIT_SECONDS) > 0.05 or res["edit"]["out_rms"] == 0):
+        raise AssertionError(f"edited file: {wav.shape} at {sr} Hz")
+
+    # the same edit cut to 10 steps, its wall, then under torch.profiler by stage
+    t0 = time.perf_counter()
+    run_edit(EDIT_PROFILE_STEPS, "edited10.wav")
+    _sync(device)
+    wall10 = time.perf_counter() - t0
+    res["edit10_wall_s"] = wall10
+    part("a_edits")
+    if on_card:
+        res["profile"] = profile_by_range(f"edit, {EDIT_PROFILE_STEPS} steps",
+                                          lambda: run_edit(EDIT_PROFILE_STEPS, "edited10.wav"),
+                                          wall10, "edit.")
+    part("a_profile")
+
+    # (b) card against CPU at full width on 2 s, the same explicit noise
+    if on_card if compare is None else compare:
+        cpu = st.AudioLDM2Stack(vae_cfg=stack.vae_cfg, unet_cfg=stack.unet_cfg,
+                                voc_cfg=stack.voc_cfg, clap_cfg=stack.clap_cfg,
+                                t5_cfg=stack.t5_cfg, gpt2_cfg=stack.gpt2_cfg,
+                                params=tree_to(stack.params, torch.device("cpu")),
+                                tokenize=stack.tokenize, max_new_tokens=stack.max_new_tokens,
+                                n_mels=stack.n_mels, device="cpu")
+        t0 = time.perf_counter()
+        a16 = resample(song[:int(EDIT_CPU_SECONDS * EDIT_SR)].mean(axis=1), EDIT_SR, 16000)
+        errs = {}
+        with torch.inference_mode():
+            mel = cpu.get_mel(a16)[0]
+            errs["log_mel"] = _rel_err(stack.get_mel(a16)[0], mel)
+            w = cpu.vae_encode(mel)
+            errs["vae_encode"] = _rel_err(stack.vae_encode(mel.to(device)), w)
+            errs["vae_decode"] = _rel_err(stack.vae_decode(w.to(device)), cpu.vae_decode(w))
+            ids, mask, t5_ids, t5_mask = (torch.as_tensor(v) for v in
+                                          stack.tokenize(EDIT_PROMPTS[0]))
+            pc, pd = cpu.params, stack.params
+            clap = at.clap_get_text_features(pc["clap"], cpu.clap_cfg, ids, mask)
+            errs["clap"] = _rel_err(at.clap_get_text_features(
+                pd["clap"], stack.clap_cfg, ids.to(device), mask.to(device)), clap)
+            t5 = at.t5_encode(pc["t5"], cpu.t5_cfg, t5_ids, t5_mask)
+            errs["t5"] = _rel_err(at.t5_encode(pd["t5"], stack.t5_cfg, t5_ids.to(device),
+                                               t5_mask.to(device)), t5)
+            proj, pmask = at.projection_forward(pc["proj"], clap[:, None], t5,
+                                                torch.ones((1, 1), dtype=torch.int32), t5_mask)
+            gpt = at.generate_language_model(pc["gpt2"], cpu.gpt2_cfg, proj, pmask,
+                                             max_new_tokens=cpu.max_new_tokens)
+            errs["gpt2_generate"] = _rel_err(at.generate_language_model(
+                pd["gpt2"], stack.gpt2_cfg, proj.to(device), pmask.to(device),
+                max_new_tokens=stack.max_new_tokens), gpt)
+            step = torch.tensor([int(EDIT_T_START / 100 * 1000)], dtype=torch.int32)
+            eps = am.unet_forward(pc["unet"], cpu.unet_cfg, w[None], step, gpt, t5)
+            errs["unet_step"] = _rel_err(am.unet_forward(
+                pd["unet"], stack.unet_cfg, w[None].to(device), step.to(device), gpt.to(device),
+                t5.to(device)), eps)
+            vmel = cpu.vae_decode(w)
+            errs["vocoder"] = _rel_err(torch.as_tensor(stack.decode_to_mel(vmel.to(device))),
+                                       torch.as_tensor(cpu.decode_to_mel(vmel)))
+        res["card_vs_cpu"] = dict(errs)
+        log("  card against CPU, full width, 2 s: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" (x max(1, |ref|max); tol {EDIT_TOL} "
+            "for all but log_mel, printed: a log of |STFT| clamped at 1e-5, where cuFFT's and "
+            "the CPU's roundings of near-silent bins differ)")
+        bad = {k: v for k, v in errs.items() if k != "log_mel" and not v <= EDIT_TOL}
+        if bad:
+            raise AssertionError(f"edit modules card against CPU: {bad} > {EDIT_TOL}")
+        src2 = write_wav_file(os.path.join(d, "song2.wav"),
+                              song[:int(EDIT_CPU_SECONDS * EDIT_SR)], EDIT_SR)
+        noise = torch.randn((EDIT_PROFILE_STEPS, *w.shape),
+                            generator=torch.Generator().manual_seed(19))
+        outs = []
+        for dev, stk in ((device, stack), ("cpu", cpu)):
+            outs.append(read_wav(ep.edit(
+                src2, os.path.join(d, f"edited2_{dev}.wav"), stack=stk,
+                source_prompt=EDIT_PROMPTS[0], target_prompt=EDIT_PROMPTS[1],
+                steps=EDIT_PROFILE_STEPS, t_start=EDIT_T_START, sr=EDIT_SR, device=dev,
+                noise=noise))[0])
+        wave_err = float(np.abs(outs[0] - outs[1]).max())
+        res["card_vs_cpu"].update(edit_waveform=wave_err, cpu_s=time.perf_counter() - t0)
+        log(f"  edit of 2 s at {EDIT_PROFILE_STEPS} steps, card against CPU: waveform max abs "
+            f"{wave_err:.3e} (tol {EDIT_WAVE_TOL}); the CPU side {res['card_vs_cpu']['cpu_s']:.1f} s")
+        if outs[0].shape != outs[1].shape or not wave_err <= EDIT_WAVE_TOL:
+            raise AssertionError(f"edit card against CPU: {wave_err} > {EDIT_WAVE_TOL}")
+        del cpu, pc
+        if on_card:
+            torch.cuda.empty_cache()
+
+    part("b")
+
+    # (c) the kernel against its plain version at the vocoder's stage shapes
+    frames = 1 + int(EDIT_SECONDS * 16000) // 160
+    frames += -frames % 4                           # the VAE's front pad
+    res["vocoder_kernels"] = edit_vocoder_kernels(stack, frames, device, card)
+    del stack
+    if on_card:
+        torch.cuda.empty_cache()
+
+    part("c")
+
+    # (d) `cli edit --toy-stack` and /api/audio_edit with toy_stack
+    dev_flag = [] if on_card else ["--device", device]
+    t0 = time.perf_counter()
+    rc = cli.main(["edit", "--input-path", src, "--output-path", os.path.join(d, "cli.wav"),
+                   "--toy-stack", "--steps", str(EDIT_PROFILE_STEPS), *dev_flag])
+    res["cli_edit"] = dict(rc=rc, wall_s=time.perf_counter() - t0)
+    if rc != 0 or read_wav(os.path.join(d, "cli.wav"))[1] != EDIT_SR:
+        raise AssertionError(f"cli edit --toy-stack: rc {rc}")
+    srv.SETTINGS_PATH = os.path.join(d, "settings.json")
+    srv.set_device(device)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        code, body = post(httpd.server_address[1], "/api/audio_edit",
+                          {"input": src, "output": os.path.join(d, "api.wav"), "toy_stack": True,
+                           "steps": EDIT_PROFILE_STEPS, "source_prompt": EDIT_PROMPTS[0],
+                           "target_prompt": EDIT_PROMPTS[1]})
+        res["api_audio_edit"] = dict(code=code, wall_s=time.perf_counter() - t0)
+        if code != 200 or read_wav(body["output"])[1] != EDIT_SR:
+            raise AssertionError(f"/api/audio_edit answered {code}: {body.get('error')}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(30)
+    part("d")
+    log(f"  cli edit --toy-stack rc {rc} in {res['cli_edit']['wall_s']:.2f} s; /api/audio_edit "
+        f"{code} in {res['api_audio_edit']['wall_s']:.2f} s; parts (s): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in res["part_s"].items()))
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -4106,6 +4540,15 @@ def run(work: str) -> int:
     RESULTS["speaker"]["phase_s"] = time.perf_counter() - t0
     log(f"  phase 18 in {RESULTS['speaker']['phase_s']:.1f} s")
     del model
+    torch.cuda.empty_cache()
+
+    log(f"[19 edit] AudioLDM2 at the published widths: a 10 s edit, card against CPU, the "
+        f"vocoder's resblocks on resblock_tc, cli edit and /api/audio_edit "
+        f"({time.perf_counter() - t_start:.1f} s in)")
+    t0 = time.perf_counter()
+    RESULTS["edit"] = edit_phase(work, smi)
+    RESULTS["edit"]["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 19 in {RESULTS['edit']['phase_s']:.1f} s")
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"done in {RESULTS['total_s']:.1f} s")
 
@@ -4119,6 +4562,8 @@ def run(work: str) -> int:
     i8p, i8t = RESULTS["int8"]["pipeline"], RESULTS["int8"]["totals"]
     runs, tkb = ta["runs"], ta["train_kernel_bf16"]["totals"]
     par_ranks = RESULTS["parallel"]["ranks"]
+    edit = RESULTS["edit"]
+    ev = edit["vocoder_kernels"]
 
     def sep_launches(kernel: str) -> int:
         """Phase 17's launches of a resblock kernel over its driven calls."""
@@ -4177,6 +4622,14 @@ def run(work: str) -> int:
                  "resblock_tc"],
              launches_api_convert_whisper=RESULTS["speaker"]["launches"][
                  "api_convert_whisper"]["resblock_tc"],
+             # phase 19: the edit's one vocoder call, and its four kernel stages
+             # (B = 1, 1,004 mel frames) timed beside the plain and cuDNN chains
+             launches_edit=edit["launches"]["edit"]["resblock_tc"],
+             edit_vocoder=dict(ms=ev["ms"], plain_ms=ev["plain_ms"],
+                               library_ms=ev["library_ms"], bound_ms=ev["bound_ms"],
+                               bound_by=ev["bound_by"], max_abs_err=ev["max_abs_err"],
+                               c512_plain_ms=ev["c512_plain_ms"],
+                               c512_library_ms=ev["c512_library_ms"]),
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
              **common, **fp32),
@@ -4188,6 +4641,7 @@ def run(work: str) -> int:
              launches_train_bf16=runs["nsf_bf16"]["launches_tc_bf16"],
              launches_train_bf16_checkpointing=runs["nsf_bf16_ckpt"]["launches_tc_bf16"],
              launches_separate=sep_launches("resblock_tc_bf16"),
+             launches_edit=edit["launches"]["edit"]["resblock_tc_bf16"],
              train_fwd_ms=tkb["fwd_ms"], train_fwd_bound_ms=tkb["bound_ms"],
              train_fwd_library_ms=tkb["library_fwd_ms"], train_fwd_plain_ms=tkb["plain_fwd_ms"],
              max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],

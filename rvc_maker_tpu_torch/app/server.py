@@ -15,8 +15,10 @@ extract, train), `/api/settings`, `/api/effects`, `/api/model_info`,
 `/api/fuse`, `/api/export_onnx` (host work, in the handler thread: the
 export traces on the CPU), `/api/tts` (its conversion on the device
 thread), `/api/separate` (Demucs `.th` or MDX `.onnx`, on the device
-thread) and `/api/convert_whisper` (diarized conversion with two voice
-models alive at once, on the device thread).  `.onnx` voice models and embedders convert and extract like
+thread), `/api/convert_whisper` (diarized conversion with two voice
+models alive at once, on the device thread) and `/api/audio_edit`
+(AudioLDM2 editing, `toy_stack` for the offline stack, on the device
+thread).  `.onnx` voice models and embedders convert and extract like
 `.pth` and `.pt` files, their graphs run on the server's device
 (`interop/onnx_run.py`).  The routes whose modules are not yet ported
 (`UNPORTED_ROUTES`) and the `create_dataset` job answer 501 with a
@@ -85,7 +87,6 @@ _JOB_COUNTER = itertools.count()
 # each with what it needs (ROADMAP queue 1)
 UNPORTED_ROUTES = {
     "/api/download": "model download (utils/scrapers.py)",
-    "/api/audio_edit": "audio editing (edit/pipeline.py)",
     "/api/search_models": "model search (network)",
     "/api/report_bug": "bug report (network)",
 }
@@ -702,7 +703,8 @@ class Handler(BaseHTTPRequestHandler):
                   "/api/export_onnx": self._api_export_onnx,
                   "/api/tts": self._api_tts,
                   "/api/separate": self._api_separate,
-                  "/api/convert_whisper": self._api_convert_whisper}
+                  "/api/convert_whisper": self._api_convert_whisper,
+                  "/api/audio_edit": self._api_audio_edit}
         try:
             n = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(n) or b"{}")
@@ -925,6 +927,33 @@ class Handler(BaseHTTPRequestHandler):
 
         out, sr = _on_device_thread(run)
         self._json({"audio_b64": _audio_to_wav_b64(out, sr), "sr": sr})
+
+    def _api_audio_edit(self, req):
+        """Prompt-based audio editing (JAX server.py:814-838): the
+        request's input file edited and written to its "output", on the
+        device thread, with the toy latent stack when "toy_stack" is set
+        (the AudioLDM2 checkpoint is not in the repository; without it
+        the loader raises, as JAX's does)."""
+        src = req["input"]
+        if not isinstance(src, str) or not os.path.isfile(src):
+            raise ValueError(f"no such input file {src!r}")
+        kw = dict(model_id=req.get("model", "audioldm2-music"),
+                  source_prompt=req.get("source_prompt", ""),
+                  target_prompt=req.get("target_prompt", ""), steps=_int_field(req, "steps", 50),
+                  cfg_scale_src=float(req.get("cfg_scale_src", 3.5)),
+                  cfg_scale_tar=float(req.get("cfg_scale_tar", 12.0)),
+                  t_start=_int_field(req, "t_start", 45), sr=_int_field(req, "sample_rate", 44100),
+                  export_format=req.get("export_format", "wav"))
+        device = _STATE["device"]
+
+        def run():
+            from ..edit.pipeline import ToyMelStack, edit
+
+            stack = ToyMelStack(device=device) if req.get("toy_stack") else None
+            return edit(src, req.get("output", "audios/output.wav"), stack=stack, device=device,
+                        **kw)
+
+        self._json({"output": _on_device_thread(run)})
 
     def _api_job_status(self, req):
         with _JOBS_LOCK:

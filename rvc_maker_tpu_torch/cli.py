@@ -47,6 +47,9 @@
         --output out.wav --model a.pth --model-b b.pth --ecapa ecapa_dir/ \
         --hubert-path hubert_base.pt [--whisper whisper.pt --vocab
         multilingual.tiktoken] and the conversion flags of convert
+    python -m rvc_maker_tpu_torch.cli edit --input-path in.wav \
+        --output-path out.wav --toy-stack [--source-prompt "piano"
+        --target-prompt "violin" --steps 50 --t-start 45 --sample-rate 44100]
 
 Every weight file is given explicitly; nothing is downloaded.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
@@ -77,8 +80,13 @@ transcribe cuts 30 s windows, decodes each with the temperature fallback
 (beam search at temperature 0 with --beam-size) and aligns words by
 cross-attention DTW with --word-timestamps.  diarize-convert clusters
 the segments' ECAPA embeddings into one speaker per voice model.
+edit inverts the input with edit-friendly DDPM inversion under the
+source prompt and re-runs the chain under the target prompt; the
+AudioLDM2 checkpoint is read from assets/models/audioldm2/<model> and is
+not in the repository, so without --toy-stack (an identity VAE and a
+zero denoiser) it raises, as the JAX package's does.
 extract, train, index, convert, separate, separate-music, transcribe,
-diarize-convert and tts --model run on the card unless
+diarize-convert, edit and tts --model run on the card unless
 `--device cpu` is passed; effects, fuse and info are host work.  tts
 needs the network (the Edge read-aloud service, or Google's with
 --google; RVC_TPU_EDGE_TTS_URL names another Edge endpoint).
@@ -526,6 +534,22 @@ def cmd_transcribe(args) -> int:
     return 0
 
 
+def cmd_edit(args) -> int:
+    """Prompt-based audio editing on args.device (JAX cli.py:595-610)."""
+    from .edit.pipeline import ToyMelStack, edit
+    from .utils.i18n import tr
+
+    out = edit(args.input_path, args.output_path, model_id=args.model,
+               source_prompt=args.source_prompt, target_prompt=args.target_prompt,
+               steps=args.steps, cfg_scale_src=args.cfg_scale_src,
+               cfg_scale_tar=args.cfg_scale_tar, t_start=args.t_start,
+               save_compute=args.save_compute, sr=args.sample_rate,
+               export_format=args.export_format, device=args.device,
+               stack=ToyMelStack(device=args.device) if args.toy_stack else None)
+    print(tr("success") + f" -> {out}")
+    return 0
+
+
 def cmd_diarize_convert(args) -> int:
     """Diarized two-model conversion: segment (Whisper with --whisper,
     else an energy VAD), cluster the segments' ECAPA embeddings, convert
@@ -820,6 +844,25 @@ def build_parser() -> argparse.ArgumentParser:
     dz.add_argument("--vocab", default="", help="tiktoken vocabulary (with --whisper)")
     _conversion_flags(dz)
     dz.set_defaults(func=cmd_diarize_convert)
+
+    ed = sub.add_parser("edit", help="prompt-based audio editing by DDPM inversion (AudioLDM2)")
+    ed.add_argument("--input-path", required=True)
+    ed.add_argument("--output-path", default="./output.wav")
+    ed.add_argument("--export-format", default="wav")
+    ed.add_argument("--sample-rate", type=int, default=44100)
+    ed.add_argument("--model", default="audioldm2-music",
+                    choices=["audioldm2", "audioldm2-large", "audioldm2-music"])
+    ed.add_argument("--source-prompt", default="")
+    ed.add_argument("--target-prompt", default="")
+    ed.add_argument("--steps", type=int, default=50)
+    ed.add_argument("--cfg-scale-src", type=float, default=3.5)
+    ed.add_argument("--cfg-scale-tar", type=float, default=12.0)
+    ed.add_argument("--t-start", type=int, default=45)
+    ed.add_argument("--save-compute", action="store_true", default=True)
+    ed.add_argument("--toy-stack", action="store_true",
+                    help="the self-contained toy latent stack (no pretrained weights)")
+    ed.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ed.set_defaults(func=cmd_edit)
     return ap
 
 

@@ -1161,3 +1161,245 @@ def write_tiktoken_vocab(path: str) -> str:
         for rank, tok in enumerate(tokens):
             f.write(base64.b64encode(tok) + b" " + str(rank).encode() + b"\n")
     return path
+
+
+# ---------------------------------------------------------------------------
+# AudioLDM2 (models/audioldm2.py, models/audioldm2_text.py, edit/stack.py)
+# ---------------------------------------------------------------------------
+
+def _ldm_tree(tree):
+    """A JAX AudioLDM2 VAE / UNet / text tree -> the port's layouts: every
+    "w" of 4 axes (Kh, Kw, Cin, Cout) -> (Cout, Cin, Kh, Kw), of 2 axes
+    (in, out) -> (out, in); every other array as it is."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "w" and np.ndim(v) == 4:
+                out[k] = _t(np.transpose(np.asarray(v), (3, 2, 0, 1)))
+            elif k == "w" and np.ndim(v) == 2:
+                out[k] = _t(np.asarray(v).T)
+            else:
+                out[k] = _ldm_tree(v)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_ldm_tree(v) for v in tree]
+    return _t(tree)
+
+
+def _vocoder_from_jax(p) -> dict:
+    return {"mean": _t(p["mean"]), "scale": _t(p["scale"]), "conv_pre": _conv(p["conv_pre"]),
+            "conv_post": _conv(p["conv_post"]), "ups": [_convt(u) for u in p["ups"]],
+            "resblocks": [pack_resblock([_conv(c) for c in rb["convs1"]],
+                                        [_conv(c) for c in rb["convs2"]])
+                          for rb in p["resblocks"]]}
+
+
+def audioldm2_from_jax(params) -> dict:
+    """JAX `AudioLDM2Stack.params` (numpy trees: vae, unet, vocoder, clap,
+    t5, gpt2, proj) -> the port's `AudioLDM2Stack.params`, on the CPU."""
+    out = {k: _ldm_tree(v) for k, v in params.items() if k != "vocoder"}
+    out["vocoder"] = _vocoder_from_jax(params["vocoder"])
+    return out
+
+
+class _Draws:
+    """Random weights in the port's layouts on one device, from one
+    torch.Generator: linears and convs at std 1 / sqrt(fan_in), biases at
+    std 0.02, norms at gamma 1, beta 0."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.g = torch.Generator(device=self.device).manual_seed(seed)
+
+    def randn(self, *shape, std: float) -> torch.Tensor:
+        return torch.randn(shape, generator=self.g, device=self.device) * std
+
+    def lin(self, cin: int, cout: int, bias: bool = True) -> dict:
+        out = {"w": self.randn(cout, cin, std=cin ** -0.5)}
+        if bias:
+            out["b"] = self.randn(cout, std=0.02)
+        return out
+
+    def conv2d(self, cin: int, cout: int, k: int) -> dict:
+        return {"w": self.randn(cout, cin, k, k, std=(cin * k * k) ** -0.5),
+                "b": self.randn(cout, std=0.02)}
+
+    def conv1d(self, cin: int, cout: int, k: int) -> dict:
+        return {"w": self.randn(cout, cin, k, std=(cin * k) ** -0.5),
+                "b": self.randn(cout, std=0.02)}
+
+    def norm(self, c: int) -> dict:
+        return {"gamma": torch.ones(c, device=self.device),
+                "beta": torch.zeros(c, device=self.device)}
+
+    def resnet(self, cin: int, cout: int, temb: int | None = None) -> dict:
+        p = {"gn1": self.norm(cin), "conv1": self.conv2d(cin, cout, 3),
+             "gn2": self.norm(cout), "conv2": self.conv2d(cout, cout, 3)}
+        if cin != cout:
+            p["shortcut"] = self.conv2d(cin, cout, 1)
+        if temb is not None:
+            p["time"] = self.lin(temb, cout)
+        return p
+
+
+def _random_vae(d: _Draws, cfg) -> dict:
+    ch = cfg.block_out_channels
+
+    def mid(c):
+        return {"res1": d.resnet(c, c),
+                "attn": {"gn": d.norm(c), **{n: d.lin(c, c) for n in ("q", "k", "v", "o")}},
+                "res2": d.resnet(c, c)}
+
+    enc = {"conv_in": d.conv2d(cfg.in_channels, ch[0], 3), "down": []}
+    cin = ch[0]
+    for li, cout in enumerate(ch):
+        blk = {"res": [d.resnet(cin if j == 0 else cout, cout)
+                       for j in range(cfg.layers_per_block)]}
+        if li < len(ch) - 1:
+            blk["down"] = d.conv2d(cout, cout, 3)
+        enc["down"].append(blk)
+        cin = cout
+    enc.update(mid=mid(ch[-1]), gn_out=d.norm(ch[-1]),
+               conv_out=d.conv2d(ch[-1], 2 * cfg.latent_channels, 3))
+    dec = {"conv_in": d.conv2d(cfg.latent_channels, ch[-1], 3), "mid": mid(ch[-1]), "up": []}
+    rev = list(reversed(ch))
+    cin = rev[0]
+    for li, cout in enumerate(rev):
+        blk = {"res": [d.resnet(cin if j == 0 else cout, cout)
+                       for j in range(cfg.layers_per_block + 1)]}
+        if li < len(rev) - 1:
+            blk["upconv"] = d.conv2d(cout, cout, 3)
+        dec["up"].append(blk)
+        cin = cout
+    dec.update(gn_out=d.norm(ch[0]), conv_out=d.conv2d(ch[0], cfg.in_channels, 3))
+    return {"enc": enc, "dec": dec,
+            "quant": d.conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1),
+            "post_quant": d.conv2d(cfg.latent_channels, cfg.latent_channels, 1)}
+
+
+def _random_unet(d: _Draws, cfg, attn_down) -> dict:
+    """JAX `init_unet`'s structure; `attn_down[level]` says whether that
+    level's down block (and the up block at the same level) has its
+    attention slots."""
+    ch = cfg.block_out_channels
+    temb = ch[0] * cfg.time_embed_mult
+
+    def attn(c, kv):
+        return {"q": {"w": d.randn(c, c, std=c ** -0.5)},
+                "k": {"w": d.randn(c, kv, std=kv ** -0.5)},
+                "v": {"w": d.randn(c, kv, std=kv ** -0.5)}, "o": d.lin(c, c)}
+
+    def slots(c):
+        return [{"gn": d.norm(c), "proj_in": d.lin(c, c), "proj_out": d.lin(c, c),
+                 "blocks": [{"ln1": d.norm(c), "attn1": attn(c, c), "ln2": d.norm(c),
+                             "attn2": attn(c, c if kv is None else kv), "ln3": d.norm(c),
+                             "ff1": d.lin(c, 8 * c), "ff2": d.lin(4 * c, c)}]}
+                for kv in cfg.slot_dims]
+
+    p = {"time_mlp1": d.lin(ch[0], temb), "time_mlp2": d.lin(temb, temb),
+         "conv_in": d.conv2d(cfg.in_channels, ch[0], 3), "down": [], "up": []}
+    skip_widths, cin = [ch[0]], ch[0]
+    for li, cout in enumerate(ch):
+        blk = {"res": []}
+        for j in range(cfg.layers_per_block):
+            blk["res"].append(d.resnet(cin if j == 0 else cout, cout, temb))
+            if attn_down[li]:
+                blk.setdefault("attn", []).append(slots(cout))
+            skip_widths.append(cout)
+        if li < len(ch) - 1:
+            blk["down"] = d.conv2d(cout, cout, 3)
+            skip_widths.append(cout)
+        p["down"].append(blk)
+        cin = cout
+    p["mid"] = {"res1": d.resnet(ch[-1], ch[-1], temb), "attn": slots(ch[-1]),
+                "res2": d.resnet(ch[-1], ch[-1], temb)}
+    cur = ch[-1]
+    for li, cout in enumerate(reversed(ch)):
+        blk = {"res": []}
+        for _ in range(cfg.layers_per_block + 1):
+            blk["res"].append(d.resnet(cur + skip_widths.pop(), cout, temb))
+            if attn_down[len(ch) - 1 - li]:
+                blk.setdefault("attn", []).append(slots(cout))
+            cur = cout
+        if li < len(ch) - 1:
+            blk["upconv"] = d.conv2d(cout, cout, 3)
+        p["up"].append(blk)
+    p.update(gn_out=d.norm(ch[0]), conv_out=d.conv2d(ch[0], cfg.in_channels, 3))
+    return p
+
+
+def _random_vocoder(d: _Draws, cfg) -> dict:
+    c = cfg.upsample_initial_channel
+    p = {"mean": torch.zeros(cfg.model_in_dim, device=d.device),
+         "scale": torch.ones(cfg.model_in_dim, device=d.device),
+         "conv_pre": d.conv1d(cfg.model_in_dim, c, 7), "ups": [], "resblocks": []}
+    for rate, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        p["ups"].append({"w": d.randn(c, c // 2, k, std=(c * k / rate) ** -0.5),
+                         "b": d.randn(c // 2, std=0.02)})
+        c //= 2
+        for kk, dils in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            p["resblocks"].append(pack_resblock([d.conv1d(c, c, kk) for _ in dils],
+                                                [d.conv1d(c, c, kk) for _ in dils]))
+    p["conv_post"] = d.conv1d(c, 1, 7)
+    return p
+
+
+def _random_text(d: _Draws, clap, t5, gpt2, positions: int) -> dict:
+    h, e, inner = clap.hidden_size, gpt2.n_embd, t5.n_heads * t5.d_kv
+    return {
+        "clap": {"word_emb": d.randn(clap.vocab_size, h, std=0.02),
+                 "pos_emb": d.randn(clap.max_position_embeddings, h, std=0.02),
+                 "type_emb": d.randn(2, h, std=0.02), "emb_ln": d.norm(h),
+                 "pooler": d.lin(h, h), "proj1": d.lin(h, clap.projection_dim),
+                 "proj2": d.lin(clap.projection_dim, clap.projection_dim),
+                 "layers": [{"q": d.lin(h, h), "k": d.lin(h, h), "v": d.lin(h, h),
+                             "attn_out": d.lin(h, h), "ln1": d.norm(h),
+                             "fc1": d.lin(h, clap.intermediate_size),
+                             "fc2": d.lin(clap.intermediate_size, h), "ln2": d.norm(h)}
+                            for _ in range(clap.n_layers)]},
+        "t5": {"emb": d.randn(t5.vocab_size, t5.d_model, std=1.0),
+               "rel_bias": d.randn(t5.rel_buckets, t5.n_heads, std=0.1),
+               "final_ln": torch.ones(t5.d_model, device=d.device),
+               # q at T5's own init, std (d_model * d_kv)^-0.5: T5 does
+               # not scale its scores by 1 / sqrt(d_kv)
+               "layers": [{"q": {"w": d.randn(inner, t5.d_model,
+                                              std=(t5.d_model * t5.d_kv) ** -0.5)},
+                           "k": d.lin(t5.d_model, inner, False),
+                           "v": d.lin(t5.d_model, inner, False),
+                           "o": d.lin(inner, t5.d_model, False),
+                           "ln1": torch.ones(t5.d_model, device=d.device),
+                           "wi0": d.lin(t5.d_model, t5.d_ff, False),
+                           "wi1": d.lin(t5.d_model, t5.d_ff, False),
+                           "wo": d.lin(t5.d_ff, t5.d_model, False),
+                           "ln2": torch.ones(t5.d_model, device=d.device)}
+                          for _ in range(t5.n_layers)]},
+        "gpt2": {"wpe": d.randn(positions, e, std=0.02), "ln_f": d.norm(e),
+                 "layers": [{"ln1": d.norm(e), "c_attn": d.lin(e, 3 * e),
+                             "c_proj": d.lin(e, e), "ln2": d.norm(e), "c_fc": d.lin(e, 4 * e),
+                             "mlp_proj": d.lin(4 * e, e)} for _ in range(gpt2.n_layers)]},
+        "proj": {"proj": d.lin(clap.projection_dim, e), "proj_1": d.lin(t5.d_model, e),
+                 **{n: d.randn(e, std=0.1) for n in ("sos", "eos", "sos_1", "eos_1")}},
+    }
+
+
+def random_audioldm2_stack(seed: int = 0, device="cuda", dims: dict | None = None):
+    """An `edit/stack.py` `AudioLDM2Stack` with random weights drawn on
+    `device` from a torch.Generator seeded `seed` (a host draw of the
+    published stack's ~1 B floats would take tens of seconds): at
+    `stack.published_dims()` by default, or at the `dims` given
+    (`stack.tiny_dims()`).  The tokenizer is the offline byte tokenizer,
+    its ids taken modulo the smaller of the CLAP and T5 vocabularies."""
+    from ..device import resolve_device
+    from ..edit import stack as stack_mod
+
+    dims = stack_mod.published_dims() if dims is None else dims
+    d = _Draws(seed, resolve_device(device))
+    params = {"vae": _random_vae(d, dims["vae"]),
+              "unet": _random_unet(d, dims["unet"], dims["unet_attn"]),
+              "vocoder": _random_vocoder(d, dims["voc"]),
+              **_random_text(d, dims["clap"], dims["t5"], dims["gpt2"], dims["gpt2_positions"])}
+    return stack_mod.AudioLDM2Stack(
+        vae_cfg=dims["vae"], unet_cfg=dims["unet"], voc_cfg=dims["voc"], clap_cfg=dims["clap"],
+        t5_cfg=dims["t5"], gpt2_cfg=dims["gpt2"], params=params,
+        tokenize=stack_mod.byte_tokenizer(min(dims["clap"].vocab_size, dims["t5"].vocab_size)),
+        max_new_tokens=dims["max_new_tokens"], n_mels=dims["n_mels"], device=d.device)

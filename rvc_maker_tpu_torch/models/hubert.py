@@ -272,7 +272,8 @@ def params_from_transformers_state_dict(sd) -> Params:
 def load_transformers_dir(path: str) -> Params:
     """A transformers HuBERT directory (model.safetensors or
     pytorch_model.bin inside) or one such weights file -> the port's tree.
-    `safetensors` is imported only for a .safetensors file."""
+    A .safetensors file is read by the port's own reader
+    (`interop/safetensors_io.py`)."""
     import os
 
     candidates = ([path] if os.path.isfile(path) else
@@ -281,7 +282,7 @@ def load_transformers_dir(path: str) -> Params:
         if not os.path.isfile(c):
             continue
         if c.endswith(".safetensors"):
-            from safetensors.torch import load_file
+            from ..interop.safetensors_io import load_file
 
             sd = load_file(c)
         else:

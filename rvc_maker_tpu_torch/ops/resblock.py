@@ -66,18 +66,20 @@ _LIBRARIES = {"tc": ("resblock_tc", "rvc_resblock_tc"),
               "fma": ("resblock", "rvc_resblock")}
 
 
-def _branch(x, w1, b1, w2, b2, k: int, d: int):
+def _branch(x, w1, b1, w2, b2, k: int, d: int, slope: float = LRELU_SLOPE):
     """One dilation step's residual branch; w (k, C_in, C_out); b (C,)."""
-    y = F.leaky_relu(x, LRELU_SLOPE)
+    y = F.leaky_relu(x, slope)
     y = F.conv1d(y, w1.permute(2, 1, 0), b1, dilation=d, padding=(k * d - d) // 2)
-    y = F.leaky_relu(y, LRELU_SLOPE)
+    y = F.leaky_relu(y, slope)
     return F.conv1d(y, w2.permute(2, 1, 0), b2, padding=(k - 1) // 2)
 
 
-def _resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations):
-    """Plain eager version: x (B, C, T); w (D, k, C_in, C_out); b (D, C)."""
+def _resblock(x, w1, b1, w2, b2, *, kernel_size: int, dilations, slope: float = LRELU_SLOPE):
+    """Plain eager version: x (B, C, T); w (D, k, C_in, C_out); b (D, C).
+    `slope` other than the kernel's 0.1 serves resblocks no kernel takes
+    (`models/audioldm2.py` `vocoder_apply`)."""
     for i, d in enumerate(dilations):
-        x = x + _branch(x, w1[i], b1[i], w2[i], b2[i], kernel_size, d)
+        x = x + _branch(x, w1[i], b1[i], w2[i], b2[i], kernel_size, d, slope)
     return x
 
 

@@ -696,7 +696,8 @@ def _jax_post_routes():
 def test_every_jax_route_is_served_or_answers_501():
     served = {"/api/convert", "/api/f0_extract", "/api/job_start", "/api/job_status",
               "/api/settings", "/api/i18n", "/api/effects", "/api/model_info", "/api/fuse",
-              "/api/tts", "/api/export_onnx", "/api/separate", "/api/convert_whisper"}
+              "/api/tts", "/api/export_onnx", "/api/separate", "/api/convert_whisper",
+              "/api/audio_edit"}
     assert served | set(srv.UNPORTED_ROUTES) == _jax_post_routes()
     assert not served & set(srv.UNPORTED_ROUTES)
 
@@ -708,6 +709,26 @@ def test_unported_route_answers_501(servers, path):
     code, body = _call(servers[0], path, {"model": "m.pth"})
     assert code == 501 and body["not_ported"] is True
     assert body["error"] == tr("not_ported", what=srv.UNPORTED_ROUTES[path])
+
+
+def test_audio_edit_matches_jax_server(servers, tmp_path, monkeypatch):
+    """/api/audio_edit with the toy stack on both servers (the port given
+    JAX's noise): 200, and the written stereo WAVs within 1e-3."""
+    from torch_port_util import patch_jax_edit_noise
+
+    src = str(tmp_path / "in.wav")
+    wavfile.write(src, 16000, _voice(0.5, 200.0, 4))
+    req = dict(input=src, toy_stack=True, steps=8, t_start=50, source_prompt="a",
+               target_prompt="b", sample_rate=22050)
+    patch_jax_edit_noise(monkeypatch)
+    got = _ok(servers[0], "/api/audio_edit", dict(req, output=str(tmp_path / "port.wav")))
+    ref = _ok(servers[1], "/api/audio_edit", dict(req, output=str(tmp_path / "jax.wav")))
+    (sr_p, x), (sr_j, y) = wavfile.read(got["output"]), wavfile.read(ref["output"])
+    assert sr_p == sr_j == 22050 and x.shape == y.shape and x.shape[1] == 2
+    err = np.abs(x.astype(np.float64) - y).max() / 32768.0
+    print(f"/api/audio_edit port vs JAX: {err:.3e}")
+    assert err <= 1e-3, err
+    assert _call(servers[0], "/api/audio_edit", dict(req, input=str(tmp_path / "no.wav")))[0] == 400
 
 
 def _both_ok(servers, path, req, jreq=None):

@@ -833,3 +833,71 @@ def test_rank_without_its_card_raises_on_card(cuda):
     with pytest.raises(RuntimeError, match=f"cuda:{n_cards}"):
         dist_mod.rank_device(f"cuda:{n_cards}", rank=1)
     assert dist_mod.rank_device("cuda", rank=n_cards + 1) == torch.device("cuda", 1 % n_cards)
+
+
+def _edit_song(path, seconds=0.5):
+    from rvc_maker_tpu_torch.utils.audio import save_wav
+
+    tt = np.arange(int(16000 * seconds)) / 16000
+    save_wav(path, (0.4 * np.sin(2 * np.pi * 220 * tt)).astype(np.float32), 16000)
+    return path
+
+
+@pytest.mark.gpu
+def test_audioldm2_vocoder_stage_on_resblock_tc(cuda, monkeypatch):
+    """A SpeechT5 HiFi-GAN whose stages are at C = 256 / 128 (k = 3 / 7 /
+    11, dilations 1 / 3 / 5) and 512: the kernel stages launch resblock_tc
+    (3 per resblock), the C = 512 one none; the waveform against the same
+    vocoder with every resblock on the plain chain, <= 1e-4 x max(1,
+    |ref|max)."""
+    from rvc_maker_tpu_torch.models import audioldm2 as am
+
+    cfg = am.VocoderConfig(model_in_dim=64, upsample_initial_channel=1024, upsample_rates=(5, 2, 2),
+                           upsample_kernel_sizes=(16, 4, 4))
+    p = from_jax._random_vocoder(from_jax._Draws(0, cuda), cfg)
+    spec = torch.randn(1, 200, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    before = trb.resblock_tc_launches
+    got = am.vocoder_apply(p, cfg, spec)
+    torch.cuda.synchronize()
+    assert trb.resblock_tc_launches - before == 2 * 3 * 3
+    monkeypatch.setattr(am, "_on_kernel", lambda *a: False)
+    ref = am.vocoder_apply(p, cfg, spec)
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-4 * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.gpu
+def test_edit_toy_stack_card_matches_cpu(cuda, tmp_path):
+    """`edit` with the toy stack on the card and on the CPU, the same
+    explicit noise: the written waveforms within 1e-3."""
+    from rvc_maker_tpu_torch.edit import pipeline as ep
+    from rvc_maker_tpu_torch.utils.audio import read_wav
+
+    src = _edit_song(str(tmp_path / "in.wav"))
+    cpu_stack = ep.ToyMelStack(device="cpu")
+    w0 = cpu_stack.get_mel(read_wav(src)[0])[0]
+    noise = torch.randn((8, *w0.shape), generator=torch.Generator().manual_seed(0))
+    outs = [read_wav(ep.edit(src, str(tmp_path / f"{dev}.wav"), stack=ep.ToyMelStack(device=dev),
+                             steps=8, t_start=50, sr=22050, device=dev, noise=noise))[0]
+            for dev in ("cuda", "cpu")]
+    assert outs[0].shape == outs[1].shape and outs[0].shape[1] == 2
+    err = np.abs(outs[0] - outs[1]).max()
+    assert err <= 1e-3, err
+
+
+@pytest.mark.gpu
+def test_edit_on_the_card_raises_without_one(cuda, tmp_path, monkeypatch):
+    """With the card hidden, `edit(device="cuda")`, the stacks and `cli edit`
+    raise instead of running on the CPU."""
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.edit import pipeline as ep
+    from rvc_maker_tpu_torch.edit import stack as st
+
+    src = _edit_song(str(tmp_path / "in.wav"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ep.edit(src, str(tmp_path / "out.wav"), device="cuda"),
+                 lambda: ep.ToyMelStack(device="cuda"),
+                 lambda: st.AudioLDM2Stack.init_tiny(0, device="cuda"),
+                 lambda: cli.main(["edit", "--input-path", src, "--toy-stack"])):
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()

@@ -139,18 +139,21 @@ def _module_level_imports(path: Path):
 @pytest.mark.parametrize("root", ["rvc_maker_tpu_torch", "chip_smoke.py",
                                   "tests/read_aloud_fake.py"])
 def test_port_imports_no_jax(root):
-    """No JAX and nothing of the JAX package anywhere; and `cryptography`
-    and `safetensors`, which the card's machine may lack, only inside the
-    functions that need them."""
+    """No JAX and nothing of the JAX package anywhere, nor `safetensors`,
+    `transformers` or `diffusers`, which the card's machine lacks (the
+    port reads .safetensors files itself, `interop/safetensors_io.py`),
+    not even inside a function; and `cryptography`, which it may lack,
+    only inside the functions that need it."""
     path = REPO / root
     files = [path] if path.is_file() else sorted(path.rglob("*.py"))
     assert files
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "rvc_maker_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "rvc_maker_tpu", "safetensors", "transformers",
+                               "diffusers"), (f, mod)
         for mod in _module_level_imports(f):
-            assert mod.split(".")[0] not in ("cryptography", "safetensors"), (f, mod)
+            assert mod.split(".")[0] != "cryptography", (f, mod)
 
 
 @pytest.mark.parametrize("fail", [False, True], ids=["builds", "fails"])

@@ -315,6 +315,37 @@ def patch_jax_noise(monkeypatch):
     monkeypatch.setattr(ConvertPipeline, "convert_utterance", convert_utterance)
 
 
+def jax_edit_noise(w0, steps: int, seed: int = 0) -> torch.Tensor:
+    """The marginals' noise JAX `edit` draws for the latent w0 (the port's
+    layout): normal(PRNGKey(seed), (steps, *JAX's latent shape)), a
+    (Z, t, f) latent being JAX's (t, f, Z), in the port's layout."""
+    import jax
+
+    shape = tuple(w0.shape) if w0.dim() == 2 else (w0.shape[1], w0.shape[2], w0.shape[0])
+    a = np.array(jax.random.normal(jax.random.PRNGKey(seed), (steps, *shape)))
+    return torch.as_tensor(a if w0.dim() == 2 else a.transpose(0, 3, 1, 2).copy())
+
+
+def patch_jax_edit_noise(monkeypatch):
+    """Every call of the port's `edit/pipeline.py` `edit` with a stack and
+    no noise gets the noise JAX's `edit` draws for that input (its seed),
+    so that a command line's or a route's output can be held against the
+    JAX one's."""
+    from rvc_maker_tpu_torch.edit import pipeline as tep
+    from rvc_maker_tpu_torch.utils.audio import load_audio
+
+    orig = tep.edit
+
+    def edit(input_path, output_path, *, stack=None, steps=50, seed=0, noise=None, **kw):
+        if noise is None and stack is not None:
+            w0 = stack.vae_encode(stack.get_mel(load_audio(input_path, tep.MEL_SR))[0])
+            noise = jax_edit_noise(w0, steps, seed)
+        return orig(input_path, output_path, stack=stack, steps=steps, seed=seed, noise=noise,
+                    **kw)
+
+    monkeypatch.setattr(tep, "edit", edit)
+
+
 def write_voice_files(d, jcfg, seed=0, scale=20.0):
     """A voice the JAX exporter writes (fp16 .pth of a seeded random tree,
     its decode scaled up so that 1e-3 is a tight bound on the waveform),
