@@ -289,6 +289,31 @@ Phases, each printed as it runs; any failure exits non-zero:
               --toy-stack` and `/api/audio_edit` with toy_stack answer 0 /
               200.
 
+ 20. spec-tools  the spectral tools and the dataset builder, fp32, each
+              driven with the resblock counts zeroed before and read after
+              (0: no resblock on this path): (a) `cli create-dataset` on
+              phase 17's 20 s 44.1 kHz song and a 48 kHz mono copy of it
+              (resampled), with phase 17's full-width HTDemucs `.th`,
+              --clean-dataset and 1 s skipped at each end: the files
+              written, wall s, and `create_dataset` in process under
+              torch.profiler (device ms, busy share); card against CPU on
+              a 3 s cut within 1e-3 (phase 17's Demucs bound).  (b)
+              `ensemble_inputs` on phase 17's two vocal stems (HTDemucs and
+              the MDX stand-in) with Max Spec, Min Spec and Average.  (c)
+              `align_audio` of the song against a copy delayed by 300
+              samples at -0.5 dB (align_window [0.0625, 0.5],
+              align_intro_val [1, 2], db_analysis (0.0, [-0.5, 0.0, 0.5]),
+              phase_shifts 180, is_spec_match): the coarse lags must be
+              -300 at both probes on both devices; on 20 s and on a 5 s
+              cut, card and CPU wall s, the profiler's device ms; the
+              batched float64 cross-correlation and the whole window search
+              timed alone (CUDA events).  (d) the two-band
+              `cmb_spectrogram_to_wave` round trip (JAX
+              tests/test_spec_tools.py:365's parameter set) on the song.
+              (b)-(d): card against CPU within 1e-5 x max(1, |ref|max).
+
+The run ends with each phase's s.
+
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
 says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
 The line before the last holds the kernels' JSON summary, the line before
@@ -296,6 +321,7 @@ it nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
 """
 
+import functools
 import json
 import math
 import os
@@ -343,6 +369,28 @@ def reset_counts(rb, counts=(0, 0, 0)):
     old = rb.resblock_launches, rb.resblock_tc_launches, rb.resblock_tc_bf16_launches
     rb.resblock_launches, rb.resblock_tc_launches, rb.resblock_tc_bf16_launches = counts
     return old
+
+
+def driven(res: dict, label: str, fn, device: str = "cuda", none_on: str | None = None):
+    """fn() with the resblock launch counts zeroed just before and read
+    just after, into res["launches"][label], and its wall s (the card
+    synchronised when `device` is "cuda") into res[f"{label}_wall_s"].
+    none_on: the path's name where it must launch no resblock."""
+    from rvc_maker_tpu_torch.ops import resblock as rb
+
+    old = reset_counts(rb)
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        counts = reset_counts(rb, old)
+    res[f"{label}_wall_s"] = time.perf_counter() - t0
+    res["launches"][label] = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"), counts))
+    if none_on and any(counts):
+        raise AssertionError(f"{label}: resblock launches {counts} on {none_on}")
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -542,25 +590,93 @@ def is_resblock_kernel(name: str) -> bool:
                                    "resblock_step_kernel"))
 
 
-def profile_call(label, fn, wall_s):
-    """torch.profiler over one more fn(): device time in all, by stage
-    (the pipeline's `convert.*` ranges, as the profiler ties kernels to
-    them; what it ties to none is "outside the stages"), in the resblock
-    kernels, and by kernel; the busy share is the device time over
-    `wall_s`, the same call's wall time without the profiler."""
+# what the profiler's own event list leaves out (profiler_util._filter_name)
+_PROFILER_UTILITY_OPS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def kineto_figures(events, prefix: str = "convert.") -> dict:
+    """by_kernel (device ms), stages (device ms by range `prefix`*),
+    stages_host (host ms of those ranges), host_self (self ms by CPU
+    event name) and runtime (host ms by CUDA runtime call) from the
+    profiler's raw Kineto events, tied as the profiler's own event tree
+    ties them but without building that tree in Python (84.7 s for the
+    tens of thousands of launches of a 10-step edit, 12-21 s for one
+    train step, on the host of an NVIDIA H100 80GB HBM3, 700 W): a kernel
+    counts in every `prefix` range that holds the op launching it (its
+    linked correlation id) on that op's thread; an event's self time is
+    its span less its direct children's on its thread."""
     from torch.autograd import DeviceType
+
+    kernels, cpu, launcher = [], [], {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                kernels.append(e)
+        elif (e.device_type() == DeviceType.CPU and not e.is_async()
+              and e.start_thread_id() == e.end_thread_id()
+              and e.name() not in _PROFILER_UTILITY_OPS):
+            cpu.append(e)
+            if e.linked_correlation_id() == 0:
+                launcher[e.correlation_id()] = e.start_thread_id()
+    # a runtime call (cudaLaunchKernel) sits on the thread of the op that made it
+    by_thread = {}
+    for e in cpu:
+        tid = e.start_thread_id()
+        if e.linked_correlation_id():
+            tid = launcher.get(e.linked_correlation_id(), tid)
+        by_thread.setdefault(tid, []).append(e)
+    host_self, runtime, ranges_of, stages_host = {}, {}, {}, {}
+    for evs in by_thread.values():
+        evs.sort(key=lambda e: (e.start_ns(), -e.end_ns()))
+        stack = []                      # [event, self ns, the prefix ranges holding it]
+        for e in evs:
+            while stack and (e.start_ns() >= stack[-1][0].end_ns()
+                             or e.end_ns() > stack[-1][0].end_ns()):
+                top = stack.pop()
+                host_self[top[0].name()] = host_self.get(top[0].name(), 0) + top[1]
+            held = stack[-1][2] if stack else ()
+            if stack:
+                stack[-1][1] -= e.duration_ns()
+            if e.name().startswith(prefix):
+                held = held + (e.name(),)
+                stages_host[e.name()] = stages_host.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            if e.linked_correlation_id() == 0:
+                ranges_of[e.correlation_id()] = held
+            elif e.name().startswith("cuda"):
+                runtime[e.name()] = runtime.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            stack.append([e, e.duration_ns(), held])
+        for top in stack:
+            host_self[top[0].name()] = host_self.get(top[0].name(), 0) + top[1]
+    by_kernel, stages = {}, {}
+    for e in kernels:
+        ms = e.duration_ns() / 1e6
+        by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + ms
+        for name in ranges_of.get(e.linked_correlation_id(), ()):
+            stages[name] = stages.get(name, 0.0) + ms
+    return dict(by_kernel=by_kernel, stages=stages, stages_host=stages_host,
+                host_self={k: v / 1e6 for k, v in host_self.items()}, runtime=runtime)
+
+
+def profile_call(label, fn, wall_s, prefix: str = "convert."):
+    """torch.profiler over one more fn(): device time in all, by stage
+    (the `prefix` ranges, as the profiler ties kernels to them; what it
+    ties to none is "outside the stages"), in the resblock kernels, and
+    by kernel; the host's self time by op and its CUDA runtime calls
+    (`kineto_figures`); the busy share is the device time over `wall_s`,
+    the same call's wall time without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    by_kernel, stages = {}, {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
-        elif e.device_type == DeviceType.CPU and e.name.startswith("convert."):
-            stages[e.name] = stages.get(e.name, 0.0) + e.device_time_total / 1e3
+    t0 = time.perf_counter()
+    fig = kineto_figures(prof.profiler.kineto_results.events(), prefix)
+    read_s = time.perf_counter() - t0
+    by_kernel, stages, host, runtime = (fig[k] for k in ("by_kernel", "stages", "host_self",
+                                                          "runtime"))
     device_ms = sum(by_kernel.values())
     if device_ms == 0:
         log("  profile: device time not measured (the profiler saw no kernels)")
@@ -568,95 +684,25 @@ def profile_call(label, fn, wall_s):
     resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
     w8a8_ms = sum(v for k, v in by_kernel.items() if "conv1d_w8a8" in k)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    # the host side: self CPU time by op and CUDA runtime call
-    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
-            if e.device_type == DeviceType.CPU}
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
     res = dict(device_ms=device_ms, wall_ms=1e3 * wall_s,
                busy_share=device_ms / (1e3 * wall_s), stages_ms=stages,
                unattributed_ms=device_ms - sum(stages.values()),
                resblock_ms=resblock_ms, resblock_share=resblock_ms / device_ms,
-               w8a8_ms=w8a8_ms, top_kernels_ms=dict(top), top_host_self_ms=dict(top_host))
+               w8a8_ms=w8a8_ms, top_kernels_ms=dict(top), top_host_self_ms=dict(top_host),
+               cuda_runtime_host_ms=dict(sorted(runtime.items(), key=lambda kv: -kv[1])[:4]),
+               read_s=read_s)
     log(f"  profile of {label}: device {device_ms:.3f} ms of "
         f"{1e3 * wall_s:.3f} ms wall (busy share {res['busy_share']:.3f}); resblock "
         f"kernel {resblock_ms:.3f} ms ({res['resblock_share']:.3f} of device time)"
-        + (f"; conv1d_w8a8 {w8a8_ms:.3f} ms" if w8a8_ms else ""))
+        + (f"; conv1d_w8a8 {w8a8_ms:.3f} ms" if w8a8_ms else "")
+        + f"; events read in {read_s:.1f} s")
     if stages:
         log("  by stage: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
             + f", outside the stages {res['unattributed_ms']:.3f} ms")
     for name, ms in top:
         log(f"    {ms:9.3f} ms  {name[:110]}")
     log("  host self time: " + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top_host))
-    return res
-
-
-def device_by_range(events, prefix: str):
-    """(device ms by kernel, device ms by range `prefix`*, host ms by CUDA
-    runtime call) from the profiler's raw Kineto events: a kernel counts
-    in the range that encloses the start of the CPU op that launched it
-    (its linked correlation id); the ranges do not nest."""
-    import bisect
-
-    from torch.autograd import DeviceType
-
-    cpu_start, ranges, runtime = {}, [], {}
-    for e in events:
-        if e.device_type() == DeviceType.CPU:
-            cpu_start[e.correlation_id()] = e.start_ns()
-            if e.name().startswith(prefix):
-                ranges.append((e.start_ns(), e.end_ns(), e.name()))
-            elif e.name().startswith("cuda"):
-                runtime[e.name()] = runtime.get(e.name(), 0.0) + e.duration_ns() / 1e6
-    ranges.sort()
-    starts = [r[0] for r in ranges]
-    by_kernel, stages = {}, {}
-    for e in events:
-        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
-            continue
-        ms = e.duration_ns() / 1e6
-        by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + ms
-        t = cpu_start.get(e.linked_correlation_id())
-        i = -1 if t is None else bisect.bisect_right(starts, t) - 1
-        if i >= 0 and t <= ranges[i][1]:
-            stages[ranges[i][2]] = stages.get(ranges[i][2], 0.0) + ms
-    return by_kernel, stages, runtime
-
-
-def profile_by_range(label, fn, wall_s, prefix: str) -> dict:
-    """`profile_call` for a call of tens of thousands of launches: the
-    same device figures read from the raw Kineto events (`device_by_range`),
-    since building the profiler's Python event tree for the tens of
-    thousands of launches of a 10-step edit took 84.7 s (on the host of
-    an NVIDIA H100 80GB HBM3, 700 W); the host side is the CUDA
-    runtime's calls by total ms."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    by_kernel, stages, runtime = device_by_range(prof.profiler.kineto_results.events(), prefix)
-    device_ms = sum(by_kernel.values())
-    if device_ms == 0:
-        log("  profile: device time not measured (the profiler saw no kernels)")
-        return dict(device_ms=None)
-    resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    res = dict(device_ms=device_ms, wall_ms=1e3 * wall_s, busy_share=device_ms / (1e3 * wall_s),
-               stages_ms=stages, unattributed_ms=device_ms - sum(stages.values()),
-               resblock_ms=resblock_ms, resblock_share=resblock_ms / device_ms,
-               top_kernels_ms=dict(top),
-               cuda_runtime_host_ms=dict(sorted(runtime.items(), key=lambda kv: -kv[1])[:4]),
-               read_s=time.perf_counter() - t0)
-    log(f"  profile of {label}: device {device_ms:.3f} ms of {1e3 * wall_s:.3f} ms wall (busy "
-        f"share {res['busy_share']:.3f}); resblock kernel {resblock_ms:.3f} ms "
-        f"({res['resblock_share']:.3f} of device time); events read in {res['read_s']:.1f} s")
-    log("  by stage: " + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
-        + f", outside the stages {res['unattributed_ms']:.3f} ms")
-    for name, ms in top:
-        log(f"    {ms:9.3f} ms  {name[:110]}")
-    log("  host, CUDA runtime: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in res["cuda_runtime_host_ms"].items()))
     return res
 
 
@@ -943,7 +989,6 @@ def train_flow(model, card: str, tmp: str):
     """Phase 7 in `tmp`; the experiment dir tmp/voice stays for phase 12."""
     import dataclasses
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rvc_maker_tpu_torch.config import preset
@@ -1053,10 +1098,7 @@ def train_flow(model, card: str, tmp: str):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step_fn(state, batch)
         torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
+    by_kernel = kineto_figures(prof.profiler.kineto_results.events())["by_kernel"]
     device_ms = sum(by_kernel.values())
     resblock_ms = sum(v for k, v in by_kernel.items() if is_resblock_kernel(k))
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
@@ -1385,19 +1427,14 @@ def f0_range_ms(label, fn, wall_s, range_name):
     """profile_call, plus the device ms and host (CPU) ms of each
     `convert.*` range, the F0 stage's (`range_name`) among them; CREPE's
     network has its own range inside the host stage's."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_kernel, ranges = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
-        elif e.device_type == DeviceType.CPU and e.name.startswith("convert."):
-            dev, host = ranges.get(e.name, (0.0, 0.0))
-            ranges[e.name] = (dev + e.device_time_total / 1e3, host + e.cpu_time_total / 1e3)
+    fig = kineto_figures(prof.profiler.kineto_results.events())
+    by_kernel = fig["by_kernel"]
+    ranges = {k: (fig["stages"].get(k, 0.0), v) for k, v in fig["stages_host"].items()}
     device_ms = sum(by_kernel.values())
     if not device_ms:
         log(f"    profile of {label}: device time not measured (the profiler saw no kernels)")
@@ -2290,10 +2327,17 @@ def index_phase(work: str, serve_files: dict, pth: str, card: str) -> dict:
 
 
 def train_all(model, work: str, card: str) -> dict:
-    """Phase 12."""
+    """Phase 12; res["part_s"] holds each part's s."""
     from rvc_maker_tpu_torch.config import preset
 
-    res = {}
+    res = {"part_s": {}}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        res["part_s"][name] = now - t_part[0]
+        t_part[0] = now
+
     cfg = preset("v2", 48000).model
     shapes, t, c = [], cfg.segment_size, cfg.upsample_initial_channel
     for u in cfg.upsample_rates:
@@ -2302,19 +2346,27 @@ def train_all(model, work: str, card: str) -> dict:
     log(f"  [12a] bf16 autograd resblock at the training shapes {shapes}")
     res["train_kernel_bf16"] = check_resblock_train_bf16(
         shapes, cfg.resblock_kernel_sizes, tuple(cfg.resblock_dilation_sizes[0]), card)
+    part("12a")
     exp_src = os.path.join(work, "voice")
     log("  [12b] train every decoder and mode at v2-48k, B = 8, on phase 7's segments")
-    res["runs"] = {run[0]: train_decoder(run, exp_src, work, model, card) for run in TRAIN_RUNS}
+    res["runs"] = {}
+    for run in TRAIN_RUNS:
+        res["runs"][run[0]] = train_decoder(run, exp_src, work, model, card)
+        part(f"12b_{run[0]}")
     log("  [12c] extract")
     res["extract"] = extract_phase(exp_src, work, model)
+    part("12c")
     log("  [12d] index")
     serve_dir = os.path.join(work, "serve_files")
     os.makedirs(serve_dir)
     res["index"] = index_phase(work, write_serve_files(serve_dir, cfg, model),
                                res["runs"]["mrf"]["pth"], card)
+    part("12d")
     log("  [12e] narrow train steps, card against CPU: MRF fp32, NSF bf16")
     res["parity_mrf"] = train_parity("MRF HiFi-GAN")
     res["parity_bf16"] = train_parity(bf16=True)
+    part("12e")
+    log("  phase 12's parts, s: " + ", ".join(f"{k} {v:.1f}" for k, v in res["part_s"].items()))
     return res
 
 
@@ -3151,7 +3203,6 @@ def parallel_rank(rank: int, world: int, address: str, work: str) -> None:
                       RVC_PROCESS_ID=str(rank))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rvc_maker_tpu_torch.config import preset
@@ -3239,9 +3290,7 @@ def parallel_rank(rank: int, world: int, address: str, work: str) -> None:
     res["params_sha_after_steps"] = _params_sha(state)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_prof = _wall(lambda: step(state, batch))
-    device_ms = sum(e.device_time_total / 1e3 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
+    device_ms = sum(kineto_figures(prof.profiler.kineto_results.events())["by_kernel"].values())
     res["step"] = dict(frames=int(batch.spec.shape[1]), rows=int(batch.spec.shape[0]),
                        tc_launches=step_launches, wall_ms=[1e3 * wall1, 1e3 * wall2],
                        ranges_ms=ranges, all_reduce_ms=ranges.get("train.all_reduce"),
@@ -3271,21 +3320,24 @@ def parallel_rank(rank: int, world: int, address: str, work: str) -> None:
                            index_vectors=model["index_vectors"], device="cuda", sharded=True)
     pipe.convert_batch(audio, lengths, 0, settings)          # warm
     reset_counts(rb)
-    (wav, _), conv_s = _wall(lambda: pipe.convert_batch(audio, lengths, 0, settings))
+    (wav, pitchf), conv_s = _wall(lambda: pipe.convert_batch(audio, lengths, 0, settings))
     res["convert"] = dict(wall_s=conv_s, tc_launches=rb.resblock_tc_launches,
                           launches=rb.resblock_launches)
-    wav = wav.cpu().numpy()
+    wav, pitchf = wav.cpu().numpy(), pitchf.cpu().numpy()
     del pipe
     if primary:
         one = ConvertPipeline(model["synth_params"], cfg_m, model["hubert_params"],
                               version="v2", rmvpe_params=model["rmvpe_params"],
                               index_vectors=model["index_vectors"], device="cuda")
         one.convert_batch(audio, lengths, 0, settings)
-        (wav1, _), one_s = _wall(lambda: one.convert_batch(audio, lengths, 0, settings))
-        wav1 = wav1.cpu().numpy()
+        (wav1, pitchf1), one_s = _wall(lambda: one.convert_batch(audio, lengths, 0, settings))
+        wav1, pitchf1 = wav1.cpu().numpy(), pitchf1.cpu().numpy()
         res["convert"].update(one_process_wall_s=one_s, max_abs_err=float(
             np.abs(wav - wav1).max()), absmax=float(np.abs(wav1).max()),
-            finite=bool(np.isfinite(wav).all()), shape=list(wav.shape))
+            finite=bool(np.isfinite(wav).all()), shape=list(wav.shape),
+            row_max_abs_err=np.abs(wav - wav1).max(axis=1).tolist(),
+            pitchf_frames_apart=int((np.abs(pitchf - pitchf1) > 1e-3).sum()),
+            pitchf_max_abs_err_hz=float(np.abs(pitchf - pitchf1).max()))
         del one
     dist_mod.sync_global("one-process conversion")
     if primary:
@@ -3537,7 +3589,6 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     from rvc_maker_tpu_torch.interop.onnx_export import export_onnx
     from rvc_maker_tpu_torch.interop.onnx_run import OnnxGraph
     from rvc_maker_tpu_torch.models.demucs import DemucsConfig
-    from rvc_maker_tpu_torch.ops import resblock as rb
     from rvc_maker_tpu_torch.pipelines import mdx as mdx_mod
     from rvc_maker_tpu_torch.pipelines.separate import separate_vocals
     from scipy.io import wavfile
@@ -3549,26 +3600,14 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     song = separation_song(SEP_SECONDS)
     song_path = write_wav_file(os.path.join(d, "song.wav"), song, SEP_SR)
 
-    def driven(label, fn):
-        """fn() with the resblock launch counts zeroed just before and read
-        just after (separation runs no resblock: 0), its wall s and the
-        device's peak GiB."""
-        old = reset_counts(rb)
+    def sep_driven(label, fn):
+        """`driven` (separation runs no resblock: 0), with the device's
+        peak GiB."""
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            counts = reset_counts(rb, old)
-        wall = time.perf_counter() - t0
-        res["launches"][label] = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"), counts))
-        if any(counts):
-            raise AssertionError(f"{label}: resblock launches {counts} on the separation path")
-        res[f"{label}_wall_s"] = wall
+        out = driven(res, label, fn, none_on="the separation path")
         res[f"{label}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"  {label}: {wall:.3f} s wall, peak {res[f'{label}_peak_gib']:.2f} GiB, "
-            f"resblock launches {sum(counts)}")
+        log(f"  {label}: {res[f'{label}_wall_s']:.3f} s wall, peak "
+            f"{res[f'{label}_peak_gib']:.2f} GiB, resblock launches 0")
         return out
 
     def read_stem(path, frames):
@@ -3589,7 +3628,7 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     log(f"  HTDemucs {htdemucs}: {res['htdemucs']['parameters']:,} parameters, "
         f"written in {res['htdemucs']['write_s']:.1f} s")
     v_path, i_path = os.path.join(d, "v.wav"), os.path.join(d, "i.wav")
-    driven("cli_separate_th", lambda: cli.main(
+    sep_driven("cli_separate_th", lambda: cli.main(
         ["separate", "--model", th, "--input", song_path, "--output-vocals", v_path,
          "--output-instrumental", i_path, "--shifts", "1", *dev_flag]))
     vocals = read_stem(v_path, len(song))
@@ -3597,7 +3636,7 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     res["htdemucs"]["stems_std"] = [float(vocals.std()), float(inst.std())]
     # the same separation in process, once for its wall time and once profiled
     params, _ = load_demucs_th(th, device=device)
-    driven("separate_vocals", lambda: separate_vocals(params, cfg, song, SEP_SR, shifts=1))
+    sep_driven("separate_vocals", lambda: separate_vocals(params, cfg, song, SEP_SR, shifts=1))
     if device == "cuda":
         res["htdemucs"]["profile"] = profile_call(
             "separate_vocals, 20 s, 3 windows, 1 shift",
@@ -3631,7 +3670,7 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     n_fft = 2 * mdx_io[2]                # dim_f 3072 of n_fft 6144's 3073 bins
     mdx_flags = ["--mdx-n-fft", str(n_fft), "--mdx-hop", str(mdx_hop)]
     mv, mi = os.path.join(d, "mv.wav"), os.path.join(d, "mi.wav")
-    driven("cli_separate_onnx", lambda: cli.main(
+    sep_driven("cli_separate_onnx", lambda: cli.main(
         ["separate", "--model", onnx_path, "--input", song_path, "--output-vocals", mv,
          "--output-instrumental", mi, *mdx_flags, *dev_flag]))
     read_stem(mv, len(song))
@@ -3639,7 +3678,7 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     graph = OnnxGraph(onnx_path, device=device)
     p = mdx_mod.params_from_graph(graph, n_fft=n_fft, hop_length=mdx_hop, compensate=1.035)
     mix = song.T.copy()
-    driven("mdx_separate", lambda: mdx_mod.mdx_separate(graph, mix, p))
+    sep_driven("mdx_separate", lambda: mdx_mod.mdx_separate(graph, mix, p))
     if device == "cuda":
         res["mdx"]["profile"] = profile_call(
             "mdx_separate, 20 s", lambda: mdx_mod.mdx_separate(graph, mix, p),
@@ -3675,7 +3714,7 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
         for kind, model_path in (("th", th), ("onnx", onnx_path)):
             req = {"audio_b64": audio_b64, "model": model_path, "mdx_n_fft": n_fft,
                    "mdx_hop": mdx_hop}
-            code, body = driven(f"api_separate_{kind}",
+            code, body = sep_driven(f"api_separate_{kind}",
                                 lambda r=req: post(httpd.server_address[1], "/api/separate", r))
             if code != 200:
                 raise AssertionError(f"/api/separate ({kind}) answered {code}: {body.get('error')}")
@@ -3692,7 +3731,7 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
     # (e) `cli separate-music` with the karaoke split and dereverb, every
     # pass the stand-in graph
     out_dir = os.path.join(d, "stems")
-    driven("cli_separate_music", lambda: cli.main(
+    sep_driven("cli_separate_music", lambda: cli.main(
         ["separate-music", "--input", song_path, "--output", out_dir, "--model-name", onnx_path,
          "--kara-model", onnx_path, "--reverb-model", onnx_path, "--backing", "--reverb",
          *mdx_flags, *dev_flag]))
@@ -3706,6 +3745,8 @@ def separate_phase(work: str, device: str = "cuda", htdemucs=HTDEMUCS_WIDTHS,
         read_stem(os.path.join(out_dir, "song", stem), len(song))
     res["separate_music_stems"] = stems
     res["resblock_launches"] = sum(sum(c.values()) for c in res["launches"].values())
+    # what phase 20 reads: the song, the .th, and the two vocal stems
+    res["files"] = dict(song=song_path, th=th, vocals=v_path, mdx_vocals=mv)
     torch.cuda.empty_cache()
     return res
 
@@ -3852,7 +3893,6 @@ def speaker_phase(work: str, cfg, model, device: str = "cuda", whisper_dims=None
     from rvc_maker_tpu_torch.interop.pth import export_synthesizer_pth
     from rvc_maker_tpu_torch.models import ecapa_tdnn as ec
     from rvc_maker_tpu_torch.models import whisper as wm
-    from rvc_maker_tpu_torch.ops import resblock as rb
     from rvc_maker_tpu_torch.speaker import diarize as di
     from rvc_maker_tpu_torch.speaker import transcribe as tr
     from rvc_maker_tpu_torch.speaker.hyperyaml import load_speechbrain_ecapa
@@ -3966,40 +4006,29 @@ def speaker_phase(work: str, cfg, model, device: str = "cuda", whisper_dims=None
     talk16, _ = read_wav(talk_path)
     orig_cluster = di.cluster_speakers
 
-    def driven(label, fn, labels=None):
-        """fn() with the resblock counts zeroed just before and read just
-        after, its wall s; `labels` receives the diarization's segments and
+    def labelled(fn, labels):
+        """fn() with `labels` receiving the diarization's segments and
         labels."""
         def capturing(audio, segments, *a, **kw):
             out = orig_cluster(audio, segments, *a, **kw)
             labels.extend(zip(segments, out.tolist()))
             return out
 
-        if labels is not None:
-            di.cluster_speakers = capturing
-        old = reset_counts(rb)
-        t0 = time.perf_counter()
+        di.cluster_speakers = capturing
         try:
-            out = fn()
-            if device == "cuda":
-                torch.cuda.synchronize()
+            return fn()
         finally:
-            counts = reset_counts(rb, old)
             di.cluster_speakers = orig_cluster
-        res["launches"][label] = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"),
-                                          counts))
-        res[f"{label}_wall_s"] = time.perf_counter() - t0
-        return out
 
     for label, flags in (("diarize_vad", []),
                          ("diarize_whisper", ["--whisper", w_path, "--vocab", vocab])):
         labels: list = []
         out_wav = os.path.join(d, f"{label}.wav")
-        driven(label, lambda: cli.main(
+        driven(res, label, lambda: labelled(lambda: cli.main(
             ["diarize-convert", "--input", talk_path, "--output", out_wav,
              "--model", files["model"], "--model-b", model_b, "--ecapa", ecapa_dir,
              "--hubert-path", files["embedder"], "--rmvpe-path", files["rmvpe"], *flags,
-             *dev_flag]), labels)
+             *dev_flag]), labels), device)
         out, out_sr = read_wav(out_wav)
         segs = [s for s, _ in labels]
         card_labels = [lab for _, lab in labels]
@@ -4027,8 +4056,8 @@ def speaker_phase(work: str, cfg, model, device: str = "cuda", whisper_dims=None
         req = {"audio_b64": wav_b64(talk[: 8 * SPEAKER_SR]), "model_a": files["model"],
                "model_b": model_b, "ecapa": ecapa_dir, "embedder": files["embedder"],
                "rmvpe": files["rmvpe"], "f0_method": "rmvpe", "index_rate": 0.0}
-        code, body = driven("api_convert_whisper", lambda: post(
-            httpd.server_address[1], "/api/convert_whisper", req))
+        code, body = driven(res, "api_convert_whisper", lambda: post(
+            httpd.server_address[1], "/api/convert_whisper", req), device)
         if code != 200:
             raise AssertionError(f"/api/convert_whisper answered {code}: {body.get('error')}")
         wav = decode_wav(body["audio_b64"])
@@ -4263,9 +4292,9 @@ def edit_phase(work: str, card: str, device: str = "cuda", dims: dict | None = N
     res["edit10_wall_s"] = wall10
     part("a_edits")
     if on_card:
-        res["profile"] = profile_by_range(f"edit, {EDIT_PROFILE_STEPS} steps",
-                                          lambda: run_edit(EDIT_PROFILE_STEPS, "edited10.wav"),
-                                          wall10, "edit.")
+        res["profile"] = profile_call(f"edit, {EDIT_PROFILE_STEPS} steps",
+                                      lambda: run_edit(EDIT_PROFILE_STEPS, "edited10.wav"),
+                                      wall10, prefix="edit.")
     part("a_profile")
 
     # (b) card against CPU at full width on 2 s, the same explicit noise
@@ -4382,6 +4411,252 @@ def edit_phase(work: str, card: str, device: str = "cuda", dims: dict | None = N
         + ", ".join(f"{k} {v:.1f}" for k, v in res["part_s"].items()))
     return res
 
+# ---------------------------------------------------------------------------
+# phase 20: the spectral tools and the dataset builder (pipelines/
+# spec_tools.py, pipelines/create_dataset.py, cli create-dataset)
+# ---------------------------------------------------------------------------
+
+SPEC_TOL = 1e-5                   # spec_tools, card against CPU, x max(1, |ref|max)
+ALIGN_DELAY = 300                 # samples the take lags the song
+ALIGN_DB = -0.5                   # the take's gain
+ALIGN_CPU_SECONDS = 5.0           # the cut the CPU aligns beside the card
+DATASET_CPU_SECONDS = 3.0         # the cut create_dataset runs on both devices
+
+
+def two_band_mp(st):
+    """The two-band VR parameter set of JAX tests/test_spec_tools.py:365
+    `_two_band_mp` (the released UVR parameter JSONs are not in the
+    repository)."""
+    return st.ModelParameters({
+        "bins": 1025, "pre_filter_start": 1000, "pre_filter_stop": 1020,
+        "band": {
+            1: {"sr": 22050, "hl": 512, "n_fft": 1024, "crop_start": 0, "crop_stop": 400,
+                "lpf_start": 300, "lpf_stop": 380, "hpf_start": 0, "hpf_stop": 0},
+            2: {"sr": 44100, "hl": 1024, "n_fft": 2048, "crop_start": 100, "crop_stop": 725,
+                "hpf_start": 150, "hpf_stop": 100, "lpf_start": 0, "lpf_stop": 0}}})
+
+
+def spec_close(label: str, got: np.ndarray, ref: np.ndarray, tol: float = SPEC_TOL) -> float:
+    """max abs of got - ref, failing beyond tol x max(1, |ref|max) or on
+    a shape or a non-finite value."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {got.shape} against {ref.shape}, finite "
+                             f"{np.isfinite(got).all()}")
+    err = float(np.abs(got - ref).max())
+    bound = tol * max(1.0, float(np.abs(ref).max()))
+    log(f"  {label}: card against CPU max abs {err:.3e} (bound {bound:.3e})")
+    if err > bound:
+        raise AssertionError(f"{label}: card against CPU max abs {err} > {bound}")
+    return err
+
+
+def read_float(path: str):
+    from scipy.io import wavfile
+
+    sr, x = wavfile.read(path)
+    return sr, (x.astype(np.float64) / 32768.0 if x.dtype == np.int16 else x.astype(np.float64))
+
+
+def spec_tools_phase(work: str, sep: dict, card: str, device: str = "cuda") -> dict:
+    """Phase 20 (module docstring).  sep: phase 17's results, whose files
+    it reads.  `device` is an argument for a rehearsal on the CPU."""
+    from scipy.io import wavfile
+
+    from rvc_maker_tpu_torch import cli
+    from rvc_maker_tpu_torch.interop.demucs_load import load_demucs_th
+    from rvc_maker_tpu_torch.pipelines import create_dataset as cd
+    from rvc_maker_tpu_torch.pipelines import spec_tools as st
+    from rvc_maker_tpu_torch.utils.audio import read_wav, resample
+
+    d = os.path.join(work, "spec_tools")
+    os.makedirs(d, exist_ok=True)
+    on_card = device == "cuda"
+    dev_flag = [] if on_card else ["--device", device]
+    files = sep["files"]
+    res: dict = {"launches": {}}
+
+    # `driven` on `device` and on the CPU (the path runs no resblock: 0)
+    on_dev = functools.partial(driven, res, device=device, none_on="the spec_tools path")
+    on_cpu = functools.partial(driven, res, device="cpu", none_on="the spec_tools path")
+
+    # (a) cli create-dataset: phase 17's song and a 48 kHz mono copy of it,
+    # the full-width HTDemucs .th, the noise gate, 1 s skipped at each end
+    song, sr = read_wav(files["song"])
+    m48 = write_wav_file(os.path.join(d, "song_48k_mono.wav"),
+                         resample(song.mean(axis=1), sr, 48000), 48000)
+    out_dir = os.path.join(d, "dataset")
+    ds_flags = ["--separator-model", files["th"], "--clean-dataset", "--skip-start", "1", "1",
+                "--skip-end", "1", "1", "--sample-rate", str(SEP_SR)]
+    on_dev("cli_create_dataset", lambda: cli.main(
+        ["create-dataset", files["song"], m48, "--output", out_dir, *ds_flags, *dev_flag]))
+    written = sorted(os.listdir(out_dir))
+    frames = int((SEP_SECONDS - 2) * SEP_SR)
+    for name in written:
+        w_sr, x = read_float(os.path.join(out_dir, name))
+        if w_sr != SEP_SR or x.shape != (frames,) or not np.isfinite(x).all() or x.std() < 1e-4:
+            raise AssertionError(f"create-dataset wrote {name}: sr {w_sr}, shape {x.shape}")
+    if written != ["dataset_0.wav", "dataset_1.wav"]:
+        raise AssertionError(f"create-dataset wrote {written}")
+    res["dataset_files"] = written
+    separator = load_demucs_th(files["th"], device=device)
+    kw = dict(sample_rate=SEP_SR, separator=separator, clean_dataset=True,
+              skip_start=["1", "1"], skip_end=["1", "1"], device=device)
+    on_dev("create_dataset", lambda: cd.create_dataset([files["song"], m48],
+                                                        os.path.join(d, "ds2"), **kw))
+    if on_card:
+        res["create_dataset_profile"] = profile_call(
+            "create_dataset, 2 inputs of 20 s (18 s kept), HTDemucs and the noise gate",
+            lambda: cd.create_dataset([files["song"], m48], os.path.join(d, "ds3"), **kw),
+            res["create_dataset_wall_s"])
+    log(f"  (a) cli create-dataset: {written} ({frames} samples at {SEP_SR} Hz each) in "
+        f"{res['cli_create_dataset_wall_s']:.3f} s wall (the .th load included); "
+        f"create_dataset in process {res['create_dataset_wall_s']:.3f} s; on {card}")
+    cut = write_wav_file(os.path.join(d, "cut.wav"), song[:int(DATASET_CPU_SECONDS * SEP_SR)],
+                         SEP_SR)
+    one = dict(sample_rate=SEP_SR, clean_dataset=True)
+    got = cd.create_dataset([cut], os.path.join(d, "cut_card"), device=device,
+                            separator=separator, **one)
+    ref = on_cpu("create_dataset_cut_cpu", lambda: cd.create_dataset(
+        [cut], os.path.join(d, "cut_cpu"), device="cpu",
+        separator=load_demucs_th(files["th"], device="cpu"), **one))
+    g, r = read_float(got[0])[1], read_float(ref[0])[1]
+    err = float(np.abs(g - r).max())
+    res["create_dataset_cut_max_abs_err"] = err
+    log(f"  (a) create_dataset on {DATASET_CPU_SECONDS:.0f} s, card against CPU: max abs "
+        f"{err:.3e} (bound {SEP_TOL}; CPU {res['create_dataset_cut_cpu_wall_s']:.1f} s)")
+    if g.shape != r.shape or not np.isfinite(g).all() or err > SEP_TOL:
+        raise AssertionError(f"create_dataset card against CPU: max abs {err}, shapes "
+                             f"{g.shape} / {r.shape}")
+    del separator
+
+    # (b) ensemble_inputs on phase 17's two vocal stems (HTDemucs, the MDX
+    # stand-in): Max Spec, Min Spec, Average
+    stems = [files["vocals"], files["mdx_vocals"]]
+    for alg in (st.MAX_SPEC, st.MIN_SPEC, st.AVERAGE):
+        tag = alg.lower().replace(" ", "_")
+        outs = {dv: os.path.join(d, f"ens_{tag}_{dv}.wav") for dv in (device, "cpu")}
+        on_dev(f"ensemble_{tag}", lambda a=alg: st.ensemble_inputs(
+            stems, a, 1.0, "FLOAT", outs[device], device=device))
+        on_cpu(f"ensemble_{tag}_cpu", lambda a=alg: st.ensemble_inputs(
+            stems, a, 1.0, "FLOAT", outs["cpu"], device="cpu"))
+        res[f"ensemble_{tag}_max_abs_err"] = spec_close(
+            f"(b) ensemble_inputs {alg} on 2 x 20 s ({res[f'ensemble_{tag}_wall_s']:.3f} s; CPU "
+            f"{res[f'ensemble_{tag}_cpu_wall_s']:.3f} s)",
+            read_float(outs[device])[1], read_float(outs["cpu"])[1])
+    if on_card:
+        res["ensemble_profile"] = profile_call(
+            "ensemble_inputs Max Spec, 2 x 20 s", lambda: st.ensemble_inputs(
+                stems, st.MAX_SPEC, 1.0, "FLOAT", os.path.join(d, "ens_prof.wav"), device=device),
+            res["ensemble_max_spec_wall_s"])
+
+    # (c) align_audio of the song against a copy delayed by 300 samples at
+    # -0.5 dB, its coarse lags recorded
+    take = np.concatenate([np.zeros((ALIGN_DELAY, 2), np.float32), song[:-ALIGN_DELAY]])
+    take = (take * 10 ** (ALIGN_DB / 20)).astype(np.float32)
+    paths = {}
+    for secs in (SEP_SECONDS, ALIGN_CPU_SECONDS):
+        n = int(secs * SEP_SR)
+        paths[secs] = (write_wav_file(os.path.join(d, f"mix_{secs:g}.wav"), song[:n], SEP_SR),
+                       os.path.join(d, f"take_{secs:g}.wav"))
+        wavfile.write(paths[secs][1], SEP_SR, take[:n])
+    lags: list = []
+    xcorr_lag = st._xcorr_lag
+
+    def recording(a, b):
+        lag = xcorr_lag(a, b)
+        lags.append(lag)
+        return lag
+
+    def align(secs, dv):
+        out = (os.path.join(d, f"aligned_{secs:g}_{dv}.wav"),
+               os.path.join(d, f"sub_{secs:g}_{dv}.wav"))
+        del lags[:]
+        st.align_audio(*paths[secs], *out, "FLOAT", True, None, None, [0.0625, 0.5], [1, 2],
+                       (0.0, [-0.5, 0.0, 0.5]), None, st.POSITIVE_PHASE, 180, False, True,
+                       device=dv)
+        return out, list(lags)
+
+    st._xcorr_lag = recording
+    try:
+        outs, out_lags = {}, {}
+        for secs in (SEP_SECONDS, ALIGN_CPU_SECONDS):
+            outs[secs, device], out_lags[secs, device] = on_dev(
+                f"align_{secs:g}s", lambda s=secs: align(s, device))
+            outs[secs, "cpu"], out_lags[secs, "cpu"] = on_cpu(
+                f"align_{secs:g}s_cpu", lambda s=secs: align(s, "cpu"))
+        if on_card:
+            res["align_profile"] = profile_call(f"align_audio, {SEP_SECONDS:.0f} s stereo",
+                                                lambda: align(SEP_SECONDS, device),
+                                                res[f"align_{SEP_SECONDS:g}s_wall_s"])
+    finally:
+        st._xcorr_lag = xcorr_lag
+    res["align_coarse_lags"] = {f"{s:g}s {dv}": v for (s, dv), v in out_lags.items()}
+    if any(v != [-ALIGN_DELAY] * 2 for v in out_lags.values()):
+        raise AssertionError(f"align_audio coarse lags {res['align_coarse_lags']}, not "
+                             f"{-ALIGN_DELAY} at both probes")
+    for secs in (SEP_SECONDS, ALIGN_CPU_SECONDS):
+        for k, what in enumerate(("aligned", "residual")):
+            res[f"align_{secs:g}s_{what}_max_abs_err"] = spec_close(
+                f"(c) align_audio {secs:g} s, the {what}", read_float(outs[secs, device][k])[1],
+                read_float(outs[secs, "cpu"][k])[1])
+    sub = read_float(outs[SEP_SECONDS, device][1])[1][:-ALIGN_DELAY]
+    res["align_residual_db"] = float(20 * np.log10(np.sqrt(np.mean(sub ** 2))
+                                                   / np.sqrt(np.mean(song[:-ALIGN_DELAY] ** 2))))
+    log(f"  (c) align_audio: recovered delay {ALIGN_DELAY} samples (coarse lag "
+        f"{out_lags[SEP_SECONDS, device][0]} at both probes, on both devices); residual "
+        f"{res['align_residual_db']:.1f} dB under the song; {SEP_SECONDS:.0f} s: "
+        f"{res[f'align_{SEP_SECONDS:g}s_wall_s']:.3f} s wall (CPU "
+        f"{res[f'align_{SEP_SECONDS:g}s_cpu_wall_s']:.3f} s); {ALIGN_CPU_SECONDS:.0f} s: "
+        f"{res[f'align_{ALIGN_CPU_SECONDS:g}s_wall_s']:.3f} s (CPU "
+        f"{res[f'align_{ALIGN_CPU_SECONDS:g}s_cpu_wall_s']:.3f} s); on {card}")
+    # the batched cross-correlation alone, at both window sizes over the
+    # 20 s stereo song: its device ms (cuFFT), and the whole window search's
+    if on_card:
+        mix_t = torch.as_tensor(read_float(paths[SEP_SECONDS][0])[1].T.copy(), device=device)
+        take_t = torch.as_tensor(take.T.astype(np.float64) * 10 ** (0.5 / 20), device=device)
+        res["xcorr"] = {}
+        for secs in (0.0625, 0.5):
+            win = int(SEP_SR * secs)
+            n_w = len(range(0, mix_t.shape[1] - win, win // 2))
+            taper = torch.as_tensor(np.hanning(win), device=device)
+            wm = (mix_t.unfold(-1, win, win // 2)[:, :n_w] * taper).flatten(0, 1)
+            wi = (take_t.unfold(-1, win, win // 2)[:, :n_w] * taper).flatten(0, 1)
+            variants = torch.stack([wi, -wi], dim=1)
+            row = dict(windows=int(wm.shape[0]), variants=2, gains=3, fft_points=1 << (
+                2 * win - 2).bit_length())
+            row["xcorr_ms"] = cuda_ms(lambda: st._xcorr_full(wm[:, None], variants), 5)
+            row["realign_ms"] = cuda_ms(lambda: st._realign_window(
+                wm, wi, (0.0, [-0.5, 0.0, 0.5]), 180), 5)
+            res["xcorr"][f"{secs:g}s"] = row
+            log(f"  (c) window {secs:g} s: {row['windows']} windows x 2 variants, "
+                f"{row['fft_points']}-point float64 FFTs: cross-correlation {row['xcorr_ms']:.3f} "
+                f"ms, the whole search (3 gains) {row['realign_ms']:.3f} ms (CUDA events)")
+
+    # (d) cmb_spectrogram_to_wave round trip on the two-band set
+    mp = two_band_mp(st)
+    wave = np.ascontiguousarray(song.T)
+
+    def round_trip(dv):
+        specs = {}
+        for b, band in mp.param["band"].items():
+            wb = st._resample(wave, SEP_SR, band["sr"])
+            specs[b] = st.wave_to_spectrogram(wb, band["hl"], band["n_fft"], mp, b, device=dv)
+        comb = st.combine_spectrograms(specs, mp, device=dv)
+        return st.cmb_spectrogram_to_wave(comb, mp, device=dv)
+
+    got = on_dev("cmb_round_trip", lambda: round_trip(device))
+    ref = on_cpu("cmb_round_trip_cpu", lambda: round_trip("cpu"))
+    n = min(got.shape[1], wave.shape[1])
+    res["cmb_corr_with_input"] = float(np.corrcoef(got[0, :n], wave[0, :n])[0, 1])
+    res["cmb_max_abs_err"] = spec_close(
+        f"(d) cmb_spectrogram_to_wave round trip of 20 s on the two-band set "
+        f"({res['cmb_round_trip_wall_s']:.3f} s; CPU {res['cmb_round_trip_cpu_wall_s']:.3f} s; "
+        f"{got.shape[1]} samples, correlation with the input {res['cmb_corr_with_input']:.4f})",
+        got, ref)
+    res["resblock_launches"] = sum(sum(c.values()) for c in res["launches"].values())
+    return res
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4403,6 +4678,12 @@ def run(work: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    marks: list = []                  # (phase, its start), in the order they run
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
+
+    mark(1)
 
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -4411,6 +4692,7 @@ def run(work: str) -> int:
     RESULTS["device"] = dict(name=name, nvidia_smi=smi, torch=torch.__version__,
                              cuda=torch.version.cuda)
 
+    mark(2)
     t0 = time.perf_counter()
     # the host libraries' g++ (the WORLD F0 library, the FLAC decoder) alongside
     # the kernels' nvcc
@@ -4439,15 +4721,18 @@ def run(work: str) -> int:
     for u in cfg.upsample_rates:
         t, c = t * u, c // 2
         shapes.append((2, c, t))
+    mark(3)
     log(f"[3 kernels] resblock at the main path's stage shapes {shapes}")
     rows, totals = check_resblock(shapes, cfg.resblock_kernel_sizes,
                                   tuple(cfg.resblock_dilation_sizes[0]), smi)
     RESULTS["resblock"] = dict(rows=rows, totals=totals)
 
+    mark(4)
     log("[4 main] building the v2-48k pipeline with random weights")
     model_cfg, model = random_model()
     RESULTS["main_path"] = main_path(model_cfg, model)
 
+    mark(5)
     log("[5 parity] card against CPU")
     RESULTS["parity"] = card_vs_cpu(model_cfg, model)
 
@@ -4455,20 +4740,25 @@ def run(work: str) -> int:
     for u in cfg.upsample_rates:
         t, c = t * u, c // 2
         train_shapes.append((8, c, t))
+    mark(6)
     log(f"[6 train-kernel] resblock forward and gradients at the training shapes {train_shapes}")
     RESULTS["train_kernel"] = check_resblock_train(
         train_shapes, cfg.resblock_kernel_sizes, tuple(cfg.resblock_dilation_sizes[0]), smi)
 
+    mark(7)
     log("[7 train] preprocess -> extract -> train -> export -> convert at v2-48k")
     RESULTS["train"] = train_flow(model, smi, work)
 
+    mark(8)
     log("[8 train-parity] one narrow train step, card against CPU")
     RESULTS["train_parity"] = train_parity()
 
+    mark(9)
     log("[9 vocoders] f0-less, MRF-HiFi-GAN and RefineGAN conversion at v2-48k "
         f"({time.perf_counter() - t_start:.1f} s in)")
     RESULTS["vocoders"] = vocoders_phase(model, smi)
 
+    mark(10)
     log(f"[10 f0] every other F0 method at v2-48k ({time.perf_counter() - t_start:.1f} s in)")
     nets = f0_networks()
     log("  FCPE current: 128 mels, 512 wide, 6 conv-only layers; FCPE legacy: 512 wide, "
@@ -4480,76 +4770,70 @@ def run(work: str) -> int:
     RESULTS["f0_methods"]["card_vs_cpu"] = f0_card_vs_cpu(model_cfg, model, nets)
     del nets
 
+    mark(11)
     log(f"[11 serve] the HTTP server on phase 4's model files, fp32 and bf16 "
         f"({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["serve"] = serve_phase(model_cfg, model)
-    RESULTS["serve"]["phase_s"] = time.perf_counter() - t0
 
+    mark(12)
     log(f"[12 train-all] every decoder and training mode, extract, the index build "
         f"({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["train_all"] = train_all(model, work, smi)
-    RESULTS["train_all"]["phase_s"] = time.perf_counter() - t0
 
+    mark(13)
     log(f"[13 audio-tools] cli convert with a preset and FLAC, the noise gate, cli tts, "
         f"/api/tts and the host routes ({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["audio_tools"] = audio_tools_phase(model_cfg, model, work)
-    RESULTS["audio_tools"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 13 in {RESULTS['audio_tools']['phase_s']:.1f} s")
 
+    mark(14)
     shapes14 = w8a8_shapes(model_cfg)
     log(f"[14 int8] the W8A8 mode: csrc/conv1d_w8a8_ws.cu (the route) and csrc/conv1d_w8a8.cu "
         f"(its first version) at the int8 decode's {len(shapes14)} conv shapes, then the int8 "
         f"pipeline ({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     rows14, tot14 = check_w8a8(shapes14, smi, logs.get("conv1d_w8a8_ws", ""))
     RESULTS["int8"] = dict(rows=rows14, totals=tot14,
                            pipeline=int8_phase(model_cfg, model, smi))
-    RESULTS["int8"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 14 in {RESULTS['int8']['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
+    mark(15)
     log(f"[15 parallel] {PARALLEL_WORLD} ranks: train(), the sharded step, sharded conversion, "
         f"the sharded blend, tensor-parallel HuBERT ({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["parallel"] = parallel_phase(work, smi)
-    RESULTS["parallel"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 15 in {RESULTS['parallel']['phase_s']:.1f} s")
 
+    mark(16)
     log(f"[16 onnx] cli export-onnx and the .onnx voice model, embedder and RMVPE on the "
         f"card against their native routes ({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["onnx"] = onnx_phase(model_cfg, model, work)
-    RESULTS["onnx"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 16 in {RESULTS['onnx']['phase_s']:.1f} s")
 
+    mark(17)
     log(f"[17 separate] HTDemucs at full width and a stand-in MDX-Net graph through cli "
         f"separate, /api/separate and cli separate-music ({time.perf_counter() - t_start:.1f} "
         "s in)")
-    t0 = time.perf_counter()
     RESULTS["separate"] = separate_phase(work)
-    RESULTS["separate"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 17 in {RESULTS['separate']['phase_s']:.1f} s")
 
+    mark(18)
     log(f"[18 speaker] Whisper transcription, ECAPA-TDNN, cli diarize-convert and "
         f"/api/convert_whisper ({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["speaker"] = speaker_phase(work, model_cfg, model)
-    RESULTS["speaker"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 18 in {RESULTS['speaker']['phase_s']:.1f} s")
     del model
     torch.cuda.empty_cache()
 
+    mark(19)
     log(f"[19 edit] AudioLDM2 at the published widths: a 10 s edit, card against CPU, the "
         f"vocoder's resblocks on resblock_tc, cli edit and /api/audio_edit "
         f"({time.perf_counter() - t_start:.1f} s in)")
-    t0 = time.perf_counter()
     RESULTS["edit"] = edit_phase(work, smi)
-    RESULTS["edit"]["phase_s"] = time.perf_counter() - t0
-    log(f"  phase 19 in {RESULTS['edit']['phase_s']:.1f} s")
+
+    mark(20)
+    log(f"[20 spec-tools] cli create-dataset, ensemble_inputs, align_audio and the two-band "
+        f"cmb_spectrogram_to_wave round trip ({time.perf_counter() - t_start:.1f} s in)")
+    RESULTS["spec_tools"] = spec_tools_phase(work, RESULTS["separate"], smi)
+    mark(None)
     RESULTS["total_s"] = time.perf_counter() - t_start
+    RESULTS["phase_s"] = {str(p): round(t1 - t0, 3)
+                          for (p, t0), (_, t1) in zip(marks, marks[1:])}
+    log("each phase's s: " + ", ".join(
+        f"{p} {v:.1f}" for p, v in RESULTS["phase_s"].items()))
     log(f"done in {RESULTS['total_s']:.1f} s")
 
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
@@ -4568,6 +4852,10 @@ def run(work: str) -> int:
     def sep_launches(kernel: str) -> int:
         """Phase 17's launches of a resblock kernel over its driven calls."""
         return sum(c[kernel] for c in RESULTS["separate"]["launches"].values())
+
+    def spec_launches(kernel: str) -> int:
+        """Phase 20's launches of a resblock kernel over its driven calls."""
+        return sum(c[kernel] for c in RESULTS["spec_tools"]["launches"].values())
 
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
@@ -4616,6 +4904,8 @@ def run(work: str) -> int:
              launches_onnx=RESULTS["onnx"]["resblock_launches"]["onnx"],
              # phase 17: separation runs no resblock (Demucs, MDX-Net)
              launches_separate=sep_launches("resblock_tc"),
+             # phase 20: spec_tools and create_dataset run none either
+             launches_spec_tools=spec_launches("resblock_tc"),
              # phase 18: 36 per diarized segment (fp32)
              launches_diarize_vad=RESULTS["speaker"]["launches"]["diarize_vad"]["resblock_tc"],
              launches_diarize_whisper=RESULTS["speaker"]["launches"]["diarize_whisper"][
@@ -4641,6 +4931,7 @@ def run(work: str) -> int:
              launches_train_bf16=runs["nsf_bf16"]["launches_tc_bf16"],
              launches_train_bf16_checkpointing=runs["nsf_bf16_ckpt"]["launches_tc_bf16"],
              launches_separate=sep_launches("resblock_tc_bf16"),
+             launches_spec_tools=spec_launches("resblock_tc_bf16"),
              launches_edit=edit["launches"]["edit"]["resblock_tc_bf16"],
              train_fwd_ms=tkb["fwd_ms"], train_fwd_bound_ms=tkb["bound_ms"],
              train_fwd_library_ms=tkb["library_fwd_ms"], train_fwd_plain_ms=tkb["plain_fwd_ms"],
@@ -4656,6 +4947,8 @@ def run(work: str) -> int:
              launches_main_fma=main["resblock_launches"] - main["resblock_tc_launches"],
              launches_separate=sep_launches("resblock") - sep_launches("resblock_tc")
              - sep_launches("resblock_tc_bf16"),
+             launches_spec_tools=spec_launches("resblock") - spec_launches("resblock_tc")
+             - spec_launches("resblock_tc_bf16"),
              max_abs_err=totals["bf16_fma_max_abs_err"], ms=totals["bf16_fma_ms"],
              fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
              fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"],

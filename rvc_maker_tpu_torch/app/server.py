@@ -11,18 +11,18 @@ time, or the dynamic batcher `app/batcher.py` under
 RVC_TPU_BATCH_SERVE=1; 503 and a retry while a train job runs, unless
 RVC_TPU_SERVE_DURING_TRAIN=1), `/api/f0_extract` (yin, pyin, swipe, pm,
 dio, harvest), `/api/job_start` and `/api/job_status` (preprocess,
-extract, train), `/api/settings`, `/api/effects`, `/api/model_info`,
+extract, train, create_dataset), `/api/settings`, `/api/effects`, `/api/model_info`,
 `/api/fuse`, `/api/export_onnx` (host work, in the handler thread: the
 export traces on the CPU), `/api/tts` (its conversion on the device
 thread), `/api/separate` (Demucs `.th` or MDX `.onnx`, on the device
 thread), `/api/convert_whisper` (diarized conversion with two voice
-models alive at once, on the device thread) and `/api/audio_edit`
+models alive at once, on the device thread), `/api/audio_edit`
 (AudioLDM2 editing, `toy_stack` for the offline stack, on the device
-thread).  `.onnx` voice models and embedders convert and extract like
-`.pth` and `.pt` files, their graphs run on the server's device
-(`interop/onnx_run.py`).  The routes whose modules are not yet ported
-(`UNPORTED_ROUTES`) and the `create_dataset` job answer 501 with a
-message that names what is missing.
+thread), and the network's routes in the handler thread: `/api/download`
+(`utils/scrapers.py` `download_any`), `/api/search_models` (HuggingFace)
+and `/api/report_bug` (a Discord webhook).  `.onnx` voice models and
+embedders convert and extract like `.pth` and `.pt` files, their graphs
+run on the server's device (`interop/onnx_run.py`).
 A malformed request answers 400, and so does a caller's mistake that
 the library's validation finds (`errors.BadRequest`: files that cannot
 be combined, an unreadable model); any other fault in the library
@@ -83,24 +83,12 @@ def _on_device_thread(fn, *args):
     return _DEVICE_THREAD.submit(run).result()
 _JOB_COUNTER = itertools.count()
 
-# the JAX server's routes whose modules the port has not ported yet,
-# each with what it needs (ROADMAP queue 1)
-UNPORTED_ROUTES = {
-    "/api/download": "model download (utils/scrapers.py)",
-    "/api/search_models": "model search (network)",
-    "/api/report_bug": "bug report (network)",
-}
 PRECISIONS = ("bf16", "fp32")
 # F0 methods the server runs: it loads RMVPE's weights and no FCPE or CREPE
 SERVED_F0 = ("rmvpe", "rmvpe-legacy", "yin", "pyin", "swipe", "pm", "dio", "harvest")
 F0_EXTRACT_METHODS = ("yin", "pyin", "swipe", "pm", "dio", "harvest")
 
 
-class NotPorted(Exception):
-    """A feature of the JAX server that the port does not have yet: 501."""
-
-    def __init__(self, what: str):
-        super().__init__(tr("not_ported", what=what))
 
 
 INDEX_HTML = """<!DOCTYPE html>
@@ -704,14 +692,17 @@ class Handler(BaseHTTPRequestHandler):
                   "/api/tts": self._api_tts,
                   "/api/separate": self._api_separate,
                   "/api/convert_whisper": self._api_convert_whisper,
-                  "/api/audio_edit": self._api_audio_edit}
+                  "/api/audio_edit": self._api_audio_edit,
+                  "/api/download": self._api_download,
+                  "/api/search_models": lambda req: self._json(
+                      {"models": _search_hf_models(req["query"])}),
+                  "/api/report_bug": lambda req: self._json(
+                      _report_bug(req["webhook"], req["text"]))}
         try:
             n = int(self.headers.get("Content-Length", "0"))
             req = json.loads(self.rfile.read(n) or b"{}")
             if not isinstance(req, dict):
                 raise ValueError("the request body must be a JSON object")
-            if self.path in UNPORTED_ROUTES:
-                raise NotPorted(UNPORTED_ROUTES[self.path])
             if self.path not in routes:
                 self._json({"error": tr("not_found", name=self.path)}, 404)
                 return
@@ -723,9 +714,7 @@ class Handler(BaseHTTPRequestHandler):
     def _error(self, e: Exception):
         from .batcher import BatcherOverloaded
 
-        if isinstance(e, NotPorted):
-            self._json({"error": str(e), "not_ported": True}, 501)
-        elif isinstance(e, BatcherOverloaded):
+        if isinstance(e, BatcherOverloaded):
             # backpressure: the client retries, the server keeps serving
             self._json({"error": str(e), "retry": True}, 503)
         elif isinstance(e, BadRequest) or (
@@ -811,6 +800,14 @@ class Handler(BaseHTTPRequestHandler):
 
         self._json({"output": fuse_models(req["a"], req["b"], req["out"],
                                           ratio=float(req.get("ratio", 0.5)))})
+
+    def _api_download(self, req):
+        """A model file from a URL (Google Drive, MediaFire, mega.nz,
+        pixeldrain, HuggingFace or any other) into req["output"], host
+        work in the handler thread (JAX server.py:603-606)."""
+        from ..utils.scrapers import download_any
+
+        self._json({"output": download_any(req["url"], req.get("output", "."))})
 
     def _api_export_onnx(self, req):
         from ..interop.onnx_voice import export_voice_model
@@ -1017,13 +1014,17 @@ def _start_job(req: dict) -> dict:
     background thread on the server's device, its log captured for
     /api/job_status.  The job thread runs with grad mode on (its own)."""
     kind = req.get("kind")
-    if kind == "create_dataset":
-        raise NotPorted("the create_dataset job (pipelines/create_dataset.py)")
-    if kind not in ("preprocess", "extract", "train"):
+    if kind not in ("preprocess", "extract", "train", "create_dataset"):
         raise ValueError(f"unknown job kind {kind!r}")
-    exp_dir = req["exp_dir"]
-    version = req.get("version", "v2")
-    sr = _int_field(req, "sr", 32000)
+    if kind == "create_dataset":
+        inputs = req["inputs"]
+        if not isinstance(inputs, list) or not all(isinstance(i, str) for i in inputs):
+            raise ValueError("inputs must be a list of paths or URLs")
+        sr = _int_field(req, "sr", 44100)
+    else:
+        exp_dir = req["exp_dir"]
+        version = req.get("version", "v2")
+        sr = _int_field(req, "sr", 32000)
     if kind == "preprocess":
         dataset = req["dataset"]
         num_workers = _int_field(req, "num_workers", 2)
@@ -1052,7 +1053,19 @@ def _start_job(req: dict) -> dict:
         root = logging.getLogger("rvc_maker_tpu_torch")
         root.addHandler(handler)
         try:
-            if kind == "preprocess":
+            if kind == "create_dataset":
+                from ..pipelines.create_dataset import create_dataset
+
+                separator = None
+                if req.get("separator"):
+                    from ..interop.demucs_load import load_demucs_th
+
+                    separator = load_demucs_th(req["separator"], device=device)
+                written = create_dataset(inputs, req.get("output", "./dataset"), sample_rate=sr,
+                                         separator=separator,
+                                         clean_dataset=bool(req.get("clean")), device=device)
+                job["log"].append(f"create_dataset: {len(written)} files")
+            elif kind == "preprocess":
                 from ..pipelines.preprocess import preprocess_dataset
 
                 n = preprocess_dataset(dataset, exp_dir, sr, num_workers=num_workers)
@@ -1092,6 +1105,35 @@ def _start_job(req: dict) -> dict:
     job["thread"] = t
     t.start()
     return {"job_id": job_id}
+
+
+def _search_hf_models(query: str, limit: int = 20) -> list[dict]:
+    """HuggingFace model search (JAX server.py:946-957; reference
+    search_models app.py:327-348): the network."""
+    import urllib.parse
+    import urllib.request
+
+    url = ("https://huggingface.co/api/models?search=" + urllib.parse.quote(query)
+           + f"&limit={limit}")
+    with urllib.request.urlopen(url, timeout=15) as resp:
+        items = json.loads(resp.read().decode())
+    return [{"id": it.get("id"), "downloads": it.get("downloads"), "likes": it.get("likes")}
+            for it in items]
+
+
+def _report_bug(webhook_url: str, text: str) -> dict:
+    """A bug report to a Discord webhook (JAX server.py:960-975; reference
+    report-bugs tab, app.py:1400): the network."""
+    import urllib.request
+
+    if not webhook_url.startswith("https://"):
+        raise ValueError("webhook must be an https URL")
+    data = json.dumps({"content": text[:1900]}).encode()
+    req = urllib.request.Request(webhook_url, data=data,
+                                 headers={"Content-Type": "application/json",
+                                          "User-Agent": "rvc_maker_tpu_torch"})
+    with urllib.request.urlopen(req, timeout=15) as resp:
+        return {"status": resp.status}
 
 
 def warm(model: str, index: str = "", rmvpe: str = "", embedder: str = "",

@@ -40,6 +40,9 @@
     python -m rvc_maker_tpu_torch.cli separate-music --input song.wav \
         --output stems/ --model-name htdemucs.yaml [--backing --kara-model
         kara.onnx] [--reverb --reverb-model reverb.onnx] [--clean-audio]
+    python -m rvc_maker_tpu_torch.cli create-dataset song.wav [url ...] \
+        --output dataset/ [--separator-model htdemucs.th --clean-dataset
+        --skip-start 1 --skip-end 1 --sample-rate 44100]
     python -m rvc_maker_tpu_torch.cli transcribe --model whisper.pt \
         --vocab multilingual.tiktoken --input speech.wav --output segs.json
         [--language en --word-timestamps --beam-size 5 --patience 1.0 --best-of 5]
@@ -51,13 +54,17 @@
         --output-path out.wav --toy-stack [--source-prompt "piano"
         --target-prompt "violin" --steps 50 --t-start 45 --sample-rate 44100]
 
-Every weight file is given explicitly; nothing is downloaded.  convert
+Every weight file is given explicitly, except under --f0-onnx: there an
+F0 network's absent path is the `.onnx` predictor that
+`utils/bootstrap.py` downloads into $RVC_TPU_ASSETS/models/predictors
+(default assets/) unless it is there, as the JAX package's CLI does.
+create-dataset downloads its URL inputs.  convert
 takes a `.pth` of any decoder the reference writes (NSF-HiFiGAN, an
 f0-less model's plain HiFi-GAN, MRF-HiFi-GAN, RefineGAN) or a `.onnx`
 voice model, a `.onnx` embedder, and every F0 method of the JAX package;
 each F0 network's weights are needed only by the methods that run it,
 and an rmvpe / fcpe / crepe weight file that ends in `.onnx` runs as an
-ONNX predictor (`--f0-onnx` insists on it).  The ONNX graphs run on
+ONNX predictor.  The ONNX graphs run on
 --device through `interop/onnx_run.py`.  export-onnx writes a `.pth`
 as a `.onnx` voice model (dynamic frame axis unless --static), traced on
 the CPU.  extract runs every
@@ -74,8 +81,10 @@ a preset JSON first, shifts the input's formants before the conversion
 and spectral-gates its output (`utils/noisereduce.py`, on the device).
 separate runs a Demucs `.th`, a `.yaml` bag of them or an MDX-Net `.onnx`;
 separate-music chains it with a karaoke split, a dereverb pass and the
-noise gate, its registry names resolved only to files already in
-$RVC_TPU_ASSETS/models/uvr5 (default assets/).
+noise gate, its registry names resolved to files in
+$RVC_TPU_ASSETS/models/uvr5 (default assets/), downloaded when missing.
+create-dataset resamples each input, skips its head and tail, isolates
+its vocals with a Demucs `.th` and gates its noise.
 transcribe cuts 30 s windows, decodes each with the temperature fallback
 (beam search at temperature 0 with --beam-size) and aligns words by
 cross-attention DTW with --word-timestamps.  diarize-convert clusters
@@ -85,8 +94,9 @@ source prompt and re-runs the chain under the target prompt; the
 AudioLDM2 checkpoint is read from assets/models/audioldm2/<model> and is
 not in the repository, so without --toy-stack (an identity VAE and a
 zero denoiser) it raises, as the JAX package's does.
-extract, train, index, convert, separate, separate-music, transcribe,
-diarize-convert, edit and tts --model run on the card unless
+extract, train, index, convert, separate, separate-music,
+create-dataset, transcribe, diarize-convert, edit and tts --model run on
+the card unless
 `--device cpu` is passed; effects, fuse and info are host work.  tts
 needs the network (the Edge read-aloud service, or Google's with
 --google; RVC_TPU_EDGE_TTS_URL names another Edge endpoint).
@@ -222,16 +232,24 @@ def cmd_tensorboard(args) -> int:
 def _f0_weights(method: str, flag: str, path: str, loader, args):
     """`loader(path)`, for the F0 weights that `method` needs; a `.onnx`
     file is an ONNX predictor, an `interop.onnx_run.OnnxGraph` on
-    args.device.  An absent flag or a missing file raises, and so does a
-    file that is not `.onnx` under --f0-onnx."""
+    args.device.  Under --f0-onnx an absent flag asks `utils/bootstrap.py`
+    for the method's `-onnx` predictor files (JAX cli.py:213-236), which
+    it downloads into $RVC_TPU_ASSETS/models/predictors unless they are
+    there, and raises naming the file to place there when it cannot.
+    Otherwise an absent flag raises, and so does a missing file."""
+    if not path and getattr(args, "f0_onnx", False):
+        from .utils import bootstrap
+
+        kind = flag[2:].split("-")[0]
+        boot = "+".join(m + "-onnx" for m in bootstrap.methods_of(method))
+        if "hybrid" in method:
+            boot = f"hybrid[{boot}]"
+        path = next((v for k, v in bootstrap.ensure_predictor(boot).items() if kind in k), "")
     if not path:
         raise ValueError(f"--f0-method {method} needs {flag}")
     if not os.path.isfile(path):
         raise FileNotFoundError(f"{flag}: no such file {path!r}")
-    onnx = path.endswith(".onnx")
-    if getattr(args, "f0_onnx", False) and not onnx:
-        raise ValueError(f"--f0-onnx: {flag} {path!r} is not a .onnx predictor")
-    if onnx:
+    if path.endswith(".onnx"):
         from .interop.onnx_run import OnnxGraph
 
         return OnnxGraph(path, device=args.device)
@@ -283,8 +301,9 @@ def _load_embedder(args):
 
 def _build_convert_pipeline(args):
     """The conversion pipeline and settings of the conversion flags, shared
-    by `convert` and `tts --model` (JAX cli.py:169): every weight file
-    given explicitly, on args.device."""
+    by `convert` and `tts --model` (JAX cli.py:169), on args.device:
+    every weight file given explicitly, or under --f0-onnx an F0
+    predictor from the bootstrap."""
     from .interop.onnx_voice import load_voice_model
     from .models.rmvpe import load_rmvpe_pt
     from .pipelines.convert import ConvertPipeline, ConvertSettings, f0_members
@@ -508,6 +527,31 @@ def cmd_separate_music(args) -> int:
     return 0
 
 
+def cmd_create_dataset(args) -> int:
+    """A training dataset from audio files or URLs: resample, skip the head
+    and tail, isolate the vocals with a Demucs `.th`, gate the noise, on
+    args.device (JAX cli.py:426-446)."""
+    import time
+
+    from .pipelines.create_dataset import create_dataset
+    from .utils.i18n import tr
+
+    t0 = time.time()
+    separator = None
+    if args.separator_model:
+        from .interop.demucs_load import load_demucs_th
+
+        separator = load_demucs_th(args.separator_model, device=args.device)
+    written = create_dataset(
+        args.inputs, args.output, sample_rate=args.sample_rate,
+        skip_start=args.skip_start or None, skip_end=args.skip_end or None,
+        separator=separator, clean_dataset=args.clean_dataset,
+        clean_strength=args.clean_strength, device=args.device)
+    print(tr("create_dataset_success", elapsed_time=f"{time.time() - t0:.1f}")
+          + f" [{len(written)} files -> {args.output}]")
+    return 0
+
+
 def cmd_transcribe(args) -> int:
     """Whisper transcription to a JSON list of segments, with word
     timestamps on request (JAX cli.py:449-470)."""
@@ -604,9 +648,10 @@ def _conversion_flags(c) -> None:
     c.add_argument("--fcpe-path", default="", help="reference fcpe.pt / fcpe_legacy.pt")
     c.add_argument("--crepe-path", default="", help="reference crepe_<capacity>.pth")
     c.add_argument("--f0-onnx", action="store_true",
-                   help="the F0 networks run as .onnx predictors: --rmvpe-path / "
-                        "--fcpe-path / --crepe-path must name .onnx files (a .onnx "
-                        "file there runs as one without the flag too)")
+                   help="an F0 network whose --rmvpe-path / --fcpe-path / --crepe-path "
+                        "is not given runs the .onnx predictor of the bootstrap, "
+                        "downloaded into $RVC_TPU_ASSETS/models/predictors when missing "
+                        "(a .onnx file given runs as one with or without the flag)")
     c.add_argument("--f0-file", default="", help='external "time,f0" contour')
     c.add_argument("--hop-length", type=int, default=160,
                    help="frame hop of mangio-crepe and pyin")
@@ -814,6 +859,18 @@ def build_parser() -> argparse.ArgumentParser:
     sm.add_argument("--mdx-n-fft", type=int, default=6144)
     sm.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     sm.set_defaults(func=cmd_separate_music)
+
+    sd = sub.add_parser("create-dataset", help="a training dataset from audio files or URLs")
+    sd.add_argument("inputs", nargs="+", help="audio paths or URLs")
+    sd.add_argument("--output", default="./dataset")
+    sd.add_argument("--sample-rate", type=int, default=44100)
+    sd.add_argument("--skip-start", nargs="*", default=[])
+    sd.add_argument("--skip-end", nargs="*", default=[])
+    sd.add_argument("--separator-model", default="", help="demucs .th for vocal isolation")
+    sd.add_argument("--clean-dataset", action="store_true")
+    sd.add_argument("--clean-strength", type=float, default=0.7)
+    sd.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sd.set_defaults(func=cmd_create_dataset)
 
     w = sub.add_parser("transcribe", help="Whisper speech recognition to JSON segments")
     w.add_argument("--model", required=True, help="whisper .pt")

@@ -208,7 +208,7 @@ def mdx_separate(graph, mix: np.ndarray, p: MDXParams, *, invert_using_spec: boo
     primary = st.normalize(source, max_peak=normalization_threshold)
     if invert_using_spec:
         raw_mix = mdx_demix(graph, mix, p, is_match_mix=True)
-        secondary = st.invert_stem(raw_mix, source)
+        secondary = st.invert_stem(raw_mix, source, device=graph.device)
     else:
         secondary = (mix.T - source.T).T
     return primary, secondary

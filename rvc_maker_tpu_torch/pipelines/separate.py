@@ -112,7 +112,8 @@ def separate_vocals(params: Any, cfg: demucs_mod.DemucsConfig, audio: np.ndarray
     if invert_using_spec:
         from .spec_tools import invert_stem
 
-        inst = invert_stem(audio.T.astype(np.float64), stems[0, v_idx].astype(np.float64))
+        inst = invert_stem(audio.T.astype(np.float64), stems[0, v_idx].astype(np.float64),
+                           device=demucs_mod.params_device(params))
         inst = inst[:len(audio)]
     else:
         inst = sum(stems[0, k] for k in range(len(cfg.sources)) if k != v_idx).T

@@ -10,8 +10,8 @@ backing vocals -> optional spectral-gate cleanup of every stem
 the card unless the caller asks for the CPU.
 
 The registries name the reference's files (separator_music.py:36-38).
-The port downloads nothing: a model is a path, or a registry name whose
-file is already in `model_dir`; anything else raises.
+A model is a path, or a registry name whose file is in `model_dir` or
+is downloaded there (`utils/bootstrap.py`); an unknown name raises.
 """
 
 from __future__ import annotations
@@ -79,7 +79,8 @@ class SeparationSettings:
 
 def _resolve_model(name_or_path: str, settings: SeparationSettings) -> str:
     """An existing path as it is; a registry name -> its file in
-    settings.model_dir, which must be there (nothing is downloaded)."""
+    settings.model_dir, downloaded there when it is missing, as the
+    reference's Separator.load_model does (JAX separate_music.py:76-91)."""
     if os.path.exists(name_or_path):
         return name_or_path
     fname = (DEMUCS_MODELS.get(name_or_path) or MDX_MODELS.get(name_or_path)
@@ -90,8 +91,9 @@ def _resolve_model(name_or_path: str, settings: SeparationSettings) -> str:
                          "registry name")
     path = os.path.join(settings.model_dir, fname)
     if not os.path.exists(path):
-        raise BadRequest(f"separation model {name_or_path!r}: no file {path!r} (the port "
-                         "downloads nothing; put the file there or pass its path)")
+        from ..utils.bootstrap import HF_BASE, _download
+
+        _download(f"{HF_BASE}uvr5/{fname}", path)
     return path
 
 

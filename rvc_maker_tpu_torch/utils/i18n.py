@@ -2,9 +2,7 @@
 
 A copy of JAX `utils/i18n.py`: `tr(key)` with English defaults baked in,
 and the four locale files of `languages/` (the JAX package's, copied;
-the same key space) selected through RVC_LANG or `set_language()`.  The
-port adds the keys of `PORT_KEYS`, for what only it says: which of the
-JAX package's features it has not ported yet.
+the same key space) selected through RVC_LANG or `set_language()`.
 """
 
 from __future__ import annotations
@@ -44,15 +42,8 @@ _EN = {
     "tts_success": "Speech synthesis complete",
 }
 
-# the port's own strings (English in every locale)
-PORT_STRINGS = {
-    "not_ported": "{what} is not ported to the PyTorch package yet "
-                  "(the JAX package serves it: python -m rvc_maker_tpu.app.server)",
-}
-PORT_KEYS = tuple(PORT_STRINGS)
-
 LANG_DIR = os.path.join(os.path.dirname(__file__), "languages")
-_current: dict = dict(_EN, **PORT_STRINGS)
+_current: dict = dict(_EN)
 _lang = "en-US"
 
 
@@ -69,7 +60,7 @@ def set_language(lang: str) -> None:
     English."""
     global _current, _lang
     _lang = lang
-    _current = dict(_EN, **PORT_STRINGS)
+    _current = dict(_EN)
     try:
         with open(os.path.join(LANG_DIR, f"{lang}.json"), encoding="utf-8") as f:
             _current.update(json.load(f))

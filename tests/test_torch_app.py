@@ -7,8 +7,9 @@ voice `.pth`, a reference-layout `rmvpe.pt`, a fairseq HuBERT `.pt` and a
 `convert_utterance`'s `noise_fn`.  In fp32 the decoded waveforms agree
 within 1e-3 plus one int16 step.  In bf16, correlation > 0.98 and max
 abs < 0.1, the thresholds of JAX `tests/test_bf16_mode.py`.  Then the
-counterparts of JAX `tests/test_app.py` and the 501 answer of every route
-the port has not ported.  The distances are printed (-s).  Sizes are
+counterparts of JAX `tests/test_app.py`, and the network's routes
+against 127.0.0.1 fixtures (a file server, a webhook, the search's
+answer mocked).  The distances are printed (-s).  Sizes are
 small: a 2-layer HuBERT and a narrow RMVPE and synthesizer.
 """
 
@@ -22,7 +23,7 @@ import re
 import shutil
 import threading
 import time
-from http.server import ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +40,7 @@ from rvc_maker_tpu_torch.app import server as srv
 from rvc_maker_tpu_torch.interop import from_jax
 from rvc_maker_tpu_torch.ops import resblock as rb
 from rvc_maker_tpu_torch.pipelines.convert import ConvertSettings
-from rvc_maker_tpu_torch.utils.i18n import tr
+from rvc_maker_tpu_torch.utils.i18n import catalog, tr
 from torch_port_util import (hubert_state_dict, jax_noise, rmvpe_state_dict,  # noqa: F401
                              torch_threads)
 
@@ -229,7 +230,7 @@ def test_i18n_endpoint(servers):
     code, body = _call(servers[0], "/api/i18n", method="GET")
     assert code == 200 and body["language"] == "en-US"
     assert body["strings"]["convert_audio"] == "Convert Audio"
-    assert body["strings"]["not_ported"] == tr("not_ported", what="{what}")
+    assert body["strings"] == catalog()
     assert _call(servers[0], "/no/such/page", method="GET")[0] == 404
 
 
@@ -576,7 +577,7 @@ def test_train_job_endpoint(servers, tmp_path, monkeypatch):
     ({"kind": "nope"}, 400),
     ({"kind": "train", "exp_dir": "/x", "epochs": "many"}, 400),
     ({"kind": "preprocess"}, 400),
-    ({"kind": "create_dataset", "inputs": ["https://example.invalid/a"]}, 501),
+    ({"kind": "create_dataset", "inputs": ["no_such_song.wav"]}, 200),
     ({"kind": "extract", "exp_dir": "/x"}, 200),
     ({"kind": "extract", "exp_dir": "/x", "embedder": "e.onnx"}, 200),
     ({"kind": "train", "exp_dir": "/x", "vocoder": "RefineGAN"}, 200),
@@ -584,17 +585,17 @@ def test_train_job_endpoint(servers, tmp_path, monkeypatch):
 ], ids=["unknown-kind", "bad-epochs", "no-dataset", "create-dataset", "extract-yin",
         "extract-onnx", "train-refinegan", "train-no-pitch"])
 def test_job_start_refusals(servers, req, code, tmp_path):
-    """Malformed jobs answer 400, unported ones 501.  The extract job
-    without an rmvpe path (yin), with a `.onnx` embedder, and the train
-    jobs of another vocoder or without pitch are ported: they start, and
-    on an experiment dir with nothing in it (or a missing embedder file)
-    they finish with an error."""
+    """Malformed jobs answer 400.  The extract job without an rmvpe path
+    (yin), with a `.onnx` embedder, the train jobs of another vocoder or
+    without pitch, and the create_dataset job start, as the JAX server's
+    do; on an experiment dir with nothing in it (a missing embedder file,
+    a missing input file) they finish with an error."""
     if code == 200:
-        req = dict(req, exp_dir=str(tmp_path / "empty"))
+        req = dict(req, exp_dir=str(tmp_path / "empty"), output=str(tmp_path / "dataset"))
+        if req["kind"] == "create_dataset":
+            req["inputs"] = [str(tmp_path / req["inputs"][0])]
     status, body = _call(servers[0], "/api/job_start", req)
     assert status == code, (status, body)
-    if code == 501:
-        assert body["not_ported"] is True and "not ported" in body["error"]
     if code == 200:
         st = _wait_job(servers[0], body["job_id"])
         assert st["error"] and "No such file" in st["error"], st
@@ -693,22 +694,180 @@ def _jax_post_routes():
         return set(re.findall(r'self\.path == "(/api/[a-z0-9_]+)"', f.read()))
 
 
-def test_every_jax_route_is_served_or_answers_501():
+def test_every_jax_route_is_served_or_answers_501(servers):
+    """Every POST route of the JAX server is served by the port: none
+    answers an empty request with 501 or the unknown route's 404."""
     served = {"/api/convert", "/api/f0_extract", "/api/job_start", "/api/job_status",
               "/api/settings", "/api/i18n", "/api/effects", "/api/model_info", "/api/fuse",
               "/api/tts", "/api/export_onnx", "/api/separate", "/api/convert_whisper",
-              "/api/audio_edit"}
-    assert served | set(srv.UNPORTED_ROUTES) == _jax_post_routes()
-    assert not served & set(srv.UNPORTED_ROUTES)
+              "/api/audio_edit", "/api/download", "/api/search_models", "/api/report_bug"}
+    assert served == _jax_post_routes()
+    assert not hasattr(srv, "UNPORTED_ROUTES") and not hasattr(srv, "NotPorted")
+    for path in sorted(served - {"/api/i18n"}):
+        code, body = _call(servers[0], path, {})
+        assert code in (200, 400, 404), (path, code, body)
+        assert body.get("error") != tr("not_found", name=path), (path, body)
 
 
-@pytest.mark.parametrize("path", sorted(srv.UNPORTED_ROUTES))
-def test_unported_route_answers_501(servers, path):
-    """Each route whose module is not ported answers 501, its message
-    through `tr`, naming the module it needs."""
-    code, body = _call(servers[0], path, {"model": "m.pth"})
-    assert code == 501 and body["not_ported"] is True
-    assert body["error"] == tr("not_ported", what=srv.UNPORTED_ROUTES[path])
+class _Files(BaseHTTPRequestHandler):
+    """A local file server: GET /<name> answers CONTENT[name]."""
+    CONTENT: dict = {}
+
+    def do_GET(self):
+        data = self.CONTENT.get(self.path.lstrip("/"))
+        if data is None:
+            self.send_response(404)
+            self.end_headers()
+            return
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, *a):
+        pass
+
+
+@pytest.fixture()
+def local_http():
+    """(port, received): a 127.0.0.1 server of `_Files` whose POSTs (a
+    webhook) append their (path, headers, JSON body) to `received`."""
+    received = []
+
+    class Handler(_Files):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length", "0")))
+            received.append((self.path, dict(self.headers), json.loads(body)))
+            self.send_response(204)
+            self.end_headers()
+
+    httpd = _start(Handler)
+    yield httpd.server_address[1], received
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def _closed_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_download_route_matches_jax_server(servers, local_http, tmp_path):
+    """/api/download of a file from a local server into each server's own
+    directory: 200, the same name and bytes; a missing url answers 400
+    and an unreachable host 500, on both."""
+    port, _ = local_http
+    _Files.CONTENT = {"voice.pth": np.random.RandomState(3).bytes(300_000)}
+    url = f"http://127.0.0.1:{port}/voice.pth"
+    outs = [_ok(p, "/api/download", {"url": url, "output": str(tmp_path / name)})["output"]
+            for p, name in zip(servers, ("port", "jax"))]
+    assert [os.path.relpath(o, tmp_path) for o in outs] == [os.path.join("port", "voice.pth"),
+                                                             os.path.join("jax", "voice.pth")]
+    for o in outs:
+        with open(o, "rb") as f:
+            assert f.read() == _Files.CONTENT["voice.pth"]
+    for req, code in (({"output": str(tmp_path)}, 400),
+                      ({"url": f"http://127.0.0.1:{_closed_port()}/x.pth",
+                        "output": str(tmp_path / "none")}, 500)):
+        got = [_call(p, "/api/download", req) for p in servers]
+        assert [c for c, _ in got] == [code, code], got
+        if code == 500:
+            assert got[0][1]["error"].startswith(tr("download_disabled"))
+            assert got[0][1]["error"].split(" (url=")[0] == got[1][1]["error"].split(" (url=")[0]
+
+
+def test_search_models_route_matches_jax_server(servers, monkeypatch):
+    """/api/search_models with HuggingFace's answer mocked: both servers
+    ask for the same URL and answer the same models; no query is 400."""
+    import urllib.request
+
+    asked = []
+    items = [{"id": "a/voice-rvc", "downloads": 12, "likes": 3, "tags": ["rvc"]},
+             {"id": "b/other", "downloads": 0, "likes": None}]
+
+    class _Resp(io.BytesIO):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *a):
+            self.close()
+
+    def fake_urlopen(url, timeout=None):
+        asked.append(url)
+        return _Resp(json.dumps(items).encode())
+
+    monkeypatch.setattr(urllib.request, "urlopen", fake_urlopen)
+    bodies = [_ok(p, "/api/search_models", {"query": "voice rvc"}) for p in servers]
+    assert bodies[0] == bodies[1] == {"models": [
+        {"id": "a/voice-rvc", "downloads": 12, "likes": 3},
+        {"id": "b/other", "downloads": 0, "likes": None}]}
+    assert asked[0] == asked[1] == \
+        "https://huggingface.co/api/models?search=voice%20rvc&limit=20"
+    assert [_call(p, "/api/search_models", {})[0] for p in servers] == [400, 400]
+
+
+def test_report_bug_route_matches_jax_server(servers, local_http, monkeypatch):
+    """/api/report_bug to a local webhook (its https URL carried over plain
+    HTTP to 127.0.0.1): both servers post the same JSON and answer its
+    status; a webhook that is not https is 400 on both."""
+    import urllib.request
+
+    port, received = local_http
+    real_urlopen = urllib.request.urlopen
+    hook = f"https://127.0.0.1:{port}/api/webhooks/1/abc"
+
+    def loopback(req, timeout=None):
+        if isinstance(req, urllib.request.Request) and req.full_url.startswith(hook):
+            req = urllib.request.Request("http" + req.full_url[5:], data=req.data,
+                                         headers=dict(req.header_items()))
+        return real_urlopen(req, timeout=timeout)
+
+    monkeypatch.setattr(urllib.request, "urlopen", loopback)
+    text = "convert fails on a 3 s clip " * 100
+    bodies = [_ok(p, "/api/report_bug", {"webhook": hook, "text": text}) for p in servers]
+    assert bodies == [{"status": 204}, {"status": 204}]
+    assert [r[0] for r in received] == ["/api/webhooks/1/abc"] * 2
+    assert received[0][2] == received[1][2] == {"content": text[:1900]}
+    assert all(r[1]["Content-Type"] == "application/json" for r in received)
+    bad = {"webhook": f"http://127.0.0.1:{port}/x", "text": "t"}
+    assert [_call(p, "/api/report_bug", bad)[0] for p in servers] == [400, 400]
+    assert len(received) == 2
+
+
+def test_create_dataset_job_matches_jax_server(servers, tmp_path, monkeypatch):
+    """The create_dataset job on a local 32 kHz stereo file, resampled to
+    40 kHz and gated, on both servers: the dataset WAVs within 1e-5.  The
+    JAX job's fixed default workdir is pointed into tmp_path, and the job
+    is seen to use it (it removes the directory when it ends)."""
+    from rvc_maker_tpu.pipelines import create_dataset as jcd
+
+    jax_work = tmp_path / "jax_work"
+    jax_work.mkdir()
+    (jax_work / "marker").write_text("")
+    monkeypatch.setitem(jcd.create_dataset.__kwdefaults__, "workdir", str(jax_work))
+    src = str(tmp_path / "src.wav")
+    tt = np.arange(2 * 32000) / 32000
+    x = 0.3 * np.sin(2 * np.pi * 220 * tt) + 0.05 * np.random.RandomState(4).randn(len(tt))
+    wavfile.write(src, 32000, np.stack([x, 0.5 * x], axis=1).astype(np.float32))
+    outs = []
+    for p, name in zip(servers, ("port", "jax")):
+        out = str(tmp_path / name)
+        job = _ok(p, "/api/job_start", {"kind": "create_dataset", "inputs": [src],
+                                        "output": out, "sr": 40000, "clean": True})["job_id"]
+        st = _wait_job(p, job)
+        assert not st["error"] and "create_dataset: 1 files" in st["log"], st
+        assert os.listdir(out) == ["dataset_0.wav"]
+        outs.append(wavfile.read(os.path.join(out, "dataset_0.wav")))
+    assert not jax_work.exists()
+    (sr_p, got), (sr_j, ref) = outs
+    assert sr_p == sr_j == 40000 and got.dtype == ref.dtype == np.float32
+    assert got.shape == ref.shape == (80000,)
+    err = float(np.abs(got - ref).max())
+    print(f"create_dataset job port vs JAX: {err:.3e}")
+    assert err <= 1e-5, err
 
 
 def test_audio_edit_matches_jax_server(servers, tmp_path, monkeypatch):

@@ -301,7 +301,7 @@ LOCALES = ["en-US", "id_ID", "ja-JP", "vi-VN"]
 @pytest.mark.parametrize("lang", LOCALES)
 def test_i18n_catalog_matches_jax(lang):
     """The copied locale files are byte for byte JAX's, and each locale's
-    catalog equals JAX's on JAX's keys; the port adds only PORT_KEYS."""
+    catalog equals JAX's."""
     from rvc_maker_tpu.utils import i18n as jax_i18n
     from rvc_maker_tpu_torch.utils import i18n
 
@@ -313,8 +313,7 @@ def test_i18n_catalog_matches_jax(lang):
         jax_i18n.set_language(lang)
         i18n.set_language(lang)
         ref, got = jax_i18n.catalog(), i18n.catalog()
-        assert set(got) - set(ref) == set(i18n.PORT_KEYS)
-        assert {k: v for k, v in got.items() if k not in i18n.PORT_KEYS} == ref
+        assert got == ref
         assert i18n.tr("bad_request", path="/x", error="e") == jax_i18n.tr(
             "bad_request", path="/x", error="e")
     finally:

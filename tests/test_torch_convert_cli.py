@@ -138,13 +138,23 @@ def _cli(d, *flags):
     (["--f0-method", "fcpe"], ValueError, "needs --fcpe-path"),
     (["--f0-method", "rmvpe"], ValueError, "needs --rmvpe-path"),
     (["--f0-method", "hybrid[pm+crepe-tiny]"], ValueError, "needs --crepe-path"),
-    (["--f0-method", "rmvpe", "--rmvpe-path", "rmvpe.pt", "--f0-onnx"], ValueError,
-     "is not a .onnx predictor"),
+    (["--f0-method", "rmvpe", "--f0-onnx"], RuntimeError,
+     r"could not download \S+/predictors/rmvpe\.onnx .*place the file at \S+rmvpe\.onnx"),
     (["--f0-method", "rmvpe", "--rmvpe-path", "missing.pt"], FileNotFoundError, "--rmvpe-path"),
     (["--f0-method", "hybrid[pm+crepe-full]", "--crepe-path", "crepe_tiny.pth"], ValueError,
      "not capacity 'full'"),
 ], ids=["fcpe", "rmvpe", "hybrid-crepe", "onnx", "missing-file", "crepe-capacity"])
-def test_cli_convert_weight_errors(weight_files, flags, err, match):
+def test_cli_convert_weight_errors(weight_files, flags, err, match, monkeypatch, tmp_path):
+    """Each missing or wrong weight file raises.  Under --f0-onnx an absent
+    path asks the bootstrap for the `.onnx` predictor, as JAX's CLI does;
+    here its download fails as it does without a network (mocked)."""
+    from rvc_maker_tpu_torch.utils import bootstrap
+
+    def offline(url, path):
+        raise RuntimeError(f"no network for {url}")
+
+    monkeypatch.setattr(bootstrap, "ASSETS", str(tmp_path / "assets"))
+    monkeypatch.setattr("rvc_maker_tpu_torch.utils.downloads.download_url", offline)
     d = weight_files
     with pytest.raises(err, match=match):
         _cli(d, *[str(d / f) if f.endswith((".pt", ".pth", ".onnx")) else f for f in flags])

@@ -901,3 +901,109 @@ def test_edit_on_the_card_raises_without_one(cuda, tmp_path, monkeypatch):
                  lambda: cli.main(["edit", "--input-path", src, "--toy-stack"])):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             call()
+
+
+def _spec_song(seconds, seed, sr=44100):
+    rs = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(220.0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))) / sr
+    x = sum(0.2 / h * np.sin(h * phase) for h in (1, 2, 3)) + 0.1 * rs.randn(len(t))
+    return np.stack([x, 0.5 * x + 0.05 * rs.randn(len(t))]).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_spec_tools_card_matches_cpu(cuda):
+    """pipelines/spec_tools.py on the card against the CPU: the STFT pair,
+    min/max-magnitude ensembling, the two-band cmb_spectrogram_to_wave
+    round trip and time_correction within 1e-5 x max(1, |ref|max), and
+    every lag and window choice of the aligner equal."""
+    from rvc_maker_tpu_torch.pipelines import spec_tools as st
+
+    def close(got, ref, tol=1e-5):
+        got, ref = np.asarray(got), np.asarray(ref)
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        err = float(np.abs(got - ref).max())
+        assert err <= tol * max(1.0, float(np.abs(ref).max())), err
+
+    a, b = _spec_song(4.0, 0), 0.8 * _spec_song(4.0, 1)
+    for dev_out, cpu_out in (
+            (st.wave_to_spectrogram_no_mp(a, device="cuda"), st.wave_to_spectrogram_no_mp(a, device="cpu")),
+            (st.spec_effects([a, b], "Max_Mag", device="cuda"), st.spec_effects([a, b], "Max_Mag", device="cpu")),
+            (st.invert_stem(a, b, device="cuda"), st.invert_stem(a, b, device="cpu"))):
+        close(dev_out, cpu_out)
+    specs = [st.wave_to_spectrogram_no_mp(w, device="cpu") for w in (a, b)]
+    for alg in (st.MIN_SPEC, st.MAX_SPEC):
+        np.testing.assert_array_equal(st.ensembling(alg, specs, device="cuda"),
+                                      st.ensembling(alg, specs, device="cpu"))
+    mp = st.ModelParameters({
+        "bins": 1025, "pre_filter_start": 1000, "pre_filter_stop": 1020,
+        "band": {1: {"sr": 22050, "hl": 512, "n_fft": 1024, "crop_start": 0, "crop_stop": 400,
+                     "lpf_start": 300, "lpf_stop": 380, "hpf_start": 0, "hpf_stop": 0},
+                 2: {"sr": 44100, "hl": 1024, "n_fft": 2048, "crop_start": 100,
+                     "crop_stop": 725, "hpf_start": 150, "hpf_stop": 100, "lpf_start": 0,
+                     "lpf_stop": 0}}})
+
+    def round_trip(dev):
+        specs = {k: st.wave_to_spectrogram(st._resample(a, 44100, bd["sr"]), bd["hl"],
+                                           bd["n_fft"], mp, k, device=dev)
+                 for k, bd in mp.param["band"].items()}
+        return st.cmb_spectrogram_to_wave(st.combine_spectrograms(specs, mp, device=dev), mp,
+                                          device=dev)
+
+    close(round_trip("cuda"), round_trip("cpu"))
+    mix = a.T.astype(np.float64)
+    take = -0.9 * np.roll(mix, 37, axis=0) + 0.01 * np.random.RandomState(2).randn(*mix.shape)
+    win, step = 2205, 1102
+    ref = np.stack([mix[s:s + win, 0] for s in range(0, 40000, step)])
+    tgt = np.stack([take[s:s + win, 0] for s in range(0, 40000, step)])
+    for ps in (180, 45):
+        np.testing.assert_allclose(
+            st._realign_window(ref, tgt, (0.0, [-1.0, 0.0, 1.0]), ps, device="cuda"),
+            st._realign_window(ref, tgt, (0.0, [-1.0, 0.0, 1.0]), ps, device="cpu"),
+            rtol=0, atol=1e-12)
+    kw = dict(align_window=[0.05, 0.25], db_analysis=(0.0, [-1.0, 0.0, 1.0]), phase_shifts=180)
+    close(st.time_correction(mix, take, 4, device="cuda", **kw),
+          st.time_correction(mix, take, 4, device="cpu", **kw), 1e-6)
+
+
+@pytest.mark.gpu
+def test_kineto_figures_match_the_profiler_tree_on_card(cuda):
+    """chip_smoke.py's `kineto_figures` against the profiler's event tree
+    on the card: every kernel's device ms, the device ms the tree ties to
+    each nested `convert.*` range, and every op's host self ms, equal to
+    1e-6 ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke
+
+    def work():
+        x = torch.randn(256, 256, device=cuda, requires_grad=True)
+        with record_function("convert.outer"):
+            y = (x @ x).relu()
+            with record_function("convert.inner"):
+                z = torch.nn.functional.conv1d(y[None], torch.randn(64, 256, 3, device=cuda))
+            loss = z.sum() + y.softmax(-1).sum()
+        loss.backward()
+        for _ in range(50):
+            x = x * 1.0001
+        torch.cuda.synchronize()
+
+    work()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            work()
+    fig = chip_smoke.kineto_figures(prof.profiler.kineto_results.events(), "convert.")
+    kernels, stages = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CPU and e.name.startswith("convert."):
+            stages[e.name] = stages.get(e.name, 0.0) + e.device_time_total / 1e3
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU}
+    assert kernels and set(stages) == {"convert.outer", "convert.inner"}
+    for got, ref in ((fig["by_kernel"], kernels), (fig["stages"], stages),
+                     (fig["host_self"], host)):
+        assert set(got) == set(ref)
+        assert max(abs(got[k] - v) for k, v in ref.items()) <= 1e-6

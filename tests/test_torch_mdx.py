@@ -39,6 +39,7 @@ from rvc_maker_tpu_torch.errors import BadRequest
 from rvc_maker_tpu_torch.interop.onnx_run import OnnxGraph
 from rvc_maker_tpu_torch.pipelines import mdx
 from rvc_maker_tpu_torch.pipelines import separate_music as psm
+from rvc_maker_tpu_torch.utils import bootstrap as pboot
 from torch_port_util import n, torch_threads  # noqa: F401
 
 MDX_TOL = 1e-4
@@ -251,22 +252,40 @@ def test_separate_music_with_the_gate_matches_jax(graphs, tmp_path):
         assert np.abs(g - r).max() <= STEM_TOL + INT16_STEP, stem
 
 
-def test_separate_music_finds_registry_names_only_on_disk(graphs, tmp_path):
+def test_separate_music_finds_registry_names_only_on_disk(graphs, tmp_path, monkeypatch):
     """A registry name resolves to its file in model_dir; one whose file is
-    absent is a BadRequest (the port downloads nothing), and so is an
-    unknown name; nothing is written."""
+    absent is downloaded there, from the URL to the path that JAX's
+    `_resolve_model` asks for (the download mocked: a copy of the graph);
+    an unknown name is a BadRequest and nothing is written."""
+    asked = {"port": [], "jax": []}
+
+    def fake(calls):
+        def download(url, path):
+            calls.append((url, path))
+            shutil.copy(graphs["static"], path)
+            return path
+        return download
+
+    monkeypatch.setattr("rvc_maker_tpu_torch.utils.downloads.download_url", fake(asked["port"]))
+    monkeypatch.setattr("rvc_maker_tpu.utils.downloads.download_url", fake(asked["jax"]))
     models = tmp_path / "uvr5"
     models.mkdir()
     shutil.copy(graphs["static"], models / "Kim_Vocal_1.onnx")
     song = _song_file(tmp_path / "song.wav", seconds=0.3)
-    s = psm.SeparationSettings(model_name="Kim_Vocal_1", model_dir=str(models), mdx_hop=16,
-                               mdx_n_fft=64, device="cpu")
-    written = psm.separate_music(song, str(tmp_path / "out"), s)
-    assert set(written) == {"Original_Vocals", "Instruments"}
-    for name, what in (("Kim_Vocal_2", "no file"), ("NotAModel", "unknown")):
-        s2 = psm.SeparationSettings(model_name=name, model_dir=str(models), device="cpu")
-        with pytest.raises(BadRequest, match=what):
-            psm.separate_music(song, str(tmp_path / "out2"), s2)
+    for name in ("Kim_Vocal_1", "Kim_Vocal_2"):
+        s = psm.SeparationSettings(model_name=name, model_dir=str(models), mdx_hop=16,
+                                   mdx_n_fft=64, device="cpu")
+        written = psm.separate_music(song, str(tmp_path / name), s)
+        assert set(written) == {"Original_Vocals", "Instruments"}
+    assert [u for u, _ in asked["port"]] == [f"{pboot.HF_BASE}uvr5/Kim_Vocal_2.onnx"]
+    assert asked["port"][0][1] == str(models / "Kim_Vocal_2.onnx")
+    jax_models = tmp_path / "jax_uvr5"
+    jax_models.mkdir()
+    jsm._resolve_model("Kim_Vocal_2", jsm.SeparationSettings(model_dir=str(jax_models)))
+    assert [u for u, _ in asked["jax"]] == [u for u, _ in asked["port"]]
+    s2 = psm.SeparationSettings(model_name="NotAModel", model_dir=str(models), device="cpu")
+    with pytest.raises(BadRequest, match="unknown"):
+        psm.separate_music(song, str(tmp_path / "out2"), s2)
     assert not (tmp_path / "out2").exists()
     assert psm.MDX_MODELS == jsm.MDX_MODELS and psm.KARA_MODELS == jsm.KARA_MODELS
     assert psm.DEMUCS_MODELS == jsm.DEMUCS_MODELS and psm.REVERB_MODEL == jsm.REVERB_MODEL

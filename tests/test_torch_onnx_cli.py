@@ -6,6 +6,7 @@ same RMVPE graph: within 1e-3 plus one int16 step.  The narrow model is
 test_torch_convert_f0.py's."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -86,3 +87,42 @@ def test_cli_convert_with_onnx_files(files):
     assert sr == cfg.sr and got.shape == ref.shape and np.abs(ref).max() > 0.1
     err = float(np.abs(got - np.clip(ref, -1.0, 1.0)).max())
     assert err <= 1e-3 + INT16_STEP, err
+
+
+def test_cli_convert_f0_onnx_bootstraps_the_predictor(files, tmp_path, monkeypatch):
+    """--f0-onnx without --rmvpe-path: the port asks its bootstrap for the
+    URL and path JAX's bootstrap gives `rmvpe-onnx` (the download mocked
+    to copy the stub graph), then converts as with --rmvpe-path."""
+    import shutil
+
+    from rvc_maker_tpu.utils import bootstrap as jboot
+    from rvc_maker_tpu_torch.utils import bootstrap
+
+    d = files
+    asked = []
+
+    def fake(url, path):
+        asked.append((url, path))
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        shutil.copy(d / "rmvpe.onnx", path)
+        return path
+
+    monkeypatch.setattr(bootstrap, "ASSETS", str(tmp_path / "assets"))
+    monkeypatch.setattr("rvc_maker_tpu_torch.utils.downloads.download_url", fake)
+    flags = ["--input", str(d / "in.wav"), "--model", str(d / "voice.onnx"), "--embedder-path",
+             str(d / "hubert.onnx"), "--f0-method", "rmvpe", "--f0-onnx", "--index-rate", "0",
+             "--device", "cpu"]
+    assert cli.main(["convert", *flags, "--output", str(tmp_path / "boot.wav")]) == 0
+    assert cli.main(["convert", *flags, "--output", str(tmp_path / "given.wav"),
+                     "--rmvpe-path", str(d / "rmvpe.onnx")]) == 0
+    assert len(asked) == 1                            # the second run found the file there
+    monkeypatch.setattr(jboot, "ASSETS", str(tmp_path / "assets"))
+    jax_asked = []
+    monkeypatch.setattr("rvc_maker_tpu.utils.downloads.download_url",
+                        lambda url, path: jax_asked.append((url, path)) or path)
+    os.remove(asked[0][1])
+    jboot.ensure_predictor("rmvpe-onnx")
+    assert asked == jax_asked
+    assert asked[0][0] == f"{bootstrap.HF_BASE}predictors/rmvpe.onnx"
+    np.testing.assert_array_equal(read_wav(str(tmp_path / "boot.wav"))[0],
+                                  read_wav(str(tmp_path / "given.wav"))[0])
