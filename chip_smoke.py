@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. device   the card's name and power limit; no card -> exit 1.
   2. build    every kernel of the port from rvc_maker_tpu_torch/csrc/
               (one nvcc per source, started together), with each
-              source's build time and ptxas's registers / spills; beside
+              source's build time and ptxas's registers / spills (for
+              resblock_tc each (C, k) instantiation on one line); beside
               them the g++ builds of the WORLD library and the FLAC
               decoder (native/src/worldlike.cpp, flacdec.cpp).
   3. kernels  each kernel against its plain PyTorch version at the
@@ -27,7 +28,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               TF32 rate), the roofline share taken against the latter;
               and in bf16 the bf16 tensor-core kernel, resblock.cu, the
               plain chain and the cuDNN chain beside the bf16 bound (flops
-              at the dense bf16 rate).
+              at the dense bf16 rate).  Per stage (C, T) a line of the fp32
+              times summed over k beside the 3xTF32 bound and its share,
+              with resblock_tc's time tile and blocks at each k; the
+              weights' split (`_tc_pack`) timed on its own.
   4. main     the port's ConvertPipeline at the full v2 / 48 kHz width
               (12-layer HuBERT, full RMVPE, 10,000 x 768 index, random
               weights from a seed): convert_batch on 2 x 10 s and
@@ -48,7 +52,10 @@ Phases, each printed as it runs; any failure exits non-zero:
               inputs (the derivative jumps at 0, and the two forwards
               differ by rounding; a slope may move only where the
               pre-activation is within the forward tolerance of 0), each
-              <= 1e-4 * max(1, |ref|max); forward and backward timed.
+              <= 1e-4 * max(1, |ref|max); forward and backward timed, and
+              per stage a line as in phase 3; where the tile leaves fewer
+              blocks than SMs (C = 256), the tile that gives every SM a
+              block timed beside it.
   7. train    the training flow at the full v2 / 48 kHz width: 32 voiced
               3.5 s WAVs made from a seed -> preprocess -> extract (RMVPE
               and 12-layer HuBERT on the card) -> train one epoch at B = 8
@@ -199,8 +206,14 @@ Phases, each printed as it runs; any failure exits non-zero:
               ranks after 3 steps, each rank's step wall ms, the gradient
               all-reduce's ms (CUDA events) and busy share beside one
               process's step; (c) sharded convert_batch of 2 x 10 s (one row
-              per rank, 36 launches each) against one process (waveform <=
-              1e-3), wall s each; (d) the sharded blend on 250,000 x 768 rows
+              per rank, 36 launches each) against one process converting
+              each row at batch 1, the shape a rank converts, on the same
+              noise and the ranks' pitch (waveform <= 1e-3; RMVPE's f0
+              moves by ~1e-3 Hz from run to run, which the NSF source's
+              phase turns into up to ~0.1 over 10 s), and on its own pitch
+              (f0 <= 1e-2 Hz from the ranks'), wall s each; one process at
+              batch 2 beside it, each distance and the pitch frames apart
+              printed; (d) the sharded blend on 250,000 x 768 rows
               against retrieval_blend (rtol 1e-4 / atol 1e-5); (e) 12-layer
               tensor-parallel HuBERT (6 heads per rank) against
               extract_features (rtol 2e-3 / atol 2e-4).  Rank 0 runs every
@@ -431,6 +444,18 @@ def bf16_ulp(v: float) -> float:
     return 2.0 ** (math.frexp(v)[1] - 8)
 
 
+def stage_line(path: str, st: dict, card: str) -> str:
+    """One resblock stage's times summed over its kernel sizes: resblock_tc,
+    resblock.cu, the plain chain and cuDNN's chain, beside the 3xTF32 bound,
+    and the time tile and blocks of each k."""
+    return (f"  {path} stage B={st['B']} C={st['C']} T={st['T']}: resblock_tc "
+            f"{st['ms']:.3f} ms, resblock.cu {st['fma_ms']:.3f}, plain {st['plain_ms']:.3f}, "
+            f"cuDNN chain {st['library_ms']:.3f}; 3xTF32 bound {st['bound_ms']:.3f} ms, share "
+            f"{st['bound_ms'] / st['ms']:.3f}; tiles " + ", ".join(
+                f"k={k}: {v['time_tile']} rows x {v['blocks']} blocks"
+                for k, v in st["tiles"].items()) + f"; on {card}")
+
+
 def check_resblock(stage_shapes, kernels, dilations, card: str):
     from rvc_maker_tpu_torch.ops import resblock as rb
 
@@ -440,7 +465,10 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
                   bf16_fma_ms=0.0, bf16_plain_ms=0.0, bf16_library_ms=0.0, flops=0, bytes=0)
     worst_bf16, worst_bf16_fma = 0.0, 0.0
     saved = reset_counts(rb)
+    stages = []
     for (b, c, t) in stage_shapes:
+        stage = dict(B=b, C=c, T=t, ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                     pack_ms=0.0, bound_ms=0.0, tiles={})
         for k in kernels:
             D = len(dilations)
             scale = 0.5 / (k * c) ** 0.5
@@ -487,11 +515,17 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             bf16_plain_ms = cuda_ms(lambda: rb._resblock(*argsb, **kw), iters)
             bf16_lib_ms = cuda_ms(lambda: library_resblock(argsb[0], wt1b, b1b, wt2b, b2b, k,
                                                            dilations), iters)
+            pack_ms = cuda_ms(lambda: rb._tc_pack(w1, w2), iters)
             worst_bf16 = max(worst_bf16, bf16_err)
             worst_bf16_fma = max(worst_bf16_fma, bf16_fma_err)
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + w1.numel() + w2.numel() + b1.numel() + b2.numel())
             fp32_bound_ms, bound_ms, _ = bounds_ms(flops, nbytes)
+            tt = rb.tc_time_tile(b, t, c, k)
+            stage["tiles"][k] = dict(time_tile=tt, blocks=b * -(-t // tt))
+            for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("pack_ms", pack_ms), ("bound_ms", bound_ms)):
+                stage[key] += v
             bf16_bound_ms = 1e3 * max(flops / H100_BF16_FLOPS, nbytes / 2 / H100_BYTES_PER_S)
             smem = {d: rb.smem_bytes(c, k, d) for d in dilations}
             smem_bf16 = {d: rb.smem_bytes(c, k, d, torch.bfloat16) for d in dilations}
@@ -501,14 +535,16 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
                              bf16_fma_max_abs_err=bf16_fma_err, bf16_tol=bf16_tol, ms=ms,
                              fma_ms=fma_ms, plain_ms=plain_ms, library_ms=lib_ms, bf16_ms=bf16_ms,
                              bf16_fma_ms=bf16_fma_ms, bf16_plain_ms=bf16_plain_ms,
-                             bf16_library_ms=bf16_lib_ms, flops=flops, bytes=nbytes, bound_ms=bound_ms,
+                             bf16_library_ms=bf16_lib_ms, pack_ms=pack_ms, time_tile=tt,
+                             blocks=b * -(-t // tt), flops=flops, bytes=nbytes, bound_ms=bound_ms,
                              fp32_bound_ms=fp32_bound_ms, roofline_share=bound_ms / ms,
                              bf16_bound_ms=bf16_bound_ms, bf16_roofline_share=bf16_bound_ms / bf16_ms))
             log(f"  resblock B={b} C={c} T={t} k={k}: shared memory per block, tc "
                 + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem.items())
                 + "; tc_bf16 " + ", ".join(f"{v / 1024:.1f} KB at d={d}" for d, v in smem_bf16.items()))
             log(f"  resblock B={b} C={c} T={t} k={k}: err tc {err:.3e} fma {fma_err:.3e} "
-                f"(tol {tol:.1e}) | tc kernel {ms:.3f} ms, fma kernel {fma_ms:.3f} ms, plain "
+                f"(tol {tol:.1e}) | tc kernel {ms:.3f} ms (its weights' split {pack_ms:.3f} "
+                f"ms of it; time tile {tt}, {b * -(-t // tt)} blocks), fma kernel {fma_ms:.3f} ms, plain "
                 f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms | {flops / 1e9:.1f} GFLOP, "
                 f"{nbytes / 1e6:.1f} MB, bound 3xTF32 {bound_ms:.3f} ms / fp32 "
                 f"{fp32_bound_ms:.3f} ms, roofline share {bound_ms / ms:.3f}")
@@ -533,6 +569,8 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             del x, w1, w2, b1, b2, args, argsb, ref, refb, got, got_fma, gotb, gotb_fma, wt1, wt2
             del wt1b, b1b, wt2b, b2b
             reset_counts(rb)
+        stages.append(stage)
+        log(stage_line("conversion", stage, card))
     reset_counts(rb, saved)           # comparison launches do not count
     torch.cuda.empty_cache()
     fp32_bound, bound, bound_by = bounds_ms(totals["flops"], totals["bytes"])
@@ -540,7 +578,7 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
                   bf16_bound_ms=1e3 * max(totals["flops"] / H100_BF16_FLOPS,
                                           totals["bytes"] / 2 / H100_BYTES_PER_S),
                   max_abs_err=worst, fma_max_abs_err=worst_fma, bf16_max_abs_err=worst_bf16,
-                  bf16_fma_max_abs_err=worst_bf16_fma)
+                  bf16_fma_max_abs_err=worst_bf16_fma, stages=stages)
     log(f"  one decode's 12 resblocks: tc kernel {totals['ms']:.3f} ms, fma kernel "
         f"{totals['fma_ms']:.3f} ms, plain {totals['plain_ms']:.3f} ms, library "
         f"{totals['library_ms']:.3f} ms; bf16: tc_bf16 kernel {totals['bf16_ms']:.3f} ms, fma "
@@ -870,7 +908,7 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
     for (b, c, t) in stage_shapes:
         stage = dict(B=b, C=c, T=t, fwd_ms=0.0, fma_fwd_ms=0.0, plain_fwd_ms=0.0,
                      fwd_bwd_ms=0.0, plain_fwd_bwd_ms=0.0,
-                     library_fwd_ms=0.0, flops=0, bytes=0)
+                     library_fwd_ms=0.0, pack_ms=0.0, flops=0, bytes=0, tiles={})
         for k in kernels:
             D = len(dilations)
             scale = 0.5 / (k * c) ** 0.5
@@ -921,11 +959,28 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
                                                       k, dilations), iters)
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + sum(a.numel() for a in args[1:]))
+            pack_ms = cuda_ms(lambda: rb._tc_pack(args[1], args[3]), iters)
+            tt = rb.tc_time_tile(b, t, c, k)
+            stage["tiles"][k] = dict(time_tile=tt, blocks=b * -(-t // tt))
+            if b * -(-t // tt) < rb.CARD_SMS:
+                # the tile that gives every SM a block, beside the rule's one wave
+                tt_all = -(-t // -(-rb.CARD_SMS // b))
+                stage["tiles"][k]["every_sm"] = dict(
+                    time_tile=tt_all, blocks=b * -(-t // tt_all),
+                    ms=cuda_ms(lambda: rb._launch_steps("tc", *args, k, dilations,
+                                                        time_tile=tt_all), iters),
+                    rule_ms=cuda_ms(lambda: rb._launch_steps("tc", *args, k, dilations,
+                                                             time_tile=tt), iters))
             log(f"  train resblock B={b} C={c} T={t} k={k}: forward err {fwd_err:.3e} "
                 f"(tol {fwd_tol:.1e}); slopes pinned at |pre-activation| <= {flip:.2e}; "
                 "grad err " + ", ".join(
                     f"{nm} {e:.3e} (tol {tl:.1e})" for nm, (e, tl) in grad_err.items())
-                + f" | tc kernel fwd {fwd_ms:.3f} ms, fma kernel fwd {fma_ms:.3f} ms, "
+                + f" | tc kernel fwd {fwd_ms:.3f} ms (its weights' split {pack_ms:.3f} ms of "
+                f"it; time tile {tt}, {b * -(-t // tt)} blocks"
+                + ("".join(f"; {v['blocks']} blocks of {v['time_tile']} rows {v['ms']:.3f} ms "
+                           f"against {v['rule_ms']:.3f}" for v in [stage["tiles"][k]["every_sm"]])
+                   if "every_sm" in stage["tiles"][k] else "")
+                + f"), fma kernel fwd {fma_ms:.3f} ms, "
                 f"plain fwd {plain_ms:.3f} ms, fwd+bwd "
                 f"{fb_ms:.3f} ms (bwd "
                 f"{fb_ms - fwd_ms:.3f}); plain fwd+bwd {plain_fb_ms:.3f} ms; library fwd "
@@ -938,7 +993,7 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
             for key, v in (("fwd_ms", fwd_ms), ("fma_fwd_ms", fma_ms),
                            ("plain_fwd_ms", plain_ms), ("fwd_bwd_ms", fb_ms),
                            ("plain_fwd_bwd_ms", plain_fb_ms), ("library_fwd_ms", lib_ms),
-                           ("flops", flops), ("bytes", nbytes)):
+                           ("pack_ms", pack_ms), ("flops", flops), ("bytes", nbytes)):
                 stage[key] += v
             del args, leaves, out, ref, got, g_kernel, g_plain, cot, wt1, wt2, steps, pinned
             reset_counts(rb)
@@ -946,6 +1001,10 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
         stage["fwd_fp32_bound_ms"], stage["fwd_bound_ms"], _ = bounds_ms(stage["flops"],
                                                                           stage["bytes"])
         rows.append(stage)
+        log(stage_line("training", dict(stage, ms=stage["fwd_ms"], fma_ms=stage["fma_fwd_ms"],
+                                        plain_ms=stage["plain_fwd_ms"],
+                                        library_ms=stage["library_fwd_ms"],
+                                        bound_ms=stage["fwd_bound_ms"]), card))
         log(f"  stage C={c}: tc kernel fwd {stage['fwd_ms']:.3f} ms (bound 3xTF32 "
             f"{stage['fwd_bound_ms']:.3f} / fp32 {stage['fwd_fp32_bound_ms']:.3f}), fma kernel "
             f"fwd {stage['fma_fwd_ms']:.3f} ms, plain fwd {stage['plain_fwd_ms']:.3f} ms, bwd "
@@ -3206,7 +3265,7 @@ def parallel_rank(rank: int, world: int, address: str, work: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from rvc_maker_tpu_torch.config import preset
-    from rvc_maker_tpu_torch.device import tree_to
+    from rvc_maker_tpu_torch.device import tree_rows, tree_to
     from rvc_maker_tpu_torch.models import hubert as hubert_mod
     from rvc_maker_tpu_torch.ops import resblock as rb
     from rvc_maker_tpu_torch.parallel import distributed as dist_mod
@@ -3330,14 +3389,49 @@ def parallel_rank(rank: int, world: int, address: str, work: str) -> None:
                               version="v2", rmvpe_params=model["rmvpe_params"],
                               index_vectors=model["index_vectors"], device="cuda")
         one.convert_batch(audio, lengths, 0, settings)
-        (wav1, pitchf1), one_s = _wall(lambda: one.convert_batch(audio, lengths, 0, settings))
-        wav1, pitchf1 = wav1.cpu().numpy(), pitchf1.cpu().numpy()
+        (wav2, pitchf2), one_s = _wall(lambda: one.convert_batch(audio, lengths, 0, settings))
+        # each row at batch 1, the shape a rank converts, on the noise one
+        # process draws for the batch; with the ranks' pitch held (the
+        # check: RMVPE's f0 moves by rounding from run to run, ~1e-3 Hz,
+        # and the NSF source integrates it over the 10 s into a phase that
+        # moves the waveform by up to ~0.1), and with each row's own pitch
+        z, dn = one.batch_noise(len(audio), audio.shape[1],
+                                torch.Generator(device=one.device).manual_seed(0))
+
+        def rows_at_batch1(pitch=None):
+            outs = []
+            for i in range(len(audio)):
+                if pitch is not None:
+                    one._f0 = lambda a, st, i=i: torch.as_tensor(pitch[i:i + 1],
+                                                                 device=one.device)
+                outs.append(one.convert_batch(audio[i:i + 1], lengths[i:i + 1], 0, settings,
+                                              z_noise=z[i:i + 1],
+                                              noise=tree_rows(dn, slice(i, i + 1))))
+                one.__dict__.pop("_f0", None)
+            return (torch.cat([w for w, _ in outs]).cpu().numpy(),
+                    torch.cat([p for _, p in outs]).cpu().numpy())
+
+        wav1, pitchf1 = rows_at_batch1(pitchf)
+        wav1f, pitchf1f = rows_at_batch1()
+        wav2, pitchf2 = wav2.cpu().numpy(), pitchf2.cpu().numpy()
+
+        def apart(p, q):
+            frames = np.argwhere(np.abs(p - q) > 1e-3)
+            return dict(frames=int(len(frames)), first=frames[:8].tolist(),
+                        max_abs_err_hz=float(np.abs(p - q).max()))
+
+        def distance(w, p):
+            return dict(max_abs_err=float(np.abs(wav - w).max()),
+                        row_max_abs_err=np.abs(wav - w).max(axis=1).tolist(),
+                        pitchf_apart=apart(pitchf, p))
+
         res["convert"].update(one_process_wall_s=one_s, max_abs_err=float(
             np.abs(wav - wav1).max()), absmax=float(np.abs(wav1).max()),
             finite=bool(np.isfinite(wav).all()), shape=list(wav.shape),
             row_max_abs_err=np.abs(wav - wav1).max(axis=1).tolist(),
-            pitchf_frames_apart=int((np.abs(pitchf - pitchf1) > 1e-3).sum()),
-            pitchf_max_abs_err_hz=float(np.abs(pitchf - pitchf1).max()))
+            pitchf_held=bool(np.array_equal(pitchf1, pitchf)),
+            own_pitch=distance(wav1f, pitchf1f), batch2=distance(wav2, pitchf2),
+            own_pitch_vs_batch2=apart(pitchf1f, pitchf2))
         del one
     dist_mod.sync_global("one-process conversion")
     if primary:
@@ -3438,7 +3532,8 @@ def parallel_phase(work: str, card: str) -> dict:
             and par["grad_rel_d"]["rel"] <= 1e-3):
         raise AssertionError(f"sharded step against one process: {par}")
     conv = r0["convert"]
-    if not (conv["finite"] and conv["max_abs_err"] <= 1e-3):
+    if not (conv["finite"] and conv["pitchf_held"] and conv["max_abs_err"] <= 1e-3
+            and conv["own_pitch"]["pitchf_apart"]["max_abs_err_hz"] <= 1e-2):
         raise AssertionError(f"sharded conversion against one process: {conv}")
     if not (r0["blend"]["tol_ok"] and r0["tp"]["tol_ok"]):
         raise AssertionError(f"blend {r0['blend']}, tensor-parallel HuBERT {r0['tp']}")
@@ -3462,7 +3557,13 @@ def parallel_phase(work: str, card: str) -> dict:
     log(f"  sharded convert_batch 2 x 10 s: {conv['wall_s']:.3f} / "
         f"{ranks[1]['convert']['wall_s']:.3f} s wall per rank, one process "
         f"{conv['one_process_wall_s']:.3f} s; waveform {conv['max_abs_err']:.3e} from one "
-        f"process (tol 1e-3, |out|max {conv['absmax']:.3f})")
+        f"process converting each row at batch 1 on the ranks' pitch (tol 1e-3, |out|max "
+        f"{conv['absmax']:.3f}); on its own pitch {conv['own_pitch']['max_abs_err']:.3e} "
+        f"(rows {conv['own_pitch']['row_max_abs_err']}; pitch frames apart "
+        f"{conv['own_pitch']['pitchf_apart']}, tol 1e-2 Hz); at batch 2 "
+        f"{conv['batch2']['max_abs_err']:.3e} (rows {conv['batch2']['row_max_abs_err']}; "
+        f"pitch frames apart {conv['batch2']['pitchf_apart']}); batch 1 against batch 2 "
+        f"{conv['own_pitch_vs_batch2']}")
     blend = r0["blend"]
     log(f"  sharded blend {INDEX_ROWS:,} x {INDEX_DIM} ({blend['rows_per_rank']} rows per "
         f"rank): {blend['wall_ms']:.3f} ms, one process {blend['one_process_wall_ms']:.3f} "
@@ -4712,6 +4813,16 @@ def run(work: str) -> int:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    tc_ptxas = []
+    for ent in ptxas_summary(logs.get("resblock_tc", "")):
+        found = re.search(r"resblock_tc_step_kernelILi(\d+)ELi(\d+)E", ent["entry"])
+        if found:
+            tc_ptxas.append(dict(C=int(found[1]), K=int(found[2]), registers=ent["registers"],
+                                 spill_stores=ent["spill_stores"], spill_loads=ent["spill_loads"]))
+    RESULTS["resblock_tc_ptxas"] = tc_ptxas
+    log("  resblock_tc per instantiation (C, k): registers, spill stores / loads in bytes: "
+        + "; ".join(f"({e['C']}, {e['K']}) {e['registers']}, {e['spill_stores']} / "
+                    f"{e['spill_loads']}" for e in tc_ptxas))
 
     from rvc_maker_tpu_torch.config import preset
     from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline
@@ -4922,6 +5033,14 @@ def run(work: str) -> int:
                                c512_library_ms=ev["c512_library_ms"]),
              max_abs_err=totals["max_abs_err"], ms=totals["ms"], bound_ms=totals["bound_ms"],
              bound_by=totals["bound_by"], roofline_share=totals["bound_ms"] / totals["ms"],
+             # per stage, in conversion (phase 3) and in the training forward
+             # (phase 6): the times, the bound and the time tiles; ptxas's
+             # registers and spills per instantiation (phase 2)
+             stages=[{k: v for k, v in st.items()} for st in totals["stages"]],
+             train_stages=[{k: st[k] for k in ("B", "C", "T", "fwd_ms", "fma_fwd_ms",
+                                               "plain_fwd_ms", "library_fwd_ms", "pack_ms",
+                                               "fwd_bound_ms", "tiles")} for st in tk["rows"]],
+             ptxas=RESULTS["resblock_tc_ptxas"],
              **common, **fp32),
         # the bf16 route, which the served bf16 path runs: its launches
         # there; fma_ms is resblock.cu's bf16 time, its earlier version

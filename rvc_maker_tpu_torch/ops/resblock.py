@@ -10,7 +10,7 @@ for a tensor on the CPU.  `_route` picks the kernel from the device, the
 dtype and the width alone:
 
     cpu                               -> the plain steps
-    cuda, fp32, C in TC_WIDTHS        -> csrc/resblock_tc.cu (3xTF32 mma.sync)
+    cuda, fp32, C in TC_WIDTHS        -> csrc/resblock_tc.cu (3xTF32 mma.sync.m16n8k8)
     cuda, bf16, C in SUPPORTED_C      -> csrc/resblock_tc_bf16.cu (bf16 mma.sync)
 
 A failed build or launch raises; no route is taken because another
@@ -26,7 +26,11 @@ They replace the Pallas TPU kernel `rvc_maker_tpu/ops/pallas_resblock.py`
 Layout: x is (B, C, T), torch's conv layout, used for the whole decode.
 Weights are packed once at load as (D, k, C_in, C_out) (the JAX
 package's (k, C_in, C_out) per conv, stacked over the D dilations) and
-biases as (D, C), so each kernel step reads one contiguous slab.
+biases as (D, C), so each kernel step reads one contiguous slab.  The
+fp32 tensor-core kernel takes its weights split into two TF32 planes in
+its own stage order, which `_tc_pack` makes once per call (as JAX's
+`pack_resblock_weights` packs outside its kernel), and a time tile that
+`tc_time_tile` chooses per launch.
 
 Gradients: `fused_resblock` is a torch.autograd.Function.  Its forward
 (the kernel on the card, the plain steps on the CPU) keeps the D step
@@ -53,6 +57,12 @@ SUPPORTED_C = (16, 32, 64, 128, 256)
 SUPPORTED_K = (3, 7, 11)
 MAX_DILATION = 5      # kMaxDil of every csrc/resblock*.cu
 TC_WIDTHS = SUPPORTED_C   # fp32 widths that csrc/resblock_tc.cu takes
+# csrc/resblock_tc.cu `Cfg` per width: (KC input channels per stage,
+# MT_MAX m-tiles of 16 rows of conv1 at most, WM warps along time, blocks
+# an SM holds)
+TC_TILES = {256: (16, 8, 2, 1), 128: (32, 8, 2, 1), 64: (16, 8, 4, 2), 32: (16, 16, 8, 2),
+            16: (16, 32, 8, 1)}
+CARD_SMS = 132            # streaming multiprocessors of an H100 SXM
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (one per dilation step): all of
@@ -157,44 +167,125 @@ def _route(device_type: str, dtype: torch.dtype, channels: int) -> str:
 
 def _library(route: str):
     """The route's kernel library, built on first use; its step function
-    takes (x, out, w1, b1, w2, b2, B, C, T, K, dil[, dtype code], stream)."""
+    takes (x, out, w1, b1, w2, b2, B, C, T, K, dil[, dtype code], stream),
+    the tc route's (x, out, `_tc_pack` slab, b1, b2, B, C, T, K, dil,
+    time tile, stream)."""
     name, prefix = _LIBRARIES[route]
     lib = build.load(name)
     step, smem = getattr(lib, prefix + "_step"), getattr(lib, prefix + "_smem_bytes")
     if step.argtypes is None:
-        dtype_arg = [ctypes.c_int] if route == "fma" else []   # resblock.cu's dtype code
-        step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + dtype_arg + [ctypes.c_void_p]
+        if route == "tc":
+            step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            smem.argtypes = [ctypes.c_int] * 4
+        else:
+            dtype_arg = [ctypes.c_int] if route == "fma" else []   # resblock.cu's dtype code
+            step.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + dtype_arg
+                             + [ctypes.c_void_p])
+            smem.argtypes = [ctypes.c_int] * 3 + dtype_arg
         step.restype = ctypes.c_int
-        smem.argtypes = [ctypes.c_int] * 3 + dtype_arg
         smem.restype = ctypes.c_size_t
     return lib, step, smem
+
+
+def tc_time_tile(batch: int, length: int, channels: int, kernel_size: int,
+                 sms: int = CARD_SMS) -> int:
+    """Output rows per block of csrc/resblock_tc.cu for one launch on (B, C,
+    T) at kernel size k.  A block streams both convs' weights whatever its
+    tile, so the longest tile shared memory takes (MT_MAX m-tiles of conv1,
+    which covers conv2's k - 1 halo rows) reads them fewest times.  Where
+    an SM holds one block (C = 16, 128, 256), the grid (tiles x B blocks) runs in
+    whole waves: the rows are cut into as many tiles of equal length as
+    fill the waves the longest tile needs, so that no SM idles in the last
+    one.  Where it holds two (C = 32, 64), a block starts as soon as one
+    ends, and the rows are cut only while the grid has fewer blocks than
+    the SMs hold.  No tile is cut below 17 rows (2 m-tiles of conv2, so that
+    conv1's halo stays under a third of its rows)."""
+    _, mt_max, _, per_sm = TC_TILES[channels]
+    slots = sms * per_sm
+    longest = -(-length // (16 * mt_max - (kernel_size - 1)))
+    waves = -(-batch * longest // slots) if per_sm == 1 else 1
+    tiles = max(longest, min(waves * slots // batch, -(-length // 17)))
+    return -(-length // tiles)
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the bits (round to 10 mantissa bits, ties away
+    from zero) of finite fp32 values."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc_pack(w1, w2):
+    """The weights of every step of both convs for csrc/resblock_tc.cu:
+    split once into TF32 planes, hi = rna(w), lo = rna(w - hi), and laid
+    out as the kernel's shared memory holds them, (D, conv, C / KC, k,
+    plane, C_out, KC) contiguous: stage (chunk, tap) of a conv is one slab
+    of 2 x C x KC words that the kernel copies as it lies, each C_out row's
+    16-byte chunks placed as `_tc_swizzle` says."""
+    D, k, c, _ = w1.shape
+    kc = TC_TILES[c][0]
+    w = torch.stack([w1, w2], 1)                             # (D, 2, k, C_in, C_out)
+    hi = _tf32_rna(w)
+    p = torch.stack([hi, _tf32_rna(w - hi)], 3)              # (D, 2, k, 2, C_in, C_out)
+    p = p.view(D, 2, k, 2, c // kc, kc // 4, 4, c).permute(0, 1, 4, 2, 3, 7, 5, 6)
+    return p[(...,) + _tc_swizzle(c, kc // 4, w.device) + (slice(None),)].reshape(
+        D, 2, c // kc, k, 2, c, kc).contiguous()
+
+
+_SWIZZLES: dict = {}
+
+
+def _tc_swizzle(rows: int, chunks: int, device) -> tuple:
+    """Index pair (row, chunk) that gathers, for each row of an image of
+    `chunks` 16-byte chunks a row, the chunk that csrc/resblock_tc.cu `swz`
+    places there: chunk c of row r lies at c ^ key(r), so that any 8
+    consecutive rows of one chunk fall on 8 distinct bank groups."""
+    key = (rows, chunks, str(device))
+    if key not in _SWIZZLES:
+        r = torch.arange(rows, device=device)[:, None]
+        _SWIZZLES[key] = (r, torch.arange(chunks, device=device)
+                          ^ (r & 7 if chunks >= 8 else (r >> 1) & 3))
+    return _SWIZZLES[key]
 
 
 def smem_bytes(channels: int, kernel_size: int, dilation: int,
                dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one launch of the kernel that `_route` picks
-    for a CUDA tensor of this dtype and width (0: shape not taken)."""
+    for a CUDA tensor of this dtype and width (0: shape not taken); for the
+    fp32 tensor-core kernel at its longest time tile."""
     route = _route("cuda", dtype, channels)
+    if route == "tc":
+        longest = 16 * TC_TILES[channels][1] - (kernel_size - 1)
+        return int(_library(route)[2](channels, kernel_size, dilation, longest))
     extra = (_DTYPE_CODE[dtype],) if route == "fma" else ()
     return int(_library(route)[2](channels, kernel_size, dilation, *extra))
 
 
-def _launch_steps(route: str, x, w1, b1, w2, b2, kernel_size: int, dilations):
+def _launch_steps(route: str, x, w1, b1, w2, b2, kernel_size: int, dilations,
+                  time_tile: int | None = None):
     """[x_0, ..., x_D] through the route's kernel, one launch per step;
-    raises if a launch fails."""
+    raises if a launch fails.  time_tile: the tc route's rows per block
+    (default `tc_time_tile`'s choice)."""
     global resblock_launches, resblock_tc_launches, resblock_tc_bf16_launches
     _check(x, w1, b1, w2, b2, kernel_size, dilations)
     lib, step, _ = _library(route)
-    extra = (_DTYPE_CODE[x.dtype],) if route == "fma" else ()
     b, c, t = x.shape
+    if route == "tc":
+        pack = _tc_pack(w1, w2)
+        tt = time_tile or tc_time_tile(b, t, c, kernel_size)
+        weights = [(pack[i].data_ptr(), b1[i].data_ptr(), b2[i].data_ptr())
+                   for i in range(len(dilations))]
+        extra = (tt,)
+    else:
+        weights = [(w1[i].data_ptr(), b1[i].data_ptr(), w2[i].data_ptr(), b2[i].data_ptr())
+                   for i in range(len(dilations))]
+        extra = (_DTYPE_CODE[x.dtype],) if route == "fma" else ()
     xs = [x]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for i, d in enumerate(dilations):
             out = torch.empty_like(x)
-            rc = step(xs[-1].data_ptr(), out.data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-                      w2[i].data_ptr(), b2[i].data_ptr(), b, c, t, kernel_size, int(d),
-                      *extra, stream)
+            rc = step(xs[-1].data_ptr(), out.data_ptr(), *weights[i], b, c, t, kernel_size,
+                      int(d), *extra, stream)
             if rc != 0:
                 raise RuntimeError(f"resblock {route} kernel launch failed: "
                                    f"{build.error_string(lib, rc)} (code {rc})")

@@ -618,17 +618,7 @@ class ConvertPipeline:
                            else audio_batch, np.float32)
         lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
         b, L = audio.shape
-        p_len = self.frames(L)
-        zs, dns = [], []
-        for lo in range(0, b, self.max_device_batch):
-            n = min(self.max_device_batch, b - lo)
-            if z_noise is None:
-                zs.append(self._draw_z(n, p_len, generator))
-            if noise is None:
-                dns.append(syn.decoder_noise(self.cfg, n, p_len, generator, generator.device,
-                                             self.dtype))
-        z_noise = torch.cat(zs) if z_noise is None else z_noise
-        noise = tree_cat(dns) if noise is None else noise
+        z_noise, noise = self.batch_noise(b, L, generator, z_noise, noise)
         world = dist_mod.process_count()
         order = mesh.pad_rows(np.arange(b), world)
         mine = torch.as_tensor(order[mesh.rows_of(len(order))])
@@ -637,6 +627,23 @@ class ConvertPipeline:
             tree_rows(z_noise, mine), tree_rows(noise, mine), generator)
         return (mesh.all_gather_rows(wav, len(order))[:b],
                 mesh.all_gather_rows(pitchf, len(order))[:b])
+
+    def batch_noise(self, b: int, samples: int, generator: torch.Generator,
+                    z_noise=None, noise: dict | None = None):
+        """(z_noise, the decoder's noise) that `convert_batch` on one
+        process draws for a batch of b rows of `samples` samples:
+        microbatch by microbatch, z first; what is given is kept."""
+        p_len = self.frames(samples)
+        zs, dns = [], []
+        for lo in range(0, b, self.max_device_batch):
+            n = min(self.max_device_batch, b - lo)
+            if z_noise is None:
+                zs.append(self._draw_z(n, p_len, generator))
+            if noise is None:
+                dns.append(syn.decoder_noise(self.cfg, n, p_len, generator, generator.device,
+                                             self.dtype))
+        return (torch.cat(zs) if z_noise is None else z_noise,
+                tree_cat(dns) if noise is None else noise)
 
     def _convert_rows(self, audio_batch, lengths, sid, settings, z_noise, noise, generator):
         """`convert_batch` on this device, microbatched."""

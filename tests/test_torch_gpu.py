@@ -49,12 +49,18 @@ def test_kernel_matches_plain_on_card(cuda, C, T, k):
     assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
 
 
-TC_TT = {256: 64, 128: 128, 64: 256, 32: 512, 16: 1024}   # resblock_tc.cu rows per block
+TC_TT = {256: 64, 128: 128, 64: 256, 32: 512, 16: 1024}   # resblock_tc_bf16.cu rows per block
 
 
-def _tc_case(cuda, C, k, T, b=3, seed=0):
+def _tc_longest(C, k):
+    """resblock_tc.cu's longest time tile at (C, k)."""
+    return 16 * trb.TC_TILES[C][1] - (k - 1)
+
+
+def _tc_case(cuda, C, k, T, b=3, seed=0, time_tile=None):
     """The tensor-core route at (C, k, T), dilations (1, 3, 5), against the
-    plain chain: <= 1e-4 x max(1, |ref|max); 3 launches of resblock_tc."""
+    plain chain: <= 1e-4 x max(1, |ref|max); 3 launches of resblock_tc.
+    time_tile: rows per block instead of `tc_time_tile`'s choice."""
     dils = (1, 3, 5)
     p = resblock_params(seed + C + k, k, C, 3)
     args = [a.to(cuda) for a in packed_resblock(p)]
@@ -62,7 +68,10 @@ def _tc_case(cuda, C, k, T, b=3, seed=0):
     assert trb._route("cuda", x.dtype, C) == "tc"
     ref = trb._resblock(x, *args, kernel_size=k, dilations=dils)
     before, before_tc = trb.resblock_launches, trb.resblock_tc_launches
-    got = trb.fused_resblock(x, *args, kernel_size=k, dilations=dils)
+    if time_tile is None:
+        got = trb.fused_resblock(x, *args, kernel_size=k, dilations=dils)
+    else:
+        got = trb._launch_steps("tc", x, *args, k, dils, time_tile=time_tile)[-1]
     torch.cuda.synchronize()
     assert trb.resblock_tc_launches == before_tc + len(dils)
     assert trb.resblock_launches == before + len(dils)
@@ -75,8 +84,12 @@ def _tc_case(cuda, C, k, T, b=3, seed=0):
 @pytest.mark.parametrize("C", trb.TC_WIDTHS)
 @pytest.mark.parametrize("k", [3, 7, 11])
 def test_tc_kernel_matches_plain_on_card(cuda, C, k):
-    """T is not a multiple of the block's rows: 2 full tiles and a ragged one."""
-    _tc_case(cuda, C, k, 2 * TC_TT[C] + 37)
+    """T is not a multiple of the block's rows: 2 longest tiles and a
+    ragged one (T odd: the element-wise staging of x); then a T that is a
+    multiple of 4 (the 16-byte staging) at `tc_time_tile`'s tile."""
+    tt = _tc_longest(C, k)
+    _tc_case(cuda, C, k, 2 * tt + 37, time_tile=tt)
+    _tc_case(cuda, C, k, 2 * tt + 36)
 
 
 @pytest.mark.gpu
@@ -92,11 +105,22 @@ def test_tc_kernel_short_sequence_on_card(cuda, C, T):
 def test_tc_kernel_edge_rows_on_card(cuda, C):
     """One row past a tile: the last block holds a single row; the rows
     at both sequence edges and at the tile seam match on their own."""
-    T = TC_TT[C] + 1
-    got, ref = _tc_case(cuda, C, 7, T)
+    tt = _tc_longest(C, 7)
+    got, ref = _tc_case(cuda, C, 7, tt + 1, time_tile=tt)
     tol = 1e-4 * max(1.0, ref.abs().max().item())
-    for rows in (slice(0, 6), slice(TC_TT[C] - 6, TC_TT[C] + 1)):
+    for rows in (slice(0, 6), slice(tt - 6, tt + 1)):
         assert (got[..., rows] - ref[..., rows]).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", trb.TC_WIDTHS)
+def test_tc_kernel_output_does_not_depend_on_the_tile_on_card(cuda, C):
+    """Every output sums the same products in the same order whatever the
+    time tile: three tiles give the same bits."""
+    k, T = 11, 3 * _tc_longest(C, 11) + 5
+    outs = [_tc_case(cuda, C, k, T, b=2, time_tile=tt)[0]
+            for tt in (_tc_longest(C, k), 17, 40)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.gpu

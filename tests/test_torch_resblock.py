@@ -134,12 +134,23 @@ def test_route_rejects_other_devices():
 
 # ---------------------------------------------------------------------------
 # A numpy model of csrc/resblock_tc.cu: one dilation step, tiled as the
-# kernel tiles it, with the m16n8k4 TF32 fragment maps and 3xTF32.  The
-# kernel's index arithmetic is written from this model.
+# kernel tiles it (its time tile, its ring of weight stages), through its
+# shared-memory images (swizzled, split into TF32 planes), ldmatrix's
+# lane-to-row map, the m16n8k8 TF32 fragments and 3xTF32 in the kernel's
+# order.  The kernel's index arithmetic is written from this model.
 # ---------------------------------------------------------------------------
 
 LANE = np.arange(32)
 G, Q = LANE >> 2, LANE & 3           # groupID, thread in group
+
+# csrc/resblock_tc.cu `Cfg`: KC, MT_MAX, WM, RING (weight stages), MINB
+# (blocks an SM holds), T1F (the intermediate in fp32, split chunk by
+# chunk), PRODUCER (a warp that fills the ring)
+TC_CFG = {256: (16, 8, 2, 2, 1, True, False), 128: (32, 8, 2, 3, 1, False, True),
+          64: (16, 8, 4, 3, 2, False, True), 32: (16, 16, 8, 3, 2, False, True),
+          16: (16, 32, 8, 3, 1, False, True)}
+SMEM_BLOCK = 232448          # bytes a block may use on sm_90
+SMEM_TWO_BLOCKS = 115712     # each of two blocks on one SM: 228 KB less 1 KB a block
 
 
 def tf32_rna(v):
@@ -158,36 +169,80 @@ def stride8(n):
     return n + (8 - n) % 32
 
 
-def tc_geometry(C, K):
-    tt = 16384 // C                  # 8 rows x 256 threads / (C / 8)
-    hc = (K - 1) // 2
-    m1 = -(-(tt + 2 * hc) // 16) * 16
-    wn = min(8, C // 8)
-    return dict(TT=tt, HC=hc, M1=m1, MT1=m1 // 16, MT2=tt // 16, WN=wn, WM=8 // wn,
-                NTW=C // 8 // wn, CS=C + 8, S1=stride8(m1), TTP=tt + 4)
+def tc_cfg(C, K):
+    kc, mt_max, wm, ring, minb, t1f, producer = TC_CFG[C]
+    wn = 8 // wm
+    return dict(KC=kc, MT_MAX=mt_max, WM=wm, WN=wn, NTW=C // 8 // wn, MTW=mt_max // wm,
+                RING=ring, MINB=minb, T1F=t1f, PRODUCER=producer, HC=(K - 1) // 2,
+                NCH=C // kc, CPR=kc // 4, THREADS=256 + 32 * producer)
 
 
-def mma_tf32(acc, a0, a1, b0):
-    """mma.sync.m16n8k4 f32.tf32.tf32.f32 over a warp's tiles.  a0, a1:
-    (MT, 32) per lane, b0: (NT, 32); acc: (MT, NT, 32, 4) per lane.
-    A[g][q] = a0, A[g + 8][q] = a1; B[q][g] = b0; c0..c3 = D at (g, 2q),
-    (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1)."""
-    a = np.zeros((a0.shape[0], 16, 4))
-    a[:, G, Q], a[:, G + 8, Q] = a0, a1
-    b = np.zeros((b0.shape[0], 4, 8))
-    b[:, Q, G] = b0
-    d = np.einsum("mik,nkj->mnij", a, b)          # products of tf32 are exact
-    c = np.stack([d[:, :, G, 2 * Q], d[:, :, G, 2 * Q + 1],
-                  d[:, :, G + 8, 2 * Q], d[:, :, G + 8, 2 * Q + 1]], -1)
-    return (acc + c).astype(np.float32)
+def tc_layout(C, K, mt1, dil):
+    """csrc/resblock_tc.cu `layout`: rows of the x image, of the raw x chunk
+    and of conv2's image, the byte offsets of each region, the total."""
+    g = tc_cfg(C, K)
+    kc, ring = g["KC"], g["RING"]
+    xr = 16 * mt1 + (K - 1) * dil
+    xrp = (xr + 6) & ~3
+    r2 = 16 * mt1 + K - 1
+    image, raw = 2 * xr * kc * 4, kc * xrp * 4
+    if g["T1F"]:                     # [t1 fp32][x image + raw | conv2 image][ring]
+        t1, img = 0, 16 * mt1 * C * 4
+        ring_at = img + ((max(image + raw, 2 * r2 * kc * 4) + 15) & ~15)
+        raw_at = img + image
+    else:                            # [x image + raw | t1 hi, lo][ring]
+        t1_bytes = 2 * 16 * mt1 * C * 4
+        ring_at = (max(image + raw, t1_bytes) + 15) & ~15
+        img, raw_at, t1 = 0, image, ring_at - t1_bytes
+    bars = ring_at + ring * 2 * C * kc * 4
+    return dict(xr=xr, xrp=xrp, r2=r2, image=img, raw=raw_at, t1=t1, ring=ring_at,
+                bars=bars, total=bars + 2 * ring * 8)
 
 
-def mma_3xtf32(acc, a0, a1, b0):
-    """The three passes, small terms first: lo x hi, hi x lo, hi x hi."""
-    (a0h, a0l), (a1h, a1l), (bh, bl) = split_tf32(a0), split_tf32(a1), split_tf32(b0)
-    acc = mma_tf32(acc, a0l, a1l, bh)
-    acc = mma_tf32(acc, a0h, a1h, bl)
-    return mma_tf32(acc, a0h, a1h, bh)
+def swz(r, c, cpr):
+    """`swz`: where chunk c of row r lies in an image of cpr 16-byte chunks
+    a row."""
+    return c ^ ((r & 7) if cpr >= 8 else ((r >> 1) & 3))
+
+
+def assert_banks_distinct(addr):
+    assert len(set((np.asarray(addr) % 32).tolist())) == 32, addr
+
+
+def ldsm_x4(mem, chunk):
+    """ldmatrix.x4.b16 on 32-bit words: chunk (..., 32) is each lane's row
+    address in 16-byte chunks of the word image `mem` (lanes 8i..8i+7 give
+    matrix i's 8 rows).  Lane (g, q) receives word q of row g of matrix i
+    in register i: (..., 4, 32).  The 8 rows of each matrix fall on 8
+    distinct bank groups (no conflict)."""
+    rows = chunk.reshape(*chunk.shape[:-1], 4, 8)
+    assert (np.sort(rows % 8, axis=-1) == np.arange(8)).all()
+    return mem[rows[..., G] * 4 + Q]
+
+
+def a_frags_to_tile(r):
+    """m16n8k8 TF32 A: a0..a3 = A[g][q], A[g+8][q], A[g][q+4], A[g+8][q+4]."""
+    a = np.empty(r.shape[:-2] + (16, 8), np.float32)
+    a[..., G, Q], a[..., G + 8, Q] = r[..., 0, :], r[..., 1, :]
+    a[..., G, Q + 4], a[..., G + 8, Q + 4] = r[..., 2, :], r[..., 3, :]
+    return a
+
+
+def b_frags_to_tiles(r):
+    """Two n-tiles' B from one ldmatrix.x4: b0 = B[q][g], b1 = B[q+4][g] of
+    n-tile 0 in registers 0, 1, of n-tile 1 in registers 2, 3."""
+    b = np.empty(r.shape[:-2] + (2, 8, 8), np.float32)
+    for p in range(2):
+        b[..., p, Q, G], b[..., p, Q + 4, G] = r[..., 2 * p, :], r[..., 2 * p + 1, :]
+    return b
+
+
+def mma_tf32(acc, a, b):
+    """mma.sync.m16n8k8 f32.tf32.tf32.f32 on every (m-tile, n-tile): the
+    products of TF32 values are exact; the fp32 accumulator rounds once
+    per MMA."""
+    d = np.einsum("mik,nkj->mnij", a.astype(np.float64), b.astype(np.float64))
+    return (acc + d).astype(np.float32)
 
 
 def warp_tiles(warp, g, mt_total):
@@ -198,127 +253,187 @@ def warp_tiles(warp, g, mt_total):
     return mts, nts
 
 
-def assert_banks_distinct(addr):
-    assert len(set((np.asarray(addr) % 32).tolist())) == 32, addr
+def stage_mma(acc, mem, plane, shift, cbase, cpr_a, stage, g, C):
+    """`stage_mma`: acc (MT, C/8, 16, 8) += one stage, A rows m*16 + .. +
+    shift of an image of cpr_a chunks a row (lo plane `plane` words on),
+    chunks from cbase; the stage's weights (hi plane, then lo)."""
+    mt = acc.shape[0]
+    n = (2 * np.arange(C // 16)[:, None] + (LANE >> 4)) * 8 + (LANE & 7)
+    lrow = (LANE & 7) + 8 * ((LANE >> 3) & 1)
+    row = np.arange(mt)[:, None] * 16 + lrow + shift
+    for ks in range(g["KC"] // 8):
+        wch = n * g["CPR"] + swz(n, 2 * ks + ((LANE >> 3) & 1), g["CPR"])
+        bh, bl = (b_frags_to_tiles(ldsm_x4(stage[h * C * g["KC"]:], wch)).reshape(C // 8, 8, 8)
+                  for h in (0, 1))
+        ach = row * cpr_a + swz(row, cbase + 2 * ks + (LANE >> 4), cpr_a)
+        ah, al = (a_frags_to_tile(ldsm_x4(mem[h * plane:], ach)) for h in (0, 1))
+        for a, b in ((al, bh), (ah, bl), (ah, bh)):       # small terms first
+            acc = mma_tf32(acc, a, b)
+    return acc
 
 
-def tc_step_model(x, w1, b1, w2, b2, K, dil):
+def tc_step_model(x, pack, b1, b2, K, dil, tt):
     """One step of one batch row, x (C, T) -> x + conv2(lrelu(conv1(lrelu(x)))),
-    through shared-memory images laid out as the kernel lays them out.
-    Words the kernel never writes hold NaN, so a fragment that reads one
-    poisons the result."""
+    in time tiles of tt rows, through shared-memory images laid out as the
+    kernel lays them out.  pack: this step's `_tc_pack` slab (flat), which
+    the ring's slots hold stage by stage.  Words the kernel never writes
+    hold NaN, so a fragment that reads one into a kept output poisons it."""
     C, T = x.shape
-    g = geom = tc_geometry(C, K)
-    TT, HC, M1, CS, S1 = g["TT"], g["HC"], g["M1"], g["CS"], g["S1"]
+    g = tc_cfg(C, K)
+    kc, cpr, hc, nch = g["KC"], g["CPR"], g["HC"], g["NCH"]
     lrelu = lambda v: np.where(v >= 0, v, np.float32(0.1) * v).astype(np.float32)
-    xr = M1 + (K - 1) * dil
-    xrs = stride8(xr)
-    out = np.empty_like(x)
-
-    def stage_w(w, s):               # [K][kCI][CS], columns C..CS unwritten
-        ws = np.full((K, 4, CS), np.nan, np.float32)
-        ws[:, :, :C] = w[:, 4 * s:4 * s + 4, :]
-        return ws.ravel()
-
-    def b_frags(ws, j, nts):         # b0 = B[q][g] = w[j][ci0 + q][nt * 8 + g]
-        addr = (j * 4 + Q) * CS + nts[:, None] * 8 + G
-        assert_banks_distinct(addr[0])
-        return ws[addr]
-
-    for t0 in range(0, T, TT):
-        xstart = t0 - HC - HC * dil
-        # ---- conv1 over rows [t0 - HC, t0 - HC + M1)
-        acc1 = {w: np.zeros((len(warp_tiles(w, g, g["MT1"])[0]), g["NTW"], 32, 4),
-                            np.float32) for w in range(8)}
-        for s in range(C // 4):
-            xs = np.full(4 * xrs, np.nan, np.float32)        # [kCI][xrs]
-            for cc in range(4):
-                tt = xstart + np.arange(xr)
-                ok = (tt >= 0) & (tt < T)
-                xs[cc * xrs + np.arange(xr)] = np.where(
-                    ok, lrelu(x[4 * s + cc, np.clip(tt, 0, T - 1)]), 0.0)
-            ws = stage_w(w1, s)
-            for w in range(8):
-                mts, nts = warp_tiles(w, g, g["MT1"])
-                for j in range(K):
-                    row = Q * xrs + mts[:, None] * 16 + G + j * dil
-                    assert_banks_distinct(row[0])
-                    acc1[w] = mma_3xtf32(acc1[w], xs[row], xs[row + 8], b_frags(ws, j, nts))
-        # ---- + b1, zero outside [0, T), lrelu -> t1s [C][S1]
-        t1s = np.full(C * S1, np.nan, np.float32)
-        for w in range(8):
-            mts, nts = warp_tiles(w, g, g["MT1"])
-            for r in range(4):
-                m = mts[:, None, None] * 16 + G + 8 * (r >> 1)        # (MT, 1, 32)
-                nn = nts[None, :, None] * 8 + 2 * Q + (r & 1)         # (1, NT, 32)
-                tm = t0 - HC + m
-                v = lrelu(acc1[w][..., r] + b1[nn])
-                t1s[nn * S1 + m] = np.where((tm >= 0) & (tm < T), v, 0.0)
-        # ---- conv2 over rows [t0, t0 + TT), A from t1s offset by j rows
-        acc2 = {w: np.zeros((len(warp_tiles(w, g, g["MT2"])[0]), g["NTW"], 32, 4),
-                            np.float32) for w in range(8)}
-        for s in range(C // 4):
-            ws = stage_w(w2, s)
-            for w in range(8):
-                mts, nts = warp_tiles(w, g, g["MT2"])
-                for j in range(K):
-                    row = (4 * s + Q) * S1 + mts[:, None] * 16 + G + j
-                    assert_banks_distinct(row[0])
-                    acc2[w] = mma_3xtf32(acc2[w], t1s[row], t1s[row + 8],
-                                         b_frags(ws, j, nts))
-        # ---- + b2 into tile [C][TTP], then x + tile along time
-        tile = np.full(C * g["TTP"], np.nan, np.float32)
-        for w in range(8):
-            mts, nts = warp_tiles(w, g, g["MT2"])
-            for r in range(4):
-                m = mts[:, None, None] * 16 + G + 8 * (r >> 1)
-                nn = nts[None, :, None] * 8 + 2 * Q + (r & 1)
-                tile[nn * g["TTP"] + m] = acc2[w][..., r] + b2[nn]
-        n_rows = min(TT, T - t0)
-        tile = tile.reshape(C, g["TTP"])[:, :n_rows]
-        out[:, t0:t0 + n_rows] = x[:, t0:t0 + n_rows] + tile
-    assert geom["MT1"] * 16 >= TT + 2 * HC
+    mt1_launch = -(-(tt + 2 * hc) // 16)
+    assert mt1_launch <= g["MT_MAX"]
+    L = tc_layout(C, K, mt1_launch, dil)
+    xrp = L["xrp"]
+    stages = pack.reshape(2 * nch * K, 2 * C * kc)
+    aligned = T % 4 == 0
+    out = np.full_like(x, np.nan)
+    for t0 in range(0, T, tt):
+        rows = min(tt, T - t0)
+        mt1 = min(mt1_launch, -(-(rows + 2 * hc) // 16))
+        mt2 = -(-rows // 16)
+        for mt in (mt1, mt2):            # the 8 warps cover each tile once
+            tiles = [(m, n) for w in range(8) for m, nts in [warp_tiles(w, g, mt)]
+                     for m in m for n in nts]
+            assert sorted(tiles) == [(m, n) for m in range(mt) for n in range(C // 8)]
+        xstart = t0 - hc - hc * dil
+        sh = xstart % 4 if aligned else 0
+        xa, xr = xstart - sh, 16 * mt1 + (K - 1) * dil
+        # ---- conv1, chunk outer, tap inner
+        acc = np.zeros((mt1, C // 8, 16, 8), np.float32)
+        for ci in range(nch):
+            raw = np.full(kc * xrp, np.nan, np.float32)     # the producer's copies
+            xc = x[ci * kc:(ci + 1) * kc]
+            if aligned:                  # 16-byte chunks, all in [0, T) or zeros
+                u = np.arange((xr + sh + 3) // 4)
+                ok = (xa + 4 * u >= 0) & (xa + 4 * u + 4 <= T)
+                for e in range(4):
+                    raw[(np.arange(kc)[:, None] * xrp + 4 * u + e)] = np.where(
+                        ok, xc[:, np.clip(xa + 4 * u + e, 0, T - 1)], 0)
+            else:                        # word by word
+                r = np.arange(xr)
+                ok = (xa + r >= 0) & (xa + r < T)
+                raw[np.arange(kc)[:, None] * xrp + r] = np.where(ok, xc[:, np.clip(xa + r, 0, T - 1)], 0)
+            img = np.full(2 * L["xr"] * kc, np.nan, np.float32)   # [row][KC] x hi, lo
+            r = np.arange(xr)
+            for cq in range(cpr):
+                word = (r * cpr + swz(r, cq, cpr)) * 4
+                for e in range(4):
+                    hi, lo = split_tf32(lrelu(raw[(cq * 4 + e) * xrp + r + sh]))
+                    img[word + e], img[xr * kc + word + e] = hi, lo
+            for j in range(K):
+                acc = stage_mma(acc, img, xr * kc, j * dil, 0, cpr, stages[ci * K + j], g, C)
+        # ---- + b1, lrelu, zero outside [0, T) -> the intermediate [row][C]
+        m = np.arange(16 * mt1)
+        v = acc.transpose(0, 2, 1, 3).reshape(16 * mt1, C) + b1
+        tm = t0 - hc + m
+        v = np.where(((tm >= 0) & (tm < T))[:, None], lrelu(v), 0).astype(np.float32)
+        cols = np.arange(C)
+        word = (m[:, None] * (C // 4) + swz(m[:, None], cols // 4, C // 4)) * 4 + cols % 4
+        plane = 16 * mt1_launch * C
+        if g["T1F"]:
+            t1 = np.full(plane, np.nan, np.float32)
+            t1[word] = v
+        else:                            # hi, lo; then the ring's words
+            t1 = np.full(2 * plane + 16 * C, np.nan, np.float32)
+            t1[word], t1[plane + word] = split_tf32(v)
+        # ---- conv2 over rows [t0, t0 + 16 * mt2)
+        acc = np.zeros((mt2, C // 8, 16, 8), np.float32)
+        for ci in range(nch):
+            for j in range(K):
+                stage = stages[(nch + ci) * K + j]
+                if g["T1F"]:
+                    if j == 0:           # chunk ci of t1 split into its image
+                        img2 = np.full(2 * L["r2"] * kc, np.nan, np.float32)
+                        r = np.arange(16 * mt2 + 2 * hc)
+                        for cq in range(cpr):
+                            dst = (r * cpr + swz(r, cq, cpr)) * 4
+                            src = (r * (C // 4) + swz(r, ci * cpr + cq, C // 4)) * 4
+                            for e in range(4):
+                                vv = np.where(r < 16 * mt1, t1[np.minimum(src + e, plane - 1)], 0)
+                                img2[dst + e], img2[L["r2"] * kc + dst + e] = split_tf32(vv)
+                    acc = stage_mma(acc, img2, L["r2"] * kc, j, 0, cpr, stage, g, C)
+                else:
+                    acc = stage_mma(acc, t1, plane, j, ci * cpr, C // 4, stage, g, C)
+        d = acc.transpose(0, 2, 1, 3).reshape(16 * mt2, C)[:rows].T
+        out[:, t0:t0 + rows] = x[:, t0:t0 + rows] + (d + b2[:, None])
     return out
 
 
-@pytest.mark.parametrize("C", [16, 32])
-@pytest.mark.parametrize("k", [3, 7])
+def _tc_case(C, k, seed):
+    p = resblock_params(seed, k, C, 1)
+    w1, b1, w2, b2 = packed_resblock(p)
+    pack = trb._tc_pack(w1, w2)[0].numpy().reshape(-1)
+    return w1, b1, w2, b2, pack
+
+
+@pytest.mark.parametrize("C", trb.SUPPORTED_C)
+@pytest.mark.parametrize("k", trb.SUPPORTED_K)
 def test_tc_fragment_model_matches_branch(C, k):
-    """The model of the tensor-core kernel's step, at T across two time
-    tiles, against x + _branch: <= 1e-5 x max(1, |ref|max)."""
+    """The model of the tensor-core kernel's step, at the longest tile and
+    T across two tiles (T odd: x staged word by word; at k = 7 a multiple
+    of 4: in 16-byte chunks), against x + _branch: <= 1e-5 x
+    max(1, |ref|max)."""
     dil = 3
-    T = tc_geometry(C, k)["TT"] + 37
-    p = resblock_params(C * k, k, C, 1)
-    w1, b1, w2, b2 = (n(a[0]) for a in packed_resblock(p))
+    tt = 16 * trb.TC_TILES[C][1] - (k - 1)
+    T = tt + (36 if k == 7 else 37)
+    w1, b1, w2, b2, pack = _tc_case(C, k, C * k)
     x = resblock_x(T, C, b=1)[0].T.copy()                   # (C, T)
-    got = tc_step_model(x, w1, b1, w2, b2, k, dil)
+    got = tc_step_model(x, pack, n(b1[0]), n(b2[0]), k, dil, tt)
     xt = t(x)[None]
-    ref = n(xt + trb._branch(xt, t(w1), t(b1), t(w2), t(b2), k, dil))[0]
+    ref = n(xt + trb._branch(xt, w1[0], b1[0], w2[0], b2[0], k, dil))[0]
     err = np.abs(got - ref).max()
     assert np.isfinite(got).all() and err <= 1e-5 * max(1.0, np.abs(ref).max()), err
 
 
+def test_tc_model_tiles_agree_bitwise():
+    """Every output sums the same products in the same order whatever the
+    time tile: the model at two tiles gives the same bits (so does the
+    kernel on the card, tests/test_torch_gpu.py)."""
+    C, k, dil, T = 64, 7, 2, 300
+    w1, b1, w2, b2, pack = _tc_case(C, k, 3)
+    x = resblock_x(T, C, b=1)[0].T.copy()
+    outs = [tc_step_model(x, pack, n(b1[0]), n(b2[0]), k, dil, tt) for tt in (118, 40)]
+    assert np.array_equal(outs[0], outs[1])
+
+
 def test_tc_geometry_fits_shared_memory():
-    """Every (C, k, dil) the kernel takes fits the 227 KB a block may use,
-    with the conv2 output tile inside the intermediate's buffer."""
+    """Every (C, k, dil) the kernel takes, at every tile up to its longest,
+    fits the 227 KB a block may use (two blocks an SM where the kernel
+    keeps two: 113 KB each), its regions in order; conv1's rows cover
+    conv2's halo; every warp holds 2 x 2 tiles or more; a chunk's raw x
+    is copied again only after its k taps have begun."""
     for C in trb.SUPPORTED_C:
         for k in trb.SUPPORTED_K:
-            g = tc_geometry(C, k)
-            assert g["TTP"] <= g["S1"] and g["M1"] <= g["S1"] and g["TT"] % 16 == 0
+            g = tc_cfg(C, k)
+            kc, mt_max, wm, per_sm = trb.TC_TILES[C]
+            assert (kc, mt_max, wm, per_sm) == (g["KC"], g["MT_MAX"], g["WM"], g["MINB"])
+            assert g["NTW"] >= 2 and g["MTW"] >= 2 and g["NCH"] * kc == C
+            tt_max = 16 * mt_max - (k - 1)
+            assert -(-(tt_max + k - 1) // 16) == mt_max
             for dil in range(1, trb.MAX_DILATION + 1):
-                xrs = stride8(g["M1"] + (k - 1) * dil)
-                smem = 4 * (2 * k * 4 * g["CS"] + C * g["S1"] + 2 * 4 * xrs)
-                assert smem <= 232448, (C, k, dil, smem)
+                for tt in (17, tt_max // 2, tt_max):
+                    mt1 = -(-(tt + k - 1) // 16)
+                    L = tc_layout(C, k, mt1, dil)
+                    limit = SMEM_TWO_BLOCKS if per_sm == 2 else SMEM_BLOCK
+                    assert 2 <= g["RING"] <= k and L["total"] <= limit, (C, k, dil, tt)
+                    assert L["raw"] + kc * L["xrp"] * 4 <= L["ring"]
+                    assert L["image"] + 2 * L["xr"] * kc * 4 <= L["raw"]
+                    assert L["xrp"] % 4 == 0 and L["xrp"] >= L["xr"] + 3
+                    assert 16 * mt1 >= tt + k - 1
 
 
 def test_three_tf32_passes_hold_fp32_accuracy():
     """One k = 11, C = 256 conv over 64 rows, summed as the kernel sums it
-    (4 channels x one tap per MMA, the fp32 accumulator rounded after each
-    of the 704 x 3 MMAs), relative to the fp64 result's max.  3xTF32
-    stays within 3x of fp32 FMA summed in the same order (about 1e-6
-    each) and within 1e-5; 1xTF32 does not stay within 1e-4, the kernel
-    check's tolerance.  That is why the kernel takes three passes."""
+    (chunks of KC = 16 channels outer, taps inner, 8 channels per MMA, the
+    fp32 accumulator rounded after each of the 352 x 3 MMAs), relative to
+    the fp64 result's max.  3xTF32 stays within 3x of fp32 FMA summed in the
+    same order (about 1e-6 each) and within 1e-5; 1xTF32 does not stay
+    within 1e-4, the kernel check's tolerance.  That is why the kernel
+    takes three passes."""
     K, C, M = 11, 256, 64
+    kc = trb.TC_TILES[C][0]
     rs = np.random.RandomState(0)
     a = rs.randn(M + K - 1, C).astype(np.float32) * np.float32(0.3)
     a = np.where(a >= 0, a, np.float32(0.1) * a).astype(np.float32)
@@ -327,17 +442,90 @@ def test_three_tf32_passes_hold_fp32_accuracy():
     errs = {}
     for method in ("fp32", "1xtf32", "3xtf32"):
         acc = np.zeros((M, C), np.float32)
-        for s in range(C // 4):
+        for ci in range(C // kc):
             for j in range(K):
-                aa, bb = a[j:j + M, 4 * s:4 * s + 4], w[j, 4 * s:4 * s + 4]
-                (ah, al), (bh, bl) = split_tf32(aa), split_tf32(bb)
-                terms = {"fp32": [(aa, bb)], "1xtf32": [(ah, bh)],
-                         "3xtf32": [(al, bh), (ah, bl), (ah, bh)]}[method]
-                for u, v in terms:
-                    acc = (acc + u.astype(np.float64) @ v.astype(np.float64)).astype(np.float32)
+                for ks in range(kc // 8):
+                    c0 = ci * kc + 8 * ks
+                    aa, bb = a[j:j + M, c0:c0 + 8], w[j, c0:c0 + 8]
+                    (ah, al), (bh, bl) = split_tf32(aa), split_tf32(bb)
+                    terms = {"fp32": [(aa, bb)], "1xtf32": [(ah, bh)],
+                             "3xtf32": [(al, bh), (ah, bl), (ah, bh)]}[method]
+                    for u, v in terms:
+                        acc = (acc + u.astype(np.float64) @ v.astype(np.float64)).astype(np.float32)
         errs[method] = np.abs(acc - ref).max() / np.abs(ref).max()
     assert errs["3xtf32"] <= min(1e-5, 3 * errs["fp32"]), errs
     assert errs["1xtf32"] > 1e-4, errs
+
+
+@pytest.mark.parametrize("C", [256, 32])
+def test_tc_pack_splits_the_weights_once_in_the_kernel_layout(C):
+    """`_tc_pack`'s words, in memory order, against a numpy split (hi =
+    rna(w), lo = rna(w - hi), bit for bit, ties included) laid out as the
+    kernel's stages: [step][conv][chunk][tap][hi, lo][C_out][KC], the
+    16-byte chunks of each C_out row at c ^ key(row)."""
+    k, D = 3, 2
+    kc = trb.TC_TILES[C][0]
+    rs = np.random.RandomState(C)
+    w = (rs.randn(2, D, k, C, C) * 0.1).astype(np.float32)
+    w.reshape(-1)[:64] = np.float32(1 + 2 ** -11)           # ties round away from zero
+    w.reshape(-1)[64:128] = -np.float32(1 + 3 * 2 ** -11)
+    got = trb._tc_pack(t(w[0]), t(w[1]))
+    assert got.is_contiguous() and got.dtype == torch.float32
+    hi, lo = split_tf32(w)                                  # (conv, D, k, C_in, C_out)
+    assert (hi.reshape(-1)[:64] == np.float32(1 + 2 ** -10)).all()
+    want = np.full((D, 2, C // kc, k, 2, C, kc), np.nan, np.float32)
+    n = np.arange(C)[:, None]
+    for ci in range(C // kc):
+        for pc in range(kc // 4):
+            src = ci * kc + 4 * swz(n, pc, kc // 4) + np.arange(4)      # (C, 4) input channels
+            for h, plane in enumerate((hi, lo)):
+                want[:, :, ci, :, h, :, 4 * pc:4 * pc + 4] = (
+                    plane[:, :, :, src, n].transpose(1, 0, 2, 3, 4))
+    assert np.array_equal(got.numpy().reshape(-1).view(np.uint32),
+                          want.reshape(-1).view(np.uint32))
+
+
+def _main_path_stages():
+    """(B, C, T) of the v2-48k resblock stages: conversion on 2 x 10 s and
+    training at B = 8 on the config's segment, as chip_smoke.py takes them."""
+    from rvc_maker_tpu_torch.config import preset
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline
+
+    cfg = preset("v2", 48000).model
+    out = []
+    for b, t0 in ((2, ConvertPipeline.frames(16000 * 10)), (8, cfg.segment_size)):
+        tt, c = t0, cfg.upsample_initial_channel
+        for u in cfg.upsample_rates:
+            tt, c = tt * u, c // 2
+            out.append((b, c, tt, tuple(cfg.resblock_kernel_sizes)))
+    return out
+
+
+def test_tc_time_tile_fills_the_card_and_covers_rows():
+    """At every main-path stage and k the tiles cover [0, T) exactly, each
+    within the kernel's m-tiles and at least 17 rows.  At the training
+    stage C = 256, T = 432, B = 8 the grid is one wave: 128 blocks of 27
+    rows (136, two waves on 4 SMs, took 0.918 / 1.712 / 2.508 ms at k = 3
+    / 7 / 11 on the card against 0.604 / 1.070 / 1.467 for 128:
+    chip_smoke.py phase 6, NVIDIA H100 80GB HBM3).  Where
+    the longest tile needs more than a wave at C >= 128, the tiles fill
+    the last wave to 90 % or more (C = 256 in conversion: 264 blocks, 2
+    waves)."""
+    stages = _main_path_stages()
+    assert (8, 256, 432, (3, 7, 11)) in stages and (2, 256, 11976, (3, 7, 11)) in stages
+    for b, c, tlen, ks in stages:
+        per_sm = trb.TC_TILES[c][3]
+        for k in ks:
+            tt = trb.tc_time_tile(b, tlen, c, k)
+            tiles = -(-tlen // tt)
+            assert (tiles - 1) * tt < tlen <= tiles * tt
+            assert min(17, tlen) <= tt and -(-(tt + k - 1) // 16) <= trb.TC_TILES[c][1]
+            last = b * tiles % trb.CARD_SMS            # blocks in the last wave
+            if per_sm == 1:
+                assert last == 0 or last >= 0.9 * trb.CARD_SMS or b * tiles < trb.CARD_SMS, \
+                    (b, c, tlen, k, b * tiles)
+    assert 8 * -(-432 // trb.tc_time_tile(8, 432, 256, 11)) == 128
+    assert 2 * -(-11976 // trb.tc_time_tile(2, 11976, 256, 11)) == 264
 
 
 # ---------------------------------------------------------------------------
