@@ -8,7 +8,8 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. build    every kernel of the port from rvc_maker_tpu_torch/csrc/
               (one nvcc per source, started together), with each
               source's build time and ptxas's registers / spills (for
-              resblock_tc each (C, k) instantiation on one line); beside
+              resblock_tc and resblock_tc_bf16 each (C, k) instantiation
+              on one line; a spill at any of them fails); beside
               them the g++ builds of the WORLD library and the FLAC
               decoder (native/src/worldlike.cpp, flacdec.cpp).
   3. kernels  each kernel against its plain PyTorch version at the
@@ -31,7 +32,11 @@ Phases, each printed as it runs; any failure exits non-zero:
               at the dense bf16 rate).  Per stage (C, T) a line of the fp32
               times summed over k beside the 3xTF32 bound and its share,
               with resblock_tc's time tile and blocks at each k; the
-              weights' split (`_tc_pack`) timed on its own.
+              weights' split (`_tc_pack`) timed on its own; and per stage
+              a line of the bf16 times summed over k (resblock_tc_bf16,
+              cuDNN's bf16 chain, the plain bf16 chain, resblock.cu)
+              beside the bf16 bound and its share, with
+              resblock_tc_bf16's time tile and blocks at each k.
   4. main     the port's ConvertPipeline at the full v2 / 48 kHz width
               (12-layer HuBERT, full RMVPE, 10,000 x 768 index, random
               weights from a seed): convert_batch on 2 x 10 s and
@@ -132,7 +137,8 @@ Phases, each printed as it runs; any failure exits non-zero:
               gradients against fp32 autograd through the plain chain at
               pinned slopes (within 4 bf16 ulps of |ref|max or twice the
               plain bf16 chain's own distance), timed beside cuDNN's bf16
-              chain and the bf16 bound.  (b) train() at v2-48k, B = 8 on
+              chain and the bf16 bound, per stage with resblock_tc_bf16's
+              time tile and blocks at each k.  (b) train() at v2-48k, B = 8 on
               phase 7's segments: the f0-less decoder, MRF-HiFi-GAN and
               RefineGAN (4 steps each), NSF in bf16 (4 steps) and NSF in
               bf16 with checkpointing (2 steps); launches counted: 36
@@ -456,6 +462,20 @@ def stage_line(path: str, st: dict, card: str) -> str:
                 for k, v in st["tiles"].items()) + f"; on {card}")
 
 
+def bf16_stage_line(path: str, st: dict, card: str) -> str:
+    """One resblock stage's bf16 times summed over its kernel sizes:
+    resblock_tc_bf16 beside cuDNN's bf16 chain and the bf16 bound, with
+    resblock_tc_bf16's time tile and blocks at each k."""
+    return (f"  {path} stage B={st['B']} C={st['C']} T={st['T']} bf16: resblock_tc_bf16 "
+            f"{st['bf16_ms']:.3f} ms, cuDNN bf16 chain {st['bf16_library_ms']:.3f}, plain bf16 "
+            f"{st['bf16_plain_ms']:.3f}" + (f", resblock.cu bf16 {st['bf16_fma_ms']:.3f}"
+                                            if "bf16_fma_ms" in st else "")
+            + f"; bf16 bound {st['bf16_bound_ms']:.3f} ms, share "
+            f"{st['bf16_bound_ms'] / st['bf16_ms']:.3f}; tiles " + ", ".join(
+                f"k={k}: {v['time_tile']} rows x {v['blocks']} blocks"
+                for k, v in st["bf16_tiles"].items()) + f"; on {card}")
+
+
 def check_resblock(stage_shapes, kernels, dilations, card: str):
     from rvc_maker_tpu_torch.ops import resblock as rb
 
@@ -468,7 +488,8 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
     stages = []
     for (b, c, t) in stage_shapes:
         stage = dict(B=b, C=c, T=t, ms=0.0, fma_ms=0.0, plain_ms=0.0, library_ms=0.0,
-                     pack_ms=0.0, bound_ms=0.0, tiles={})
+                     pack_ms=0.0, bound_ms=0.0, tiles={}, bf16_ms=0.0, bf16_fma_ms=0.0,
+                     bf16_plain_ms=0.0, bf16_library_ms=0.0, bf16_bound_ms=0.0, bf16_tiles={})
         for k in kernels:
             D = len(dilations)
             scale = 0.5 / (k * c) ** 0.5
@@ -521,12 +542,18 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + w1.numel() + w2.numel() + b1.numel() + b2.numel())
             fp32_bound_ms, bound_ms, _ = bounds_ms(flops, nbytes)
-            tt = rb.tc_time_tile(b, t, c, k)
+            tt = rb.tc_time_tile("tc", b, t, c, k)
             stage["tiles"][k] = dict(time_tile=tt, blocks=b * -(-t // tt))
             for key, v in (("ms", ms), ("fma_ms", fma_ms), ("plain_ms", plain_ms),
                            ("library_ms", lib_ms), ("pack_ms", pack_ms), ("bound_ms", bound_ms)):
                 stage[key] += v
             bf16_bound_ms = 1e3 * max(flops / H100_BF16_FLOPS, nbytes / 2 / H100_BYTES_PER_S)
+            ttb = rb.tc_time_tile("tc_bf16", b, t, c, k)
+            stage["bf16_tiles"][k] = dict(time_tile=ttb, blocks=b * -(-t // ttb))
+            for key, v in (("bf16_ms", bf16_ms), ("bf16_fma_ms", bf16_fma_ms),
+                           ("bf16_plain_ms", bf16_plain_ms), ("bf16_library_ms", bf16_lib_ms),
+                           ("bf16_bound_ms", bf16_bound_ms)):
+                stage[key] += v
             smem = {d: rb.smem_bytes(c, k, d) for d in dilations}
             smem_bf16 = {d: rb.smem_bytes(c, k, d, torch.bfloat16) for d in dilations}
             rows.append(dict(B=b, C=c, T=t, k=k, smem_bytes_tc=smem, smem_bytes_tc_bf16=smem_bf16,
@@ -551,7 +578,8 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             log(f"  resblock B={b} C={c} T={t} k={k} bf16: tc_bf16 kernel {bf16_ms:.3f} ms, fma "
                 f"kernel {bf16_fma_ms:.3f} ms, plain {bf16_plain_ms:.3f} ms, library "
                 f"{bf16_lib_ms:.3f} ms, bound {bf16_bound_ms:.3f} ms, roofline share "
-                f"{bf16_bound_ms / bf16_ms:.3f} | err vs the bf16 plain chain tc_bf16 "
+                f"{bf16_bound_ms / bf16_ms:.3f}, time tile {ttb} x {b * -(-t // ttb)} blocks "
+                f"| err vs the bf16 plain chain tc_bf16 "
                 f"{bf16_err:.3e} fma {bf16_fma_err:.3e} (tol {bf16_tol:.3e}), corr vs fp32 "
                 f"{corr:.6f} / {corr_fma:.6f}")
             if not (err <= tol and fma_err <= tol):
@@ -571,6 +599,7 @@ def check_resblock(stage_shapes, kernels, dilations, card: str):
             reset_counts(rb)
         stages.append(stage)
         log(stage_line("conversion", stage, card))
+        log(bf16_stage_line("conversion", stage, card))
     reset_counts(rb, saved)           # comparison launches do not count
     torch.cuda.empty_cache()
     fp32_bound, bound, bound_by = bounds_ms(totals["flops"], totals["bytes"])
@@ -960,7 +989,7 @@ def check_resblock_train(stage_shapes, kernels, dilations, card: str):
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 4 * (2 * b * c * t + sum(a.numel() for a in args[1:]))
             pack_ms = cuda_ms(lambda: rb._tc_pack(args[1], args[3]), iters)
-            tt = rb.tc_time_tile(b, t, c, k)
+            tt = rb.tc_time_tile("tc", b, t, c, k)
             stage["tiles"][k] = dict(time_tile=tt, blocks=b * -(-t // tt))
             if b * -(-t // tt) < rb.CARD_SMS:
                 # the tile that gives every SM a block, beside the rule's one wave
@@ -1996,7 +2025,7 @@ def check_resblock_train_bf16(stage_shapes, kernels, dilations, card: str):
     saved = reset_counts(rb)
     for (b, c, t) in stage_shapes:
         stage = dict(B=b, C=c, T=t, fwd_ms=0.0, plain_fwd_ms=0.0, library_fwd_ms=0.0,
-                     fwd_bwd_ms=0.0, plain_fwd_bwd_ms=0.0, flops=0, bytes=0)
+                     fwd_bwd_ms=0.0, plain_fwd_bwd_ms=0.0, flops=0, bytes=0, bf16_tiles={})
         for k in kernels:
             D = len(dilations)
             scale = 0.5 / (k * c) ** 0.5
@@ -2045,13 +2074,16 @@ def check_resblock_train_bf16(stage_shapes, kernels, dilations, card: str):
                 rb._resblock(*leaves, **kw), leaves, cot), iters)
             flops = rb.resblock_flops(b, t, c, k, D)
             nbytes = 2 * (2 * b * c * t + sum(a.numel() for a in args[1:]))
+            ttb = rb.tc_time_tile("tc_bf16", b, t, c, k)
+            stage["bf16_tiles"][k] = dict(time_tile=ttb, blocks=b * -(-t // ttb))
             log(f"  train resblock bf16 B={b} C={c} T={t} k={k}: forward err {fwd_err:.3e} "
                 f"(tol {fwd_tol:.3e}); grad err kernel / plain bf16 vs fp32 pinned ("
                 + ", ".join(f"{nm} {ek:.3e} / {ep:.3e} tol {tl:.3e}"
                             for nm, (ek, ep, tl) in grad.items())
                 + f"), slopes pinned at |pre-activation| <= {flip:.2e} | tc_bf16 fwd "
                 f"{fwd_ms:.3f} ms, library (cuDNN bf16) fwd {lib_ms:.3f} ms, plain bf16 fwd "
-                f"{plain_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms, plain fwd+bwd {plain_fb_ms:.3f} ms")
+                f"{plain_ms:.3f} ms, fwd+bwd {fb_ms:.3f} ms, plain fwd+bwd {plain_fb_ms:.3f} ms; "
+                f"time tile {ttb} x {b * -(-t // ttb)} blocks")
             if not fwd_err <= fwd_tol:
                 raise AssertionError(f"train resblock bf16 C={c} k={k}: forward err {fwd_err}")
             for nm, (ek, ep, tl) in grad.items():
@@ -2068,10 +2100,11 @@ def check_resblock_train_bf16(stage_shapes, kernels, dilations, card: str):
         stage["bound_ms"] = 1e3 * max(stage["flops"] / H100_BF16_FLOPS,
                                       stage["bytes"] / H100_BYTES_PER_S)
         rows.append(stage)
-        log(f"  stage C={c} bf16: tc_bf16 fwd {stage['fwd_ms']:.3f} ms (bound "
-            f"{stage['bound_ms']:.3f}), library (cuDNN bf16) fwd {stage['library_fwd_ms']:.3f} "
-            f"ms, plain bf16 fwd {stage['plain_fwd_ms']:.3f} ms, fwd+bwd "
-            f"{stage['fwd_bwd_ms']:.3f} ms, plain fwd+bwd {stage['plain_fwd_bwd_ms']:.3f} ms")
+        log(bf16_stage_line("training", dict(
+            stage, bf16_ms=stage["fwd_ms"], bf16_library_ms=stage["library_fwd_ms"],
+            bf16_plain_ms=stage["plain_fwd_ms"], bf16_bound_ms=stage["bound_ms"]), card)
+            + f"; fwd+bwd {stage['fwd_bwd_ms']:.3f} ms, plain fwd+bwd "
+            f"{stage['plain_fwd_bwd_ms']:.3f} ms")
     reset_counts(rb, saved)           # comparison launches do not count
     torch.cuda.empty_cache()
     tot = {key: sum(r[key] for r in rows) for key in
@@ -2705,6 +2738,36 @@ def ptxas_summary(text: str) -> list:
             if found:
                 cur["spill_stores"], cur["spill_loads"] = map(int, found.groups())
     return out
+
+
+def resblock_ptxas(text: str, kernel: str) -> list:
+    """ptxas -v's registers and spills of each (C, k) instantiation of a
+    resblock kernel template."""
+    out = []
+    for ent in ptxas_summary(text):
+        found = re.search(kernel + r"ILi(\d+)ELi(\d+)E", ent["entry"])
+        if found:
+            out.append(dict(C=int(found[1]), K=int(found[2]), registers=ent["registers"],
+                            spill_stores=ent["spill_stores"], spill_loads=ent["spill_loads"]))
+    return out
+
+
+TC_SOURCES = ("resblock_tc", "resblock_tc_bf16")
+TC_INSTANTIATIONS = 15           # 5 widths x 3 kernel sizes of each tensor-core kernel
+
+
+def resblock_ptxas_gate(logs: dict) -> dict:
+    """Each tensor-core resblock kernel's ptxas figures per (C, k), from
+    `build.build_all`'s logs (an earlier build's read back).  Raises
+    unless all 15 instantiations of each are reported, none spilling."""
+    rows = {src: resblock_ptxas(logs.get(src, ""), src + "_step_kernel") for src in TC_SOURCES}
+    counts = {src: len(r) for src, r in rows.items()}
+    spilled = [(src, e["C"], e["K"]) for src, r in rows.items() for e in r
+               if e["spill_stores"] or e["spill_loads"]]
+    if set(counts.values()) != {TC_INSTANTIATIONS} or spilled:
+        raise AssertionError(f"ptxas: instantiations reported {counts} (expected "
+                             f"{TC_INSTANTIATIONS} each), spills at {spilled}")
+    return rows
 
 
 def ws_template(entry: str) -> str:
@@ -4813,16 +4876,13 @@ def run(work: str) -> int:
         for line in text.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
-    tc_ptxas = []
-    for ent in ptxas_summary(logs.get("resblock_tc", "")):
-        found = re.search(r"resblock_tc_step_kernelILi(\d+)ELi(\d+)E", ent["entry"])
-        if found:
-            tc_ptxas.append(dict(C=int(found[1]), K=int(found[2]), registers=ent["registers"],
-                                 spill_stores=ent["spill_stores"], spill_loads=ent["spill_loads"]))
-    RESULTS["resblock_tc_ptxas"] = tc_ptxas
-    log("  resblock_tc per instantiation (C, k): registers, spill stores / loads in bytes: "
-        + "; ".join(f"({e['C']}, {e['K']}) {e['registers']}, {e['spill_stores']} / "
-                    f"{e['spill_loads']}" for e in tc_ptxas))
+    rows = resblock_ptxas_gate(logs)
+    RESULTS["resblock_tc_ptxas"] = rows["resblock_tc"]
+    RESULTS["resblock_tc_bf16_ptxas"] = rows["resblock_tc_bf16"]
+    for src, src_rows in rows.items():
+        log(f"  {src} per instantiation (C, k): registers, spill stores / loads in bytes: "
+            + "; ".join(f"({e['C']}, {e['K']}) {e['registers']}, {e['spill_stores']} / "
+                        f"{e['spill_loads']}" for e in src_rows))
 
     from rvc_maker_tpu_torch.config import preset
     from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline
@@ -5036,7 +5096,8 @@ def run(work: str) -> int:
              # per stage, in conversion (phase 3) and in the training forward
              # (phase 6): the times, the bound and the time tiles; ptxas's
              # registers and spills per instantiation (phase 2)
-             stages=[{k: v for k, v in st.items()} for st in totals["stages"]],
+             stages=[{k: v for k, v in st.items() if not k.startswith("bf16")}
+                     for st in totals["stages"]],
              train_stages=[{k: st[k] for k in ("B", "C", "T", "fwd_ms", "fma_fwd_ms",
                                                "plain_fwd_ms", "library_fwd_ms", "pack_ms",
                                                "fwd_bound_ms", "tiles")} for st in tk["rows"]],
@@ -5056,7 +5117,17 @@ def run(work: str) -> int:
              train_fwd_library_ms=tkb["library_fwd_ms"], train_fwd_plain_ms=tkb["plain_fwd_ms"],
              max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
              fma_ms=totals["bf16_fma_ms"],
-             roofline_share=totals["bf16_bound_ms"] / totals["bf16_ms"], **common, **bf16),
+             roofline_share=totals["bf16_bound_ms"] / totals["bf16_ms"],
+             # per stage, in conversion (phase 3) and in the training forward
+             # (phase 12a): the times, the bound and the time tiles; ptxas's
+             # registers and spills per instantiation (phase 2)
+             stages=[{k: st[k] for k in ("B", "C", "T", "bf16_ms", "bf16_library_ms",
+                                         "bf16_plain_ms", "bf16_fma_ms", "bf16_bound_ms",
+                                         "bf16_tiles")} for st in totals["stages"]],
+             train_stages=[{k: st[k] for k in ("B", "C", "T", "fwd_ms", "library_fwd_ms",
+                                               "plain_fwd_ms", "bound_ms", "bf16_tiles")}
+                           for st in ta["train_kernel_bf16"]["rows"]],
+             ptxas=RESULTS["resblock_tc_bf16_ptxas"], **common, **bf16),
         # resblock.cu, on no path (its launches on the main paths are 0):
         # its bf16 times, and its fp32 ones under fp32_*
         dict(name="resblock", source="rvc_maker_tpu_torch/csrc/resblock.cu",
@@ -5111,7 +5182,8 @@ def run(work: str) -> int:
              routes={"cpu": "plain", "cuda": "none (conv1d_w8a8_ws is the route)"})]
     print(smi)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -485,16 +485,20 @@ conv1d_w8a8_ws_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __rest
     }
   };
 
-  // this thread's output channels: scales and biases for all tiles
-  float sc[P::MT][2], bc[P::MT][2];
+  // this thread's output channels: scales and biases for all tiles, read
+  // by the MMA threads only (a split quantize warp's wm is negative: its
+  // channels would lie before the tensors' first element)
+  float sc[P::MT][2] = {}, bc[P::MT][2] = {};
+  if (!P::SPLIT || !q_role) {
 #pragma unroll
-  for (int im = 0; im < P::MT; ++im)
+    for (int im = 0; im < P::MT; ++im)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = m0 + (wm * P::MT + im) * 16 + g + 8 * h;
-      sc[im][h] = __fmul_rn(s, wscale[co]);
-      bc[im][h] = __bfloat162float(bias[co]);
-    }
+      for (int h = 0; h < 2; ++h) {
+        const int co = m0 + (wm * P::MT + im) * 16 + g + 8 * h;
+        sc[im][h] = __fmul_rn(s, wscale[co]);
+        bc[im][h] = __bfloat162float(bias[co]);
+      }
+  }
 
   // ldmatrix lane roles: row within the 8x8 matrix, and which matrix
   const int lr = lane & 7;

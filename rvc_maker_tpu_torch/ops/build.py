@@ -54,6 +54,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
+def log_path(name: str) -> Path:
+    """nvcc's output of the build of `library_path(name)`, kept beside it."""
+    return library_path(name).with_suffix(".log")
+
+
 def _command(name: str, out: str) -> list[str]:
     return [nvcc_path(), *NVCC_FLAGS, "-o", out, str(CSRC_DIR / SOURCES[name])]
 
@@ -61,15 +66,16 @@ def _command(name: str, out: str) -> list[str]:
 def build_all(names=None) -> dict[str, str]:
     """Compile every named kernel (default: all) that is not built yet,
     one nvcc per source, all started together.  Returns each compiler's
-    output (ptxas registers / shared memory / spills) by name; raises
-    if any build fails."""
+    output (ptxas registers / shared memory / spills) by name, that of an
+    earlier build read back from `log_path`; raises if any build fails."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, logs = {}, {}
     t0 = time.perf_counter()
     for name in names:
         target = library_path(name)
-        if target.exists():
+        if target.exists() and log_path(name).exists():
+            logs[name] = log_path(name).read_text()
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -83,7 +89,6 @@ def build_all(names=None) -> dict[str, str]:
 
     with ThreadPoolExecutor(max(1, len(procs))) as pool:
         done = {name: pool.submit(finish, proc) for name, (_, _, proc) in procs.items()}
-    logs = {name: "" for name in names}
     failed = []
     for name, (tmp, target, proc) in procs.items():
         logs[name], build_seconds[name] = done[name].result()
@@ -91,6 +96,7 @@ def build_all(names=None) -> dict[str, str]:
             os.unlink(tmp)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
         else:
+            log_path(name).write_text(logs[name])
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

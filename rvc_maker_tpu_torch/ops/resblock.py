@@ -11,7 +11,7 @@ dtype and the width alone:
 
     cpu                               -> the plain steps
     cuda, fp32, C in TC_WIDTHS        -> csrc/resblock_tc.cu (3xTF32 mma.sync.m16n8k8)
-    cuda, bf16, C in SUPPORTED_C      -> csrc/resblock_tc_bf16.cu (bf16 mma.sync)
+    cuda, bf16, C in SUPPORTED_C      -> csrc/resblock_tc_bf16.cu (bf16 mma.sync.m16n8k16)
 
 A failed build or launch raises; no route is taken because another
 failed.  In the int8 mode (RVC_TPU_INT8=1, bf16) the decode sends its
@@ -29,8 +29,9 @@ package's (k, C_in, C_out) per conv, stacked over the D dilations) and
 biases as (D, C), so each kernel step reads one contiguous slab.  The
 fp32 tensor-core kernel takes its weights split into two TF32 planes in
 its own stage order, which `_tc_pack` makes once per call (as JAX's
-`pack_resblock_weights` packs outside its kernel), and a time tile that
-`tc_time_tile` chooses per launch.
+`pack_resblock_weights` packs outside its kernel); the bf16 one takes
+the packed weights as they lie.  Both take a time tile that
+`tc_time_tile` chooses per launch from their config tables.
 
 Gradients: `fused_resblock` is a torch.autograd.Function.  Its forward
 (the kernel on the card, the plain steps on the CPU) keeps the D step
@@ -62,8 +63,12 @@ TC_WIDTHS = SUPPORTED_C   # fp32 widths that csrc/resblock_tc.cu takes
 # an SM holds)
 TC_TILES = {256: (16, 8, 2, 1), 128: (32, 8, 2, 1), 64: (16, 8, 4, 2), 32: (16, 16, 8, 2),
             16: (16, 32, 8, 1)}
+# csrc/resblock_tc_bf16.cu `Cfg` per width, the same columns
+TC_BF16_TILES = {256: (64, 8, 2, 1), 128: (64, 8, 2, 2), 64: (32, 16, 4, 2), 32: (32, 32, 8, 2),
+                 16: (16, 32, 8, 2)}
 CARD_SMS = 132            # streaming multiprocessors of an H100 SXM
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TC_TABLES = {"tc": TC_TILES, "tc_bf16": TC_BF16_TILES}   # route -> its config table
 
 # kernel launches since the last reset (one per dilation step): all of
 # them, and those of each tensor-core kernel
@@ -167,9 +172,10 @@ def _route(device_type: str, dtype: torch.dtype, channels: int) -> str:
 
 def _library(route: str):
     """The route's kernel library, built on first use; its step function
-    takes (x, out, w1, b1, w2, b2, B, C, T, K, dil[, dtype code], stream),
-    the tc route's (x, out, `_tc_pack` slab, b1, b2, B, C, T, K, dil,
-    time tile, stream)."""
+    takes (x, out, w1, b1, w2, b2, B, C, T, K, dil, time tile, stream)
+    (tc_bf16), (x, out, w1, b1, w2, b2, B, C, T, K, dil, dtype code,
+    stream) (fma), and the tc route's (x, out, `_tc_pack` slab, b1, b2,
+    B, C, T, K, dil, time tile, stream)."""
     name, prefix = _LIBRARIES[route]
     lib = build.load(name)
     step, smem = getattr(lib, prefix + "_step"), getattr(lib, prefix + "_smem_bytes")
@@ -177,30 +183,30 @@ def _library(route: str):
         if route == "tc":
             step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             smem.argtypes = [ctypes.c_int] * 4
-        else:
-            dtype_arg = [ctypes.c_int] if route == "fma" else []   # resblock.cu's dtype code
-            step.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + dtype_arg
-                             + [ctypes.c_void_p])
-            smem.argtypes = [ctypes.c_int] * 3 + dtype_arg
+        else:   # tc_bf16: its time tile; fma: resblock.cu's dtype code
+            step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            smem.argtypes = [ctypes.c_int] * 4
         step.restype = ctypes.c_int
         smem.restype = ctypes.c_size_t
     return lib, step, smem
 
 
-def tc_time_tile(batch: int, length: int, channels: int, kernel_size: int,
+def tc_time_tile(route: str, batch: int, length: int, channels: int, kernel_size: int,
                  sms: int = CARD_SMS) -> int:
-    """Output rows per block of csrc/resblock_tc.cu for one launch on (B, C,
-    T) at kernel size k.  A block streams both convs' weights whatever its
-    tile, so the longest tile shared memory takes (MT_MAX m-tiles of conv1,
-    which covers conv2's k - 1 halo rows) reads them fewest times.  Where
-    an SM holds one block (C = 16, 128, 256), the grid (tiles x B blocks) runs in
-    whole waves: the rows are cut into as many tiles of equal length as
-    fill the waves the longest tile needs, so that no SM idles in the last
-    one.  Where it holds two (C = 32, 64), a block starts as soon as one
+    """Output rows per block of the tensor-core kernel of `route` ("tc":
+    csrc/resblock_tc.cu, config table `TC_TILES`; "tc_bf16":
+    csrc/resblock_tc_bf16.cu, `TC_BF16_TILES`) for one launch on (B, C,
+    T) at kernel size k.  A block streams both convs' weights whatever
+    its tile, so the longest tile the kernel takes (MT_MAX m-tiles of conv1, which covers conv2's
+    k - 1 halo rows) reads them fewest times.  Where an SM holds one block
+    (fp32 C = 16, 128, 256; bf16 C = 256), the grid (tiles x B blocks)
+    runs in whole waves: the rows are cut into as many tiles of equal
+    length as fill the waves the longest tile needs, so that no SM idles
+    in the last one.  Where it holds two, a block starts as soon as one
     ends, and the rows are cut only while the grid has fewer blocks than
     the SMs hold.  No tile is cut below 17 rows (2 m-tiles of conv2, so that
     conv1's halo stays under a third of its rows)."""
-    _, mt_max, _, per_sm = TC_TILES[channels]
+    _, mt_max, _, per_sm = _TC_TABLES[route][channels]
     slots = sms * per_sm
     longest = -(-length // (16 * mt_max - (kernel_size - 1)))
     waves = -(-batch * longest // slots) if per_sm == 1 else 1
@@ -250,11 +256,11 @@ def _tc_swizzle(rows: int, chunks: int, device) -> tuple:
 def smem_bytes(channels: int, kernel_size: int, dilation: int,
                dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one launch of the kernel that `_route` picks
-    for a CUDA tensor of this dtype and width (0: shape not taken); for the
-    fp32 tensor-core kernel at its longest time tile."""
+    for a CUDA tensor of this dtype and width (0: shape not taken); for a
+    tensor-core kernel at its longest time tile."""
     route = _route("cuda", dtype, channels)
-    if route == "tc":
-        longest = 16 * TC_TILES[channels][1] - (kernel_size - 1)
+    if route in _TC_TABLES:
+        longest = 16 * _TC_TABLES[route][channels][1] - (kernel_size - 1)
         return int(_library(route)[2](channels, kernel_size, dilation, longest))
     extra = (_DTYPE_CODE[dtype],) if route == "fma" else ()
     return int(_library(route)[2](channels, kernel_size, dilation, *extra))
@@ -263,22 +269,23 @@ def smem_bytes(channels: int, kernel_size: int, dilation: int,
 def _launch_steps(route: str, x, w1, b1, w2, b2, kernel_size: int, dilations,
                   time_tile: int | None = None):
     """[x_0, ..., x_D] through the route's kernel, one launch per step;
-    raises if a launch fails.  time_tile: the tc route's rows per block
-    (default `tc_time_tile`'s choice)."""
+    raises if a launch fails.  time_tile: a tensor-core route's rows per
+    block (default `tc_time_tile`'s choice over its table)."""
     global resblock_launches, resblock_tc_launches, resblock_tc_bf16_launches
     _check(x, w1, b1, w2, b2, kernel_size, dilations)
     lib, step, _ = _library(route)
     b, c, t = x.shape
     if route == "tc":
         pack = _tc_pack(w1, w2)
-        tt = time_tile or tc_time_tile(b, t, c, kernel_size)
         weights = [(pack[i].data_ptr(), b1[i].data_ptr(), b2[i].data_ptr())
                    for i in range(len(dilations))]
-        extra = (tt,)
     else:
         weights = [(w1[i].data_ptr(), b1[i].data_ptr(), w2[i].data_ptr(), b2[i].data_ptr())
                    for i in range(len(dilations))]
-        extra = (_DTYPE_CODE[x.dtype],) if route == "fma" else ()
+    if route in _TC_TABLES:
+        extra = (time_tile or tc_time_tile(route, b, t, c, kernel_size),)
+    else:
+        extra = (_DTYPE_CODE[x.dtype],)
     xs = [x]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

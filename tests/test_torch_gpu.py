@@ -49,12 +49,14 @@ def test_kernel_matches_plain_on_card(cuda, C, T, k):
     assert err <= 1e-4 * max(1.0, ref.abs().max().item()), err
 
 
-TC_TT = {256: 64, 128: 128, 64: 256, 32: 512, 16: 1024}   # resblock_tc_bf16.cu rows per block
-
-
 def _tc_longest(C, k):
     """resblock_tc.cu's longest time tile at (C, k)."""
     return 16 * trb.TC_TILES[C][1] - (k - 1)
+
+
+def _bf16_longest(C, k):
+    """resblock_tc_bf16.cu's longest time tile at (C, k)."""
+    return 16 * trb.TC_BF16_TILES[C][1] - (k - 1)
 
 
 def _tc_case(cuda, C, k, T, b=3, seed=0, time_tile=None):
@@ -159,30 +161,56 @@ def _bf16_case(cuda, C, k, T, b=2):
 @pytest.mark.parametrize("C", trb.SUPPORTED_C)
 @pytest.mark.parametrize("k", [3, 7, 11])
 def test_tc_bf16_kernel_matches_plain_on_card(cuda, C, k):
-    """The bf16 route (csrc/resblock_tc_bf16.cu) at every width, T two
-    full tiles and a ragged one, against the bf16 plain chain on the same
-    inputs: max abs <= 4 bf16 ulps of |ref|max; 3 launches of it."""
-    x, args, dils, ref = _bf16_case(cuda, C, k, 2 * TC_TT[C] + 37)
-    assert trb._route("cuda", x.dtype, C) == "tc_bf16"
-    before = trb.resblock_tc_bf16_launches
-    got = trb.fused_resblock(x, *args, kernel_size=k, dilations=dils)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and trb.resblock_tc_bf16_launches == before + 3
-    err = (got.float() - ref).abs().max().item()
-    assert torch.isfinite(got).all() and err <= _bf16_tol(ref), err
+    """The bf16 route (csrc/resblock_tc_bf16.cu) at every width, T across
+    two of its longest tiles and a ragged one: T odd (x staged and the
+    output written 2 bytes at a time) at that tile, T = 4 mod 8 (8 bytes
+    at a time) at that tile, then T a multiple of 8 (16 bytes at a time)
+    at that tile and at the route's own; against the bf16 plain chain on
+    the same inputs: max abs <= 4 bf16 ulps of |ref|max; 3 launches of
+    it each."""
+    tt = _bf16_longest(C, k)
+    for T, tile in ((2 * tt + 37, tt), (2 * tt + 12 - 2 * tt % 8, tt),
+                    (2 * tt + 8 - 2 * tt % 8, tt), (2 * tt + 8 - 2 * tt % 8, None)):
+        x, args, dils, ref = _bf16_case(cuda, C, k, T)
+        assert trb._route("cuda", x.dtype, C) == "tc_bf16"
+        before = trb.resblock_tc_bf16_launches
+        got = (trb.fused_resblock(x, *args, kernel_size=k, dilations=dils) if tile is None
+               else trb._launch_steps("tc_bf16", x, *args, k, dils, time_tile=tile)[-1])
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and trb.resblock_tc_bf16_launches == before + 3
+        err = (got.float() - ref).abs().max().item()
+        assert torch.isfinite(got).all() and err <= _bf16_tol(ref), (T, tile, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", trb.SUPPORTED_C)
+def test_tc_bf16_kernel_output_does_not_depend_on_the_tile_on_card(cuda, C):
+    """Every output sums the same products in the same order whatever the
+    time tile: three tiles give the same bits, T odd and a multiple of 8."""
+    k = 11
+    for T in (3 * _bf16_longest(C, k) + 5, 3 * _bf16_longest(C, k) + 6):
+        x, args, dils, ref = _bf16_case(cuda, C, k, T)
+        outs = [trb._launch_steps("tc_bf16", x, *args, k, dils, time_tile=tt)[-1]
+                for tt in (_bf16_longest(C, k), 17, 40)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[0], o) for o in outs[1:]), T
+        assert (outs[0].float() - ref).abs().max().item() <= _bf16_tol(ref)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["tc_bf16", "fma"])
-@pytest.mark.parametrize("C,T", [(256, 1), (16, 7), (64, 257)])
+@pytest.mark.parametrize("C,T", [(256, 1), (16, 7), (64, _bf16_longest(64, 11) + 1),
+                                 (128, _bf16_longest(128, 11) + 1)])
 def test_bf16_kernels_called_directly_on_card(cuda, route, C, T):
     """Each bf16 kernel called directly, not through `_route`
     (resblock.cu, on no route now, through `_fma_resblock`), at k = 11 on
-    sequences shorter than a tile and than the halo, and one row past a
-    tile: within 4 bf16 ulps of the bf16 plain chain."""
+    sequences shorter than a tile and than the halo, and one row past
+    resblock_tc_bf16's longest tile (at that tile): within 4 bf16 ulps of
+    the bf16 plain chain."""
     x, args, dils, ref = _bf16_case(cuda, C, 11, T, b=3)
     got = (trb._fma_resblock(x, *args, kernel_size=11, dilations=dils) if route == "fma"
-           else trb._launch_steps(route, x, *args, 11, dils)[-1])
+           else trb._launch_steps(route, x, *args, 11, dils,
+                                  time_tile=min(T, _bf16_longest(C, 11)))[-1])
     torch.cuda.synchronize()
     err = (got.float() - ref).abs().max().item()
     assert torch.isfinite(got).all() and err <= _bf16_tol(ref), err
@@ -206,8 +234,11 @@ def test_tc_autograd_matches_plain_on_card(cuda):
 @pytest.mark.gpu
 def test_kernel_bf16_correlates_on_card(cuda):
     """The bf16 route (resblock_tc_bf16) follows the fp32 plain chain:
-    correlation > 0.99."""
+    correlation > 0.99, over T that crosses the wrapper's tiles and ends
+    on a ragged one."""
     k, dils, C, T = 3, (1, 3, 5), 64, 600
+    tt = trb.tc_time_tile("tc_bf16", 1, T, C, k)
+    assert tt < T and T % tt
     p = resblock_params(7, k, C, 3)
     x = t(resblock_x(T, C, b=1)).transpose(1, 2).contiguous().to(cuda)
     args = [a.to(cuda) for a in packed_resblock(p)]

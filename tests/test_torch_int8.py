@@ -691,6 +691,32 @@ def test_ws_kernel_model_matches_plain(C, K, dil, B, T, lrelu, res):
     np.testing.assert_array_equal(got, _f32(ref))
 
 
+@pytest.mark.parametrize("C,K", sorted(tq.WS_TILES))
+def test_ws_scale_and_bias_reads_stay_in_bounds(C, K):
+    """csrc/conv1d_w8a8_ws.cu's per-thread reads of w_scale and bias, at
+    every thread of every block row of its tiles, warp roles included: a
+    split block's quantize warps (0-3) have a negative MMA warp index and
+    read neither, and every channel read lies in [0, C) (a read before the
+    tensors faulted on the card where they began an allocation)."""
+    MB, TN, NB, CL = tq.WS_TILES[(C, K)]
+    split, kwm, mt = np.bool_(CL == 0), 2, MB // 32
+    tid = np.arange(256)
+    warp, g = tid // 32, (tid % 32) // 4
+    q_role = ~split | (warp < 4)
+    mwarp = np.where(split, warp - 4, warp)
+    wm = np.fmod(mwarp, kwm)                     # C's remainder: negative for mwarp < 0
+    reads = ~split | ~q_role
+    assert reads.sum() == (128 if split else 256)
+    for m0 in range(0, C, MB):
+        for im in range(mt):
+            for h in range(2):
+                co = m0 + (wm * mt + im) * 16 + g + 8 * h
+                assert ((co[reads] >= 0) & (co[reads] < C)).all()
+                assert ((co[reads] >= m0) & (co[reads] < m0 + MB)).all()
+                if split:   # what the quantize warps would have read
+                    assert (co[~reads] < m0).any()
+
+
 def test_ws_division_is_correctly_rounded():
     """The kernel's branch-free division (`div_rn`, with its FMAs
     emulated exactly) is IEEE v / s bit for bit, and its quantizer the

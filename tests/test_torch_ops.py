@@ -159,7 +159,8 @@ def test_port_imports_no_jax(root):
 @pytest.mark.parametrize("fail", [False, True], ids=["builds", "fails"])
 def test_build_all_runs_each_source_and_reports(tmp_path, monkeypatch, fail):
     """build_all starts one compiler per source and records its seconds;
-    a failing compiler raises with that source's output.  A shell script
+    a failing compiler raises with that source's output; a source built
+    before is not built again and its output is read back.  A shell script
     stands in for nvcc (this machine has none): it writes the library
     named after -o, or prints an error and exits 1."""
     from rvc_maker_tpu_torch.ops import build
@@ -185,4 +186,50 @@ def test_build_all_runs_each_source_and_reports(tmp_path, monkeypatch, fail):
     assert logs == {"a": "ptxas report\n", "b": "ptxas report\n"}
     assert set(build.build_seconds) == {"a", "b"}
     assert all(build.library_path(k).exists() for k in ("a", "b"))
-    assert build.build_all() == {"a": "", "b": ""}       # built: nothing to run
+    # built: nothing runs, and each earlier build's output is read back
+    build.build_seconds.clear()
+    assert build.build_all() == logs and not build.build_seconds
+    # a library whose output was not kept is built again
+    build.log_path("a").unlink()
+    assert build.build_all() == logs and set(build.build_seconds) == {"a"}
+
+
+def _ptxas_log(kernel: str, spill: int = 0) -> str:
+    """ptxas -v's lines for the 15 (C, k) instantiations of `kernel`."""
+    out = []
+    for c in (256, 128, 64, 32, 16):
+        for k in (11, 7, 3):
+            name = f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{c}ELi{k}EEEvPK13__nv_bfloat16ii"
+            out += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                    f"ptxas info    : Function properties for {name}",
+                    f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads",
+                    "ptxas info    : Used 128 registers, used 2 barriers"]
+    return "\n".join(out)
+
+
+@pytest.mark.parametrize("case", ["built", "cached_without_log", "spilled"])
+def test_resblock_ptxas_gate(case):
+    """chip_smoke.py phase 2's gate on the tensor-core resblock kernels'
+    ptxas figures: it passes with all 15 instantiations of each reported
+    and no spill, and fails where a source's output is missing (as it was
+    for a library built by an earlier run, before build_all kept it) or
+    an instantiation spills."""
+    import chip_smoke
+
+    logs = {"resblock_tc": _ptxas_log("resblock_tc_step_kernel"),
+            "resblock_tc_bf16": _ptxas_log("resblock_tc_bf16_step_kernel")}
+    if case == "built":
+        rows = chip_smoke.resblock_ptxas_gate(logs)
+        assert {src: len(r) for src, r in rows.items()} == {"resblock_tc": 15,
+                                                            "resblock_tc_bf16": 15}
+        assert rows["resblock_tc_bf16"][0] == dict(C=256, K=11, registers=128,
+                                                   spill_stores=0, spill_loads=0)
+        return
+    if case == "cached_without_log":
+        logs["resblock_tc_bf16"] = ""
+        match = "'resblock_tc_bf16': 0"
+    else:
+        logs["resblock_tc"] = _ptxas_log("resblock_tc_step_kernel", spill=8)
+        match = r"spills at \[\('resblock_tc', 256, 11\)"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.resblock_ptxas_gate(logs)

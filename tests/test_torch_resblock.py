@@ -151,6 +151,7 @@ TC_CFG = {256: (16, 8, 2, 2, 1, True, False), 128: (32, 8, 2, 3, 1, False, True)
           16: (16, 32, 8, 3, 1, False, True)}
 SMEM_BLOCK = 232448          # bytes a block may use on sm_90
 SMEM_TWO_BLOCKS = 115712     # each of two blocks on one SM: 228 KB less 1 KB a block
+SMEM_SM = 233472             # an SM's shared memory, of which each block's 1 KB is reserved
 
 
 def tf32_rna(v):
@@ -162,11 +163,6 @@ def tf32_rna(v):
 def split_tf32(v):
     hi = tf32_rna(v)
     return hi, tf32_rna(np.asarray(v, np.float32) - hi)
-
-
-def stride8(n):
-    """Smallest row stride >= n that is 8 mod 32 words."""
-    return n + (8 - n) % 32
 
 
 def tc_cfg(C, K):
@@ -200,13 +196,10 @@ def tc_layout(C, K, mt1, dil):
 
 
 def swz(r, c, cpr):
-    """`swz`: where chunk c of row r lies in an image of cpr 16-byte chunks
-    a row."""
-    return c ^ ((r & 7) if cpr >= 8 else ((r >> 1) & 3))
-
-
-def assert_banks_distinct(addr):
-    assert len(set((np.asarray(addr) % 32).tolist())) == 32, addr
+    """`swz` (both kernels): where chunk c of row r lies in an image of cpr
+    16-byte chunks a row, so that any 8 consecutive rows of one chunk fall
+    on 8 distinct bank groups."""
+    return c ^ ((r & 7) if cpr >= 8 else ((r // (8 // cpr)) & (cpr - 1)))
 
 
 def ldsm_x4(mem, chunk):
@@ -516,7 +509,7 @@ def test_tc_time_tile_fills_the_card_and_covers_rows():
     for b, c, tlen, ks in stages:
         per_sm = trb.TC_TILES[c][3]
         for k in ks:
-            tt = trb.tc_time_tile(b, tlen, c, k)
+            tt = trb.tc_time_tile("tc", b, tlen, c, k)
             tiles = -(-tlen // tt)
             assert (tiles - 1) * tt < tlen <= tiles * tt
             assert min(17, tlen) <= tt and -(-(tt + k - 1) // 16) <= trb.TC_TILES[c][1]
@@ -524,16 +517,25 @@ def test_tc_time_tile_fills_the_card_and_covers_rows():
             if per_sm == 1:
                 assert last == 0 or last >= 0.9 * trb.CARD_SMS or b * tiles < trb.CARD_SMS, \
                     (b, c, tlen, k, b * tiles)
-    assert 8 * -(-432 // trb.tc_time_tile(8, 432, 256, 11)) == 128
-    assert 2 * -(-11976 // trb.tc_time_tile(2, 11976, 256, 11)) == 264
+    assert 8 * -(-432 // trb.tc_time_tile("tc", 8, 432, 256, 11)) == 128
+    assert 2 * -(-11976 // trb.tc_time_tile("tc", 2, 11976, 256, 11)) == 264
 
 
 # ---------------------------------------------------------------------------
 # A numpy model of csrc/resblock_tc_bf16.cu: one dilation step in bf16,
-# tiled as the kernel tiles it, with the m16n8k8 bf16 fragment maps, the
-# [channel pair][row] word images of lrelu(x) and of the intermediate,
-# and the weights' B fragments as ldmatrix.trans reads them.
+# tiled as the kernel tiles it (its time tile, its ring of weight stages),
+# through its shared-memory images (time-major, swizzled), the staging
+# pass's transposing ldmatrix, ldmatrix's lane maps (x4 for A, x4.trans
+# for B), the m16n8k16 bf16 fragments and the fp32 output tile, with a
+# bank check on every shared access.  The kernel's index arithmetic is
+# written from this model.
 # ---------------------------------------------------------------------------
+
+# csrc/resblock_tc_bf16.cu `Cfg`: KC, MT_MAX, WM, RING, MINB
+TC_BF16_CFG = {256: (64, 8, 2, 3, 1), 128: (64, 8, 2, 3, 2), 64: (32, 16, 4, 3, 2),
+               32: (32, 32, 8, 3, 2), 16: (16, 32, 8, 3, 2)}
+TILE_PAD = 12                # kTilePad: the fp32 tile's row is 16 * MT1 + 12 words
+
 
 def bf16(v):
     """Round fp32 to bf16 (to nearest, ties to even), kept as fp32."""
@@ -542,152 +544,310 @@ def bf16(v):
     return bits.view(np.float32)
 
 
-def tc_bf16_geometry(C, K):
-    tt = 16384 // C
-    hc = (K - 1) // 2
-    m1 = -(-(tt + 2 * hc) // 16) * 16
-    ntw = min(4, C // 8)
-    wn = C // 8 // ntw
-    return dict(TT=tt, HC=hc, M1=m1, MT1=m1 // 16, MT2=tt // 16, NTW=ntw, WN=wn, WM=8 // wn,
-                CS=C + 8, S1=stride8(m1), TTP=tt + 4, NSTEP=C // 8)
+def tc_bf16_cfg(C, K):
+    kc, mt_max, wm, ring, minb = TC_BF16_CFG[C]
+    wn = 8 // wm
+    return dict(KC=kc, MT_MAX=mt_max, WM=wm, WN=wn, NTW=C // 8 // wn, MTW=mt_max // wm,
+                RING=ring, MINB=minb, HC=(K - 1) // 2, NCH=C // kc,
+                CPR_X=kc // 8, CPR_T=C // 8, THREADS=256)
 
 
-def mma_bf16(acc, a0, a1, b0):
-    """mma.sync.m16n8k8 f32.bf16.bf16.f32 over a warp's tiles.  Each
-    operand register is a (low, high) pair of bf16 values: a0, a1 (MT,
-    32) per lane, b0 (NT, 32).  A[g][2q + i] = a0[i], A[g + 8][2q + i] =
-    a1[i]; B[2q + i][g] = b0[i]; c0..c3 as in m16n8k4."""
-    a = np.zeros((a0[0].shape[0], 16, 8))
-    for i in range(2):
-        a[:, G, 2 * Q + i], a[:, G + 8, 2 * Q + i] = a0[i], a1[i]
-    b = np.zeros((b0[0].shape[0], 8, 8))
-    for i in range(2):
-        b[:, 2 * Q + i, G] = b0[i]
-    d = np.einsum("mik,nkj->mnij", a, b)          # products of bf16 are exact
-    c = np.stack([d[:, :, G, 2 * Q], d[:, :, G, 2 * Q + 1],
-                  d[:, :, G + 8, 2 * Q], d[:, :, G + 8, 2 * Q + 1]], -1)
-    return (acc + c).astype(np.float32)
+def tc_bf16_layout(C, K, mt1, dil):
+    """csrc/resblock_tc_bf16.cu `layout`: the x image's rows, the raw chunk's
+    16-byte chunks per channel row, the byte offsets of each region (the
+    fp32 output tile at 0 over the others), the total."""
+    g = tc_bf16_cfg(C, K)
+    kc, ring = g["KC"], g["RING"]
+    xrc = (16 * mt1 + (K - 1) * dil + 14) // 8
+    image, raw = 8 * xrc * kc * 2, kc * (xrc | 1) * 16
+    t1 = 16 * mt1 * C * 2
+    ring_at = (max(image + raw, t1) + 15) & ~15
+    ring_end = ring_at + ring * kc * C * 2
+    tile = C * (16 * mt1 + TILE_PAD) * 4
+    return dict(ir=8 * xrc, xrpc=xrc | 1, image=0, raw=image, t1=ring_at - t1, ring=ring_at,
+                ring_end=ring_end, tile=tile, total=max(ring_end, tile))
 
 
-def tc_bf16_step_model(x, w1, b1, w2, b2, K, dil):
+def banks_distinct(words):
+    """32-bit shared accesses of a warp, one per lane along the last axis,
+    on 32 distinct banks."""
+    assert (np.sort(np.asarray(words) % 32, axis=-1) == np.arange(32)).all(), words
+
+
+def ldsm_b16(mem, chunk, trans=False):
+    """ldmatrix.x4[.trans].b16: chunk (..., 32) is each lane's row address
+    in 16-byte chunks of the b16 image `mem` (lanes 8i..8i+7 give matrix
+    i's 8 rows).  Returns (low, high) halves of the registers, each (...,
+    4, 32): lane (g, q) receives M_i[g][2q], M_i[g][2q + 1] of matrix i in
+    register i, or, transposed, M_i[2q][g], M_i[2q + 1][g].  The 8 rows of
+    each matrix fall on 8 distinct bank groups (no conflict)."""
+    rows = chunk.reshape(*chunk.shape[:-1], 4, 8)
+    assert (np.sort(rows % 8, axis=-1) == np.arange(8)).all()
+    m = mem[rows[..., None] * 8 + np.arange(8)]           # (..., 4, row, column)
+    if trans:
+        return m[..., 2 * Q, G], m[..., 2 * Q + 1, G]
+    return m[..., G, 2 * Q], m[..., G, 2 * Q + 1]
+
+
+def a16_frags_to_tile(lo, hi):
+    """m16n8k16 bf16 A from one ldmatrix.x4: a0..a3 = A[g][2q..2q+1],
+    A[g+8][2q..], A[g][2q+8..], A[g+8][2q+8..] (the lower column in the
+    low half)."""
+    a = np.full(lo.shape[:-2] + (16, 16), np.nan, np.float32)
+    for i, (r0, c0) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+        a[..., r0 + G, c0 + 2 * Q], a[..., r0 + G, c0 + 2 * Q + 1] = lo[..., i, :], hi[..., i, :]
+    return a
+
+
+def b16_frags_to_tiles(lo, hi):
+    """Two n-tiles' m16n8k16 B from one ldmatrix.x4.trans: b0 =
+    B[2q..2q+1][g], b1 = B[2q+8..2q+9][g] of n-tile 0 in registers 0, 1,
+    of n-tile 1 in 2, 3."""
+    b = np.full(lo.shape[:-2] + (2, 16, 8), np.nan, np.float32)
+    for p in range(2):
+        for h in range(2):
+            b[..., p, 8 * h + 2 * Q, G] = lo[..., 2 * p + h, :]
+            b[..., p, 8 * h + 2 * Q + 1, G] = hi[..., 2 * p + h, :]
+    return b
+
+
+def mma_bf16(acc, a, b):
+    """mma.sync.m16n8k16 f32.bf16.bf16.f32 on every (m-tile, n-tile): the
+    products of bf16 values are exact; the fp32 accumulator rounds once
+    per MMA."""
+    d = np.einsum("mik,nkj->mnij", a.astype(np.float64), b.astype(np.float64))
+    return (acc + d).astype(np.float32)
+
+
+def bf16_stage_mma(acc, mem, shift, cbase, cpr_a, slot, g, C):
+    """`stage_mma`: acc (MT, C/8, 16, 8) += one stage, A rows m*16 + .. +
+    shift of a b16 image of cpr_a chunks a row, its chunks from cbase; B
+    from the slot ([KC][C], rows swizzled), pair p of n-tiles from one
+    x4.trans."""
+    mt = acc.shape[0]
+    lrow = (LANE & 7) + 8 * ((LANE >> 3) & 1)
+    row = np.arange(mt)[:, None] * 16 + lrow + shift
+    for ks in range(g["KC"] // 16):
+        r = ks * 16 + lrow
+        c = 2 * np.arange(C // 16)[:, None] + (LANE >> 4)
+        b = b16_frags_to_tiles(*ldsm_b16(slot, r * g["CPR_T"] + swz(r, c, g["CPR_T"]), True))
+        ach = row * cpr_a + swz(row, cbase + 2 * ks + (LANE >> 4), cpr_a)
+        acc = mma_bf16(acc, a16_frags_to_tile(*ldsm_b16(mem, ach)), b.reshape(C // 8, 16, 8))
+    return acc
+
+
+def bf16_ring_slot(w, ci, j, g, C):
+    """Stage (chunk ci, tap j) of one conv's weights w (k, C_in, C_out) as
+    its ring slot holds it: KC rows of C_out, the 16-byte chunk i of the
+    copy (row i // CPR_T) at its swizzled place."""
+    kc, cpr = g["KC"], g["CPR_T"]
+    slot = np.full(kc * C, np.nan, np.float32)
+    i = np.arange(kc * cpr)
+    r = i // cpr
+    slot[(r * cpr + swz(r, i % cpr, cpr))[:, None] * 8 + np.arange(8)] = (
+        w[j, ci * kc:(ci + 1) * kc].reshape(-1, 8))
+    return slot
+
+
+def lanes_distinct(items, width, key=None):
+    """A loop over items, thread t taking items t, t + 256, ..: each group
+    of `width` consecutive items (a warp's 32 lanes for 32-bit accesses, a
+    quarter warp's 8 for 16-byte ones) falls on distinct banks or bank
+    groups, `items` holding each one's bank (group); with `key`, among the
+    items of one key (one channel row) only."""
+    key = np.zeros(len(items), int) if key is None else key
+    for s in range(0, len(items), width):
+        for k in np.unique(key[s:s + width]):
+            b = items[s:s + width][key[s:s + width] == k]
+            assert len(np.unique(b)) == len(b), (s, items[s:s + width])
+
+
+def tc_bf16_step_model(x, w1, b1, w2, b2, K, dil, tt):
     """One bf16 step of one batch row, x (C, T) of bf16 values ->
-    bf16(x + conv2(bf16(lrelu(conv1(bf16(lrelu(x))))))), through shared-
-    memory images laid out as the kernel lays them out.  A word image is
-    a (low, high) pair of arrays; words and weights the kernel never
-    writes hold NaN, so a fragment that reads one poisons the result."""
+    bf16(x + conv2(bf16(lrelu(conv1(bf16(lrelu(x))) + b1))) + b2), in time
+    tiles of tt rows, through shared-memory images laid out as the kernel
+    lays them out; w (k, C_in, C_out), b (C,).  Words the kernel never
+    writes hold NaN, so a fragment that reads one into a kept output
+    poisons it.  T a multiple of 8 takes the 16-byte staging and stores,
+    T = 4 mod 8 the same in 8-byte halves, another T the 2-byte ones."""
     C, T = x.shape
-    g = tc_bf16_geometry(C, K)
-    TT, HC, M1, CS, S1, TTP = g["TT"], g["HC"], g["M1"], g["CS"], g["S1"], g["TTP"]
+    g = tc_bf16_cfg(C, K)
+    kc, hc, nch, cpr_x, cpr_t = g["KC"], g["HC"], g["NCH"], g["CPR_X"], g["CPR_T"]
     lrelu = lambda v: np.where(v >= 0, v, np.float32(0.1) * v).astype(np.float32)
-    xr = M1 + (K - 1) * dil
-    xrs = stride8(xr)
-    out = np.empty_like(x)
-
-    def stage_w(w, s):               # [K][kCI][CS] bf16, columns C..CS unwritten
-        ws = np.full((K, 8, CS), np.nan, np.float32)
-        ws[:, :, :C] = w[:, 8 * s:8 * s + 8, :]
-        return ws.ravel()
-
-    def b_frags(ws, j, nts):
-        """ldmatrix.trans: lanes 8i..8i+7 give n-tile i's rows k = 0..7 at
-        element (j * 8 + k) * CS + nt * 8; lane (g, q) receives rows 2q and
-        2q + 1 of column g.  Each 8-row read covers 32 distinct banks."""
-        rows = (j * 8 + np.arange(8))[None, :] * CS + nts[:, None] * 8       # (NT, 8)
-        for r in rows:
-            assert r.min() % 8 == 0 and (CS * 2) % 16 == 0          # 16-byte rows
-            assert_banks_distinct((r[:, None] // 2 + np.arange(4)).ravel())
-        return tuple(ws[rows[:, 2 * Q + i] + G] for i in range(2))
-
-    def a_frags(lo, hi, addr):
-        assert_banks_distinct(addr[0])
-        assert_banks_distinct(addr[0] + 8)
-        return (lo[addr], hi[addr]), (lo[addr + 8], hi[addr + 8])
-
-    for t0 in range(0, T, TT):
-        xstart = t0 - HC - HC * dil
-        # ---- conv1 over rows [t0 - HC, t0 - HC + M1)
-        acc1 = {w: np.zeros((len(warp_tiles(w, g, g["MT1"])[0]), g["NTW"], 32, 4),
-                            np.float32) for w in range(8)}
-        for s in range(g["NSTEP"]):
-            xlo, xhi = (np.full(4 * xrs, np.nan, np.float32) for _ in range(2))  # [kCP][xrs]
-            tt = xstart + np.arange(xr)
-            ok = (tt >= 0) & (tt < T)
-            for p in range(4):
-                for half, c in ((xlo, 8 * s + 2 * p), (xhi, 8 * s + 2 * p + 1)):
-                    half[p * xrs + np.arange(xr)] = np.where(
-                        ok, bf16(lrelu(x[c, np.clip(tt, 0, T - 1)])), 0.0)
-            ws = stage_w(w1, s)
-            for w in range(8):
-                mts, nts = warp_tiles(w, g, g["MT1"])
-                for j in range(K):
-                    a0, a1 = a_frags(xlo, xhi, Q * xrs + mts[:, None] * 16 + G + j * dil)
-                    acc1[w] = mma_bf16(acc1[w], a0, a1, b_frags(ws, j, nts))
-        # ---- bf16(lrelu(+ b1)), 0 outside [0, T) -> t1s [C/2][S1] words
-        tlo, thi = (np.full(C // 2 * S1, np.nan, np.float32) for _ in range(2))
-        for w in range(8):
-            mts, nts = warp_tiles(w, g, g["MT1"])
-            for h in range(2):
-                m = mts[:, None, None] * 16 + G + 8 * h                # (MT, 1, 32)
-                nn = nts[None, :, None] * 8 + 2 * Q                   # (1, NT, 32)
-                addr = (nn // 2) * S1 + m
-                assert_banks_distinct(addr[0, 0])
-                seq = (t0 - HC + m >= 0) & (t0 - HC + m < T)
-                for half, r, dn in ((tlo, 2 * h, 0), (thi, 2 * h + 1, 1)):
-                    v = bf16(lrelu(acc1[w][..., r] + b1[nn + dn]))
-                    half[addr] = np.where(seq, v, 0.0)
-        # ---- conv2 over rows [t0, t0 + TT), A from t1s offset by j rows
-        acc2 = {w: np.zeros((len(warp_tiles(w, g, g["MT2"])[0]), g["NTW"], 32, 4),
-                            np.float32) for w in range(8)}
-        for s in range(g["NSTEP"]):
-            ws = stage_w(w2, s)
-            for w in range(8):
-                mts, nts = warp_tiles(w, g, g["MT2"])
-                for j in range(K):
-                    a0, a1 = a_frags(tlo, thi, (4 * s + Q) * S1 + mts[:, None] * 16 + G + j)
-                    acc2[w] = mma_bf16(acc2[w], a0, a1, b_frags(ws, j, nts))
-        # ---- + b2 into an fp32 tile [C][TTP], then bf16(x + tile) along time
-        tile = np.full(C * TTP, np.nan, np.float32)
-        for w in range(8):
-            mts, nts = warp_tiles(w, g, g["MT2"])
-            for r in range(4):
-                m = mts[:, None, None] * 16 + G + 8 * (r >> 1)
-                nn = nts[None, :, None] * 8 + 2 * Q + (r & 1)
-                assert_banks_distinct((nn * TTP + m)[0, 0])
-                tile[nn * TTP + m] = acc2[w][..., r] + b2[nn]
-        n_rows = min(TT, T - t0)
-        tile = tile.reshape(C, TTP)[:, :n_rows]
-        out[:, t0:t0 + n_rows] = bf16(x[:, t0:t0 + n_rows] + tile)
+    mt1_launch = -(-(tt + 2 * hc) // 16)
+    assert mt1_launch <= g["MT_MAX"]
+    L = tc_bf16_layout(C, K, mt1_launch, dil)
+    xrpc, st = L["xrpc"], 16 * mt1_launch + TILE_PAD
+    vec = 8 if T % 8 == 0 else 4 if T % 4 == 0 else 1     # bf16 a global access
+    aligned = vec > 1
+    slots = [bf16_ring_slot(w, ci, j, g, C) for w in (w1, w2) for ci in range(nch)
+             for j in range(K)]
+    out = np.full_like(x, np.nan)
+    for t0 in range(0, T, tt):
+        rows = min(tt, T - t0)
+        mt1 = min(mt1_launch, -(-(rows + 2 * hc) // 16))
+        mt2 = -(-rows // 16)
+        for mt in (mt1, mt2):            # the 8 warps cover each tile once
+            tiles = [(m, n) for w in range(8) for m, nts in [warp_tiles(w, g, mt)]
+                     for m in m for n in nts]
+            assert sorted(tiles) == [(m, n) for m in range(mt) for n in range(C // 8)]
+        xstart = t0 - hc - hc * dil
+        sh = xstart % 8 if aligned else 0
+        xa, xr = xstart - sh, 16 * mt1 + (K - 1) * dil
+        xrc = (xr + sh + 7) // 8
+        # ---- conv1, chunk outer, tap inner
+        acc = np.zeros((mt1, C // 8, 16, 8), np.float32)
+        for ci in range(nch):
+            xc = x[ci * kc:(ci + 1) * kc]
+            img = np.full(L["ir"] * kc, np.nan, np.float32)       # [row][KC] b16
+            if aligned:
+                # the raw chunk: cp.async of 8 times a channel (two of 4
+                # where vec = 4), each piece whole in [0, T) or zeros
+                raw = np.full(kc * xrpc * 8, np.nan, np.float32)
+                u = np.arange(xrc)
+                tm = xa + 8 * u[:, None] + np.arange(8)
+                piece = tm - tm % vec
+                ok = (piece >= 0) & (piece + vec <= T)
+                assert ((np.arange(kc)[:, None, None] * T + piece[None]) % vec == 0).all()
+                raw[(np.arange(kc)[:, None, None] * xrpc + u[:, None]) * 8 + np.arange(8)] = (
+                    np.where(ok, xc[:, np.clip(tm, 0, T - 1)], 0))
+                # transposed 8 x 8 at a time by ldmatrix.x4.trans, matrix b
+                # = channels 8 (b % CPR_X) .. x raw chunk b // CPR_X
+                nblk = xrc * cpr_x
+                b0 = np.arange(0, nblk, 4)[:, None]
+                bl = np.minimum(b0 + (LANE >> 3), nblk - 1)
+                lo, hi = ldsm_b16(raw, ((bl % cpr_x) * 8 + (LANE & 7)) * xrpc + bl // cpr_x, True)
+                b = b0 + np.arange(4)                                # (groups, 4)
+                row = 8 * (b // cpr_x)[..., None] + G
+                word = (row * cpr_x + swz(row, (b % cpr_x)[..., None], cpr_x)) * 4 + Q
+                banks_distinct(word)
+                keep = b < nblk
+                img[2 * word[keep]], img[2 * word[keep] + 1] = (bf16(lrelu(lo[keep])),
+                                                               bf16(lrelu(hi[keep])))
+            else:
+                # word p (channels 2p, 2p + 1) of row r, thread i = r KC/2 + p
+                r, p = np.divmod(np.arange(kc // 2 * xr), kc // 2)
+                word = (r * cpr_x + swz(r, p >> 2, cpr_x)) * 4 + (p & 3)
+                lanes_distinct(word % 32, 32)
+                tm = xstart + r
+                ok = (tm >= 0) & (tm < T)
+                tm = np.clip(tm, 0, T - 1)
+                img[2 * word] = np.where(ok, bf16(lrelu(xc[2 * p, tm])), 0)
+                img[2 * word + 1] = np.where(ok, bf16(lrelu(xc[2 * p + 1, tm])), 0)
+            for j in range(K):
+                acc = bf16_stage_mma(acc, img, j * dil + sh, 0, cpr_x, slots[ci * K + j], g, C)
+        # ---- bf16(lrelu(+ b1)), 0 outside [0, T) -> the intermediate [row][C]
+        m = np.arange(mt1)[:, None, None, None] * 16 + G + 8 * np.arange(2)[:, None]  # (MT, 1, 2, 32)
+        nt = np.arange(C // 8)[:, None, None]
+        word = (m * cpr_t + swz(m, nt, cpr_t)) * 4 + Q                  # (MT, C/8, 2, 32)
+        banks_distinct(word)
+        v = acc.transpose(0, 2, 1, 3).reshape(16 * mt1, C) + b1
+        tm = t0 - hc + np.arange(16 * mt1)
+        v = np.where(((tm >= 0) & (tm < T))[:, None], bf16(lrelu(v)), 0).astype(np.float32)
+        col = nt * 8 + 2 * Q
+        t1 = np.full(16 * mt1_launch * C + 16 * C, np.nan, np.float32)  # then the ring's words
+        t1[2 * word], t1[2 * word + 1] = v[m, col], v[m, col + 1]
+        # ---- conv2 over rows [t0, t0 + 16 * mt2)
+        acc = np.zeros((mt2, C // 8, 16, 8), np.float32)
+        for ci in range(nch):
+            for j in range(K):
+                acc = bf16_stage_mma(acc, t1, j, ci * cpr_x, cpr_t, slots[(nch + ci) * K + j],
+                                     g, C)
+        # ---- acc + b2 -> the fp32 tile [C][st], row m at m + (t0 % 8)
+        toff = t0 % 8
+        tile = np.full(C * st, np.nan, np.float32)
+        m = np.arange(mt2)[:, None, None, None] * 16 + G + 8 * np.arange(2)[:, None]
+        col = np.arange(C // 8)[:, None, None] * 8 + 2 * Q
+        d = acc.transpose(0, 2, 1, 3).reshape(16 * mt2, C) + b2
+        for e in range(2):
+            word = (col + e) * st + m + toff
+            banks_distinct(word)
+            tile[word] = d[m, col + e]
+        # ---- bf16(x + tile): whole 8-time chunks [u0, u1) 16 bytes at a
+        #      time (or two of 8), the other rows 2 bytes at a time
+        u0, u1 = ((toff + 7) // 8, (toff + rows) // 8) if aligned else (0, 0)
+        nw = max(u1 - u0, 0)
+        i = np.arange(C * nw)            # thread i: whole chunk u of channel colv
+        colv, u = i // max(nw, 1), u0 + i % max(nw, 1)
+        assert ((colv * T + t0 + 8 * u - toff) % vec == 0).all()
+        h = (i % 32 >> 2) & 1
+        for s in range(2):               # a quarter warp's 16-byte reads of one channel
+            lanes_distinct((colv * st + 8 * u + 4 * (h ^ s)) // 4 % 8, 8, colv)
+        mh = min(rows, 8 * u0 - toff) if aligned else rows
+        mtl = max(mh, 8 * u1 - toff) if aligned else rows
+        ns = mh + rows - mtl             # the rows 2 bytes at a time, thread i: row e of channel
+        colv, e = np.divmod(np.arange(C * ns), max(ns, 1))
+        lanes_distinct((colv * st + np.where(e < mh, e, mtl + e - mh) + toff) % 32, 32, colv)
+        cover = np.zeros(rows, int)      # each row written once
+        cover[:mh] += 1
+        cover[mtl:] += 1
+        if nw:
+            cover[8 * u0 - toff:8 * u1 - toff] += 1
+        assert (cover == 1).all()
+        out[:, t0:t0 + rows] = bf16(x[:, t0:t0 + rows] + tile.reshape(C, st)[:, toff:toff + rows])
     return out
 
 
-@pytest.mark.parametrize("C", [16, 32])
-@pytest.mark.parametrize("k", [3, 7])
+def _bf16_case(C, k, seed):
+    """One step's packed weights and biases, rounded to bf16: w (k, C, C),
+    b (C,)."""
+    return [bf16(n(a[0])) for a in packed_resblock(resblock_params(seed, k, C, 1))]
+
+
+def _bf16_branch(x, w1, b1, w2, b2, k, dil):
+    """x + _branch in bf16 on the same bf16 inputs, x (C, T)."""
+    xt = t(x, torch.bfloat16)[None]
+    wt = [t(a, torch.bfloat16) for a in (w1, b1, w2, b2)]
+    return n((xt + trb._branch(xt, *wt, k, dil)).float())[0]
+
+
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("k", [3, 7, 11])
 def test_tc_bf16_fragment_model_matches_branch(C, k):
-    """The model of the bf16 tensor-core kernel's step, at T across two
-    time tiles, against x + _branch in bf16 on the same bf16 inputs: max
-    abs <= 4 bf16 ulps of |ref|max (both accumulate in fp32; the plain
-    chain also rounds each conv's output and the sum to bf16)."""
+    """The model of the bf16 tensor-core kernel's step at its longest tile,
+    T across two tiles and a ragged one: T odd (x staged and the output
+    written 2 bytes at a time), T a multiple of 8 (16 bytes at a time;
+    the tiles' seams off the 8-time grid) and T = 4 mod 8 (8 bytes at a
+    time, as C = 256 at an odd number of frames), against x + _branch in bf16 on
+    the same bf16 inputs: max abs <= 4 bf16 ulps of |ref|max (both
+    accumulate in fp32; the plain chain also rounds each conv's output and
+    the sum to bf16)."""
     dil = 3
-    T = tc_bf16_geometry(C, k)["TT"] + 37
-    p = resblock_params(C * k + 1, k, C, 1)
-    w1, b1, w2, b2 = (bf16(n(a[0])) for a in packed_resblock(p))
-    x = bf16(resblock_x(T, C, b=1)[0].T)                  # (C, T)
-    got = tc_bf16_step_model(x, w1, b1, w2, b2, k, dil)
-    xt, wt = t(x, torch.bfloat16)[None], [t(a, torch.bfloat16) for a in (w1, b1, w2, b2)]
-    ref = n((xt + trb._branch(xt, *wt, k, dil)).float())[0]
-    err = np.abs(got - ref).max()
-    assert np.isfinite(got).all() and np.array_equal(got, bf16(got))
-    assert err <= BF16_ULPS * bf16_ulp(np.abs(ref).max()), err
+    tt = 16 * TC_BF16_CFG[C][1] - (k - 1)
+    w1, b1, w2, b2 = _bf16_case(C, k, C * k + 1)
+    for T in (2 * tt + 37, 2 * tt + 8 - 2 * tt % 8, 2 * tt + 12 - 2 * tt % 8):
+        x = bf16(resblock_x(T, C, b=1)[0].T)                  # (C, T)
+        got = tc_bf16_step_model(x, w1, b1, w2, b2, k, dil, tt)
+        ref = _bf16_branch(x, w1, b1, w2, b2, k, dil)
+        err = np.abs(got - ref).max()
+        assert np.isfinite(got).all() and np.array_equal(got, bf16(got))
+        assert err <= BF16_ULPS * bf16_ulp(np.abs(ref).max()), (T, err)
+
+
+@pytest.mark.parametrize("C,k", [(256, 3), (128, 7)])
+def test_tc_bf16_model_tiles_agree_bitwise(C, k):
+    """Every output sums the same products in the same order whatever the
+    time tile: the model at two tiles gives the same bits (C = 256: 4 x 8
+    warp tiles, one k16 step a stage; C = 128: two), within 4 bf16 ulps
+    of x + _branch."""
+    dil, T = 2, 200
+    w1, b1, w2, b2 = _bf16_case(C, k, C + k)
+    x = bf16(resblock_x(T, C, b=1)[0].T)
+    outs = [tc_bf16_step_model(x, w1, b1, w2, b2, k, dil, tt)
+            for tt in (16 * TC_BF16_CFG[C][1] - (k - 1), 40)]
+    assert np.array_equal(outs[0], outs[1]) and np.isfinite(outs[0]).all()
+    ref = _bf16_branch(x, w1, b1, w2, b2, k, dil)
+    assert np.abs(outs[0] - ref).max() <= BF16_ULPS * bf16_ulp(np.abs(ref).max())
 
 
 def test_tc_bf16_model_matches_pallas_bf16_interpret():
-    """The model run over the D = 3 steps of a resblock against the JAX
-    package's Pallas kernel in bf16 (interpret mode) on the same bf16
-    inputs and `pack_resblock_weights(dtype=bfloat16)` weights: max abs
-    <= 4 bf16 ulps of |ref|max.  The Pallas kernel keeps x in fp32
-    across the dilations and rounds once at the end; the port's steps
-    round x to bf16 between launches."""
-    k, dils, C, T = 3, (1, 3, 5), 32, 300
+    """The model run over the D = 3 steps of a resblock, at the wrapper's
+    time tile, against the JAX package's Pallas kernel in bf16 (interpret
+    mode) on the same bf16 inputs and `pack_resblock_weights(dtype=
+    bfloat16)` weights: max abs <= 4 bf16 ulps of |ref|max.  The Pallas
+    kernel keeps x in fp32 across the dilations and rounds once at the
+    end; the port's steps round x to bf16 between launches."""
+    k, dils, C, T = 3, (1, 3, 5), 32, 304
     p = resblock_params(12, k, C, len(dils))
     x = bf16(resblock_x(T, C, b=2))                         # (B, T, C)
     w1, b1, w2, b2 = pack_resblock_weights(jax.tree_util.tree_map(jnp.asarray, p),
@@ -697,33 +857,84 @@ def test_tc_bf16_model_matches_pallas_bf16_interpret():
                                      t_tile=256).astype(jnp.float32))
     pw = [np.asarray(a.astype(jnp.float32))[..., :C] for a in (w1, b1, w2, b2)]
     pw[0], pw[2] = pw[0][:, :, :C, :C], pw[2][:, :, :C, :C]
+    tt = trb.tc_time_tile("tc_bf16", 2, T, C, k)
     got = []
     for row in x:
         y = row.T.copy()                                        # (C, T)
         for i, d in enumerate(dils):
-            y = tc_bf16_step_model(y, pw[0][i], pw[1][i], pw[2][i], pw[3][i], k, d)
+            y = tc_bf16_step_model(y, pw[0][i], pw[1][i], pw[2][i], pw[3][i], k, d, tt)
         got.append(y.T)
     err = np.abs(np.stack(got) - ref).max()
     assert err <= BF16_ULPS * bf16_ulp(np.abs(ref).max()), err
 
 
 def test_tc_bf16_geometry_fits_shared_memory():
-    """Every (C, k, dil) the bf16 kernel takes fits the 227 KB a block may
-    use (the kernel's `launch`: the staging buffers, or the fp32 output
-    tile laid over them after conv2, whichever is larger); conv1's rows
-    cover conv2's halo, the intermediate's row stride holds them, and
-    NSTEP is even (the weight ring alternates per step)."""
+    """Every (C, k, dil) the bf16 kernel takes, at every tile up to its
+    longest, fits the 227 KB a block may use (where MINB blocks share an
+    SM, 228 KB less 1 KB a block over MINB), its regions in order: the x
+    image and raw chunk, or the intermediate, before the ring, conv2's
+    reads up to k - 2 rows past the intermediate inside the ring, the fp32
+    tile over them all; the raw chunk's rows an odd
+    number of 16-byte chunks, the image's rows the window's plus the shift
+    to 8-aligned time; conv1's rows cover conv2's halo.  Registers: every
+    warp holds 2 x 2 tiles or
+    more, and its accumulators with one k16 step's A and B fragments
+    (and 24 for addresses) fit what a thread may hold with MINB blocks
+    an SM (16,384 registers per sub-partition over its warps);
+    `TC_BF16_TILES` mirrors `Cfg`."""
     for C in trb.SUPPORTED_C:
         for k in trb.SUPPORTED_K:
-            g = tc_bf16_geometry(C, k)
-            assert g["M1"] >= g["TT"] + 2 * g["HC"] and g["M1"] <= g["S1"]
-            assert g["TT"] % 32 == 0 and g["NSTEP"] % 2 == 0
-            assert g["WN"] * g["NTW"] * 8 == C and 8 % g["WN"] == 0
+            g = tc_bf16_cfg(C, k)
+            assert trb.TC_BF16_TILES[C] == (g["KC"], g["MT_MAX"], g["WM"], g["MINB"])
+            assert g["NTW"] >= 2 and g["NTW"] % 2 == 0 and g["MTW"] >= 2
+            assert g["NCH"] * g["KC"] == C and g["KC"] % 16 == 0 and g["RING"] >= 2
+            assert g["NCH"] == 1 or g["RING"] <= k         # raw x reused once every warp staged it
+            warps = g["MINB"] * g["THREADS"] // 32
+            cap = min(255, 16384 // (32 * -(-warps // 4)) // 8 * 8)
+            regs = 4 * g["MTW"] * g["NTW"] + 4 + 2 * g["NTW"]
+            assert regs + 24 <= cap, (C, k, regs, cap)
+            tt_max = 16 * g["MT_MAX"] - (k - 1)
+            assert -(-(tt_max + k - 1) // 16) == g["MT_MAX"]
             for dil in range(1, trb.MAX_DILATION + 1):
-                xrs = stride8(g["M1"] + (k - 1) * dil)
-                staging = 2 * 2 * k * 8 * g["CS"] + 4 * (C // 2 * g["S1"] + 2 * 4 * xrs)
-                smem = max(staging, 4 * C * g["TTP"])
-                assert smem <= 232448, (C, k, dil, smem)
+                for tt in (17, tt_max // 2, tt_max):
+                    mt1 = -(-(tt + k - 1) // 16)
+                    L = tc_bf16_layout(C, k, mt1, dil)
+                    limit = (SMEM_BLOCK if g["MINB"] == 1
+                             else (SMEM_SM - 1024 * g["MINB"]) // g["MINB"])
+                    assert L["total"] <= limit, (C, k, dil, tt, L["total"])
+                    assert L["raw"] + g["KC"] * L["xrpc"] * 16 <= L["ring"]
+                    assert L["t1"] >= 0 and L["t1"] + 16 * mt1 * C * 2 == L["ring"]
+                    assert L["t1"] + (16 * mt1 + k - 1) * C * 2 <= L["ring_end"]
+                    assert all(L[r] % 16 == 0 for r in ("raw", "t1", "ring"))
+                    assert L["xrpc"] % 2 == 1 and L["xrpc"] >= L["ir"] // 8
+                    assert L["ir"] >= 16 * mt1 + (k - 1) * dil + 7
+                    assert 16 * mt1 >= tt + k - 1
+
+
+def test_tc_bf16_time_tile_fills_the_card():
+    """The bf16 kernel's time tile (`tc_time_tile` over `TC_BF16_TILES`) at
+    every main-path stage and k, the decode's (B = 2 x 10 s) and
+    training's (B = 8): the tiles cover [0, T) exactly, each within the
+    kernel's m-tiles and at least 17 rows.  Where an SM holds one block (C
+    = 256) the grid runs in whole waves: 264 blocks of 91 rows in
+    conversion, one wave of 128 blocks of 27 rows in training.  Where it
+    holds two (C <= 128) the grid has at least the 264 blocks the SMs
+    hold."""
+    for b, c, tlen, ks in _main_path_stages():
+        _, mt_max, _, per_sm = trb.TC_BF16_TILES[c]
+        for k in ks:
+            tt = trb.tc_time_tile("tc_bf16", b, tlen, c, k)
+            tiles = -(-tlen // tt)
+            assert (tiles - 1) * tt < tlen <= tiles * tt
+            assert min(17, tlen) <= tt and -(-(tt + k - 1) // 16) <= mt_max
+            blocks = b * tiles
+            if per_sm == 1:
+                assert blocks <= trb.CARD_SMS or blocks % trb.CARD_SMS == 0, (b, c, tlen, k)
+            else:
+                assert blocks >= 2 * trb.CARD_SMS, (b, c, tlen, k, blocks)
+    for b, tlen, blocks, rows in ((2, 11976, 264, 91), (8, 432, 128, 27)):
+        tt = trb.tc_time_tile("tc_bf16", b, tlen, 256, 11)
+        assert (tt, b * -(-tlen // tt)) == (rows, blocks)
 
 
 def test_slope_pinned_reference_is_the_plain_chain_at_its_own_steps():
