@@ -330,11 +330,40 @@ Phases, each printed as it runs; any failure exits non-zero:
               `cmb_spectrogram_to_wave` round trip (JAX
               tests/test_spec_tools.py:365's parameter set) on the song.
               (b)-(d): card against CPU within 1e-5 x max(1, |ref|max).
+ 21. tools    the training and weight tools (rvc_maker_tpu_torch/tools/) at
+              v2-48k: (a) `e2e_train run` on the card: a voiced corpus of
+              8 x 10 s from a seed, cli preprocess, extract (yin, a random
+              HuBERT), index, train --bf16 at B = 8 for 6 epochs (save every
+              3) with RVC_TPU_RESUME_HASH, SIGTERM once epoch 3 is done, the
+              checkpoint's params digest computed in another process, the
+              resumed train, cli convert of 5 s with the last .pth: phase A
+              exits 0 with ckpt_latest.pt, the resumed run logs that digest
+              and step (byte-exact), every epoch 1-6 is done once, the
+              conversion is 5 s at 48 kHz and finite; the first and last
+              smoothed loss_g printed.  Then the trained .pth converts 2 s in
+              this process (fp32, 36 resblock_tc launches), profiled, card
+              against CPU on the CPU's RMVPE f0 <= 1e-3.  (b)
+              `int8_gate_rehearsal` on that .pth and 6 s of the corpus's
+              first file: mel_l1, mel_max and snr_db of int8 against bf16 for
+              RVC_TPU_INT8_SCOPE decode and decode,hubert,rmvpe, with each
+              arm's launches (bf16: 36 resblock_tc_bf16; int8: 54
+              conv1d_w8a8_ws and 9 resblock_tc_bf16).  (c)
+              `train_ab_overlay` at v2-32k: 6 files x 6 s, B = 8, 3 epochs
+              per arm, RVC_TPU_BF16_SPEC 0 and 1: each arm's 3 epochs
+              finite, their first epoch's loss_g apart.  (d)
+              `validate_real_weights --lenient` on links to files of
+              earlier phases (phase 4's voice .pth, HuBERT .pt and rmvpe.pt
+              as phase 12 wrote them, (a)'s index pair and trained .pth,
+              phase 16's voice .onnx, phase 17's .th and MDX stand-in .onnx,
+              phase 18's Whisper .pt): no FAIL, PASS for synth_pth,
+              hubert_pt, rmvpe_pt, faiss_index and bf16_gate; each check's
+              status and bf16_gate's mel_l1 printed.  Each part's s.
 
 The run ends with each phase's s.
 
 fp32 with TF32 off for cuDNN and matmuls (the parity path) unless a phase
-says otherwise; phases 3, 11 and 12 also run bf16, phase 14 bf16 and int8.
+says otherwise; phases 3, 11 and 12 also run bf16, phases 14 and 21 bf16 and
+int8.
 The line before the last holds the kernels' JSON summary, the line before
 it nvidia-smi's name and power limit; the last line is {"ok": true,
 "device": {...}}.  Details go to chiprun_out/chip_smoke.json.
@@ -4822,6 +4851,236 @@ def spec_tools_phase(work: str, sep: dict, card: str, device: str = "cuda") -> d
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the training and weight tools (rvc_maker_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+# (a) e2e_train: files x seconds of corpus, epochs, B, the epoch after which
+# SIGTERM goes, save every; (c) the A/B overlay: files (6 s each), epochs, B
+E2E_RUN = dict(files=8, seconds=10.0, epochs=6, batch=8, kill=3, save_every=3)
+AB_RUN = dict(files=6, epochs=3, batch=8)
+GATE_S = 6.0                      # (b) the int8 gate's utterance
+TOOLS_PASS = ("synth_pth", "hubert_pt", "rmvpe_pt", "faiss_index", "bf16_gate")
+
+
+def validator_dir(d: str, work: str, e2e_exp: str, pth: str) -> dict:
+    """A directory of links to model files that earlier phases wrote:
+    phase 12's copies of phase 4's voice .pth, fairseq HuBERT .pt and
+    rmvpe.pt (work/serve_files), (a)'s `cli index` pair (`added_*.index`
+    and its `total_fea.npy`) and trained .pth, and where they are kept
+    phase 16's voice .onnx, phase 17's HTDemucs .th and MDX stand-in .onnx
+    and phase 18's Whisper .pt.  Returns {link name: target}."""
+    links = {"voice.pth": os.path.join(work, "serve_files", "voice.pth"),
+             "hubert_base.pt": os.path.join(work, "serve_files", "hubert_base.pt"),
+             "rmvpe.pt": os.path.join(work, "serve_files", "rmvpe.pt"),
+             "total_fea.npy": os.path.join(e2e_exp, "total_fea.npy"),
+             os.path.basename(pth): pth,
+             "voice.onnx": os.path.join(work, "onnx", "voice.onnx"),
+             "htdemucs.th": os.path.join(work, "separate", "htdemucs.th"),
+             "mdx_inst_hq.onnx": os.path.join(work, "separate", "mdx_inst_hq.onnx"),
+             "whisper.pt": os.path.join(work, "speaker", "whisper.pt")}
+    links.update({f: os.path.join(e2e_exp, f) for f in os.listdir(e2e_exp)
+                  if f.startswith("added_") and f.endswith(".index")})
+    os.makedirs(d, exist_ok=True)
+    kept = {}
+    for name, target in links.items():
+        if os.path.isfile(target):
+            os.symlink(target, os.path.join(d, name))
+            kept[name] = target
+    return kept
+
+
+def tools_phase(work: str, card: str, device: str = "cuda", e2e=E2E_RUN, ab=AB_RUN,
+                gate_s: float = GATE_S, per_decode: int = 36, narrow: int = 9,
+                w8a8_per_decode: int = 54) -> dict:
+    """Phase 21 (module docstring).  One decode's launches on the card:
+    per_decode resblock steps (bf16 and fp32), `narrow` of them (below C
+    = 64) in an int8 decode beside w8a8_per_decode W8A8 convs.  `device`
+    and the runs' counts are arguments for a rehearsal on the CPU at small
+    widths, with e2e_train.CLI pointed at a narrowed CLI; the launch
+    counts are checked on the card only."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rvc_maker_tpu_torch.interop import from_jax
+    from rvc_maker_tpu_torch.interop.pth import load_synthesizer_pth
+    from rvc_maker_tpu_torch.models.hubert import load_hubert_pt
+    from rvc_maker_tpu_torch.ops import int8_conv as q
+    from rvc_maker_tpu_torch.ops import resblock as rb
+    from rvc_maker_tpu_torch.pipelines.convert import ConvertPipeline, ConvertSettings
+    from rvc_maker_tpu_torch.tools import e2e_train, train_ab_overlay
+    from rvc_maker_tpu_torch.tools import int8_gate_rehearsal as gate
+    from rvc_maker_tpu_torch.tools import validate_real_weights as vrw
+
+    d = os.path.join(work, "tools")
+    os.makedirs(d, exist_ok=True)
+    res: dict = {"launches": {}, "part_s": {}}
+    on_card = device == "cuda"
+
+    def part(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        res["part_s"][label] = time.perf_counter() - t0
+        log(f"  [21{label}] done in {res['part_s'][label]:.1f} s")
+        return out
+
+    # (c) the A/B overlay runs in CLI processes of its own beside (a)'s: both
+    # are paced by their processes' start-up on the host, and the card has
+    # room for both; it is read after (a), before (b) sets the int8 switches
+    # in this process's environment, which its processes would inherit
+    abd = os.path.join(d, "ab")
+
+    def overlay():
+        t0 = time.perf_counter()
+        out = train_ab_overlay.main(
+            ["--workdir", abd, "--files", str(ab["files"]), "--epochs", str(ab["epochs"]),
+             "--batch-size", str(ab["batch"])] + ([] if on_card else ["--cpu"]))
+        return out, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    overlay_run = pool.submit(overlay)
+
+    # (a) the end-to-end run through the CLI: bf16 training with a SIGTERM
+    # after epoch `kill`, the hashed resume, cli convert
+    wd = os.path.join(d, "e2e")
+
+    def e2e_run():
+        e2e_train.gen_dataset(os.path.join(wd, "dataset"), e2e["files"], seconds=e2e["seconds"])
+        args = ["run", "--workdir", wd, "--files", str(e2e["files"]), "--epochs",
+                str(e2e["epochs"]), "--batch-size", str(e2e["batch"]), "--kill-epoch",
+                str(e2e["kill"]), "--save-every", str(e2e["save_every"])]
+        return e2e_train.run(e2e_train.build_parser().parse_args(
+            args + ([] if on_card else ["--cpu"])))
+
+    s = res["e2e"] = part("a e2e_train", e2e_run)
+    log(f"  e2e_train: {s['segments']} segments; stages s {s['stages']}; phase A rc "
+        f"{s['phase_a_rc']}; checkpoint step {s['ckpt_step_at_kill']} sha256 "
+        f"{s['ckpt_sha256'][:16]}..., resumed step {s['resume_step']} sha256 "
+        f"{s['resume_sha256'][:16]}...: byte-exact {s['resume_byte_exact']}; epochs done "
+        f"{s['epochs_done']}; smoothed loss_g first {s['smoothed_g_first']}, last "
+        f"{s['smoothed_g_last']}; {s['exported_pth']} through cli convert: "
+        f"{s['convert_out_sec']} s at {s['convert_out_sr']} Hz, finite {s['convert_finite']}")
+    exp = os.path.join(wd, "exp")
+    pth = os.path.join(exp, s["exported_pth"])
+    params, mcfg, _ = load_synthesizer_pth(pth)
+    if not s["resume_byte_exact"]:
+        raise AssertionError(f"phase 21 (a): the resume is not byte-exact: {s}")
+    if s["epochs_done"] != list(range(1, e2e["epochs"] + 1)):
+        raise AssertionError(f"phase 21 (a): epochs done {s['epochs_done']}")
+    if not (s["convert_finite"] and s["convert_out_sr"] == mcfg.sr
+            and abs(s["convert_out_sec"] - 5.0) <= 0.02):
+        raise AssertionError(f"phase 21 (a): conversion {s['convert_out_sec']} s at "
+                             f"{s['convert_out_sr']} Hz, finite {s['convert_finite']}")
+
+    # the trained .pth converting 2 s in this process (the HuBERT the run
+    # extracted with, a random RMVPE), launches counted, profiled, and card
+    # against CPU on the CPU's RMVPE f0 (phase 9)
+    nets = dict(hubert=load_hubert_pt(os.path.join(wd, "hubert_random.pt")),
+                rmvpe=from_jax.rmvpe_from_jax(from_jax.random_rmvpe_tree(1234)))
+
+    def trained_convert():
+        short = voice(2.0, 200.0, 4)[None]
+        lengths = np.array([short.shape[1]])
+        settings = ConvertSettings()
+        pipes = {dev: ConvertPipeline(params, mcfg, nets["hubert"], version="v2",
+                                      rmvpe_params=nets["rmvpe"], device=dev)
+                 for dev in dict.fromkeys(("cpu", device))}
+        z, noise = pipes["cpu"].draw_noise(1, pipes["cpu"].frames(short.shape[1]),
+                                           torch.Generator().manual_seed(11))
+        w_cpu, f0_cpu = pipes["cpu"].convert_batch(short, lengths, 0, settings, z_noise=z,
+                                                   noise=noise)
+        pipe = pipes[device]
+        pipe._f0 = lambda audio, st, dv=pipe.device: f0_cpu.to(dv)
+
+        def run():
+            return pipe.convert_batch(short, lengths, 0, settings, z_noise=z, noise=noise)[0]
+        run()                                   # its shapes' first call
+        w = driven(res, "trained_convert", run, device)
+        counts = res["launches"]["trained_convert"]
+        want = dict(resblock=per_decode, resblock_tc=per_decode, resblock_tc_bf16=0)
+        if on_card and counts != want:
+            raise AssertionError(f"phase 21 (a): the trained model's decode launched {counts}, "
+                                 f"expected {want}")
+        err = float((w.cpu() - w_cpu).abs().max())
+        res["trained_convert"] = dict(wave_max_abs_err=err,
+                                      wav_absmax=float(w_cpu.abs().max()))
+        if on_card:
+            res["trained_convert"]["profile"] = profile_call(
+                "the trained model's convert_batch 2 s (fp32, the CPU's f0)", run,
+                res["trained_convert_wall_s"])
+        log(f"  the trained {s['exported_pth']} converting 2 s in process: {counts} launches, "
+            f"card against CPU on the CPU's f0 max abs {err:.3e} (|wav|max "
+            f"{res['trained_convert']['wav_absmax']:.3f})")
+        if not err <= 1e-3:
+            raise AssertionError(f"phase 21 (a): card against CPU {err}")
+        del pipes, pipe
+
+    part("a trained convert", trained_convert)
+
+    o, res["part_s"]["c A/B overlay (beside (a))"] = part("c A/B overlay, its wait after (a)",
+                                                          overlay_run.result)
+    pool.shutdown()
+    res["overlay"] = {k: v for k, v in o.items() if k not in ("base", "variant")}
+    arms = {k: o[k]["epoch_loss_g"] for k in ("base", "variant")}
+    res["overlay"]["epoch_loss_g"] = arms
+    log(f"  overlay ({o['env']}): loss_g per epoch base {arms['base']}, variant "
+        f"{arms['variant']}; tail_delta {o['tail_delta']}, tail_rel {o['tail_rel']}, both "
+        f"decreasing {o['both_decreasing']}; its own "
+        f"{res['part_s']['c A/B overlay (beside (a))']:.1f} s")
+    for k, v in arms.items():
+        if len(v) != ab["epochs"] or not np.isfinite(v).all():
+            raise AssertionError(f"phase 21 (c): the {k} arm's epochs {v}")
+    if arms["base"][0] == arms["variant"][0]:
+        raise AssertionError(f"phase 21 (c): the arms' first epoch loss_g are equal {arms}")
+
+    # (b) the int8 gate on the trained .pth and one file of its corpus
+    def on_arm(name, pipe, run):
+        old = reset_counts(rb)
+        q.conv1d_w8a8_ws_launches = q.conv1d_w8a8_launches = 0
+        try:
+            out = run()
+            if on_card:
+                torch.cuda.synchronize()
+        finally:
+            counts = reset_counts(rb, old)
+        got = dict(zip(("resblock", "resblock_tc", "resblock_tc_bf16"), counts),
+                   conv1d_w8a8_ws=q.conv1d_w8a8_ws_launches, conv1d_w8a8=q.conv1d_w8a8_launches)
+        res["launches"][f"int8_gate_{name}"] = got
+        want = (dict(resblock=per_decode, resblock_tc=0, resblock_tc_bf16=per_decode,
+                     conv1d_w8a8_ws=0, conv1d_w8a8=0) if name == "bf16" else
+                dict(resblock=narrow, resblock_tc=0, resblock_tc_bf16=narrow,
+                     conv1d_w8a8_ws=w8a8_per_decode, conv1d_w8a8=0))
+        if on_card and got != want:
+            raise AssertionError(f"phase 21 (b): the {name} arm launched {got}, expected {want}")
+        return out
+
+    wav = os.path.join(wd, "dataset", "0", "s000.wav")
+    g = res["int8_gate"] = part("b int8 gate", lambda: gate.rehearse(
+        pth, wav, seconds=gate_s, device=device, nets=nets, on_arm=on_arm))
+    for scope, r in g["scopes"].items():
+        log(f"  int8 gate scope {scope} on the trained weights, {g['seconds']:.1f} s of "
+            f"s000.wav: mel_l1 {r['mel_l1']:.6f}, mel_max {r['mel_max']:.4f}, snr_db "
+            f"{r['snr_db']:.4f}, passes the gate (mel_l1 < 1.0) {r['passes_gate']}; launches "
+            f"{res['launches'][f'int8_gate_{scope}']}")
+    log(f"  bf16 arm launches {res['launches']['int8_gate_bf16']}")
+    del nets
+
+    # (d) the validator, --lenient, on links to files of earlier phases
+    vd = os.path.join(d, "assets")
+    res["validator_files"] = validator_dir(vd, work, exp, pth)
+    log(f"  validator directory: {sorted(res['validator_files'])}")
+    v = driven(res, "validator", lambda: part("d validator", lambda: vrw.validate(
+        vd, lenient=True, device=device, printer=lambda line: log("    " + line))), device)
+    res["validator"] = v
+    status = {k: r["status"] for k, r in v["results"].items()}
+    log(f"  validator: {status}; bf16_gate mel_l1 "
+        f"{v['results']['bf16_gate'].get('mel_l1')}; summary {v['summary']}")
+    if v["summary"]["fail"] or any(status.get(k) != "PASS" for k in TOOLS_PASS):
+        raise AssertionError(f"phase 21 (d): validator {status}")
+    log("  phase 21's parts, s: " + ", ".join(f"{k} {t:.1f}" for k, t in
+                                              res["part_s"].items()) + f"; on {card}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card", file=sys.stderr)
@@ -4999,6 +5258,13 @@ def run(work: str) -> int:
     log(f"[20 spec-tools] cli create-dataset, ensemble_inputs, align_audio and the two-band "
         f"cmb_spectrogram_to_wave round trip ({time.perf_counter() - t_start:.1f} s in)")
     RESULTS["spec_tools"] = spec_tools_phase(work, RESULTS["separate"], smi)
+    torch.cuda.empty_cache()
+
+    mark(21)
+    log(f"[21 tools] e2e_train (SIGTERM, hashed resume), the int8 gate on its trained weights, "
+        f"the bf16-spec A/B overlay and the weights validator "
+        f"({time.perf_counter() - t_start:.1f} s in)")
+    RESULTS["tools"] = tools_phase(work, smi)
     mark(None)
     RESULTS["total_s"] = time.perf_counter() - t_start
     RESULTS["phase_s"] = {str(p): round(t1 - t0, 3)
@@ -5027,6 +5293,9 @@ def run(work: str) -> int:
     def spec_launches(kernel: str) -> int:
         """Phase 20's launches of a resblock kernel over its driven calls."""
         return sum(c[kernel] for c in RESULTS["spec_tools"]["launches"].values())
+
+    tl = RESULTS["tools"]["launches"]
+    gate_arms = [k for k in tl if k.startswith("int8_gate_") and k != "int8_gate_bf16"]
 
     routes = {"cpu": "plain", "cuda fp32, C in " + str(list(rb.TC_WIDTHS)): "resblock_tc",
               "cuda bf16, C in " + str(list(rb.SUPPORTED_C)): "resblock_tc_bf16"}
@@ -5086,6 +5355,10 @@ def run(work: str) -> int:
              # phase 19: the edit's one vocoder call, and its four kernel stages
              # (B = 1, 1,004 mel frames) timed beside the plain and cuDNN chains
              launches_edit=edit["launches"]["edit"]["resblock_tc"],
+             # phase 21: the trained .pth's 2 s conversion, the validator's
+             # fp32 forwards (synth_pth, bf16_gate's fp32 arm)
+             launches_tools_trained_convert=tl["trained_convert"]["resblock_tc"],
+             launches_validator=tl["validator"]["resblock_tc"],
              edit_vocoder=dict(ms=ev["ms"], plain_ms=ev["plain_ms"],
                                library_ms=ev["library_ms"], bound_ms=ev["bound_ms"],
                                bound_by=ev["bound_by"], max_abs_err=ev["max_abs_err"],
@@ -5113,6 +5386,12 @@ def run(work: str) -> int:
              launches_separate=sep_launches("resblock_tc_bf16"),
              launches_spec_tools=spec_launches("resblock_tc_bf16"),
              launches_edit=edit["launches"]["edit"]["resblock_tc_bf16"],
+             # phase 21: the int8 gate's bf16 arm and its int8 arms (the
+             # decode's C < 64 stages), the validator's bf16_gate
+             launches_int8_gate_bf16=tl["int8_gate_bf16"]["resblock_tc_bf16"],
+             launches_int8_gate_int8={k[len("int8_gate_"):]: tl[k]["resblock_tc_bf16"]
+                                      for k in gate_arms},
+             launches_validator=tl["validator"]["resblock_tc_bf16"],
              train_fwd_ms=tkb["fwd_ms"], train_fwd_bound_ms=tkb["bound_ms"],
              train_fwd_library_ms=tkb["library_fwd_ms"], train_fwd_plain_ms=tkb["plain_fwd_ms"],
              max_abs_err=totals["bf16_max_abs_err"], ms=totals["bf16_ms"],
@@ -5139,6 +5418,8 @@ def run(work: str) -> int:
              - sep_launches("resblock_tc_bf16"),
              launches_spec_tools=spec_launches("resblock") - spec_launches("resblock_tc")
              - spec_launches("resblock_tc_bf16"),
+             launches_tools=sum(c["resblock"] - c["resblock_tc"] - c["resblock_tc_bf16"]
+                                for c in tl.values()),
              max_abs_err=totals["bf16_fma_max_abs_err"], ms=totals["bf16_fma_ms"],
              fp32_ms=totals["fma_ms"], fp32_max_abs_err=totals["fma_max_abs_err"],
              fp32_plain_ms=totals["plain_ms"], fp32_library_ms=totals["library_ms"],
@@ -5153,6 +5434,9 @@ def run(work: str) -> int:
              launches_per_decode=i8p["launches_per_decode"]["conv1d_w8a8_ws"],
              launches_yin=i8p["yin_int8"]["launches"]["conv1d_w8a8_ws"],
              launches_decode_scope=i8p["rmvpe_int8_decode"]["launches"]["conv1d_w8a8_ws"],
+             # phase 21: the int8 gate's arms on the trained weights, per scope
+             launches_int8_gate={k[len("int8_gate_"):]: tl[k]["conv1d_w8a8_ws"]
+                                 for k in gate_arms},
              max_abs_err=i8t["max_abs_err"], elements_differing=i8t["elements_differing"],
              ms=i8t["ms"], profiler_ms=i8t["prof_ms"],
              profiler_launches_seen=i8t["profiler_launches"]["seen_ws"],
@@ -5170,6 +5454,8 @@ def run(work: str) -> int:
              replaces=W8A8_REPLACES,
              launches=i8p["rmvpe_int8"]["launches"]["conv1d_w8a8"],
              launches_per_decode=i8p["launches_per_decode"]["conv1d_w8a8"],
+             launches_int8_gate={k[len("int8_gate_"):]: tl[k]["conv1d_w8a8"]
+                                 for k in gate_arms},
              max_abs_err=i8t["max_abs_err_first"], ms=i8t["old_ms"],
              profiler_ms=i8t["prof_old_ms"],
              profiler_launches_seen=i8t["profiler_launches"]["seen_old"],

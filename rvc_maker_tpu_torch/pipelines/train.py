@@ -66,10 +66,14 @@ class Batch:
     wave: Any           # (B, T * hop, 1)
     sid: Any            # (B,)
 
-    def to(self, device, half: Optional[torch.dtype] = None) -> "Batch":
+    def to(self, device, half: Optional[torch.dtype] = None, *,
+           half_spec: bool = False) -> "Batch":
         """The batch as tensors on `device`.  half: phone and wave cast to
         it on the host before the copy (the bf16 step casts them anyway,
-        and the copy halves; JAX train_loop.py:316-330)."""
+        and the copy halves; JAX train_loop.py:316-330).  half_spec: spec
+        cast to `half` too (the loop's RVC_TPU_BF16_SPEC=1, JAX
+        train_loop.py:331-341); the mel target then comes from the rounded
+        values."""
         def conv(a, dtype):
             a = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
             return a.to(dtype).to(device)
@@ -77,7 +81,8 @@ class Batch:
         return Batch(phone=conv(self.phone, half or f),
                      phone_lengths=conv(self.phone_lengths, i),
                      pitch=conv(self.pitch, i), pitchf=conv(self.pitchf, f),
-                     spec=conv(self.spec, f), spec_lengths=conv(self.spec_lengths, i),
+                     spec=conv(self.spec, half if half_spec and half else f),
+                     spec_lengths=conv(self.spec_lengths, i),
                      wave=conv(self.wave, half or f), sid=conv(self.sid, i))
 
 
@@ -222,7 +227,8 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1, *, sharded: bool = 
     the batch's floats are cast to bf16 inside the differentiated
     functions, so the gradients land in fp32; the posterior noise and the
     decoder's normals are drawn in bf16; the mel and KL losses compute in
-    fp32, the sine phases stay fp32; no loss scaling.
+    fp32 (the mel target from the spec in fp32, a bf16-fed spec too), the
+    sine phases stay fp32; no loss scaling.
 
     sharded: each rank of the process group holds its rows of the global
     batch (`make_sharded_train_step`)."""
@@ -285,7 +291,7 @@ def make_train_step(cfg: RVCConfig, disc_width_div: int = 1, *, sharded: bool = 
 
         with _range("train.g_loss", timer):
             _, z_p, m_p, logs_p, m_q, logs_q = latents
-            mel = spec_to_mel(batch.spec, n_fft=dcfg.filter_length,
+            mel = spec_to_mel(batch.spec.float(), n_fft=dcfg.filter_length,
                               n_mels=dcfg.n_mel_channels, sample_rate=dcfg.sample_rate,
                               fmin=dcfg.mel_fmin, fmax=dcfg.mel_fmax)
             y_mel = slice_segments(mel, ids_slice, seg_frames)

@@ -27,10 +27,14 @@ checkpoint; only rank 0 writes (cleanup, TensorBoard, checkpoints, the
 `.pth`, the overtraining detector's JSON), between barriers; the step's
 losses are the global batch's, so every rank takes the same overtraining
 decision.
+
+RVC_TPU_RESUME_HASH (set) logs the restored params' sha256 on a resume;
+RVC_TPU_BF16_SPEC=1 feeds a bf16 run's spectrogram in bf16.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -60,6 +64,24 @@ def save_checkpoint(state: train_mod.TrainState, path: str, *, epoch: int = 0) -
                 "params_g": state.params_g, "params_d": state.params_d,
                 "opt_g": state.opt_g.state_dict(), "opt_d": state.opt_d.state_dict(),
                 "generator": state.generator.get_state()}, path)
+
+
+def params_hash(params) -> str:
+    """sha256 over a param tree's leaves in `train.tree_leaves` order,
+    each moved to the CPU, contiguous, as raw bytes."""
+    h = hashlib.sha256()
+    for leaf in train_mod.tree_leaves(params):
+        h.update(leaf.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def state_params_hash(state: train_mod.TrainState) -> str:
+    """sha256 of params_g (JAX `state_params_hash`): a resumed run logs it
+    under RVC_TPU_RESUME_HASH, and `params_hash(torch.load(ckpt)
+    ["params_g"])` in another process gives the same digest when the
+    restore is exact.  The leaves lie in the port's layouts, so the
+    digest is not the JAX package's."""
+    return params_hash(state.params_g)
 
 
 def load_checkpoint(path: str, state: train_mod.TrainState) -> int:
@@ -207,6 +229,11 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
         start_epoch = load_checkpoint(latest, state) + 1
         logger.info("resumed from %s at step %d (epoch %d)", latest, state.step,
                     start_epoch - 1)
+        if os.environ.get("RVC_TPU_RESUME_HASH"):
+            # the restored state's digest, which another process computes
+            # from the file on disk to show the restore exact
+            logger.info("resume params_g sha256=%s step=%d", state_params_hash(state),
+                        state.step)
     train_mod.replicate_state(state)
 
     step_fn = train_mod.make_sharded_train_step(cfg, disc_width_div)
@@ -225,6 +252,8 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
     on_main = threading.current_thread() is threading.main_thread()
     old_handler = signal.signal(signal.SIGTERM, _sigterm) if on_main else None
     half = torch.bfloat16 if cfg.train.bf16 else None
+    # the bf16 spec feed of a bf16 run (JAX train_loop.py:331-341), off by default
+    half_spec = half is not None and os.environ.get("RVC_TPU_BF16_SPEC", "0") == "1"
     try:
         for epoch in range(start_epoch, total_epochs + 1):
             t0 = time.time()
@@ -233,7 +262,7 @@ def train(exp_dir: str, cfg: RVCConfig, *, total_epochs: int, batch_size: int = 
             for batch in data_mod.batches_for_epoch(
                     dataset, batch_size=batch_size * world, epoch=epoch,
                     seed=cfg.train.seed, rank=rank, num_replicas=world):
-                batch = batch.to(dev, half)
+                batch = batch.to(dev, half, half_spec=half_spec)
                 metrics = step_fn(state, batch)
                 n_batches += 1
                 if state.step % cfg.train.log_interval == 0:

@@ -136,8 +136,8 @@ def _module_level_imports(path: Path):
                          + [s for h in getattr(node, "handlers", []) for s in h.body])
 
 
-@pytest.mark.parametrize("root", ["rvc_maker_tpu_torch", "chip_smoke.py",
-                                  "tests/read_aloud_fake.py"])
+@pytest.mark.parametrize("root", ["rvc_maker_tpu_torch", "rvc_maker_tpu_torch/tools",
+                                  "chip_smoke.py", "tests/read_aloud_fake.py"])
 def test_port_imports_no_jax(root):
     """No JAX and nothing of the JAX package anywhere, nor `safetensors`,
     `transformers` or `diffusers`, which the card's machine lacks (the
